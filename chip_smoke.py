@@ -5,18 +5,27 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from ``neural_ode_metasolver_tpu_torch/csrc``
-     with nvcc for sm_90a, one process per source, all at once;
-  3. kernel B1 (``conv3x3_same``) against its plain version at the serving
-     path's shapes, batch 256, in f32 (TF32 off) and bf16, with timings of
+  2. build the three CUDA kernels from ``neural_ode_metasolver_tpu_torch/
+     csrc`` with nvcc for sm_90a, one process per source, all at once;
+  3. kernel B1 (``conv3x3_same``) against its plain version at both served
+     paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-5, the
+     process defaults in 6-7), with timings of
      the kernel, the plain version and cuDNN's ``F.conv2d`` (yardstick);
   4. kernel B2 (``ode_block_rk2_forward``) against its plain version at the
      two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16;
-  5. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
+  5. kernel B3 (``fused_group_norm_act``) against its plain version at the
+     MNIST path's shapes, batch 256, f32 and bf16, with timings of the
+     kernel, the plain version and ``F.group_norm`` (yardstick);
+  6. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
      one warm-up request at each of batch 1, 64 and 256, then five counted
      and timed requests at each size; check the logits and the kernels'
      launch counts, and compare bf16 and f32 serving with the model's plain
-     path on the card.
+     path on the card;
+  7. serve the MNIST MetaNODE (dim 64, seeded random weights) in f32, the
+     shipped artifact's dtype: one warm-up request at each of batch 1, 128
+     and 256, then five counted and timed requests at each size; check the
+     launch counts (B3 51, B1 32, B2 0 per request) and the logits against
+     the model's plain path on the card.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -27,6 +36,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -52,6 +62,25 @@ B2_CALLS = [
     ("layer1 ode (256,32,32,64)", BATCH, 32, 32, 64),
     ("layer2 ode (256,16,16,128)", BATCH, 16, 16, 128),
 ]
+
+# The MNIST MetaNODE (dim 64, RK2 u=0.5, 8 steps: 16 ODEfunc calls per
+# request), served in f32.  (name, N, H, W, Cin, Cout, launches per request)
+MNIST_DIM = 64
+MNIST_RHS = 2 * N_STEPS
+B1_MNIST_CALLS = [
+    ("ODEfunc ConcatConv2d 65->64", BATCH, 6, 6, MNIST_DIM + 1, MNIST_DIM,
+     2 * MNIST_RHS),
+]
+# (name, N, H, W, C, act, launches per request), all with 32 groups
+B3_CALLS = [
+    ("down norm0 + relu", BATCH, 26, 26, MNIST_DIM, "relu", 1),
+    ("down norm1 + relu", BATCH, 13, 13, MNIST_DIM, "relu", 1),
+    ("ODEfunc norm1/norm2 + relu, head norm + relu", BATCH, 6, 6, MNIST_DIM,
+     "relu", 2 * MNIST_RHS + 1),
+    ("ODEfunc norm3", BATCH, 6, 6, MNIST_DIM, None, MNIST_RHS),
+]
+GN_GROUPS = 32
+GN_OPS_PER_ELEMENT = 10  # sum, centred square, normalize, affine, act
 
 
 def fail(msg):
@@ -85,14 +114,22 @@ def main():
         conv3x3_same,
         reference_conv3x3,
     )
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+        group_norm_reference,
+    )
     from neural_ode_metasolver_tpu_torch.ops.ode_block import (
         ode_block_rk2_forward,
         reference_ode_block_rk2,
     )
     from neural_ode_metasolver_tpu_torch.serving import ServedModel
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # the kernel phases hold f32 kernels against plain versions that run on
+    # cuDNN, so TF32 is off there; the serving phases run with the process
+    # defaults (cuDNN may take TF32), which the model overrides itself
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    tf32_defaults = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ 1 device
@@ -126,15 +163,25 @@ def main():
             dtype)
 
     def time_ms(fn, reps):
-        fn()  # warm-up
+        """Device ms per call: ``reps`` calls captured in one CUDA graph and
+        timed with CUDA events around its replay.  Issued one by one, a
+        call at the MNIST ODE block's shapes costs the host more than the
+        card (Python wrapper, ctypes), so events around a loop of calls
+        would time the host."""
+        fn()  # warm-up outside the capture: build, load, cuDNN plans
         torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
+        del graph
         return start.elapsed_time(end) / reps
 
     def bound(nbytes, flops, dtype):
@@ -147,8 +194,9 @@ def main():
     # ----------------------------------------------------- 3 B1 vs plain
     phase("B1 conv3x3_same vs its plain version (batch 256)")
     b1_rows = []
+    b1_shapes = [c[1:6] for c in B1_CALLS + B1_MNIST_CALLS]
     for dtype in dtypes:
-        for shape in dict.fromkeys(c[1:] for c in B1_CALLS):
+        for shape in dict.fromkeys(b1_shapes):
             n, h, w, cin, cout = shape
             x = randn((n, h, w, cin), 1.0, 1, dtype)
             k = randn((3, 3, cin, cout), (9 * cin) ** -0.5, 2, dtype)
@@ -172,7 +220,7 @@ def main():
             nbytes = (x.numel() + k.numel() + got.numel()) * es
             flops = 2 * n * h * w * cin * cout * 9
             b_ms, b_bytes, b_ops = bound(nbytes, flops, dtype)
-            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            row = {"key": shape, "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
@@ -213,7 +261,7 @@ def main():
             nbytes = (2 * y0.numel() + w1.numel() + w2.numel()) * es
             flops = N_STEPS * 2 * 2 * (2 * n * h * w * c * c * 9)
             b_ms, b_bytes, b_ops = bound(nbytes, flops, dtype)
-            row = {"shape": [n, h, w, c], "dtype": str(dtype).split(".")[-1],
+            row = {"key": (n, h, w, c), "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
@@ -227,7 +275,99 @@ def main():
             del y0, w1, w2, got, ref
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------ 5 serve
+    # ----------------------------------------------------- 5 B3 vs plain
+    phase(f"B3 fused_group_norm_act vs its plain version (batch 256, "
+          f"{GN_GROUPS} groups)")
+    b3_rows = []
+    for dtype in dtypes:
+        for _, n, h, w, c, act, _ in B3_CALLS:
+            x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
+            scale = randn((c,), 0.3, 7, torch.float32) + 1.0
+            bias = randn((c,), 0.5, 8, torch.float32)
+            got = fused_group_norm_act(x, scale, bias, GN_GROUPS, act=act)
+            torch.cuda.synchronize()
+            ref = group_norm_reference(x, scale, bias, GN_GROUPS, act=act)
+            err = (got.float() - ref.float()).abs().max().item()
+            refmax = ref.float().abs().max().item()
+            # f32: the JAX test's 2e-4 (sum order, rsqrt); bf16: the kernel
+            # and its plain version round once, at the same point, so a
+            # rounding may flip: two bf16 ulps of the largest output
+            bar = (2e-4 * max(1.0, refmax) if dtype == torch.float32
+                   else 2.0 ** -6 * refmax)
+            ms = time_ms(lambda: fused_group_norm_act(
+                x, scale, bias, GN_GROUPS, act=act), 20)
+            plain_ms = time_ms(lambda: group_norm_reference(
+                x, scale, bias, GN_GROUPS, act=act), 20)
+            # yardstick: F.group_norm on the channels_last NCHW view (its
+            # affine in x's dtype), then torch.relu where B3 fuses relu
+            x_cl = x.permute(0, 3, 1, 2)
+            s_l, b_l = scale.to(dtype), bias.to(dtype)
+
+            def library():
+                y = torch.nn.functional.group_norm(x_cl, GN_GROUPS, s_l,
+                                                   b_l, 1e-5)
+                return torch.relu(y) if act == "relu" else y
+
+            lib_ms = time_ms(library, 20)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+            flops = GN_OPS_PER_ELEMENT * x.numel()
+            b_ms, b_bytes, b_ops = bound(nbytes, flops, torch.float32)
+            row = {"key": (n, h, w, c, act),
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
+            b3_rows.append(row)
+            print(f"  B3 {row['dtype']:8s} {(n, h, w, c)} act={act}: "
+                  f"max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.group_norm{'+relu' if act else ''} "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+            if not err <= bar:
+                fail(f"B3 {row['dtype']} {(n, h, w, c)} act={act}: "
+                     f"max|diff| {err} > {bar}")
+            del x, got, ref, x_cl
+    torch.cuda.empty_cache()
+
+    def time_requests(served, sizes, make_input, label):
+        """One warm-up request at each size, then REQUEST_ROUNDS counted and
+        timed requests at each size; returns (launch counts, batches,
+        requests, logits by request index)."""
+        batches = sizes * REQUEST_ROUNDS
+        requests = [make_input(b) for b in batches]
+        for x in requests[:len(sizes)]:  # warm-up at each served batch
+            served(x)                    # size, outside the counted run
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        req_ms, logits_by = [], []
+        for x in requests:
+            t0 = time.perf_counter()
+            logits = served(x)
+            torch.cuda.synchronize()
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            if tuple(logits.shape) != (x.shape[0], 10) \
+                    or logits.dtype != torch.float32:
+                fail(f"logits {tuple(logits.shape)} {logits.dtype} for "
+                     f"batch {x.shape[0]}")
+            if not torch.isfinite(logits).all():
+                fail(f"non-finite logits for batch {x.shape[0]}")
+            logits_by.append(logits)
+        counts = port.launch_counts()
+        print(f"  requests (batch): {batches}", flush=True)
+        print(f"  ms per request: {[round(m, 3) for m in req_ms]}",
+              flush=True)
+        for b in sizes:
+            ms_b = sorted(m for m, bb in zip(req_ms, batches) if bb == b)
+            med = ms_b[len(ms_b) // 2]
+            print(f"  batch {b}: median {med:.3f} ms over {len(ms_b)} "
+                  f"requests (min {ms_b[0]:.3f}, max {ms_b[-1]:.3f}) = "
+                  f"{b / med * 1e3:.1f} img/s ({label})", flush=True)
+        return counts, batches, requests, logits_by
+
+    # ------------------------------------------------------------ 6 serve
+    cudnn.allow_tf32, matmul.allow_tf32 = tf32_defaults
+    print(f"serving under the process's TF32 flags: cudnn.allow_tf32 "
+          f"{cudnn.allow_tf32}, matmul.allow_tf32 {matmul.allow_tf32} "
+          f"(the model computes f32 in full f32 regardless)", flush=True)
     phase("serve premetanode10 (in_planes 64) in bf16")
     model = build_model("premetanode10", in_planes=64,
                         generator=torch.Generator().manual_seed(0))
@@ -237,46 +377,18 @@ def main():
     served = ServedModel(model, solvers, SolverOptions(),
                          compute_dtype=torch.bfloat16)
     gen_cpu = torch.Generator().manual_seed(7)
-    sizes = [1, 64, BATCH]
-    batches = sizes * REQUEST_ROUNDS
-    requests = [torch.rand(b, 32, 32, 3, generator=gen_cpu) for b in batches]
-    for x in requests[:len(sizes)]:  # warm-up at each served batch size,
-        served(x)                    # outside the counted run
-    torch.cuda.synchronize()
-
-    port.reset_launch_counts()
-    req_ms = []
-    logits_bf16 = {}
-    for x in requests:
-        t0 = time.perf_counter()
-        logits = served(x)
-        torch.cuda.synchronize()
-        req_ms.append((time.perf_counter() - t0) * 1e3)
-        if tuple(logits.shape) != (x.shape[0], 10) \
-                or logits.dtype != torch.float32:
-            fail(f"logits {tuple(logits.shape)} {logits.dtype} for batch "
-                 f"{x.shape[0]}")
-        if not torch.isfinite(logits).all():
-            fail(f"non-finite logits for batch {x.shape[0]}")
-        logits_bf16[id(x)] = logits
-    counts = port.launch_counts()
+    counts, batches, requests, logits_bf16 = time_requests(
+        served, [1, 64, BATCH],
+        lambda b: torch.rand(b, 32, 32, 3, generator=gen_cpu), "bf16")
     per_request = {"conv3x3_same": len(B1_CALLS),
                    "ode_block_rk2": len(B2_CALLS) * 4 * N_STEPS}
     expected = {k: v * len(batches) for k, v in per_request.items()}
-    print(f"  requests (batch): {batches}", flush=True)
     print(f"  launch counts: {counts} (expected {expected}: B1 "
           f"{len(B1_CALLS)} and B2 {len(B2_CALLS)} x 4 x {N_STEPS} per "
           f"request, {len(batches)} requests)", flush=True)
     if counts != expected:
         fail(f"launch counts {counts} != expected {expected}")
-    print(f"  ms per request: {[round(m, 3) for m in req_ms]}", flush=True)
-    med_ms = {}
-    for b in sizes:
-        ms_b = sorted(m for m, bb in zip(req_ms, batches) if bb == b)
-        med_ms[b] = ms_b[len(ms_b) // 2]
-        print(f"  batch {b}: median {med_ms[b]:.3f} ms over {len(ms_b)} "
-              f"requests (min {ms_b[0]:.3f}, max {ms_b[-1]:.3f}) = "
-              f"{b / med_ms[b] * 1e3:.1f} img/s (bf16)", flush=True)
+    cifar_counts, cifar_requests = counts, len(batches)
 
     # the served bf16 logits against the same model's plain path in bf16:
     # the plain path keeps k1/k2 in bf16 where B2 keeps them in f32 (as the
@@ -287,7 +399,7 @@ def main():
         logits_p = model(x.to(dev).to(torch.bfloat16), solvers,
                          SolverOptions(), use_kernels=False).float()
     torch.cuda.synchronize()
-    bf16_err = (logits_bf16[id(x)] - logits_p).abs().max().item()
+    bf16_err = (logits_bf16[1] - logits_p).abs().max().item()
     bf16_bar = 2.0 ** -5 * logits_p.abs().max().item()
     print(f"  bf16 served logits vs plain path on the card (batch 64): "
           f"max|diff| {bf16_err:.3e} (bar {bf16_bar:.3e})", flush=True)
@@ -306,40 +418,104 @@ def main():
           f"max|diff| {serve_err:.3e} (bar {serve_bar})", flush=True)
     if not serve_err <= serve_bar:
         fail(f"f32 serving differs from the plain path by {serve_err}")
+    del model, served, served_f32, requests, logits_bf16
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 7 serve MNIST
+    phase(f"serve the MNIST MetaNODE (dim {MNIST_DIM}) in f32")
+    mnist = build_model("mnist", dim=MNIST_DIM,
+                        generator=torch.Generator().manual_seed(0))
+    if mnist.device.type != "cuda":
+        fail(f"MNIST model built on {mnist.device}, not on the card")
+    mnist_served = ServedModel(mnist, solvers, SolverOptions())
+    counts, batches, requests, logits_f32 = time_requests(
+        mnist_served, [1, 128, BATCH],
+        lambda b: torch.rand(b, 28, 28, 1, generator=gen_cpu), "f32")
+    per_request = {"group_norm_act": sum(c[-1] for c in B3_CALLS),
+                   "conv3x3_same": sum(c[-1] for c in B1_MNIST_CALLS)}
+    expected = {k: v * len(batches) for k, v in per_request.items()}
+    print(f"  launch counts: {counts} (expected {expected}: B3 "
+          f"{per_request['group_norm_act']}, B1 "
+          f"{per_request['conv3x3_same']} and B2 0 per request, "
+          f"{len(batches)} requests)", flush=True)
+    if counts != expected:
+        fail(f"MNIST launch counts {counts} != expected {expected}")
+    mnist_counts, mnist_requests = counts, len(batches)
+
+    # the served f32 logits against the same model's plain path on the
+    # card, at the repo's MNIST serving bar (tests/test_shipped_artifact.py)
+    x = requests[1]  # batch 128
+    with torch.inference_mode():
+        logits_p = mnist(x.to(dev), solvers, SolverOptions(),
+                         use_kernels=False).float()
+    torch.cuda.synchronize()
+    mnist_err = (logits_f32[1] - logits_p).abs().max().item()
+    mnist_bar = 1e-4 * max(1.0, logits_p.abs().max().item())
+    print(f"  f32 served logits vs plain path on the card (batch 128): "
+          f"max|diff| {mnist_err:.3e} (bar {mnist_bar:.3e})", flush=True)
+    if not mnist_err <= mnist_bar:
+        fail(f"MNIST f32 serving differs from the plain path by "
+             f"{mnist_err}")
 
     # ------------------------------------------------------------- report
-    def entry(name, source, replaces, rows, calls, library):
-        bf16 = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
-        per_call = [bf16[tuple(c)] for c in calls]
-        ops_ms = sum(r["ops_ms"] for r in per_call)
-        bytes_ms = sum(r["bytes_ms"] for r in per_call)
+    def per_request_sums(rows, calls, dtype):
+        """Sums over one request's calls; calls maps a row key to its
+        launches per request."""
+        by_key = {r["key"]: r for r in rows if r["dtype"] == dtype}
+        picked = [(by_key[k], m) for k, m in calls.items()]
+        ops_ms = sum(r["ops_ms"] * m for r, m in picked)
+        bytes_ms = sum(r["bytes_ms"] * m for r, m in picked)
+        libs = [r["library_ms"] for r, _ in picked]
         return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts.get(name, 0),
-            "requests": len(batches),
-            "launches_per_request": counts.get(name, 0) / len(batches),
-            "max_abs_err": max(r["max_abs_err"] for r in per_call),
-            "ms": sum(r["ms"] for r in per_call),
-            "plain_ms": sum(r["plain_ms"] for r in per_call),
-            "bound_ms": sum(r["bound_ms"] for r in per_call),
+            "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
+            "ms": sum(r["ms"] * m for r, m in picked),
+            "plain_ms": sum(r["plain_ms"] * m for r, m in picked),
+            "bound_ms": sum(r["bound_ms"] * m for r, m in picked),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": (sum(r["library_ms"] for r in per_call)
-                           if library else None),
-            "units": "launches: total over the counted requests; ms, "
-                     "plain_ms, bound_ms, library_ms: bf16, batch 256, "
-                     "summed over the calls of one request; max_abs_err: "
-                     "the largest of those calls",
+            "library_ms": (None if None in libs else
+                           sum(x * m for x, (_, m) in zip(libs, picked))),
         }
 
+    def entry(name, source, replaces, sums, **extra):
+        by_path = {
+            "premetanode10 bf16": {"requests": cifar_requests,
+                                   "launches": cifar_counts.get(name, 0)},
+            "mnist f32": {"requests": mnist_requests,
+                          "launches": mnist_counts.get(name, 0)},
+        }
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(p["launches"] for p in by_path.values()),
+                "by_path": by_path, **sums, **extra}
+
+    b1_cifar = Counter(c[1:6] for c in B1_CALLS)
+    b1_mnist = {c[1:6]: c[6] for c in B1_MNIST_CALLS}
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
-              "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93", b1_rows,
-              [c[1:] for c in B1_CALLS], True),
+              "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
+              per_request_sums(b1_rows, b1_cifar, "bfloat16"),
+              mnist_f32=per_request_sums(b1_rows, b1_mnist, "float32")),
         entry("ode_block_rk2",
               "neural_ode_metasolver_tpu_torch/csrc/ode_block_rk2.cu",
               "neural_ode_metasolver_tpu/ops/pallas_ode_block.py:182",
-              b2_rows, [c[1:] for c in B2_CALLS], False),
+              per_request_sums(b2_rows, Counter(c[1:] for c in B2_CALLS),
+                               "bfloat16")),
+        entry("group_norm_act",
+              "neural_ode_metasolver_tpu_torch/csrc/group_norm_act.cu",
+              "neural_ode_metasolver_tpu/ops/pallas_kernels.py:111",
+              per_request_sums(b3_rows, {c[1:6]: c[6] for c in B3_CALLS},
+                               "float32")),
     ]
+    units = ("launches: total over the counted requests of both served "
+             "paths (by_path splits them); ms, plain_ms, bound_ms, "
+             "library_ms: batch 256, summed over the launches of one "
+             "request: conv3x3_same and ode_block_rk2 of premetanode10 in "
+             "bf16 (conv3x3_same's mnist_f32: of the MNIST MetaNODE in "
+             "f32), group_norm_act of the MNIST MetaNODE in f32, its "
+             "library_ms F.group_norm plus torch.relu where the kernel "
+             "fuses relu; max_abs_err: the largest of those calls")
+    for k in kernels:
+        k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

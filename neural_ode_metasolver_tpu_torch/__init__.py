@@ -5,10 +5,11 @@ and ``numpy`` only, never ``jax`` and nothing of ``neural_ode_metasolver_tpu``.
 Module names mirror the JAX package's.  Public functions keep its layouts:
 NHWC activations, HWIO conv kernels.
 
-Slice 1 serves the flagship ``premetanode10`` forward with two hand-written
-CUDA kernels (``csrc/``): B1, the stride-1 3x3 conv, and B2, the RK2 solve
-of an ODE block.  Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+It serves the flagship ``premetanode10`` forward and the MNIST MetaNODE
+with three hand-written CUDA kernels (``csrc/``): B1, the stride-1 3x3
+conv; B2, the RK2 solve of a CIFAR ODE block; B3, GroupNorm fused with its
+activation.  Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 from .backend import launch_counts, reset_launch_counts, resolve_device
 

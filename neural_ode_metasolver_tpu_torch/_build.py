@@ -33,8 +33,9 @@ BUILD_DIR = os.path.join(_PKG, "_build_out")
 
 # library name -> (source, headers it includes)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
-    "conv3x3": ("conv3x3.cu", ("conv3x3.cuh",)),
-    "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3.cuh",)),
+    "conv3x3": ("conv3x3.cu", ("conv3x3.cuh", "common.cuh")),
+    "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3.cuh", "common.cuh")),
+    "group_norm_act": ("group_norm_act.cu", ("common.cuh",)),
 }
 
 NVCC_FLAGS = [
@@ -55,6 +56,11 @@ _SIGNATURES = {
         # device, stream
         "ode_block_rk2_conv_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _F, _F, _F, _I, _P],
+    },
+    "group_norm_act": {
+        # dtype, act, x, scale, bias, out, N, HW, C, G, eps, device, stream
+        "group_norm_act_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _I, _P],
     },
 }
 
@@ -163,7 +169,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-# dtype codes of the C entry points (NODEMS_F32 / NODEMS_BF16 in conv3x3.cuh)
+# dtype codes of the C entry points (NODEMS_F32 / NODEMS_BF16 in common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -8,16 +8,21 @@ Every kernel wrapper adds one to its counter here each time it launches its
 CUDA kernel, and nowhere else, so a run can show that its main path went
 through the kernels (``chip_smoke.py`` resets the counters, serves, reads
 them).  The plain versions the wrappers take for CPU tensors count nothing.
+
+``full_f32()`` pins f32 convs and matmuls to full f32 (no TF32) for the
+duration of a call, whatever the process flags say.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
 __all__ = [
     "resolve_device",
+    "full_f32",
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
@@ -44,6 +49,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Turn TF32 off for cuDNN convs and cuBLAS matmuls, and restore the
+    caller's flags on exit.  PyTorch's default lets cuDNN run f32 convs in
+    TF32 (10-bit mantissa), which the JAX reference does not."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def count_launch(name: str) -> None:

@@ -32,10 +32,9 @@
 //            then written by the same thread.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstddef>
+
+#include "common.cuh"
 
 namespace nodems {
 
@@ -48,28 +47,6 @@ constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
 
 enum Epilogue { kStore = 0, kStage1 = 1, kStage2 = 2 };
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float gelu_exact(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
-}
 
 template <typename T, bool GELU_IN, int EPI>
 __global__ void __launch_bounds__(kThreads)
@@ -202,11 +179,3 @@ cudaError_t launch_conv3x3(const void* x, const void* w, void* out,
 }
 
 }  // namespace nodems
-
-// dtype codes shared with the Python wrappers
-#define NODEMS_F32 0
-#define NODEMS_BF16 1
-
-extern "C" const char* nodems_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

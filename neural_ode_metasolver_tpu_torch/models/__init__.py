@@ -1,6 +1,6 @@
 """Models of the PyTorch port (mirrors the JAX ``models``)."""
 from .api import Model, build_model
-from .convert import cifar_params_from_jax
+from .convert import cifar_params_from_jax, mnist_params_from_jax
 from .odenet_cifar10 import (
     MODEL_REGISTRY,
     CifarConfig,
@@ -12,15 +12,20 @@ from .odenet_cifar10 import (
     premetanode18,
     premetanode34,
 )
+from .odenet_mnist import MnistConfig, apply_mnist, init_mnist
 
 __all__ = [
     "MODEL_REGISTRY",
     "CifarConfig",
+    "MnistConfig",
     "Model",
     "apply_cifar",
+    "apply_mnist",
     "build_model",
     "cifar_params_from_jax",
     "init_cifar",
+    "init_mnist",
+    "mnist_params_from_jax",
     "premetanode4",
     "premetanode6",
     "premetanode10",

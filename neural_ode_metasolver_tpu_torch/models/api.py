@@ -1,31 +1,30 @@
-"""Model interface of the port (port of models/api.py) for the CIFAR names.
+"""Model interface of the port (port of models/api.py).
 
-``build_model(name, device=None, **overrides)`` builds the registry config,
-draws its parameters from a seeded ``torch.Generator`` and returns a
-:class:`Model`: an ``nn.Module`` that holds the parameter tree of
-``init_cifar`` (nested ``ModuleDict``/``ModuleList``/``ParameterDict``, so
-``state_dict`` names are the JAX tree's paths under ``params.``) and whose
-forward is ``apply_cifar``.  It runs on the CUDA card unless the caller
-passes ``device="cpu"``; without a card it raises.
+``build_model(name, device=None, *, generator=None, **overrides)`` builds
+``"mnist"`` or a ``premetanode*`` registry config, draws its parameters from
+a seeded ``torch.Generator`` and returns a :class:`Model`: an ``nn.Module``
+that holds the family's parameter tree (nested ``ModuleDict``/``ModuleList``/
+``ParameterDict``, so ``state_dict`` names are the JAX tree's paths under
+``params.``) and whose forward is the family's apply function
+(``apply_mnist`` or ``apply_cifar``).  It runs on the CUDA card unless the
+caller passes ``device="cpu"``; without a card it raises.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from ..backend import resolve_device
+from ..backend import full_f32, resolve_device
 from ..ops.regimes import SolverOptions
-from .odenet_cifar10 import MODEL_REGISTRY, CifarConfig, apply_cifar, init_cifar
+from .odenet_cifar10 import MODEL_REGISTRY, apply_cifar, init_cifar
+from .odenet_mnist import MnistConfig, apply_mnist, init_mnist
 
 __all__ = ["Model", "build_model"]
 
 # registry names of the JAX package that later slices port
-_NOT_PORTED = {
-    "mnist": "A12",
-    **{f"metanode{d}": "A11" for d in (4, 6, 10, 18, 34)},
-}
+_NOT_PORTED = {f"metanode{d}": "A11" for d in (4, 6, 10, 18, 34)}
 
 
 def _as_module(tree: Any) -> nn.Module:
@@ -42,30 +41,39 @@ def _as_module(tree: Any) -> nn.Module:
 
 
 class Model(nn.Module):
-    """A CIFAR MetaNODE: ``forward(x_nhwc, solvers, solver_options)`` ->
-    logits in x's dtype (eval mode)."""
+    """A MetaNODE: ``forward(x_nhwc, solvers, solver_options)`` -> logits in
+    x's dtype (eval mode).  ``input_shape`` is one image's (H, W, C).
 
-    def __init__(self, cfg: CifarConfig, params: dict):
+    An f32 forward computes in full f32, kernels and plain ops alike: it
+    runs under ``backend.full_f32()``, so cuDNN never takes TF32 for its
+    convs whatever the process flags say."""
+
+    def __init__(self, cfg: Any, params: dict, apply_fn: Callable,
+                 input_shape: Tuple[int, int, int]):
         super().__init__()
         self.cfg = cfg
         self.params = _as_module(params)
+        self.apply_fn = apply_fn
+        self.input_shape = tuple(input_shape)
 
     @property
     def device(self) -> torch.device:
-        return self.params["conv1"]["kernel"].device
+        return next(self.parameters()).device
 
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
                 use_kernels: bool = True) -> torch.Tensor:
         if solver_options is None:
             solver_options = SolverOptions()
-        return apply_cifar(self.params, x, solvers, solver_options,
-                           cfg=self.cfg, use_kernels=use_kernels)
+        with full_f32():
+            return self.apply_fn(self.params, x, solvers, solver_options,
+                                 cfg=self.cfg, use_kernels=use_kernels)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
                 *, generator: Optional[torch.Generator] = None,
                 **overrides) -> Model:
-    """Registry entry point for the ``premetanode*`` names.
+    """Registry entry point: ``"mnist"`` (``MnistConfig`` overrides) or a
+    ``premetanode*`` name (``CifarConfig`` overrides).
 
     Parameters are drawn on the CPU from ``generator`` (default: seed 0),
     so a seed gives the same weights on every device, then moved to
@@ -74,9 +82,15 @@ def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
-    if name not in MODEL_REGISTRY:
+    if name == "mnist":
+        cfg = MnistConfig(**overrides)
+        init, apply_fn, shape = init_mnist, apply_mnist, (28, 28,
+                                                          cfg.in_channels)
+    elif name in MODEL_REGISTRY:
+        cfg = MODEL_REGISTRY[name](**overrides)
+        init, apply_fn, shape = init_cifar, apply_cifar, (32, 32, 3)
+    else:
         raise ValueError(f"unknown model {name!r}")
-    cfg = MODEL_REGISTRY[name](**overrides)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return Model(cfg, init_cifar(cfg, generator)).to(dev)
+    return Model(cfg, init(cfg, generator), apply_fn, shape).to(dev)

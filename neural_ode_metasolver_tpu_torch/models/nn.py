@@ -8,17 +8,21 @@ package; ``F.conv2d`` gets permuted NCHW / OIHW views (channels_last
 strides) and its result is permuted back.  Under mixed precision the
 kernel is cast to the activation dtype at each call (JAX ``nn.py:113``).
 
-Norms: only NF (identity) and param-norm PNF (none) are ported; BN, GN, LN,
-IN and SN/WN land with ROADMAP A11 and raise ``NotImplementedError`` here.
+Norms: ``group_norm`` (the MNIST MetaNODE's GN, kernel B3 underneath) and,
+as ``NormDef`` kinds, NF (identity) and param-norm PNF (none) are ported;
+the CIFAR ``NormDef`` kinds BN, GN, LN, IN and SN/WN land with ROADMAP A11
+and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.group_norm import fused_group_norm_act, group_norm_reference
 
 Params = Dict[str, Any]
 
@@ -29,6 +33,8 @@ __all__ = [
     "linear",
     "gelu_poly",
     "get_activation",
+    "group_norm_init",
+    "group_norm",
     "NormDef",
     "make_norm_def",
     "ParamNormDef",
@@ -142,6 +148,29 @@ def get_activation(key: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if key == "AF":
         return lambda x: x
     raise NameError("Unknown activation type")
+
+
+def group_norm_init(ch: int) -> Params:
+    """Unit scale and zero bias, in f32 (kernel B3 takes its affine in f32
+    whatever x's dtype)."""
+    return {"scale": torch.ones(ch, dtype=torch.float32),
+            "bias": torch.zeros(ch, dtype=torch.float32)}
+
+
+def group_norm(params: Params, x: torch.Tensor, num_groups: int,
+               eps: float = 1e-5, act: Optional[str] = None,
+               use_kernels: bool = True) -> torch.Tensor:
+    """GroupNorm over NHWC (torch nn.GroupNorm parity: eps 1e-5, affine),
+    then ``act`` (None, 'relu', 'gelu', 'tanh', 'softsign'); statistics in
+    f32 whatever x's dtype, result in x's dtype.
+
+    This is kernel B3 (``ops.group_norm.fused_group_norm_act``); with
+    ``use_kernels=False`` it is B3's plain version, on any device.  With an
+    activation the f32 result is activated and then rounded, where the JAX
+    model rounds and then activates: identical in f32 and for ReLU, at most
+    one rounding apart otherwise."""
+    f = fused_group_norm_act if use_kernels else group_norm_reference
+    return f(x, params["scale"], params["bias"], num_groups, eps, act)
 
 
 class NormDef:

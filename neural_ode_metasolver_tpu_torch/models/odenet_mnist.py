@@ -1,0 +1,245 @@
+"""MNIST MetaNODE (port of models/odenet_mnist.py), eval-mode forward.
+
+Architecture (reference odenet_mnist/layers.py:96-209):
+
+  downsampling 'conv': Conv(in,dim,k3,s1) -> GN -> ReLU -> Conv(dim,dim,k4,
+                       s2,p1) -> GN -> ReLU -> Conv(dim,dim,k4,s2,p1)
+  downsampling 'res':  Conv(in,dim,k3,s1) -> ResBlock(s2) -> ResBlock(s2)
+  ODE RHS (ODEfunc):   GN -> act -> ConcatConv2d(t) -> GN -> act ->
+                       ConcatConv2d(t) -> GN
+  head:                GN -> ReLU -> AvgPool(1,1) -> Flatten -> Linear
+
+GroupNorm takes min(32, C) groups.  ``is_odenet=False`` runs six stride-1
+ResBlocks in place of the ODE block.  The ODEfunc's act is ReLU unless
+``use_activation_type=True``: the reference builds the requested activation
+and runs ReLU anyway (layers.py:139-166), and the default keeps that.
+
+Dispatch (``use_kernels=True``):
+  * every GroupNorm goes to kernel B3 (``ops.group_norm``) with the
+    activation that follows it fused into the same launch (softplus, which
+    B3 does not compute, runs after it);
+  * every stride-1 SAME 3x3 conv (the ConcatConv2ds, every ResBlock's conv2,
+    the stride-1 ResBlocks' conv1) goes to kernel B1, its bias added after,
+    as the Pallas B1 has no bias either;
+  * the 3x3 VALID stem, the stride-2 convs and the 1x1 shortcuts use
+    ``F.conv2d``, as the JAX package left them to XLA.
+``use_kernels=False`` takes the plain versions everywhere.  The ODE block
+integrates with the generic ``meta_integrate``: B2 computes the CIFAR
+block's RHS, not this one.
+
+The training options of the JAX ``apply_mnist`` (ss_loss, remat, unroll,
+the adjoint) raise ``NotImplementedError``: ROADMAP A12, MNIST training.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.conv3x3 import conv3x3_same
+from ..ops.regimes import SolverOptions, meta_integrate
+from . import nn as fnn
+
+Params = Dict[str, Any]
+
+__all__ = ["MnistConfig", "init_mnist", "apply_mnist"]
+
+_ACT_TYPES = ("tanh", "softplus", "softsign", "relu")
+_TRAINING = "ROADMAP A12, MNIST training"
+
+
+@dataclass(frozen=True)
+class MnistConfig:
+    downsampling_method: str = "conv"  # 'conv' | 'res'
+    is_odenet: bool = True
+    activation_type: str = "relu"
+    use_activation_type: bool = False  # False = faithful (ReLU always)
+    in_channels: int = 1
+    dim: int = 64
+    num_classes: int = 10
+
+
+def _check_cfg(cfg: MnistConfig) -> None:
+    if cfg.downsampling_method not in ("conv", "res"):
+        raise ValueError(f"unknown downsampling_method "
+                         f"{cfg.downsampling_method!r}")
+    if cfg.use_activation_type and cfg.activation_type not in _ACT_TYPES:
+        raise ValueError(f"unknown activation_type {cfg.activation_type!r}")
+
+
+def _norm_groups(dim: int) -> int:
+    return min(32, dim)  # reference norm() (layers.py:208)
+
+
+def _act(cfg: MnistConfig) -> str:
+    return cfg.activation_type if cfg.use_activation_type else "relu"
+
+
+def _gn_act(params: Params, x: torch.Tensor, act: Optional[str],
+            use_kernels: bool) -> torch.Tensor:
+    """GroupNorm, then ``act``: one B3 launch."""
+    g = _norm_groups(x.shape[-1])
+    if act == "softplus":
+        return F.softplus(fnn.group_norm(params, x, g,
+                                         use_kernels=use_kernels))
+    return fnn.group_norm(params, x, g, act=act, use_kernels=use_kernels)
+
+
+def _conv(params: Params, x: torch.Tensor, stride: int, padding: int,
+          use_kernels: bool) -> torch.Tensor:
+    kernel = params["kernel"]
+    if (use_kernels and stride == 1 and padding == 1
+            and tuple(kernel.shape[:2]) == (3, 3)):
+        y = conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
+        if "bias" in params:
+            y = y + params["bias"].to(y.dtype)
+        return y
+    return fnn.conv2d(params, x, stride=stride, padding=padding)
+
+
+# ----------------------------------------------------------- sub-modules --
+
+
+def _odefunc_init(gen: torch.Generator, dim: int) -> Params:
+    return {
+        "norm1": fnn.group_norm_init(dim),
+        "conv1": fnn.conv2d_init(gen, dim + 1, dim, 3),  # ConcatConv2d
+        "norm2": fnn.group_norm_init(dim),
+        "conv2": fnn.conv2d_init(gen, dim + 1, dim, 3),
+        "norm3": fnn.group_norm_init(dim),
+    }
+
+
+def _concat_conv(params: Params, t, x: torch.Tensor,
+                 use_kernels: bool) -> torch.Tensor:
+    """ConcatConv2d (layers.py:240-253): a constant-t channel first, then
+    x, then a 3x3 SAME conv.  ``t`` is a Python float or a host tensor, so
+    the channel is a fill on x's device, with no copy of a tensor."""
+    tt = torch.full(x.shape[:-1] + (1,), float(t), dtype=x.dtype,
+                    device=x.device)
+    return _conv(params, torch.cat([tt, x], dim=-1), 1, 1, use_kernels)
+
+
+def _odefunc_apply(params: Params, t, x: torch.Tensor, act: str,
+                   use_kernels: bool = True) -> torch.Tensor:
+    out = _gn_act(params["norm1"], x, act, use_kernels)
+    out = _concat_conv(params["conv1"], t, out, use_kernels)
+    out = _gn_act(params["norm2"], out, act, use_kernels)
+    out = _concat_conv(params["conv2"], t, out, use_kernels)
+    return _gn_act(params["norm3"], out, None, use_kernels)
+
+
+def _resblock_init(gen: torch.Generator, inplanes: int, planes: int,
+                   downsample: bool) -> Params:
+    p: Params = {
+        "norm1": fnn.group_norm_init(inplanes),
+        "conv1": fnn.conv2d_init(gen, inplanes, planes, 3, use_bias=False),
+        "norm2": fnn.group_norm_init(planes),
+        "conv2": fnn.conv2d_init(gen, planes, planes, 3, use_bias=False),
+    }
+    if downsample:
+        p["downsample"] = fnn.conv2d_init(gen, inplanes, planes, 1,
+                                          use_bias=False)
+    return p
+
+
+def _resblock_apply(params: Params, x: torch.Tensor, stride: int,
+                    use_kernels: bool) -> torch.Tensor:
+    """MNIST ResBlock (layers.py:212-237): pre-activation, the shortcut
+    conv on the activated tensor."""
+    out = _gn_act(params["norm1"], x, "relu", use_kernels)
+    shortcut = x
+    if "downsample" in params:
+        shortcut = fnn.conv2d(params["downsample"], out, stride=stride)
+    out = _conv(params["conv1"], out, stride, 1, use_kernels)
+    out = _gn_act(params["norm2"], out, "relu", use_kernels)
+    out = _conv(params["conv2"], out, 1, 1, use_kernels)
+    return out + shortcut
+
+
+# ----------------------------------------------------------------- model --
+
+
+def init_mnist(cfg: MnistConfig, generator: torch.Generator) -> Params:
+    """Parameters as nested dicts/lists of tensors, with the JAX tree's
+    names and layouts."""
+    _check_cfg(cfg)
+    dim = cfg.dim
+    params: Params = {"down": {
+        "conv0": fnn.conv2d_init(generator, cfg.in_channels, dim, 3)}}
+    if cfg.downsampling_method == "conv":
+        params["down"].update({
+            "norm0": fnn.group_norm_init(dim),
+            "conv1": fnn.conv2d_init(generator, dim, dim, 4),
+            "norm1": fnn.group_norm_init(dim),
+            "conv2": fnn.conv2d_init(generator, dim, dim, 4),
+        })
+    else:
+        params["down"]["res1"] = _resblock_init(generator, dim, dim, True)
+        params["down"]["res2"] = _resblock_init(generator, dim, dim, True)
+    if cfg.is_odenet:
+        params["blocks"] = [_odefunc_init(generator, dim)]
+    else:
+        params["blocks"] = [_resblock_init(generator, dim, dim, False)
+                            for _ in range(6)]
+    params["head"] = {
+        "norm": fnn.group_norm_init(dim),
+        "fc": fnn.linear_init(generator, dim, cfg.num_classes),
+    }
+    return params
+
+
+def _downsample(params: Params, x: torch.Tensor, cfg: MnistConfig,
+                use_kernels: bool) -> torch.Tensor:
+    d = params["down"]
+    x = fnn.conv2d(d["conv0"], x, stride=1, padding=0)
+    if cfg.downsampling_method == "conv":
+        x = _gn_act(d["norm0"], x, "relu", use_kernels)
+        x = fnn.conv2d(d["conv1"], x, stride=2, padding=1)
+        x = _gn_act(d["norm1"], x, "relu", use_kernels)
+        return fnn.conv2d(d["conv2"], x, stride=2, padding=1)
+    x = _resblock_apply(d["res1"], x, 2, use_kernels)
+    return _resblock_apply(d["res2"], x, 2, use_kernels)
+
+
+def apply_mnist(
+    params: Params,
+    x: torch.Tensor,
+    solvers: Optional[Sequence] = None,
+    solver_options: SolverOptions = SolverOptions(),
+    *,
+    cfg: MnistConfig = MnistConfig(),
+    use_kernels: bool = True,
+    ss_loss: bool = False,
+    remat: bool = False,
+    unroll: int = 1,
+    integration_method: str = "backprop",
+) -> torch.Tensor:
+    """Eval-mode forward of NHWC ``x``; returns the logits in x's dtype."""
+    _check_cfg(cfg)
+    for name, value, off in (("ss_loss", ss_loss, False),
+                             ("remat", remat, False), ("unroll", unroll, 1)):
+        if value != off:
+            raise NotImplementedError(
+                f"{name}={value!r} is a training option, not ported yet "
+                f"({_TRAINING})")
+    if integration_method == "adjoint":
+        raise NotImplementedError(
+            f"integration_method='adjoint' is not ported yet ({_TRAINING})")
+    if cfg.is_odenet and solvers is None:
+        raise ValueError("this config integrates an ODE block: pass "
+                         "solvers=[create_solver('rk2', 'u', n_steps=8)]")
+    act = _act(cfg)
+    x = _downsample(params, x, cfg, use_kernels)
+    for block in params["blocks"]:
+        if cfg.is_odenet:
+            rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
+                                                        use_kernels)
+            x, _ = meta_integrate(solvers, rhs, x, solver_options)
+        else:
+            x = _resblock_apply(block, x, 1, use_kernels)
+    h = params["head"]
+    x = _gn_act(h["norm"], x, "relu", use_kernels)
+    return fnn.linear(h["fc"], fnn.global_avg_pool(x))

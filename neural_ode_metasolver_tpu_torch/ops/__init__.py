@@ -1,5 +1,6 @@
 """Solver core and kernels of the PyTorch port (mirrors the JAX ``ops``)."""
 from .conv3x3 import conv3x3_same, reference_conv3x3
+from .group_norm import fused_group_norm_act, group_norm_reference
 from .integrate import make_time_grid, odeint_final, rk_step
 from .ode_block import ode_block_rk2_forward, reference_ode_block_rk2
 from .regimes import SolverOptions, meta_integrate
@@ -20,6 +21,8 @@ __all__ = [
     "conv3x3_same",
     "create_solver",
     "euler_tableau",
+    "fused_group_norm_act",
+    "group_norm_reference",
     "make_time_grid",
     "meta_integrate",
     "ode_block_rk2_forward",

@@ -2,7 +2,10 @@
 
 ``ServedModel(model, solvers, solver_options, compute_dtype=None)`` is a
 callable that answers one request: a batch of NHWC images of any size in,
-f32 logits out, under ``torch.inference_mode()``.  With
+f32 logits out, under ``torch.inference_mode()``, for either family (MNIST
+or CIFAR).  The default computes in f32, the dtype of the shipped MNIST
+artifact (``examples/checkpoints/mnist_digits_smoothing_served``), and in
+full f32: no TF32, whatever the process flags (``Model.forward``).  With
 ``compute_dtype=torch.bfloat16`` it is the port of the JAX
 ``training/train.py::_cast_model``: the input is cast to bf16, each conv
 casts its f32 weights to bf16 at the call, and the logits come back in f32.
@@ -39,10 +42,14 @@ class ServedModel:
         return self.model.device
 
     def __call__(self, x) -> torch.Tensor:
-        """(B, 32, 32, 3) images (tensor or array, any device) -> (B,
+        """(B, *model.input_shape) images (tensor or array, any device):
+        (B, 28, 28, 1) for MNIST, (B, 32, 32, 3) for CIFAR -> (B,
         num_classes) f32 logits on the model's device."""
         with torch.inference_mode():
             x = torch.as_tensor(x, device=self.device)
+            if x.dim() != 4 or tuple(x.shape[1:]) != self.model.input_shape:
+                raise ValueError(f"images {tuple(x.shape)} are not (B, "
+                                 f"{', '.join(map(str, self.model.input_shape))})")
             x = x.to(self.compute_dtype or torch.float32).contiguous()
             logits = self.model(x, self.solvers, self.solver_options)
             return logits.float()

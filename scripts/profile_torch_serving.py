@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where a served request's time goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_serving.py [--trace-dir DIR] [batch ...]
+    python3 scripts/profile_torch_serving.py [--model M] [--trace-dir DIR]
+                                              [batch ...]
 
-Serves premetanode10 (in_planes 64, random weights from seed 0, 8-step RK2
-u=0.5, bf16) and, for each batch size (default 1 and 256), traces 3
-requests after a warm-up with ``torch.profiler`` (CPU and CUDA
-activities).  Prints per request: the
-host-clock time, the device time summed over kernels, the device busy
-share (their ratio; 1 minus it is the idle share), and device time by
-kernel name.  With ``--trace-dir`` it also writes each chrome trace
-there.  Imports no JAX; needs a CUDA device.
+Serves ``--model premetanode10`` (the default: in_planes 64, bf16) or
+``--model mnist`` (the MNIST MetaNODE, dim 64, f32), random weights from
+seed 0, 8-step RK2 u=0.5.  For each batch size (default 1 and 256), after
+a warm-up, it times 20 requests without the profiler (host clock, median),
+then traces 3 requests with ``torch.profiler`` (CPU and CUDA activities).
+Prints per traced request: the host-clock time, the device time summed
+over kernels, the device busy share (their ratio; 1 minus it is the idle
+share), the number of device operations (kernels and copies), and device
+time by kernel name.  With ``--trace-dir`` it also writes each chrome
+trace there.  Imports no JAX; needs a CUDA device.
 """
 import argparse
 import json
@@ -21,10 +24,18 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-N_REQUESTS = 3
+N_REQUESTS = 3  # traced
+N_TIMED = 20  # untraced
 
 
-def main(batches, trace_dir=None):
+# name -> (build_model keyword arguments, compute dtype name, image shape)
+MODELS = {
+    "premetanode10": ({"in_planes": 64}, "bfloat16", (32, 32, 3)),
+    "mnist": ({"dim": 64}, "float32", (28, 28, 1)),
+}
+
+
+def main(model_name, batches, trace_dir=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -35,16 +46,24 @@ def main(batches, trace_dir=None):
     from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
     from neural_ode_metasolver_tpu_torch.serving import ServedModel
 
-    model = build_model("premetanode10", in_planes=64,
-                        generator=torch.Generator().manual_seed(0))
+    kwargs, dtype, shape = MODELS[model_name]
+    model = build_model(model_name, generator=torch.Generator().manual_seed(0),
+                        **kwargs)
     served = ServedModel(model, parse_solver_dsl("rk2,u,8,-1,0.5,-1"),
-                         compute_dtype=torch.bfloat16)
+                         compute_dtype=getattr(torch, dtype))
     rows = []
     for batch in batches:
-        x = torch.rand(batch, 32, 32, 3,
+        x = torch.rand(batch, *shape,
                        generator=torch.Generator().manual_seed(1))
         served(x)  # warm-up: kernels built and loaded, cuDNN plans made
         torch.cuda.synchronize()
+        untraced = []
+        for _ in range(N_TIMED):
+            t0 = time.perf_counter()
+            served(x)
+            torch.cuda.synchronize()
+            untraced.append((time.perf_counter() - t0) * 1e3)
+        untraced_ms = sorted(untraced)[N_TIMED // 2]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -53,34 +72,43 @@ def main(batches, trace_dir=None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
         by_name = {}  # kernels only: a CPU op's device time repeats them
+        n_device_ops = 0
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+                n_device_ops += e.count
         device_ms = sum(by_name.values()) / 1e3 / N_REQUESTS
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         row = {
-            "batch": batch, "wall_ms_per_request": wall_ms,
+            "batch": batch, "untraced_median_ms": untraced_ms,
+            "wall_ms_per_request": wall_ms,
             "device_ms_per_request": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "device_ops_per_request": n_device_ops / N_REQUESTS,
             "device_ms_by_kernel": {k: v / 1e3 / N_REQUESTS for k, v in top},
         }
         rows.append(row)
         if trace_dir is not None:
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(
-                os.path.join(trace_dir, f"torch_serving_b{batch}.trace.json"))
-        print(f"batch {batch}: {wall_ms:.3f} ms per request (host clock), "
+                os.path.join(trace_dir,
+                             f"torch_serving_{model_name}_b{batch}.trace.json"))
+        print(f"batch {batch}: untraced median {untraced_ms:.3f} ms over "
+              f"{N_TIMED} requests; traced {wall_ms:.3f} ms per request "
+              f"(host clock), "
               f"{device_ms:.3f} ms of kernels, busy share "
-              f"{row['device_busy_share']:.3f}", flush=True)
+              f"{row['device_busy_share']:.3f}, "
+              f"{row['device_ops_per_request']:g} device ops", flush=True)
         for k, v in row["device_ms_by_kernel"].items():
             print(f"  {v:9.3f} ms  {k[:100]}")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "rows": rows}))
+                      "model": model_name, "dtype": dtype, "rows": rows}))
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="premetanode10")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("batches", nargs="*", type=int, default=[1, 256])
     args = ap.parse_args()
-    main(args.batches, args.trace_dir)
+    main(args.model, args.batches, args.trace_dir)

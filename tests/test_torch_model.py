@@ -166,8 +166,9 @@ def test_convert_rejects_norm_trees_and_wrong_widths():
 def test_build_model_names():
     with pytest.raises(ValueError, match="unknown model"):
         build_model("bogus", device="cpu")
-    for name, item in (("metanode10", "A11"), ("mnist", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        build_model("metanode10", device="cpu")
+    assert build_model("mnist", device="cpu", dim=8).input_shape == (
+        28, 28, 1)
     with pytest.raises(NotImplementedError, match="A11"):
         build_model("premetanode10", device="cpu", norms=("GN",) * 3)
