@@ -7,12 +7,16 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the three CUDA kernels from ``neural_ode_metasolver_tpu_torch/
      csrc`` with nvcc for sm_90a, one process per source, all at once;
+     print ptxas's registers and spills, and the tensor-core instructions
+     (HMMA, HGMMA) in each library's SASS; fail if B1's or B2's has none;
   3. kernel B1 (``conv3x3_same``) against its plain version at both served
      paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-5, the
      process defaults in 6-7), with timings of
-     the kernel, the plain version and cuDNN's ``F.conv2d`` (yardstick);
+     the kernel, the plain version and cuDNN's ``F.conv2d`` (yardstick),
+     and the kernel's TFLOP/s and share of its bound;
   4. kernel B2 (``ode_block_rk2_forward``) against its plain version at the
-     two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16;
+     two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16 (33 launches a
+     solve: one GELU of y0, four convs a step), with TFLOP/s and share;
   5. kernel B3 (``fused_group_norm_act``) against its plain version at the
      MNIST path's shapes, batch 256, f32 and bf16, with timings of the
      kernel, the plain version and ``F.group_norm`` (yardstick);
@@ -49,6 +53,7 @@ BATCH = 256
 N_STEPS = 8
 U = 0.5
 REQUEST_ROUNDS = 5  # counted requests per served batch size
+B2_LAUNCHES_PER_SOLVE = 4 * N_STEPS + 1  # GELU of y0, then 4 convs a step
 
 # (name, N, H, W, Cin, Cout): every B1 call of one request at batch 256
 B1_CALLS = [
@@ -154,6 +159,12 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    for name in per_lib:
+        mma = _build.sass_opcode_counts(name, ("HMMA", "HGMMA"))
+        print(f"  SASS[{name}]: {mma['HMMA']} HMMA, {mma['HGMMA']} HGMMA "
+              f"(tensor-core instructions)", flush=True)
+        if name in ("conv3x3", "ode_block_rk2") and not sum(mma.values()):
+            fail(f"the {name} library has no tensor-core instruction")
 
     gen = torch.Generator(device=dev)
 
@@ -189,6 +200,11 @@ def main():
         t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
         return max(t_bytes, t_ops), t_bytes, t_ops
 
+    def rate(flops, ms, bound_ms):
+        """Achieved TFLOP/s and the share of the bound reached."""
+        return {"tflops": flops / (ms * 1e-3) / 1e12,
+                "bound_share": bound_ms / ms}
+
     dtypes = [torch.float32, torch.bfloat16]
 
     # ----------------------------------------------------- 3 B1 vs plain
@@ -223,12 +239,14 @@ def main():
             row = {"key": shape, "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                   "flops": flops, **rate(flops, ms, b_ms)}
             b1_rows.append(row)
             print(f"  B1 {row['dtype']:8s} {shape}: max|diff| {err:.3e} "
                   f"(bar {bar:.3e}) kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms", flush=True)
+                  f"{b_ms:.4f} ms; {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['bound_share']:.3f} of the bound", flush=True)
             if not err <= bar:
                 fail(f"B1 {row['dtype']} {shape}: max|diff| {err} > {bar}")
             del x, k, got, ref
@@ -264,11 +282,14 @@ def main():
             row = {"key": (n, h, w, c), "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": None,
-                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                   "flops": flops, **rate(flops, ms, b_ms)}
             b2_rows.append(row)
             print(f"  B2 {row['dtype']:8s} {(n, h, w, c)}: max|diff| "
                   f"{err:.3e} (bar {bar:.3e}) kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms", flush=True)
+                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms; "
+                  f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
+                  f"of the bound", flush=True)
             if not err <= bar:
                 fail(f"B2 {row['dtype']} {(n, h, w, c)}: max|diff| {err} "
                      f"> {bar}")
@@ -381,11 +402,11 @@ def main():
         served, [1, 64, BATCH],
         lambda b: torch.rand(b, 32, 32, 3, generator=gen_cpu), "bf16")
     per_request = {"conv3x3_same": len(B1_CALLS),
-                   "ode_block_rk2": len(B2_CALLS) * 4 * N_STEPS}
+                   "ode_block_rk2": len(B2_CALLS) * B2_LAUNCHES_PER_SOLVE}
     expected = {k: v * len(batches) for k, v in per_request.items()}
     print(f"  launch counts: {counts} (expected {expected}: B1 "
-          f"{len(B1_CALLS)} and B2 {len(B2_CALLS)} x 4 x {N_STEPS} per "
-          f"request, {len(batches)} requests)", flush=True)
+          f"{len(B1_CALLS)} and B2 {len(B2_CALLS)} x (4 x {N_STEPS} + 1) "
+          f"per request, {len(batches)} requests)", flush=True)
     if counts != expected:
         fail(f"launch counts {counts} != expected {expected}")
     cifar_counts, cifar_requests = counts, len(batches)
@@ -466,7 +487,7 @@ def main():
         ops_ms = sum(r["ops_ms"] * m for r, m in picked)
         bytes_ms = sum(r["bytes_ms"] * m for r, m in picked)
         libs = [r["library_ms"] for r, _ in picked]
-        return {
+        sums = {
             "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
             "ms": sum(r["ms"] * m for r, m in picked),
             "plain_ms": sum(r["plain_ms"] * m for r, m in picked),
@@ -475,6 +496,10 @@ def main():
             "library_ms": (None if None in libs else
                            sum(x * m for x, (_, m) in zip(libs, picked))),
         }
+        if all("flops" in r for r, _ in picked):
+            sums.update(rate(sum(r["flops"] * m for r, m in picked),
+                             sums["ms"], sums["bound_ms"]))
+        return sums
 
     def entry(name, source, replaces, sums, **extra):
         by_path = {
@@ -509,7 +534,8 @@ def main():
     units = ("launches: total over the counted requests of both served "
              "paths (by_path splits them); ms, plain_ms, bound_ms, "
              "library_ms: batch 256, summed over the launches of one "
-             "request: conv3x3_same and ode_block_rk2 of premetanode10 in "
+             "request (tflops: their flops over ms; bound_share: bound_ms "
+             "over ms): conv3x3_same and ode_block_rk2 of premetanode10 in "
              "bf16 (conv3x3_same's mnist_f32: of the MNIST MetaNODE in "
              "f32), group_norm_act of the MNIST MetaNODE in f32, its "
              "library_ms F.group_norm plus torch.relu where the kernel "

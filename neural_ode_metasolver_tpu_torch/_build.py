@@ -24,8 +24,9 @@ from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "DTYPE_CODES", "build_all", "build_log", "load",
-           "check", "check_cuda_tensors", "stream_handle"]
+__all__ = ["SOURCES", "DTYPE_CODES", "build_all", "build_log",
+           "sass_opcode_counts", "load", "check", "check_cuda_tensors",
+           "stream_handle"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,7 +45,8 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "conv3x3": {
@@ -52,10 +54,12 @@ _SIGNATURES = {
         "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "ode_block_rk2": {
-        # dtype, epilogue, x, w, out, y, k1, N, H, W, C, a, b1, b2,
+        # dtype, epilogue, x, w, out, y, k1, aux, N, H, W, C, a, b1, b2,
         # device, stream
-        "ode_block_rk2_conv_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I,
-                                      _I, _I, _F, _F, _F, _I, _P],
+        "ode_block_rk2_conv_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _F, _F, _F, _I, _P],
+        # dtype, x, out, n, device, stream
+        "ode_block_rk2_gelu_launch": [_I, _P, _P, _LL, _I, _P],
     },
     "group_norm_act": {
         # dtype, act, x, scale, bias, out, N, HW, C, G, eps, device, stream
@@ -139,6 +143,28 @@ def build_log(name: str) -> str:
         return ""
     with open(log) as fh:
         return fh.read()
+
+
+def sass_opcode_counts(name: str, opcodes: Tuple[str, ...]) -> Dict[str, int]:
+    """How many instructions of each SASS opcode (``HMMA``, ``HGMMA``, ...)
+    library ``name`` holds, from ``cuobjdump --dump-sass`` of its build."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "--dump-sass", _lib_path(name)],
+                         capture_output=True, text=True, check=True).stdout
+    counts = dict.fromkeys(opcodes, 0)
+    for line in out.splitlines():
+        # an instruction line: /*0a30*/  HMMA.16816.F32.BF16 R4, R8, ... ;
+        parts = line.split("*/", 1)
+        if len(parts) != 2:
+            continue
+        words = parts[1].replace("{", " ").split()
+        if words and words[0].startswith("@"):  # predicate guard
+            words = words[1:]
+        if words:
+            op = words[0].split(".")[0]
+            if op in counts:
+                counts[op] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,12 +1,16 @@
 // Helpers shared by every kernel library of the package: f32 <-> T
-// conversion for T in {float, __nv_bfloat16}, the dtype codes of the C
-// entry points, and the error-string entry point each library exports.
+// conversion for T in {float, __nv_bfloat16}, exact GELU, the device-count
+// limit, the dtype codes of the C entry points, and the error-string entry
+// point each library exports.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace nodems {
+
+// devices a library keeps per-device state for (shared-memory opt-ins)
+constexpr int kMaxDevices = 64;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

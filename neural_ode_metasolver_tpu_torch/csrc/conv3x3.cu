@@ -4,24 +4,19 @@
 // (the Pallas GEMM _gemm_kernel over the host-built im2col patch matrix).
 // The TPU design built the (N*H*W, 9*Cin) patch matrix in device memory and
 // padded K and Cout to 128 for Mosaic's tiles; that 9x traffic was its cost.
-// Here the conv is direct: conv3x3.cuh stages a halo'd input tile once per
-// block and loops over the 9 taps in shared memory, with no padding beyond
-// a masked Cin tail.  Bound and design notes: conv3x3.cuh.
+// Here the same GEMM is implicit: conv3x3.cuh gathers each K step's patch
+// rows straight into shared memory, bf16 products run on the tensor cores.
+// Bound and design notes: conv3x3.cuh.
 #include "conv3x3.cuh"
 
 extern "C" int conv3x3_same_launch(int dtype, const void* x, const void* w,
                                    void* out, int N, int H, int W, int Cin,
                                    int Cout, int device, void* stream) {
   using namespace nodems;
-  if (dtype == NODEMS_F32) {
-    return launch_conv3x3<float, false, kStore>(x, w, out, nullptr, nullptr,
-                                                N, H, W, Cin, Cout, 0.f, 0.f,
-                                                0.f, device, stream);
-  }
-  if (dtype == NODEMS_BF16) {
-    return launch_conv3x3<__nv_bfloat16, false, kStore>(
-        x, w, out, nullptr, nullptr, N, H, W, Cin, Cout, 0.f, 0.f, 0.f,
-        device, stream);
-  }
+  const ConvArgs p{x, w, out, nullptr, nullptr, nullptr, N, H, W, Cin, Cout,
+                   0.f, 0.f, 0.f};
+  if (dtype == NODEMS_F32) return launch_conv3x3<float, kStore>(p, device, stream);
+  if (dtype == NODEMS_BF16)
+    return launch_conv3x3<__nv_bfloat16, kStore>(p, device, stream);
   return cudaErrorInvalidValue;
 }

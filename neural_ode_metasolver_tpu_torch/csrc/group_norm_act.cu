@@ -40,7 +40,6 @@ enum Act {
 
 constexpr int kGnMaxC = 1024;
 constexpr int kGnRowThreads = 512;
-constexpr int kMaxDevices = 64;
 
 template <int ACT>
 __device__ __forceinline__ float activate(float v) {

@@ -6,45 +6,70 @@
 // solve of a batch tile in VMEM).  That does not carry over: one 32x32x64
 // image is 128 KB in bf16, so y, k1, the stage input and k2 do not fit in a
 // block's 227 KB of shared memory, and the 3x3x128x128 weights alone are
-// 288 KB in bf16.  So the solve runs as the fused conv of conv3x3.cuh with
-// a GELU prologue and an RK epilogue, launched four times per step by the
-// Python wrapper (ops/ode_block.py):
-//   1. h  = T(conv1(gelu(y)))                          epilogue kStore
-//   2. k1 = conv2(gelu(h)) in f32;  ys = T(y + u dt k1)  kStage1
-//   3. h  = T(conv1(gelu(ys)))                         kStore
-//   4. y  = T(y + dt (b1 k1 + b2 conv2(gelu(h))))      kStage2, in place
+// 288 KB in bf16.  So the solve runs as launches of the implicit-GEMM conv
+// of conv3x3.cuh with an epilogue each, in the order ops/ode_block.py's
+// launch schedule gives.  In the RHS, h and the stage input are only ever
+// used through gelu, so each epilogue writes the gelu'd value and every conv
+// is a plain GEMM:
+//   0. gy  = T(gelu(y0))                      elementwise, once per solve
+//   per step:
+//   1. gh  = T(gelu(T(conv1(gy))))            epilogue kGelu
+//   2. k1  = conv2(gh) in f32;  gys = T(gelu(T(y + u dt k1)))     kStage1
+//   3. gh  = T(gelu(T(conv1(gys))))           kGelu
+//   4. y   = T(y + dt (b1 k1 + b2 conv2(gh))), in place;
+//      gy  = T(gelu(y)) unless this is the last step              kStage2
 // The rounding points are the Pallas kernel's: h is rounded to the compute
 // dtype T, k1, k2 and the RK combine stay in f32, and the stage input and
-// the new y are rounded to T.  GELU is exact, with CUDA's erff (the Pallas
-// kernel's Abramowitz-Stegun _erf exists only because Mosaic has no erf).
+// the new y are rounded to T; gelu of a rounded value is rounded again, as
+// its _gelu rounds.  GELU is exact, with CUDA's erff (the Pallas kernel's
+// Abramowitz-Stegun _erf exists only because Mosaic has no erf).
 //
 // Bound on the H100: 32 convs per solve; at (256, 32, 32, 64) or
 // (256, 16, 16, 128) that is 618 GFLOP, about 0.63 ms at the bf16 tensor
 // rate, against 67 MB of bf16 state (y read once, y written once, 0.02 ms).
-// It is bound by operations; this first kernel runs them as f32 FMAs.  Each
-// stage round-trips h, k1 and ys through device memory, which the 50 MB L2
-// holds only in part; fusing per stage or per solve across a thread-block
-// cluster is later work.
+// It is bound by operations.  Each launch round-trips gh, k1 and the gelu'd
+// state through device memory, which the 50 MB L2 holds only in part.
 #include "conv3x3.cuh"
 
 namespace {
 
 template <typename T>
-cudaError_t launch_stage(int epilogue, const void* x, const void* w,
-                         void* out, const void* y, float* k1, int N, int H,
-                         int W, int C, float a, float b1, float b2,
-                         int device, void* stream) {
+__global__ void gelu_rounded_kernel(const T* __restrict__ x,
+                                    T* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride)
+    out[i] = nodems::from_f32<T>(nodems::gelu_exact(nodems::to_f32(x[i])));
+}
+
+template <typename T>
+cudaError_t launch_gelu(const void* x, void* out, long long n, int device,
+                        void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const unsigned blocks =
+      static_cast<unsigned>(want < 132 * 16 ? want : 132 * 16);
+  gelu_rounded_kernel<T><<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stage(int epilogue, const nodems::ConvArgs& p, int device,
+                         void* stream) {
   using namespace nodems;
   switch (epilogue) {
-    case kStore:
-      return launch_conv3x3<T, true, kStore>(x, w, out, y, k1, N, H, W, C, C,
-                                             a, b1, b2, device, stream);
+    case kGelu:
+      return launch_conv3x3<T, kGelu>(p, device, stream);
     case kStage1:
-      return launch_conv3x3<T, true, kStage1>(x, w, out, y, k1, N, H, W, C,
-                                              C, a, b1, b2, device, stream);
+      return launch_conv3x3<T, kStage1>(p, device, stream);
     case kStage2:
-      return launch_conv3x3<T, true, kStage2>(x, w, out, y, k1, N, H, W, C,
-                                              C, a, b1, b2, device, stream);
+      return launch_conv3x3<T, kStage2>(p, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -52,20 +77,27 @@ cudaError_t launch_stage(int epilogue, const void* x, const void* w,
 
 }  // namespace
 
+// Step 0: out = T(gelu(x)) over n elements.
+extern "C" int ode_block_rk2_gelu_launch(int dtype, const void* x, void* out,
+                                         long long n, int device,
+                                         void* stream) {
+  if (dtype == NODEMS_F32) return launch_gelu<float>(x, out, n, device, stream);
+  if (dtype == NODEMS_BF16)
+    return launch_gelu<__nv_bfloat16>(x, out, n, device, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Steps 1-4: one conv with epilogue kGelu, kStage1 or kStage2.
 extern "C" int ode_block_rk2_conv_launch(int dtype, int epilogue,
                                          const void* x, const void* w,
                                          void* out, const void* y, void* k1,
-                                         int N, int H, int W, int C, float a,
-                                         float b1, float b2, int device,
-                                         void* stream) {
-  float* k1f = static_cast<float*>(k1);
-  if (dtype == NODEMS_F32) {
-    return launch_stage<float>(epilogue, x, w, out, y, k1f, N, H, W, C, a, b1,
-                               b2, device, stream);
-  }
-  if (dtype == NODEMS_BF16) {
-    return launch_stage<__nv_bfloat16>(epilogue, x, w, out, y, k1f, N, H, W,
-                                       C, a, b1, b2, device, stream);
-  }
+                                         void* aux, int N, int H, int W,
+                                         int C, float a, float b1, float b2,
+                                         int device, void* stream) {
+  const nodems::ConvArgs p{x, w, out, y, static_cast<float*>(k1), aux,
+                           N, H, W, C, C, a, b1, b2};
+  if (dtype == NODEMS_F32) return launch_stage<float>(epilogue, p, device, stream);
+  if (dtype == NODEMS_BF16)
+    return launch_stage<__nv_bfloat16>(epilogue, p, device, stream);
   return cudaErrorInvalidValue;
 }

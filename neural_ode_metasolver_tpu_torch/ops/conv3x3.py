@@ -1,11 +1,11 @@
 """Kernel B1: stride-1 SAME 3x3 convolution, NHWC x HWIO -> NHWC.
 
 Port of ``ops/pallas_im2col.py::conv3x3_im2col_gemm``.  The CUDA kernel
-(``csrc/conv3x3.cu`` over ``csrc/conv3x3.cuh``) is a direct implicit-GEMM
-conv: it stages a halo'd input tile and a Cin-chunk of the weights in
-shared memory and never forms the 9x im2col patch matrix that the TPU design
-moved through device memory.  Products are f32 FMAs with f32 sums; bf16
-inputs are read as bf16 and the output is rounded once.
+(``csrc/conv3x3.cu`` over ``csrc/conv3x3.cuh``) runs the TPU kernel's GEMM,
+(N*H*W, 9*Cin) x (9*Cin, Cout), as an implicit GEMM: each K step's patch
+rows are gathered straight into shared memory, so the 9x im2col matrix is
+never formed.  bf16 products run on the tensor cores (``mma.sync``), f32
+ones as full-f32 FMAs; sums are f32 and the output is rounded once.
 
 ``conv3x3_same`` launches the kernel for CUDA tensors and takes the plain
 version, ``reference_conv3x3``, only for CPU tensors.

@@ -11,8 +11,9 @@ a warm-up, it times 20 requests without the profiler (host clock, median),
 then traces 3 requests with ``torch.profiler`` (CPU and CUDA activities).
 Prints per traced request: the host-clock time, the device time summed
 over kernels, the device busy share (their ratio; 1 minus it is the idle
-share), the number of device operations (kernels and copies), and device
-time by kernel name.  With ``--trace-dir`` it also writes each chrome
+share), the number of device operations (kernels and copies), device
+time by kind (the port's kernels, cuDNN's convs, copies, other PyTorch
+kernels) and by kernel name (the 16 largest).  With ``--trace-dir`` it also writes each chrome
 trace there.  Imports no JAX; needs a CUDA device.
 """
 import argparse
@@ -26,6 +27,18 @@ sys.path.insert(0, REPO)
 
 N_REQUESTS = 3  # traced
 N_TIMED = 20  # untraced
+N_TOP = 16  # kernels listed by name
+
+
+def kind(name):
+    """The kind of a device operation, by its kernel name."""
+    if "nodems::" in name:
+        return "port kernels"
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv")):
+        return "cuDNN convs"
+    return "other PyTorch kernels"
 
 
 # name -> (build_model keyword arguments, compute dtype name, image shape)
@@ -78,13 +91,17 @@ def main(model_name, batches, trace_dir=None):
                 by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
                 n_device_ops += e.count
         device_ms = sum(by_name.values()) / 1e3 / N_REQUESTS
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:N_TOP]
+        by_kind = {}
+        for k, v in by_name.items():
+            by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + v / 1e3 / N_REQUESTS
         row = {
             "batch": batch, "untraced_median_ms": untraced_ms,
             "wall_ms_per_request": wall_ms,
             "device_ms_per_request": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
             "device_ops_per_request": n_device_ops / N_REQUESTS,
+            "device_ms_by_kind": by_kind,
             "device_ms_by_kernel": {k: v / 1e3 / N_REQUESTS for k, v in top},
         }
         rows.append(row)
@@ -99,6 +116,8 @@ def main(model_name, batches, trace_dir=None):
               f"{device_ms:.3f} ms of kernels, busy share "
               f"{row['device_busy_share']:.3f}, "
               f"{row['device_ops_per_request']:g} device ops", flush=True)
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"  {v:9.3f} ms  ({k})")
         for k, v in row["device_ms_by_kernel"].items():
             print(f"  {v:9.3f} ms  {k[:100]}")
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -29,9 +29,16 @@ def _randn(shape, scale, seed, dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 3, 64), (3, 13, 21, 40, 72),
-                                   (2, 16, 16, 128, 128),
-                                   (4, 6, 6, 65, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 3, 64),          # Cin 3: element copies, K padded
+    (3, 13, 21, 40, 72),       # Cin 40, Cout 72: a ragged Cout tile
+    (2, 16, 16, 128, 128),     # 16-byte copies, 128-wide tiles
+    (4, 6, 6, 65, 64),         # Cin 65: element copies
+    (3, 6, 6, 65, 64),         # M = 108: one tile across three images
+    (1, 6, 6, 65, 64),         # M = 36: a mostly empty tile
+    (2, 9, 11, 64, 64),        # 16-byte copies, M = 198 not a tile multiple
+    (1, 2, 720, 64, 64),       # bf16: a halo too wide for shared memory
+])
 def test_conv3x3_kernel_matches_plain(dev, dtype, shape):
     from neural_ode_metasolver_tpu_torch import (
         launch_counts,
@@ -56,8 +63,12 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("u,n_steps", [(0.5, 2), (2 / 3, 3)])
-def test_ode_block_kernel_matches_plain(dev, dtype, u, n_steps):
+@pytest.mark.parametrize("u,n_steps,shape", [
+    (0.5, 2, (2, 12, 20, 64)), (2 / 3, 3, (2, 12, 20, 64)),
+    (0.5, 1, (2, 12, 20, 64)),   # the first step's gelu meets the last step
+    (0.5, 2, (2, 16, 16, 128)),  # 128-wide tiles
+])
+def test_ode_block_kernel_matches_plain(dev, dtype, u, n_steps, shape):
     from neural_ode_metasolver_tpu_torch import (
         launch_counts,
         reset_launch_counts,
@@ -67,15 +78,16 @@ def test_ode_block_kernel_matches_plain(dev, dtype, u, n_steps):
         reference_ode_block_rk2,
     )
 
-    c = 64
-    y0 = _randn((2, 12, 20, c), 0.5, 0, dev, dtype)
+    c = shape[-1]
+    y0 = _randn(shape, 0.5, 0, dev, dtype)
     w1 = _randn((3, 3, c, c), (9 * c) ** -0.5, 1, dev, dtype)
     w2 = _randn((3, 3, c, c), (9 * c) ** -0.5, 2, dev, dtype)
     y0_copy = y0.clone()
     reset_launch_counts()
     got = ode_block_rk2_forward(y0, w1, w2, u, n_steps)
     torch.cuda.synchronize()
-    assert launch_counts() == {"ode_block_rk2": 4 * n_steps}
+    # one elementwise gelu of y0, then four convs per step
+    assert launch_counts() == {"ode_block_rk2": 4 * n_steps + 1}
     assert torch.equal(y0, y0_copy)  # the input is never written
     ref = reference_ode_block_rk2(y0, w1, w2, u, n_steps)
     bar = 1e-4 if dtype == torch.float32 else 2.0 ** -5 * ref.float().abs().max()

@@ -3,8 +3,10 @@
 B1 (``ops/conv3x3.py``) and B2 (``ops/ode_block.py``): on CPU tensors each
 wrapper runs its plain version, which must match the JAX reference and the
 Pallas kernel run in interpret mode, at the bars of ``tests/test_pallas.py``
-and ``tests/test_pallas_ode_block.py``.  The CUDA kernels themselves are
-checked against these plain versions on the card (``test_torch_cuda.py``).
+and ``tests/test_pallas_ode_block.py``.  B2's launch schedule (which buffer
+each launch reads and writes) runs here through a plain executor of each
+launch.  The CUDA kernels themselves are checked against these plain
+versions on the card (``test_torch_cuda.py``).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -24,8 +26,14 @@ from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
     reference_conv3x3,
 )
 from neural_ode_metasolver_tpu_torch.ops.ode_block import (
+    GELU,
+    STAGE1,
+    STAGE2,
+    launch_schedule,
     ode_block_rk2_forward,
+    plain_launch,
     reference_ode_block_rk2,
+    run_schedule,
 )
 
 
@@ -161,3 +169,55 @@ def test_b2_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
         ode_block_rk2_forward(y0, w1, w2, 0.5, 0)
     with pytest.raises(ValueError):
         ode_block_rk2_forward(y0, w1, w2, 0.0, 2)
+
+
+def test_b2_launch_schedule_buffers():
+    """gelu(y0) once, then per step conv1 -> gh, conv2 -> k1 and gelu of the
+    stage input, conv1 -> gh, conv2 -> y (from y0 on the first step, in
+    place after) and gelu(y), skipped on the last step."""
+    sched = launch_schedule(0.5, 2)
+    rows = [(l.op, l.x, l.w, l.out, l.epilogue, l.y, l.aux) for l in sched]
+    step = lambda y, aux: [
+        ("conv", "g", "w1", "h", GELU, "", ""),
+        ("conv", "h", "w2", "g", STAGE1, y, ""),
+        ("conv", "g", "w1", "h", GELU, "", ""),
+        ("conv", "h", "w2", "y", STAGE2, y, aux),
+    ]
+    assert rows == ([("gelu", "y0", "", "g", 0, "", "")]
+                    + step("y0", "g") + step("y", ""))
+    dt = 0.5
+    assert [l.a for l in sched if l.epilogue == STAGE1] == [0.5 * dt] * 2
+    assert [l.a for l in sched if l.epilogue == STAGE2] == [dt] * 2
+    for n_steps in (1, 3, 8):
+        for l in launch_schedule(2 / 3, n_steps):
+            assert "y0" not in (l.out, l.aux)
+            assert l.op == "gelu" or l.x not in (l.out, l.aux)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,n_steps", [(0.5, 1), (0.5, 2), (2 / 3, 3)])
+def test_b2_launch_schedule_through_plain_launches_equals_plain_version(
+        dtype, u, n_steps):
+    """The kernel's schedule, each launch run by its plain version (an f32
+    conv and the epilogue arithmetic in torch), gives the plain version's
+    bits, and never writes y0; 4 n + 1 launches."""
+    y0, w1, w2 = (torch.tensor(a).to(dtype) for a in _ode_inputs(seed=5))
+    y0_copy = y0.clone()
+    assert len(launch_schedule(u, n_steps)) == 4 * n_steps + 1
+    got = run_schedule(y0, w1, w2, u, n_steps, plain_launch)
+    assert torch.equal(y0, y0_copy)
+    assert got.dtype == dtype
+    assert torch.equal(got, reference_ode_block_rk2(y0, w1, w2, u, n_steps))
+
+
+@pytest.mark.parametrize("u,n_steps", [(0.5, 1), (2 / 3, 3)])
+def test_b2_launch_schedule_through_plain_launches_matches_pallas(u,
+                                                                  n_steps):
+    """atol 2e-5 in f32: the bar of test_b2_plain_matches_pallas."""
+    y0, w1, w2 = _ode_inputs()
+    pallas = np.asarray(j_ode_block_rk2_forward(
+        jnp.asarray(y0), jnp.asarray(w1), jnp.asarray(w2), u, n_steps,
+        interpret=True))
+    got = run_schedule(torch.tensor(y0), torch.tensor(w1), torch.tensor(w2),
+                       u, n_steps, plain_launch)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=2e-5)
