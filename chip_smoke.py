@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero:
      two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16 (33 launches a
      solve: one GELU of y0, four convs a step), with TFLOP/s and share;
   5. kernel B3 (``fused_group_norm_act``) against its plain version at the
-     MNIST path's shapes, batch 256, f32 and bf16, with timings of the
-     kernel, the plain version and ``F.group_norm`` (yardstick);
+     MNIST path's shapes and off the path at (256, 32, 32, 64), batch 256,
+     f32 and bf16, with each shape's launch plan and timings of the kernel,
+     the plain version and ``F.group_norm`` (yardstick), beside the launch
+     floor: a one-element ``add_`` timed the same way;
   6. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
      one warm-up request at each of batch 1, 64 and 256, then five counted
      and timed requests at each size; check the logits and the kernels'
@@ -77,6 +79,9 @@ B1_MNIST_CALLS = [
      2 * MNIST_RHS),
 ]
 # (name, N, H, W, C, act, launches per request), all with 32 groups
+B3_OFF_PATH = [
+    ("off the served paths", BATCH, 32, 32, MNIST_DIM, "relu", 0),
+]
 B3_CALLS = [
     ("down norm0 + relu", BATCH, 26, 26, MNIST_DIM, "relu", 1),
     ("down norm1 + relu", BATCH, 13, 13, MNIST_DIM, "relu", 1),
@@ -122,6 +127,7 @@ def main():
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act,
         group_norm_reference,
+        launch_plan,
     )
     from neural_ode_metasolver_tpu_torch.ops.ode_block import (
         ode_block_rk2_forward,
@@ -156,9 +162,20 @@ def main():
     print(f"built {sorted(per_lib)} in {build_s:.2f} s (parallel nvcc)",
           flush=True)
     for name in per_lib:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        lines = [l.strip() for l in _build.build_log(name).splitlines()
+                 if "registers" in l or "spill" in l]
+        if len(lines) <= 24:
+            for line in lines:
+                print(f"  ptxas[{name}]: {line}")
+            continue
+        # many template instances (B3): one summary line
+        regs = [int(l.split("Used ")[1].split()[0]) for l in lines
+                if "Used " in l]
+        spills = [int(l.split(" bytes spill stores")[0].split()[-1])
+                  for l in lines if "bytes spill stores" in l]
+        print(f"  ptxas[{name}]: {len(regs)} kernels, {min(regs)}-"
+              f"{max(regs)} registers, {sum(1 for v in spills if v)} with "
+              f"spill stores (at most {max(spills)} bytes)")
     for name in per_lib:
         mma = _build.sass_opcode_counts(name, ("HMMA", "HGMMA"))
         print(f"  SASS[{name}]: {mma['HMMA']} HMMA, {mma['HGMMA']} HGMMA "
@@ -299,9 +316,15 @@ def main():
     # ----------------------------------------------------- 5 B3 vs plain
     phase(f"B3 fused_group_norm_act vs its plain version (batch 256, "
           f"{GN_GROUPS} groups)")
+    # the launch floor: a one-element add_ in the same kind of graph replay
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1.0), 20)
+    print(f"  launch floor (one-element add_, graph replay): {floor_ms:.5f} "
+          f"ms", flush=True)
     b3_rows = []
     for dtype in dtypes:
-        for _, n, h, w, c, act, _ in B3_CALLS:
+        for _, n, h, w, c, act, _ in B3_CALLS + B3_OFF_PATH:
+            plan = launch_plan(n, h, w, c, GN_GROUPS, dtype)
             x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
             scale = randn((c,), 0.3, 7, torch.float32) + 1.0
             bias = randn((c,), 0.5, 8, torch.float32)
@@ -337,12 +360,18 @@ def main():
                    "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops}
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                   "plan": plan._asdict()}
             b3_rows.append(row)
-            print(f"  B3 {row['dtype']:8s} {(n, h, w, c)} act={act}: "
-                  f"max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, F.group_norm{'+relu' if act else ''} "
-                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+            print(f"  B3 {row['dtype']:8s} {(n, h, w, c)} act={act}: plan "
+                  f"{plan.path} ({plan.vec}-element access, {plan.warps} "
+                  f"warps a block, cluster {plan.cluster}, {plan.regs} "
+                  f"vectors a thread, {plan.smem_bytes} B shared)", flush=True)
+            print(f"     max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} "
+                  f"ms ({ms - floor_ms:.4f} above the floor), plain "
+                  f"{plain_ms:.4f} ms, F.group_norm{'+relu' if act else ''} "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_ms / ms:.3f} of it)", flush=True)
             if not err <= bar:
                 fail(f"B3 {row['dtype']} {(n, h, w, c)} act={act}: "
                      f"max|diff| {err} > {bar}")
@@ -514,6 +543,7 @@ def main():
                 "by_path": by_path, **sums, **extra}
 
     b1_cifar = Counter(c[1:6] for c in B1_CALLS)
+    b3_mnist = {c[1:6]: c[6] for c in B3_CALLS}
     b1_mnist = {c[1:6]: c[6] for c in B1_MNIST_CALLS}
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
@@ -528,8 +558,9 @@ def main():
         entry("group_norm_act",
               "neural_ode_metasolver_tpu_torch/csrc/group_norm_act.cu",
               "neural_ode_metasolver_tpu/ops/pallas_kernels.py:111",
-              per_request_sums(b3_rows, {c[1:6]: c[6] for c in B3_CALLS},
-                               "float32")),
+              per_request_sums(b3_rows, b3_mnist, "float32"),
+              bf16=per_request_sums(b3_rows, b3_mnist, "bfloat16"),
+              launch_floor_ms=floor_ms),
     ]
     units = ("launches: total over the counted requests of both served "
              "paths (by_path splits them); ms, plain_ms, bound_ms, "
@@ -537,9 +568,11 @@ def main():
              "request (tflops: their flops over ms; bound_share: bound_ms "
              "over ms): conv3x3_same and ode_block_rk2 of premetanode10 in "
              "bf16 (conv3x3_same's mnist_f32: of the MNIST MetaNODE in "
-             "f32), group_norm_act of the MNIST MetaNODE in f32, its "
-             "library_ms F.group_norm plus torch.relu where the kernel "
-             "fuses relu; max_abs_err: the largest of those calls")
+             "f32), group_norm_act of the MNIST MetaNODE in f32 (its bf16: "
+             "the same calls in bf16; launch_floor_ms: one one-element add_ "
+             "timed the same way), its library_ms F.group_norm plus "
+             "torch.relu where the kernel fuses relu; max_abs_err: the "
+             "largest of those calls")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

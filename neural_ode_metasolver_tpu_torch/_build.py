@@ -62,9 +62,10 @@ _SIGNATURES = {
         "ode_block_rk2_gelu_launch": [_I, _P, _P, _LL, _I, _P],
     },
     "group_norm_act": {
-        # dtype, act, x, scale, bias, out, N, HW, C, G, eps, device, stream
+        # dtype, act, x, scale, bias, out, N, HW, C, G, eps, then the plan
+        # (path, vec, warps, cluster, regs), device, stream
         "group_norm_act_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _P],
+                                  _F, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -2,27 +2,48 @@
 
 Port of ``ops/pallas_kernels.py::fused_group_norm_act``: torch
 ``nn.GroupNorm(num_groups, C)`` parity (eps 1e-5, affine with f32 scale and
-bias) followed by an activation, in one read of x.  The CUDA kernel
-(``csrc/group_norm_act.cu``) runs one block per sample, stages the sample in
-shared memory where it fits and takes two-pass f32 statistics; the Pallas
-kernel's one-pass E[x^2] - E[x]^2 is the same function, less well
-conditioned.  The activation is applied in f32 and the result rounded once
-to x's dtype.
+bias) followed by an activation, in one read of x.  Statistics are two-pass
+in f32 (the Pallas kernel's one-pass E[x^2] - E[x]^2 is the same function,
+less well conditioned); the activation is applied in f32 and the result
+rounded once to x's dtype.
 
-``fused_group_norm_act`` launches the kernel for CUDA tensors and takes the
-plain version, ``group_norm_reference``, only for CPU tensors.  The backward
-(the JAX package's custom VJP) comes with MNIST training.
+The CUDA kernel (``csrc/group_norm_act.cu``) runs the plan that
+``launch_plan`` makes from a sample's shape alone, one block or one
+thread-block cluster a sample:
+
+- **register path**: the warps of one block own a whole sample.  Each thread
+  reads its share once, with 16-byte loads along C, and keeps it in
+  registers for the statistics and the normalize pass.  MNIST's 6x6 and
+  13x13 GroupNorms take it.
+- **cluster path**: a sample too large for one block's registers is cut into
+  k <= 8 pixel slices, one per block of a thread-block cluster, each held in
+  registers; the blocks' group sums meet in distributed shared memory.  x
+  is still read once.  MNIST's 26x26 GroupNorm takes it.
+- **re-reading path**: the same layouts, but each pass reads x again.  It
+  takes samples too large even for 8 blocks, and every layout the two paths
+  above cannot: x's pointer or C * itemsize not 16-byte aligned (one element
+  at a time), or groups that warp shuffles cannot sum (a pixel's vectors do
+  not divide a warp, or groups straddle vectors).
+
+The register and cluster paths finish group sums by warp shuffles, the
+re-reading path through shared memory; both add in a fixed order, so a
+launch repeats its bits.  ``fused_group_norm_act`` launches the kernel for
+CUDA tensors and takes the plain version, ``group_norm_reference``, only
+for CPU tensors.  The backward (the JAX package's custom VJP) comes with
+MNIST training.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build, backend
 
-__all__ = ["fused_group_norm_act", "group_norm_reference"]
+__all__ = ["fused_group_norm_act", "group_norm_reference", "launch_plan",
+           "GnPlan"]
 
 KERNEL_NAME = "group_norm_act"
 
@@ -33,9 +54,119 @@ _ACTS = {
     "tanh": torch.tanh,
     "softsign": F.softsign,
 }
-# activation codes of csrc/group_norm_act.cu
+# codes of csrc/group_norm_act.cu
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "tanh": 3, "softsign": 4}
-_MAX_CHANNELS = 1024  # one thread per channel at least, in one block
+_PATH_CODES = {"register": 0, "cluster": 1, "reread": 2}
+
+MAX_THREADS = 256  # per block (kGnMaxThreads)
+MAX_CLUSTER = 8  # the portable cluster size
+SMEM_OPTIN = 232448  # the H100's opt-in shared memory per block
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+# vectors a thread of the register and cluster paths holds: the kernel
+# instances of csrc/group_norm_act.cu
+_REGS = (4, 8, 16)
+_ELEMS = 32  # elements a thread of the register path aims to hold
+
+
+class GnPlan(NamedTuple):
+    """How one launch covers the batch (see ``csrc/group_norm_act.cu``)."""
+    path: str  # "register", "cluster" or "reread"
+    vec: int  # elements a thread reads at once: 16 bytes' worth, or 1
+    warps: int  # warps per block
+    cluster: int  # blocks per sample
+    regs: int  # vectors a thread holds in registers; 0 on "reread"
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def _layout(c: int, vec: int, threads: int):
+    """(vector columns of a pixel, columns side by side, rows at a time,
+    columns a thread): ``gn_layout`` of the CUDA source."""
+    vpp = c // vec
+    if vpp <= threads:
+        return vpp, vpp, threads // vpp, 1
+    return vpp, threads, 1, -(-vpp // threads)
+
+
+def _per_thread(hw: int, c: int, vec: int, threads: int, cluster: int) -> int:
+    """The most vectors a thread of a block reads."""
+    _, _, rows, ncols = _layout(c, vec, threads)
+    return -(-(-(-hw // cluster)) // rows) * ncols
+
+
+def access(c: int, groups: int, dtype: torch.dtype, aligned: bool = True):
+    """(vec, shuffle): the elements a thread reads at once (16 bytes' worth
+    where x's pointer and C allow, else 1), and whether warp shuffles can
+    finish the group sums (16-byte access, a pixel's vector columns divide
+    a warp, and groups align with vectors), which the register and cluster
+    paths need."""
+    size = _ITEMSIZE[dtype]
+    vec = 16 // size if aligned and (c * size) % 16 == 0 else 1
+    vpp, cg = c // vec, c // groups
+    shuffle = (vec > 1 and vpp <= 32 and 32 % vpp == 0 and
+               (vec % cg == 0 or (cg % vec == 0 and vpp % (cg // vec) == 0)))
+    return vec, shuffle
+
+
+def _smem_bytes(path: str, c: int, groups: int, vec: int, warps: int,
+                cluster: int) -> int:
+    """``gn_smem_bytes`` of the CUDA source."""
+    if path == "reread":
+        rows = _layout(c, vec, 32 * warps)[2]
+        return 4 * (rows * c + 4 * groups)
+    if warps * cluster == 1:
+        return 0
+    return 4 * (2 * warps * groups + (2 * groups if cluster > 1 else 0))
+
+
+def make_plan(path: str, vec: int, warps: int, cluster: int, regs: int,
+              c: int, groups: int) -> GnPlan:
+    """A plan with its shared-memory bytes for (c, groups)."""
+    return GnPlan(path, vec, warps, cluster, regs,
+                  _smem_bytes(path, c, groups, vec, warps, cluster))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, h: int, w: int, c: int, groups: int,
+                dtype: torch.dtype, aligned: bool = True) -> GnPlan:
+    """The launch that ``fused_group_norm_act`` makes for x (n, h, w, c) of
+    ``dtype`` (f32 or bf16) in ``groups`` groups; ``aligned`` says whether
+    x's data pointer is 16-byte aligned.  Every sample gets the same
+    block or cluster, so n does not change the plan.  Raises ValueError for
+    a shape the kernel cannot take (group statistics beyond a block's
+    ``SMEM_OPTIN`` bytes of shared memory).  The rules below follow the
+    timings of ``scripts/bench_group_norm_plans.py`` (PERF.md)."""
+    if c % groups:
+        raise ValueError(f"channels ({c}) must be divisible by num_groups "
+                         f"({groups})")
+    vec, shuffle = access(c, groups, dtype, aligned)
+    hw = h * w
+    # a whole sample in one block: the fewest warps that leave a thread at
+    # most 32 elements (a block's time is mostly its threads' serial work),
+    # else 8 warps if they hold it in 16 vectors
+    for warps in (1, 2, 4, 8):
+        most = _per_thread(hw, c, vec, 32 * warps, 1)
+        if most <= _REGS[-1] and (most * vec <= _ELEMS or warps == 8):
+            regs = next(r for r in _REGS if r >= most)
+            plan = (make_plan("register", vec, warps, 1, regs, c, groups)
+                    if shuffle else
+                    make_plan("reread", vec, warps, 1, 0, c, groups))
+            break
+    else:
+        # slices of 8-warp blocks over a cluster: as few blocks as hold it
+        # in 16 vectors a thread (a cluster waits at each of its two
+        # exchanges for its slowest block), else 8 blocks re-reading
+        k = next((k for k in range(2, MAX_CLUSTER + 1)
+                  if _per_thread(hw, c, vec, MAX_THREADS, k) <= _REGS[-1]),
+                 None)
+        plan = (make_plan("cluster", vec, 8, k, _REGS[-1], c, groups)
+                if shuffle and k is not None else
+                make_plan("reread", vec, 8, k or MAX_CLUSTER, 0, c, groups))
+    if plan.smem_bytes > SMEM_OPTIN:
+        raise ValueError(
+            f"group norm: the statistics of {groups} groups of "
+            f"{c // groups} channels need {plan.smem_bytes} bytes of shared "
+            f"memory, more than the {SMEM_OPTIN} a block has")
+    return plan
 
 
 def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -69,6 +200,28 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return _ACTS[act](y).to(x.dtype)
 
 
+def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            num_groups: int, eps: float, act: Optional[str],
+            plan: GnPlan) -> torch.Tensor:
+    """Launch the kernel on checked CUDA tensors with ``plan``; the C entry
+    point refuses a plan it cannot run."""
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("group_norm_act")
+    err = lib.group_norm_act_launch(
+        _build.DTYPE_CODES[x.dtype], _ACT_CODES[act], x.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h * w, c,
+        num_groups, float(eps), _PATH_CODES[plan.path], plan.vec,
+        plan.warps, plan.cluster, plan.regs, x.device.index,
+        _build.stream_handle(x),
+    )
+    _build.check(lib, err, f"group_norm_act launch ({plan})")
+    backend.count_launch(KERNEL_NAME)
+    return out
+
+
 def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, num_groups: int,
                          eps: float = 1e-5, act: Optional[str] = None
@@ -86,18 +239,8 @@ def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"fused_group_norm_act: x on {x.device}, scale "
                          f"and bias on {scale.device}")
     n, h, w, c = x.shape
-    if c > _MAX_CHANNELS:
-        raise ValueError(f"fused_group_norm_act: {c} channels, the kernel "
-                         f"takes at most {_MAX_CHANNELS}")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("group_norm_act")
-    err = lib.group_norm_act_launch(
-        _build.DTYPE_CODES[x.dtype], _ACT_CODES[act], x.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h * w, c,
-        num_groups, float(eps), x.device.index, _build.stream_handle(x),
-    )
-    _build.check(lib, err, "group_norm_act launch")
-    backend.count_launch(KERNEL_NAME)
-    return out
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    plan = launch_plan(n, h, w, c, num_groups, x.dtype,
+                       aligned=x.data_ptr() % 16 == 0)
+    return _launch(x, scale, bias, num_groups, eps, act, plan)

@@ -94,15 +94,45 @@ def test_ode_block_kernel_matches_plain(dev, dtype, u, n_steps, shape):
     assert (got.float() - ref.float()).abs().max() <= bar
 
 
+def _gn_inputs(shape, dev, dtype):
+    c = shape[-1]
+    x = (_randn(shape, 2.0, 0, dev, torch.float32) + 0.5).to(dtype)
+    scale = _randn((c,), 0.3, 1, dev, torch.float32) + 1.0
+    bias = _randn((c,), 0.5, 2, dev, torch.float32)
+    return x, scale, bias
+
+
+def _gn_bar(ref, dtype):
+    """f32: the JAX test's 2e-4; bf16: both round once at the same point,
+    two bf16 ulps of the largest output."""
+    refmax = ref.float().abs().max()
+    return (2e-4 * max(1.0, refmax) if dtype == torch.float32
+            else 2.0 ** -6 * refmax)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,act", [
-    ((2, 26, 26, 64), "relu"), ((2, 13, 13, 64), "relu"),
-    ((3, 6, 6, 64), "relu"), ((3, 6, 6, 64), None),
-    ((2, 7, 5, 96), "gelu"), ((2, 4, 4, 16), "tanh"),
-    ((2, 3, 3, 640), "softsign"),   # one row of threads per pass
-    ((2, 30, 30, 128), "relu"),     # f32 sample too large to stage
+@pytest.mark.parametrize("shape,groups,act", [
+    ((2, 26, 26, 64), 32, "relu"),   # cluster path
+    ((2, 13, 13, 64), 32, "relu"),   # register path, one sample a block
+    ((3, 6, 6, 64), 32, "relu"),     # cg 2, 4 warps a sample
+    ((3, 6, 6, 64), 32, None),
+    ((2, 7, 5, 96), 32, "gelu"),     # cg 3: re-read, shared-memory sums
+    ((2, 4, 4, 16), 16, "tanh"),     # cg 1
+    ((2, 3, 3, 640), 32, "softsign"),  # cg 20, 160 columns a pixel
+    ((2, 30, 30, 128), 32, "relu"),  # a cluster of 8 (f32)
+    ((3, 6, 6, 32), 32, "relu"),     # cg 1, shuffles
+    ((2, 7, 5, 96), 8, "relu"),      # cg 12
+    ((2, 5, 5, 6), 3, "relu"),       # C * 4 bytes not a multiple of 16
+    ((3, 5, 5, 4), 2, "gelu"),       # one vector a pixel; bf16 one element
+    ((2, 1, 1, 64), 32, "relu"),     # HW = 1
+    ((1, 6, 6, 64), 32, "relu"),     # N = 1
+    ((1, 29, 31, 64), 32, "relu"),   # a ragged last slice of the cluster
+    ((1, 48, 48, 128), 32, "relu"),  # too large for 8 blocks: re-read
+    ((1, 2, 2, 1056), 32, "relu"),   # C > 1024
+    ((1, 2, 2, 1040), 8, None),      # cg 130
+    ((1, 1, 2, 4096), 4096, None),   # 80 KB of group statistics: opt-in
 ])
-def test_group_norm_kernel_matches_plain(dev, dtype, shape, act):
+def test_group_norm_kernel_matches_plain(dev, dtype, shape, groups, act):
     from neural_ode_metasolver_tpu_torch import (
         launch_counts,
         reset_launch_counts,
@@ -112,23 +142,49 @@ def test_group_norm_kernel_matches_plain(dev, dtype, shape, act):
         group_norm_reference,
     )
 
-    c = shape[-1]
-    x = (_randn(shape, 2.0, 0, dev, torch.float32) + 0.5).to(dtype)
-    scale = _randn((c,), 0.3, 1, dev, torch.float32) + 1.0
-    bias = _randn((c,), 0.5, 2, dev, torch.float32)
-    groups = min(32, c)
+    x, scale, bias = _gn_inputs(shape, dev, dtype)
     reset_launch_counts()
     got = fused_group_norm_act(x, scale, bias, groups, act=act)
     torch.cuda.synchronize()
     assert launch_counts() == {"group_norm_act": 1}
     assert got.dtype == dtype and got.shape == x.shape
     ref = group_norm_reference(x, scale, bias, groups, act=act)
-    refmax = ref.float().abs().max()
-    # f32: the JAX test's 2e-4; bf16: both round once at the same point,
-    # two bf16 ulps of the largest output
-    bar = (2e-4 * max(1.0, refmax) if dtype == torch.float32
-           else 2.0 ** -6 * refmax)
-    assert (got.float() - ref.float()).abs().max() <= bar
+    assert (got.float() - ref.float()).abs().max() <= _gn_bar(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_takes_an_unaligned_view(dev, dtype):
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+        group_norm_reference,
+        launch_plan,
+    )
+
+    shape = (3, 6, 6, 64)
+    x, scale, bias = _gn_inputs(shape, dev, dtype)
+    buf = torch.empty(x.numel() + 1, device=dev, dtype=dtype)
+    xv = buf[1:].view(shape)  # contiguous, data_ptr 2 or 4 bytes past 16
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    assert launch_plan(*shape, 32, dtype, aligned=False).vec == 1
+    got = fused_group_norm_act(xv, scale, bias, 32, act="relu")
+    ref = group_norm_reference(x, scale, bias, 32, act="relu")
+    assert (got.float() - ref.float()).abs().max() <= _gn_bar(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (4, 6, 6, 64), (2, 26, 26, 64), (1, 48, 48, 128), (2, 7, 5, 96),
+])
+def test_group_norm_kernel_repeats_its_bits(dev, dtype, shape):
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+    )
+
+    x, scale, bias = _gn_inputs(shape, dev, dtype)
+    a = fused_group_norm_act(x, scale, bias, 32, act="gelu")
+    b = fused_group_norm_act(x, scale, bias, 32, act="gelu")
+    assert torch.equal(a, b)
 
 
 def test_served_mnist_matches_plain_path_with_its_launch_counts(dev):
@@ -187,7 +243,3 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         fused_group_norm_act(x, s.cpu(), s.cpu(), 8)
     with pytest.raises(ValueError):
         fused_group_norm_act(x.transpose(1, 2), s, s, 8)
-    with pytest.raises(ValueError):
-        fused_group_norm_act(torch.zeros(1, 2, 2, 1040, device=dev),
-                             torch.ones(1040, device=dev),
-                             torch.ones(1040, device=dev), 8)

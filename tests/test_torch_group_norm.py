@@ -3,9 +3,12 @@
 On CPU tensors ``fused_group_norm_act`` runs its plain version, which must
 match the Pallas kernel run in interpret mode and the JAX two-pass
 reference at the bars of ``tests/test_pallas.py`` (atol 2e-4 in f32, 3e-2
-with bf16 I/O); ``nn.group_norm`` must match the JAX ``nn.group_norm``.
-The CUDA kernel itself is checked against the plain version on the card
-(``test_torch_cuda.py``).
+with bf16 I/O), also above 1024 channels; ``nn.group_norm`` must match the
+JAX ``nn.group_norm``.  ``launch_plan`` (pure Python) must pick the paths
+the MNIST shapes are designed for, stay within a block's shared memory and
+a portable cluster, and lay threads out so that each element is read
+once.  The CUDA kernel itself is checked against the plain version on the
+card (``test_torch_cuda.py``).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -20,8 +23,12 @@ from neural_ode_metasolver_tpu.ops.pallas_kernels import (
 from neural_ode_metasolver_tpu_torch import launch_counts, reset_launch_counts
 from neural_ode_metasolver_tpu_torch.models import nn as fnn
 from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+    _layout,
+    _per_thread,
+    access,
     fused_group_norm_act,
     group_norm_reference,
+    launch_plan,
 )
 
 
@@ -100,3 +107,122 @@ def test_nn_group_norm_matches_jax(use_kernels):
     init = fnn.group_norm_init(32)
     assert torch.equal(init["scale"], torch.ones(32))
     assert torch.equal(init["bias"], torch.zeros(32))
+
+
+def test_b3_plain_matches_pallas_above_1024_channels():
+    """The CUDA wrapper takes any C with C % G == 0, as the JAX kernel does;
+    its plain version holds the Pallas kernel there too."""
+    x, scale, bias = _inputs((1, 2, 2, 1056), seed=4)
+    jx, js, jb = (jnp.asarray(a) for a in (x, scale, bias))
+    pallas = np.asarray(j_fused_group_norm_act(jx, js, jb, 32, 1e-5, "relu",
+                                               True))  # interpret
+    got = fused_group_norm_act(torch.tensor(x), torch.tensor(scale),
+                               torch.tensor(bias), 32, 1e-5, "relu")
+    np.testing.assert_allclose(got.numpy(), pallas, atol=2e-4)
+
+
+_MNIST_BATCHES = (1, 128, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", _MNIST_BATCHES)
+@pytest.mark.parametrize("hw", [6, 13])
+def test_b3_plan_keeps_small_mnist_samples_in_one_block(dtype, n, hw):
+    plan = launch_plan(n, hw, hw, 64, 32, dtype)
+    assert plan.path == "register" and plan.cluster == 1 and plan.regs > 0
+    assert plan.vec == 16 // (torch.finfo(dtype).bits // 8)
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 26, 26, 64), (256, 32, 32, 64), (2, 30, 30, 128),
+    (1, 29, 31, 64),  # its last slice is ragged
+])
+def test_b3_plan_splits_large_f32_samples_over_a_cluster(shape):
+    plan = launch_plan(*shape, 32, torch.float32)
+    assert plan.path == "cluster" and 2 <= plan.cluster <= 8
+    assert plan.regs > 0  # held in registers: x is read once
+    if shape == (1, 29, 31, 64):
+        assert (29 * 31) % plan.cluster
+
+
+def test_b3_plan_rereads_only_samples_too_large_for_8_blocks():
+    """Where shuffles can sum the groups, only samples too large for 8
+    blocks re-read x; layouts they cannot sum re-read at any size."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert launch_plan(1, 48, 48, 128, 32, dtype).path == "reread"
+        assert launch_plan(2, 30, 30, 128, 32, dtype).path == "cluster"
+    # 16-byte access needs C * itemsize % 16 == 0 and an aligned pointer
+    plan = launch_plan(2, 5, 5, 6, 3, torch.float32)
+    assert plan.vec == 1 and plan.path == "reread" and plan.cluster == 1
+    plan = launch_plan(3, 6, 6, 64, 32, torch.float32, aligned=False)
+    assert plan.vec == 1 and plan.path == "reread"
+    # cg 3: groups straddle 16-byte vectors
+    assert access(96, 32, torch.float32) == (4, False)
+    assert launch_plan(2, 7, 5, 96, 32, torch.float32).path == "reread"
+
+
+def _covered(plan, n, hw, c):
+    """How often the plan's threads touch each element of x (n, hw, c),
+    following the thread layout of csrc/group_norm_act.cu."""
+    hits = np.zeros((n, hw, c), np.int64)
+    threads = 32 * plan.warps
+    vpp, cols, rows, ncols = _layout(c, plan.vec, threads)
+    k = plan.cluster
+    per = -(-hw // k)
+    for blk in range(n * k):
+        sample, rank = divmod(blk, k)
+        p0 = min(hw, rank * per)
+        npx = min(hw, p0 + per) - p0
+        for t in range(threads):
+            col0, row0 = t % cols, t // cols
+            if row0 >= rows:
+                continue
+            for j in range(ncols):
+                cv = col0 + j * cols
+                if cv >= vpp:
+                    continue
+                for p in range(p0 + row0, p0 + npx, rows):
+                    chans = slice(cv * plan.vec, (cv + 1) * plan.vec)
+                    hits[sample, p, chans] += 1
+    return hits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,aligned", [
+    ((3, 6, 6, 64), 32, True), ((2, 13, 13, 64), 32, True),
+    ((2, 26, 26, 64), 32, True), ((1, 29, 31, 64), 32, True),
+    ((2, 7, 5, 96), 8, True), ((2, 3, 3, 640), 32, True),
+    ((2, 5, 5, 6), 3, True), ((1, 2, 2, 1056), 32, True),
+    ((2, 1, 1, 64), 32, True), ((3, 6, 6, 64), 32, False),
+    ((1, 48, 48, 128), 32, True),
+])
+def test_b3_plan_touches_every_element_once(dtype, shape, groups, aligned):
+    n, h, w, c = shape
+    plan = launch_plan(n, h, w, c, groups, dtype, aligned=aligned)
+    assert (_covered(plan, n, h * w, c) == 1).all()
+    if plan.regs:  # every thread's share fits its registers
+        assert _per_thread(h * w, c, plan.vec, 32 * plan.warps,
+                           plan.cluster) <= plan.regs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_plans_stay_within_a_block_and_a_cluster(dtype):
+    rs = np.random.RandomState(5)
+    shapes = [(256, 26, 26, 64), (256, 32, 32, 64), (8, 64, 64, 256),
+              (1, 1, 1, 4096), (4, 3, 3, 8192), (2, 112, 112, 64)]
+    for _ in range(200):
+        c = int(rs.choice([3, 6, 8, 16, 24, 32, 64, 96, 128, 320, 1056]))
+        shapes.append((int(rs.randint(1, 300)), int(rs.randint(1, 70)),
+                       int(rs.randint(1, 70)), c))
+    for n, h, w, c in shapes:
+        for groups in {g for g in (1, 2, 3, 8, 32, c) if c % g == 0}:
+            for aligned in (True, False):
+                plan = launch_plan(n, h, w, c, groups, dtype,
+                                   aligned=aligned)
+                assert plan.smem_bytes <= 232448
+                assert 1 <= plan.cluster <= 8
+                assert 32 * plan.warps <= 256
+                # x stays in registers only where shuffles sum the groups
+                assert (plan.regs > 0) == (plan.path != "reread")
+                if plan.regs:
+                    assert access(c, groups, dtype, aligned)[1]
