@@ -10,34 +10,52 @@ Phases, in order; any failure exits non-zero:
      print ptxas's registers and spills, and the tensor-core instructions
      (HMMA, HGMMA) in each library's SASS; fail if B1's or B2's has none;
   3. kernel B1 (``conv3x3_same``) against its plain version at both served
-     paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-5, the
-     process defaults in 6-7), with timings of
-     the kernel, the plain version and cuDNN's ``F.conv2d`` (yardstick),
-     and the kernel's TFLOP/s and share of its bound;
-  4. kernel B2 (``ode_block_rk2_forward``) against its plain version at the
+     paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-6, the
+     process defaults in 7-8; the train step pins full f32 itself), with
+     timings of the kernel, the plain version and cuDNN's ``F.conv2d``
+     (yardstick), and the kernel's TFLOP/s and share of its bound;
+  4. B1's backward against its plain versions at the flagship train step's
+     shapes, batch 256, f32 and bf16: the dgrad (``conv3x3_dgrad``, B1 on
+     flipped weights, the stem's with Cout 3) and the wgrad kernel
+     (``conv3x3_wgrad``), with cuDNN's ``conv2d_input`` / ``conv2d_weight``
+     as yardsticks, and two wgrad launches compared bit for bit;
+  5. kernel B2 (``ode_block_rk2_forward``) against its plain version at the
      two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16 (33 launches a
      solve: one GELU of y0, four convs a step), with TFLOP/s and share;
-  5. kernel B3 (``fused_group_norm_act``) against its plain version at the
+  6. kernel B3 (``fused_group_norm_act``) against its plain version at the
      MNIST path's shapes and off the path at (256, 32, 32, 64), batch 256,
      f32 and bf16, with each shape's launch plan and timings of the kernel,
      the plain version and ``F.group_norm`` (yardstick), beside the launch
      floor: a one-element ``add_`` timed the same way;
-  6. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
+  7. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
      one warm-up request at each of batch 1, 64 and 256, then five counted
      and timed requests at each size; check the logits and the kernels'
      launch counts, and compare bf16 and f32 serving with the model's plain
      path on the card;
-  7. serve the MNIST MetaNODE (dim 64, seeded random weights) in f32, the
+  8. serve the MNIST MetaNODE (dim 64, seeded random weights) in f32, the
      shipped artifact's dtype: one warm-up request at each of batch 1, 128
      and 256, then five counted and timed requests at each size; check the
      launch counts (B3 51, B1 32, B2 0 per request) and the logits against
-     the model's plain path on the card.
+     the model's plain path on the card;
+  9. train: the flagship adversarial step of ``bench.py:94-113``
+     (premetanode10, in_planes 64, GeLUpoly, RK2 u=0.5 8 steps with
+     Normal(0.0125) smoothing, FGSM-random 8/255 and 10/255, SGD momentum
+     0.9, weight decay 5e-4, cyclic lr) at batch 256 in bf16, seeded images
+     and labels: one warm-up step, then five counted and timed steps; check
+     every loss is finite and the launches per step (B1 136, dgrad 135,
+     wgrad 68, B2 0, B3 0);
+ 10. the train step's kernel path against its plain path (``F.conv2d``
+     with autograd) from one state with the draws pinned: in f32 at batch
+     32 the adversarial images (equal but where the input gradient is
+     tiny) and the parameter gradients at the same images; in bf16 at batch
+     256 one step's loss and gradient norm.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  It writes no file besides the kernels it builds.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +73,7 @@ BATCH = 256
 N_STEPS = 8
 U = 0.5
 REQUEST_ROUNDS = 5  # counted requests per served batch size
+TRAIN_STEPS = 5  # counted train steps
 B2_LAUNCHES_PER_SOLVE = 4 * N_STEPS + 1  # GELU of y0, then 4 convs a step
 
 # (name, N, H, W, Cin, Cout): every B1 call of one request at batch 256
@@ -92,6 +111,26 @@ B3_CALLS = [
 GN_GROUPS = 32
 GN_OPS_PER_ELEMENT = 10  # sum, centred square, normalize, affine, act
 
+# The flagship train step at batch 256: forward convs (N, H, W, Cin, Cout)
+# of B1 and their launches per step.  A pass runs 68: the stem, layer 1's
+# res block (2), layer 2's stride-1 res conv (1) and 2 ODE blocks x 8 steps
+# x 2 stages x 2 convs (64); the attack pass and the training pass.  The
+# dgrad of the stem is a 64 -> 3 conv and runs in the attack pass only (the
+# training pass's input is detached); the wgrad runs in the training pass
+# only (the attack's weights are detached).
+TRAIN_STEM = (BATCH, 32, 32, 3, 64)
+TRAIN_L1 = (BATCH, 32, 32, 64, 64)
+TRAIN_L2 = (BATCH, 16, 16, 128, 128)
+TRAIN_FWD = {TRAIN_STEM: 2, TRAIN_L1: 68, TRAIN_L2: 66}
+TRAIN_DGRAD = {TRAIN_STEM: 1, TRAIN_L1: 68, TRAIN_L2: 66}
+TRAIN_WGRAD = {TRAIN_STEM: 1, TRAIN_L1: 34, TRAIN_L2: 33}
+TRAIN_PER_STEP = {"conv3x3_same": sum(TRAIN_FWD.values()),
+                  "conv3x3_dgrad": sum(TRAIN_DGRAD.values()),
+                  "conv3x3_wgrad": sum(TRAIN_WGRAD.values())}
+# JAX data/datasets.py:43-44
+CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR10_STD = (0.2023, 0.1994, 0.2010)
+
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -120,10 +159,20 @@ def main():
         SolverOptions,
         parse_solver_dsl,
     )
-    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
-        conv3x3_same,
-        reference_conv3x3,
+    from neural_ode_metasolver_tpu_torch.attacks import (
+        cross_entropy,
+        fgsm_random,
     )
+    from neural_ode_metasolver_tpu_torch.backend import full_f32
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_dgrad,
+        conv3x3_same,
+        conv3x3_wgrad,
+        flip_weights,
+        reference_conv3x3,
+        reference_conv3x3_wgrad,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.noise import noise_solver
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act,
         group_norm_reference,
@@ -134,6 +183,14 @@ def main():
         reference_ode_block_rk2,
     )
     from neural_ode_metasolver_tpu_torch.serving import ServedModel
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        cyclic_lr,
+        make_optimizer,
+        make_train_step,
+    )
 
     # the kernel phases hold f32 kernels against plain versions that run on
     # cuDNN, so TF32 is off there; the serving phases run with the process
@@ -180,7 +237,8 @@ def main():
         mma = _build.sass_opcode_counts(name, ("HMMA", "HGMMA"))
         print(f"  SASS[{name}]: {mma['HMMA']} HMMA, {mma['HGMMA']} HGMMA "
               f"(tensor-core instructions)", flush=True)
-        if name in ("conv3x3", "ode_block_rk2") and not sum(mma.values()):
+        if name in ("conv3x3", "conv3x3_wgrad", "ode_block_rk2") \
+                and not sum(mma.values()):
             fail(f"the {name} library has no tensor-core instruction")
 
     gen = torch.Generator(device=dev)
@@ -268,7 +326,84 @@ def main():
                 fail(f"B1 {row['dtype']} {shape}: max|diff| {err} > {bar}")
             del x, k, got, ref
 
-    # ----------------------------------------------------- 4 B2 vs plain
+    # --------------------------------------- 4 B1 backward vs plain
+    phase("B1 backward: dgrad (B1 on flipped weights) and the wgrad kernel "
+          "vs their plain versions (batch 256)")
+    bwd_rows = []
+    for dtype in dtypes:
+        for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2):
+            n, h, w, cin, cout = shape
+            es = torch.tensor([], dtype=dtype).element_size()
+            flops = 2 * n * h * w * cin * cout * 9
+            k = randn((3, 3, cin, cout), (9 * cout) ** -0.5, 2, dtype)
+            dy = randn((n, h, w, cout), 1.0, 9, dtype)
+            x = randn((n, h, w, cin), 1.0, 1, dtype)
+            k_cl = k.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            dy_cl, x_cl = dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+            # dgrad: dx (n, h, w, cin) of the forward conv (cin -> cout)
+            got = conv3x3_dgrad(dy, k)
+            torch.cuda.synchronize()
+            ref = reference_conv3x3(dy, flip_weights(k))
+            err = (got.float() - ref.float()).abs().max().item()
+            refmax = ref.float().abs().max().item()
+            bar = (1e-4 * max(1.0, refmax) if dtype == torch.float32
+                   else 2.0 ** -7 * refmax)
+            ms = time_ms(lambda: conv3x3_dgrad(dy, k), 20)
+            plain_ms = time_ms(
+                lambda: reference_conv3x3(dy, flip_weights(k)), 20)
+            lib_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
+                (n, cin, h, w), k_cl, dy_cl, padding=1), 20)
+            b_ms, b_bytes, b_ops = bound(
+                (dy.numel() + k.numel() + got.numel()) * es, flops, dtype)
+            row = {"kind": "dgrad", "key": shape,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                   "flops": flops, **rate(flops, ms, b_ms)}
+            bwd_rows.append(row)
+            print(f"  dgrad {row['dtype']:8s} {shape} ({cout}->{cin}): "
+                  f"max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms; {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['bound_share']:.3f} of the bound", flush=True)
+            if not err <= bar:
+                fail(f"dgrad {row['dtype']} {shape}: max|diff| {err} > {bar}")
+            # wgrad: dW (3, 3, cin, cout); f32: sums over n*h*w pixels in
+            # another order, 1e-5 of the largest; bf16: one rounding flip
+            got = conv3x3_wgrad(x, dy)
+            again = conv3x3_wgrad(x, dy)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"wgrad {dtype} {shape}: two launches differ")
+            ref = reference_conv3x3_wgrad(x, dy)
+            err = (got.float() - ref.float()).abs().max().item()
+            refmax = ref.float().abs().max().item()
+            bar = (1e-5 * max(1.0, refmax) if dtype == torch.float32
+                   else 2.0 ** -7 * refmax)
+            ms = time_ms(lambda: conv3x3_wgrad(x, dy), 20)
+            plain_ms = time_ms(lambda: reference_conv3x3_wgrad(x, dy), 20)
+            lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_cl, (cout, cin, 3, 3), dy_cl, padding=1), 20)
+            b_ms, b_bytes, b_ops = bound(
+                (x.numel() + dy.numel() + got.numel()) * es, flops, dtype)
+            row = {"kind": "wgrad", "key": shape,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                   "flops": flops, **rate(flops, ms, b_ms)}
+            bwd_rows.append(row)
+            print(f"  wgrad {row['dtype']:8s} {shape}: max|diff| {err:.3e} "
+                  f"(bar {bar:.3e}), bits repeat; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms; {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['bound_share']:.3f} of the bound", flush=True)
+            if not err <= bar:
+                fail(f"wgrad {row['dtype']} {shape}: max|diff| {err} > {bar}")
+            del k, dy, x, k_cl, dy_cl, x_cl, got, again, ref
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- 5 B2 vs plain
     phase(f"B2 ode_block_rk2_forward vs its plain version (u={U}, "
           f"{N_STEPS} steps)")
     b2_rows = []
@@ -313,7 +448,7 @@ def main():
             del y0, w1, w2, got, ref
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------- 5 B3 vs plain
+    # ----------------------------------------------------- 6 B3 vs plain
     phase(f"B3 fused_group_norm_act vs its plain version (batch 256, "
           f"{GN_GROUPS} groups)")
     # the launch floor: a one-element add_ in the same kind of graph replay
@@ -413,7 +548,7 @@ def main():
                   f"{b / med * 1e3:.1f} img/s ({label})", flush=True)
         return counts, batches, requests, logits_by
 
-    # ------------------------------------------------------------ 6 serve
+    # ------------------------------------------------------------ 7 serve
     cudnn.allow_tf32, matmul.allow_tf32 = tf32_defaults
     print(f"serving under the process's TF32 flags: cudnn.allow_tf32 "
           f"{cudnn.allow_tf32}, matmul.allow_tf32 {matmul.allow_tf32} "
@@ -471,7 +606,7 @@ def main():
     del model, served, served_f32, requests, logits_bf16
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------- 7 serve MNIST
+    # ------------------------------------------------------- 8 serve MNIST
     phase(f"serve the MNIST MetaNODE (dim {MNIST_DIM}) in f32")
     mnist = build_model("mnist", dim=MNIST_DIM,
                         generator=torch.Generator().manual_seed(0))
@@ -507,6 +642,151 @@ def main():
         fail(f"MNIST f32 serving differs from the plain path by "
              f"{mnist_err}")
 
+    del mnist, mnist_served, requests, logits_f32
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 9 train
+    phase(f"train: the flagship adversarial step (premetanode10, in_planes "
+          f"64, GeLUpoly), bf16, batch {BATCH}")
+    model = build_model("premetanode10", in_planes=64,
+                        acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    attack_cfg = AttackConfig(mode="fgsm_random", eps=8 / 255,
+                              alpha=10 / 255, mean=CIFAR10_MEAN,
+                              std=CIFAR10_STD)
+    noise_cfg = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+
+    def train_step(use_kernels, dtype):
+        return make_train_step(model, opt, solvers, SolverOptions(),
+                               attack_cfg, noise_cfg, compute_dtype=dtype,
+                               use_kernels=use_kernels)
+
+    state = create_train_state(model, opt)
+    snapshot = {k: p.detach().clone() for k, p in state.params.items()}
+    gen_cpu.manual_seed(1)
+    x_train = torch.randn(BATCH, 32, 32, 3, generator=gen_cpu).to(dev)
+    y_train = torch.randint(0, 10, (BATCH,), generator=gen_cpu).to(dev)
+    step = train_step(True, torch.bfloat16)
+    step_gen = torch.Generator().manual_seed(10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, x_train, y_train, step_gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+          f"{metrics['loss'].item():.6f}", flush=True)
+    port.reset_launch_counts()
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, x_train, y_train, step_gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    train_counts = port.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"  losses: {[round(l, 6) for l in losses]}", flush=True)
+    print(f"  ms per step: {[round(m, 3) for m in step_ms]}", flush=True)
+    print(f"  median {med:.3f} ms per step over {TRAIN_STEPS} steps (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
+          f"{BATCH / med * 1e3:.1f} img/s (bf16, batch {BATCH}); peak "
+          f"memory {peak_gb:.2f} GiB", flush=True)
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"non-finite training loss: {losses}")
+    expected = {k: v * TRAIN_STEPS for k, v in TRAIN_PER_STEP.items()}
+    print(f"  launch counts: {train_counts} (expected {expected}: B1 "
+          f"{TRAIN_PER_STEP['conv3x3_same']}, dgrad "
+          f"{TRAIN_PER_STEP['conv3x3_dgrad']}, wgrad "
+          f"{TRAIN_PER_STEP['conv3x3_wgrad']}, B2 0, B3 0 per step, "
+          f"{TRAIN_STEPS} steps)", flush=True)
+    if train_counts != expected:
+        fail(f"train launch counts {train_counts} != expected {expected}")
+
+    # ------------------------------------------------ 10 train vs plain
+    phase("train: kernel path vs plain path from one state, draws pinned")
+
+    def restore():
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(snapshot[k])
+
+    restore()
+    solvers_t = [noise_solver(s, torch.Generator().manual_seed(3),
+                              std=0.0125, bernoulli_p=1.0,
+                              noise_type="normal") for s in solvers]
+    frozen = model.detached_params()
+    params = list(state.params.values())
+    xb, yb = x_train[:32], y_train[:32]
+
+    def forward(use_kernels, train, tree=None):
+        return lambda xi: model(xi, solvers_t, use_kernels=use_kernels,
+                                train=train, params=tree)
+
+    def attack(use_kernels):
+        return fgsm_random(forward(use_kernels, False, frozen),
+                           torch.Generator(device=dev).manual_seed(4), xb,
+                           yb, attack_cfg.eps, attack_cfg.alpha,
+                           CIFAR10_MEAN, CIFAR10_STD)[0]
+
+    with full_f32():
+        xa_k, xa_p = attack(True), attack(False)
+        # the plain path's input gradient at the pinned random start
+        u = torch.rand(xb.shape, generator=torch.Generator(
+            device=dev).manual_seed(4), device=dev)
+        m = torch.tensor(CIFAR10_MEAN, device=dev)
+        sd = torch.tensor(CIFAR10_STD, device=dev)
+        eps_c = attack_cfg.eps / sd
+        delta = torch.clamp(eps_c - 2.0 * eps_c * u, (0.0 - m) / sd - xb,
+                            (1.0 - m) / sd - xb).requires_grad_(True)
+        (g_in,) = torch.autograd.grad(cross_entropy(
+            forward(False, False, frozen)(xb + delta), yb), delta)
+        differ = xa_k != xa_p
+        n_differ = int(differ.sum())
+        tiny = g_in.abs() < 1e-6 * g_in.abs().max()
+        worst = (g_in.abs()[differ].max() / g_in.abs().max()).item() \
+            if n_differ else 0.0
+        share = n_differ / differ.numel()
+        print(f"  f32 batch 32: x_adv differs at {n_differ} of "
+              f"{differ.numel()} pixels ({share:.2e}; at most 1e-3), "
+              f"largest |input grad| there {worst:.2e} of the max (below "
+              f"1e-6), {int(tiny.sum())} pixels under 1e-6", flush=True)
+        if share > 1e-3 or bool((differ & ~tiny).any()):
+            fail(f"kernel and plain attacks differ at {n_differ} pixels, "
+                 f"gradient up to {worst:.2e} of the max")
+        grads = []
+        for use_kernels in (True, False):
+            loss = cross_entropy(forward(use_kernels, True)(xa_p), yb)
+            grads.append(torch.autograd.grad(loss, params))
+        gmax = max(g.abs().max().item() for g in grads[1])
+        gerr = max((a - b).abs().max().item()
+                   for a, b in zip(*grads))
+        print(f"  f32 batch 32: param grads at the plain x_adv, max|diff| "
+              f"{gerr:.3e} (bar 1e-4 x max|g| = {1e-4 * gmax:.3e})",
+              flush=True)
+        if not gerr <= 1e-4 * gmax:
+            fail(f"kernel and plain param grads differ by {gerr}")
+    del grads, g_in, delta
+
+    results = {}
+    for use_kernels in (True, False):
+        restore()
+        st = create_train_state(model, opt)
+        _, mt = train_step(use_kernels, torch.bfloat16)(
+            st, x_train, y_train, torch.Generator().manual_seed(20))
+        results[use_kernels] = (mt["loss"].item(), mt["grad_norm"].item())
+    (lk, nk), (lp, np_) = results[True], results[False]
+    loss_bar = 2e-2 * max(1.0, abs(lp))
+    norm_rel = abs(nk - np_) / np_
+    print(f"  bf16 batch {BATCH}: loss {lk:.6f} vs plain {lp:.6f} (|diff| "
+          f"{abs(lk - lp):.3e}, bar {loss_bar:.3e}); grad norm {nk:.6f} vs "
+          f"{np_:.6f} (relative {norm_rel:.3e}, bar 5e-2)", flush=True)
+    if not (abs(lk - lp) <= loss_bar and norm_rel <= 5e-2):
+        fail("bf16 train step: kernel and plain paths disagree")
+    del model, state, snapshot
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -536,6 +816,8 @@ def main():
                                    "launches": cifar_counts.get(name, 0)},
             "mnist f32": {"requests": mnist_requests,
                           "launches": mnist_counts.get(name, 0)},
+            "flagship train bf16": {"steps": TRAIN_STEPS,
+                                    "launches": train_counts.get(name, 0)},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -545,11 +827,25 @@ def main():
     b1_cifar = Counter(c[1:6] for c in B1_CALLS)
     b3_mnist = {c[1:6]: c[6] for c in B3_CALLS}
     b1_mnist = {c[1:6]: c[6] for c in B1_MNIST_CALLS}
+    dgrad_rows = [r for r in bwd_rows if r["kind"] == "dgrad"]
+    wgrad_rows = [r for r in bwd_rows if r["kind"] == "wgrad"]
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
               per_request_sums(b1_rows, b1_cifar, "bfloat16"),
-              mnist_f32=per_request_sums(b1_rows, b1_mnist, "float32")),
+              mnist_f32=per_request_sums(b1_rows, b1_mnist, "float32"),
+              train_step_bf16=per_request_sums(b1_rows, TRAIN_FWD,
+                                               "bfloat16"),
+              dgrad={"launches": train_counts.get("conv3x3_dgrad", 0),
+                     **per_request_sums(dgrad_rows, TRAIN_DGRAD,
+                                        "bfloat16")}),
+        entry("conv3x3_wgrad",
+              "neural_ode_metasolver_tpu_torch/csrc/conv3x3_wgrad.cu",
+              "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
+              per_request_sums(wgrad_rows, TRAIN_WGRAD, "bfloat16"),
+              f32=per_request_sums(wgrad_rows, TRAIN_WGRAD, "float32"),
+              note="not a TPU kernel: the backward of B1 that slice 3 "
+                   "needs (the Pallas B1 has no VJP)"),
         entry("ode_block_rk2",
               "neural_ode_metasolver_tpu_torch/csrc/ode_block_rk2.cu",
               "neural_ode_metasolver_tpu/ops/pallas_ode_block.py:182",
@@ -572,7 +868,13 @@ def main():
              "the same calls in bf16; launch_floor_ms: one one-element add_ "
              "timed the same way), its library_ms F.group_norm plus "
              "torch.relu where the kernel fuses relu; max_abs_err: the "
-             "largest of those calls")
+             "largest of those calls.  The flagship train step (bf16, "
+             "batch 256): conv3x3_same's train_step_bf16 sums its 136 "
+             "forward launches a step, its dgrad (B1 on flipped weights, "
+             "launches counted as conv3x3_dgrad) the 135 dgrad launches a "
+             "step; conv3x3_wgrad's numbers sum its 68 launches a step "
+             "(f32: the same calls in f32), its library_ms "
+             "torch.nn.grad.conv2d_weight (dgrad: conv2d_input)")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

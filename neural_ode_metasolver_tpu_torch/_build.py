@@ -35,6 +35,7 @@ BUILD_DIR = os.path.join(_PKG, "_build_out")
 # library name -> (source, headers it includes)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "conv3x3": ("conv3x3.cu", ("conv3x3.cuh", "common.cuh")),
+    "conv3x3_wgrad": ("conv3x3_wgrad.cu", ("conv3x3.cuh", "common.cuh")),
     "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3.cuh", "common.cuh")),
     "group_norm_act": ("group_norm_act.cu", ("common.cuh",)),
 }
@@ -52,6 +53,12 @@ _SIGNATURES = {
     "conv3x3": {
         # dtype, x, w, out, N, H, W, Cin, Cout, device, stream
         "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "conv3x3_wgrad": {
+        # dtype, x, dy, workspace, out, N, H, W, Cin, Cout, splits, device,
+        # stream
+        "conv3x3_wgrad_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
     },
     "ode_block_rk2": {
         # dtype, epilogue, x, w, out, y, k1, aux, N, H, W, C, a, b1, b2,

@@ -11,6 +11,10 @@ them).  The plain versions the wrappers take for CPU tensors count nothing.
 
 ``full_f32()`` pins f32 convs and matmuls to full f32 (no TF32) for the
 duration of a call, whatever the process flags say.
+
+``check_forward_only`` guards the wrappers of forward-only kernels (B2, B3):
+their outputs are fresh tensors with no ``grad_fn``, so where a gradient
+could flow they raise instead of silently cutting it off.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 __all__ = [
     "resolve_device",
     "full_f32",
+    "check_forward_only",
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
@@ -63,6 +68,17 @@ def full_f32() -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def check_forward_only(what: str, **tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: the
+    kernel ``what`` has no backward and its output would be detached."""
+    needs = [k for k, t in tensors.items() if t.requires_grad]
+    if torch.is_grad_enabled() and needs:
+        raise RuntimeError(
+            f"{what} is a forward-only kernel, but {', '.join(needs)} "
+            "requires grad: its output would be cut off from autograd. "
+            "Run it under torch.no_grad() or take the differentiable path")
 
 
 def count_launch(name: str) -> None:

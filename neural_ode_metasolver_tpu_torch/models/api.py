@@ -40,13 +40,26 @@ def _as_module(tree: Any) -> nn.Module:
     raise TypeError(f"unexpected parameter-tree node {type(tree).__name__}")
 
 
+def _detached(node: Any) -> Any:
+    """A ModuleDict/ModuleList/ParameterDict tree as nested dicts and lists
+    of detached views of its tensors."""
+    if isinstance(node, nn.ParameterDict):
+        return {k: v.detach() for k, v in node.items()}
+    if isinstance(node, nn.ModuleDict):
+        return {k: _detached(v) for k, v in node.items()}
+    return [_detached(v) for v in node]
+
+
 class Model(nn.Module):
     """A MetaNODE: ``forward(x_nhwc, solvers, solver_options)`` -> logits in
-    x's dtype (eval mode).  ``input_shape`` is one image's (H, W, C).
+    x's dtype, eval mode unless ``train=True``.  ``input_shape`` is one
+    image's (H, W, C).
 
     An f32 forward computes in full f32, kernels and plain ops alike: it
     runs under ``backend.full_f32()``, so cuDNN never takes TF32 for its
-    convs whatever the process flags say."""
+    convs whatever the process flags say.  ``params`` runs the forward on
+    another tree of the same structure, such as ``detached_params()`` (the
+    attack's forward, which must not reach the weights)."""
 
     def __init__(self, cfg: Any, params: dict, apply_fn: Callable,
                  input_shape: Tuple[int, int, int]):
@@ -60,13 +73,21 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def detached_params(self) -> Any:
+        """The parameters as the family's nested dicts and lists of
+        detached views (same storage, no gradient)."""
+        return _detached(self.params)
+
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True, train: bool = False,
+                params: Any = None) -> torch.Tensor:
         if solver_options is None:
             solver_options = SolverOptions()
         with full_f32():
-            return self.apply_fn(self.params, x, solvers, solver_options,
-                                 cfg=self.cfg, use_kernels=use_kernels)
+            return self.apply_fn(
+                self.params if params is None else params, x, solvers,
+                solver_options, cfg=self.cfg, use_kernels=use_kernels,
+                train=train)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,

@@ -79,8 +79,13 @@ def conv2d(params: Params, x: torch.Tensor, stride: int = 1,
     """2-D convolution, NHWC x HWIO -> NHWC (contiguous), symmetric integer
     padding; the kernel is cast to x's dtype."""
     kernel = params["kernel"].to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                 stride=stride, padding=padding)
+    xi = x.permute(0, 3, 1, 2)
+    if x.device.type == "cpu" and stride != 1:
+        # torch 2.13's CPU build (oneDNN 3.12) corrupts its heap in the
+        # backward of a strided 1x1 conv on a channels-last input
+        xi = xi.contiguous()
+    y = F.conv2d(xi, kernel.permute(3, 2, 0, 1), stride=stride,
+                 padding=padding)
     y = y.permute(0, 2, 3, 1).contiguous()
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)

@@ -6,24 +6,28 @@ Architecture (reference odenet_cifar10/layers.py:317-426):
   MetaLayers (strides 1,2,2,2; widths x1,2,4,8; each = PreBasicBlocks then
   meta-ODE blocks) -> global average pool -> Linear
 
-This slice ports the eval-mode forward of the ``prebasic`` ODE-net family
-(premetanode4..34) with NF norms and PNF param-norms, in standalone mode.
-It runs act(bn1(conv1(x))) up front, as the JAX package's default
-``faithful_preact_bug=True`` and every published checkpoint do.  The
-``basic`` family, the ResNet block counts (``is_odenet=False``), the
-``faithful_preact_bug=False`` order, other norms, the ss-loss and training
-mode land with ROADMAP A10/A11/A7.
+This port covers the forward of the ``prebasic`` ODE-net family
+(premetanode4..34) with NF norms and PNF param-norms, in standalone mode,
+in eval and train mode (the same function for these norms, as in JAX), and
+differentiable end to end.  It runs act(bn1(conv1(x))) up front, as the
+JAX package's default ``faithful_preact_bug=True`` and every published
+checkpoint do.  The ``basic`` family, the ResNet block counts
+(``is_odenet=False``), the ``faithful_preact_bug=False`` order, other norms
+and the ss-loss land with ROADMAP A10/A11.
 
 Dispatch (``use_kernels=True``):
-  * every stride-1 3x3 conv outside the ODE blocks goes to kernel B1
-    (``ops.conv3x3.conv3x3_same``); other convs use ``F.conv2d``;
+  * every stride-1 3x3 conv, inside the ODE RHS and out, goes to kernel B1
+    (``ops.conv3x3.conv3x3_same``, whose backward is B1's dgrad and the
+    wgrad kernel); other convs use ``F.conv2d``;
   * an ODE block goes to kernel B2 (``ops.ode_block.ode_block_rk2_forward``)
-    when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2 and the solver list
-    is one rk2 solver with n_steps set, in standalone mode; otherwise it
-    takes the generic ``meta_integrate`` over the torch RHS, the port's
+    when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2, the solver list is
+    one rk2 solver with n_steps set, in standalone mode, and no gradient can
+    flow (grad mode off, or neither the block's input nor its weights
+    require grad): B2, like the Pallas kernel, has no backward.  Otherwise
+    it takes the generic ``meta_integrate`` over the torch RHS, the port's
     counterpart of the JAX package's XLA path.
-``use_kernels=False`` takes the generic path everywhere: the plain path the
-kernels are checked against on the card.
+``use_kernels=False`` takes the generic path with ``F.conv2d`` everywhere:
+the plain path the kernels are checked against on the card.
 """
 from __future__ import annotations
 
@@ -84,14 +88,20 @@ def _pn_conv_init(gen: torch.Generator, in_ch: int, out_ch: int, k: int
     return fnn.conv2d_init(gen, in_ch, out_ch, k, use_bias=False)
 
 
-def _pn_conv(pn: ParamNormDef, params: Params, x: torch.Tensor, stride: int,
-             padding: int, use_kernels: bool) -> torch.Tensor:
-    p_eff = pn.materialize(params)
+def _conv(p_eff: Params, x: torch.Tensor, stride: int, padding: int,
+          use_kernels: bool) -> torch.Tensor:
+    """A materialized conv: kernel B1 for a stride-1 SAME 3x3 conv without
+    bias when ``use_kernels``, else ``F.conv2d``."""
     kernel = p_eff["kernel"]
     if (use_kernels and stride == 1 and padding == 1
             and tuple(kernel.shape[:2]) == (3, 3) and "bias" not in p_eff):
         return conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
     return fnn.conv2d(p_eff, x, stride=stride, padding=padding)
+
+
+def _pn_conv(pn: ParamNormDef, params: Params, x: torch.Tensor, stride: int,
+             padding: int, use_kernels: bool) -> torch.Tensor:
+    return _conv(pn.materialize(params), x, stride, padding, use_kernels)
 
 
 # ------------------------------------------------------------- res blocks --
@@ -135,14 +145,15 @@ def _materialize_odefunc(cfg, p):
             "conv2": pnd.materialize(p["conv2"])}
 
 
-def _odefunc_apply(cfg, p_eff, t, x):
-    """PreBasicBlock2 RHS (layers.py:148-161); t is unused (autonomous)."""
+def _odefunc_apply(cfg, p_eff, t, x, use_kernels=False):
+    """PreBasicBlock2 RHS (layers.py:148-161); t is unused (autonomous).
+    Its two convs go to kernel B1 when ``use_kernels``."""
     del t
     nd, act = cfg.norm_def(1), cfg.act(1)
     out = act(nd.apply(x))
-    out = fnn.conv2d(p_eff["conv1"], out, stride=1, padding=1)
+    out = _conv(p_eff["conv1"], out, 1, 1, use_kernels)
     out = act(nd.apply(out))
-    return fnn.conv2d(p_eff["conv2"], out, stride=1, padding=1)
+    return _conv(p_eff["conv2"], out, 1, 1, use_kernels)
 
 
 def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
@@ -177,19 +188,26 @@ def _meta_layer_init(gen, planes, num_blocks, stride, in_planes):
     return p, cur
 
 
+def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(p["kernel"].requires_grad for p in p_eff.values()))
+
+
 def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels):
     for i, bp in enumerate(p["res"]):
         x = _pre_block_apply(cfg, bp, x, strides[i], use_kernels)
     u_k = _ode_kernel_u(cfg, solvers, options) if use_kernels else None
     for bp in p["ode"]:
         p_eff = _materialize_odefunc(cfg, bp)
-        if u_k is not None:  # kernel B2
+        if u_k is not None and not _grad_can_flow(x, p_eff):  # kernel B2
             x = ode_block_rk2_forward(
                 x, p_eff["conv1"]["kernel"].to(x.dtype),
                 p_eff["conv2"]["kernel"].to(x.dtype), u_k, solvers[0].n_steps,
             )
         else:
-            rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y)
+            rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
+                                                        use_kernels)
             x, _ = meta_integrate(solvers, rhs, x, options)
     return x
 
@@ -229,8 +247,12 @@ def apply_cifar(
     *,
     cfg: CifarConfig = CifarConfig(),
     use_kernels: bool = True,
+    train: bool = False,
 ) -> torch.Tensor:
-    """Eval-mode forward of NHWC ``x``; returns the logits in x's dtype."""
+    """Forward of NHWC ``x``; returns the logits in x's dtype.  ``train``
+    selects train mode, the same function for the ported NF/PNF norms (as
+    in JAX, where train mode only changes BN/SN, ROADMAP A11)."""
+    del train
     _check_ported(cfg)
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
         raise ValueError("this config integrates ODE blocks: pass "

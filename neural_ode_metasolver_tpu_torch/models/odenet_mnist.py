@@ -212,6 +212,7 @@ def apply_mnist(
     *,
     cfg: MnistConfig = MnistConfig(),
     use_kernels: bool = True,
+    train: bool = False,
     ss_loss: bool = False,
     remat: bool = False,
     unroll: int = 1,
@@ -219,7 +220,8 @@ def apply_mnist(
 ) -> torch.Tensor:
     """Eval-mode forward of NHWC ``x``; returns the logits in x's dtype."""
     _check_cfg(cfg)
-    for name, value, off in (("ss_loss", ss_loss, False),
+    for name, value, off in (("train", train, False),
+                             ("ss_loss", ss_loss, False),
                              ("remat", remat, False), ("unroll", unroll, 1)):
         if value != off:
             raise NotImplementedError(

@@ -1,7 +1,14 @@
 """Solver core and kernels of the PyTorch port (mirrors the JAX ``ops``)."""
-from .conv3x3 import conv3x3_same, reference_conv3x3
+from .conv3x3 import (
+    conv3x3_dgrad,
+    conv3x3_same,
+    conv3x3_wgrad,
+    reference_conv3x3,
+    reference_conv3x3_wgrad,
+)
 from .group_norm import fused_group_norm_act, group_norm_reference
 from .integrate import make_time_grid, odeint_final, rk_step
+from .noise import noise_params, noise_solver, sample_noise
 from .ode_block import ode_block_rk2_forward, reference_ode_block_rk2
 from .regimes import SolverOptions, meta_integrate
 from .solver import ParametricSolver, create_solver, parse_solver_dsl
@@ -18,21 +25,27 @@ __all__ = [
     "ButcherTableau",
     "ParametricSolver",
     "SolverOptions",
+    "conv3x3_dgrad",
     "conv3x3_same",
+    "conv3x3_wgrad",
     "create_solver",
     "euler_tableau",
     "fused_group_norm_act",
     "group_norm_reference",
     "make_time_grid",
     "meta_integrate",
+    "noise_params",
+    "noise_solver",
     "ode_block_rk2_forward",
     "odeint_final",
     "parse_solver_dsl",
     "reference_conv3x3",
+    "reference_conv3x3_wgrad",
     "reference_ode_block_rk2",
     "rk2_tableau",
     "rk3_tableau",
     "rk4_tableau",
     "rk_step",
+    "sample_noise",
     "validity_eps",
 ]

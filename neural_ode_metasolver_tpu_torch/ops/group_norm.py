@@ -30,7 +30,8 @@ re-reading path through shared memory; both add in a fixed order, so a
 launch repeats its bits.  ``fused_group_norm_act`` launches the kernel for
 CUDA tensors and takes the plain version, ``group_norm_reference``, only
 for CPU tensors.  The backward (the JAX package's custom VJP) comes with
-MNIST training.
+MNIST training; until then the CUDA wrapper raises when a gradient could
+flow (``backend.check_forward_only``).
 """
 from __future__ import annotations
 
@@ -232,6 +233,8 @@ def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
     _check_args(x, scale, bias, num_groups, act)
     if all(t.device.type == "cpu" for t in (x, scale, bias)):
         return group_norm_reference(x, scale, bias, num_groups, eps, act)
+    backend.check_forward_only("fused_group_norm_act", x=x, scale=scale,
+                               bias=bias)
     _build.check_cuda_tensors("fused_group_norm_act", x.dtype, x=x)
     _build.check_cuda_tensors("fused_group_norm_act", torch.float32,
                               scale=scale, bias=bias)

@@ -19,7 +19,9 @@ instead, which is why bf16 results of the two differ by more.)
 
 ``ode_block_rk2_forward`` runs the schedule on the kernel for CUDA tensors
 and takes the plain version, ``reference_ode_block_rk2``, only for CPU
-tensors.  ``plain_launch`` is the plain version of one launch, so a CPU test
+tensors.  Like the Pallas kernel it has no backward: on CUDA tensors it
+raises when a gradient could flow (``backend.check_forward_only``), and the
+model takes it only where none can.  ``plain_launch`` is the plain version of one launch, so a CPU test
 can run the schedule itself.
 """
 from __future__ import annotations
@@ -207,6 +209,7 @@ def ode_block_rk2_forward(y0: torch.Tensor, w1: torch.Tensor,
     u = float(u)
     if all(t.device.type == "cpu" for t in (y0, w1, w2)):
         return reference_ode_block_rk2(y0, w1, w2, u, n_steps)
+    backend.check_forward_only("ode_block_rk2_forward", y0=y0, w1=w1, w2=w2)
     _build.check_cuda_tensors("ode_block_rk2_forward", y0.dtype,
                               y0=y0, w1=w1, w2=w2)
     _rk2_coeffs(u, n_steps)

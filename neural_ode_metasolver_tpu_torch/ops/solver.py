@@ -2,7 +2,8 @@
 
 A solver is a frozen dataclass whose only tensors are ``u``/``v``; the
 tableau is rebuilt from them (about 20 scalar operations) at each use, so a
-new parameter is ``dataclasses.replace(solver, u=...)``.  ``create_solver``
+new parameter is ``solver.with_params(u=...)`` (a ``dataclasses.replace``)
+and ``reset_params`` restores (u0, v0), the reference's denoise step.  ``create_solver``
 and the ``--solvers`` mini-DSL keep CLI parity with the reference
 (odenet_mnist/runner.py:31-41; solvers/utils.py:13-57).
 
@@ -12,7 +13,7 @@ trajectory-returning ``integrate``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional
 
 import torch
@@ -48,6 +49,35 @@ class ParametricSolver:
     @property
     def order(self) -> int:
         return _ORDERS[self.method]
+
+    def with_params(self, u=None, v=None) -> "ParametricSolver":
+        """A solver with new u/v in the dtypes of the current ones.  Raises
+        if a parameter is supplied that this solver does not have (e.g.
+        ``v`` on an rk2 solver): dropping it would turn a mistaken update
+        into a no-op."""
+        new = self
+        if u is not None:
+            if self.u is None:
+                raise ValueError(
+                    f"solver {self.method!r}/{self.parameterization!r} has "
+                    "no parameter u")
+            new = replace(new, u=torch.as_tensor(u, dtype=self.u.dtype))
+        if v is not None:
+            if self.v is None:
+                raise ValueError(
+                    f"solver {self.method!r}/{self.parameterization!r} has "
+                    "no parameter v")
+            new = replace(new, v=torch.as_tensor(v, dtype=self.v.dtype))
+        return new
+
+    def reset_params(self) -> "ParametricSolver":
+        """Restore u0/v0 (reference 'denoise' step, runner.py:201-204),
+        keeping the dtypes the solver was created with."""
+        u_dt = torch.float32 if self.u is None else self.u.dtype
+        v_dt = torch.float32 if self.v is None else self.v.dtype
+        u = None if self.u0 is None else torch.tensor(self.u0, dtype=u_dt)
+        v = None if self.v0 is None else torch.tensor(self.v0, dtype=v_dt)
+        return replace(self, u=u, v=v)
 
     def tableau(self) -> ButcherTableau:
         if self.method == "euler":

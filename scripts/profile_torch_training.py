@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Where a flagship train step's time goes in the PyTorch port, on the card.
+
+    python3 scripts/profile_torch_training.py [--trace-dir DIR] [batch ...]
+
+Runs the train step of ``bench.py:94-113`` (premetanode10, in_planes 64,
+GeLUpoly, RK2 u=0.5 8 steps with Normal(0.0125) smoothing, FGSM-random
+8/255 and 10/255, SGD momentum 0.9, weight decay 5e-4, cyclic lr), random
+weights from seed 0, seeded images and labels, in bf16.  For each batch
+size (default 256), after a warm-up
+step, it times 5 steps without the profiler (host clock, median), then
+traces 2 steps with ``torch.profiler`` (CPU and CUDA activities).  Prints
+per traced step: the host-clock time, the device time summed over kernels,
+the device busy share (their ratio; 1 minus it is the idle share), the
+number of device operations, device time by phase of the step (the
+kernels of the ops launched while a ``nodems.*`` range of
+``training/train.py`` was open, by their CPU start), by kind (B1's forward and
+dgrad kernels, the wgrad kernel, cuDNN's convs, copies, other PyTorch
+kernels) and by kernel name (the 16 largest), and the peak device memory.
+With ``--trace-dir`` it also writes each chrome trace there.  Imports no
+JAX; needs a CUDA device.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+N_TRACED = 2
+N_TIMED = 5
+N_TOP = 16
+CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)  # JAX data/datasets.py:43-44
+CIFAR10_STD = (0.2023, 0.1994, 0.2010)
+
+
+def kind(name):
+    """The kind of a device operation, by its kernel name."""
+    if "nodems::" in name:  # B2 and B3 do not run in training
+        return "wgrad kernel" if "wgrad" in name else "B1 forward and dgrad"
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
+                               "wgrad", "dgrad")):
+        return "cuDNN convs"
+    return "other PyTorch kernels"
+
+
+def main(batches, trace_dir=None):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        cyclic_lr,
+        make_optimizer,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    model = build_model("premetanode10", in_planes=64, acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    step = make_train_step(
+        model, opt, parse_solver_dsl("rk2,u,8,-1,0.5,-1"), SolverOptions(),
+        AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
+                     mean=CIFAR10_MEAN, std=CIFAR10_STD),
+        NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0),
+        compute_dtype=torch.bfloat16)
+    state = create_train_state(model, opt)
+    gen = torch.Generator().manual_seed(10)
+    rows = []
+    for batch in batches:
+        g = torch.Generator().manual_seed(1)
+        x = torch.randn(batch, 32, 32, 3, generator=g).to(dev)
+        y = torch.randint(0, 10, (batch,), generator=g).to(dev)
+        state, _ = step(state, x, y, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        untraced = []
+        for _ in range(N_TIMED):
+            t0 = time.perf_counter()
+            state, m = step(state, x, y, gen)
+            torch.cuda.synchronize()
+            untraced.append((time.perf_counter() - t0) * 1e3)
+        untraced_ms = sorted(untraced)[N_TIMED // 2]
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(N_TRACED):
+                state, m = step(state, x, y, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / N_TRACED
+        events = prof.events()
+        by_name = {}
+        n_device_ops = 0
+        for e in events:  # device operations (not the ranges' GPU spans)
+            if e.device_type == DeviceType.CUDA \
+                    and not e.name.startswith("nodems."):
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us()
+                n_device_ops += 1
+        device_ms = sum(by_name.values()) / 1e3 / N_TRACED
+        # a kernel belongs to the phase whose CPU-side nodems.* range was
+        # open when the op that launched it started: the backward's ops run
+        # on autograd's own thread, outside the range's thread, so neither
+        # the range's own device time nor its GPU-side span sees them
+        windows = [(e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.device_type == DeviceType.CPU
+                   and e.name.startswith("nodems.")]
+        by_phase = {}
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            phase = next((n for t0, t1, n in windows
+                          if t0 <= e.time_range.start < t1), "outside")
+            by_phase[phase] = by_phase.get(phase, 0.0) + sum(
+                k.duration for k in e.kernels) / 1e3 / N_TRACED
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:N_TOP]
+        by_kind = {}
+        for k, v in by_name.items():
+            by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + v / 1e3 / N_TRACED
+        row = {
+            "batch": batch, "untraced_median_ms": untraced_ms,
+            "untraced_img_per_s": batch / untraced_ms * 1e3,
+            "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "device_ops_per_step": n_device_ops / N_TRACED,
+            "peak_memory_gib": peak_gib,
+            "device_ms_by_phase": by_phase,
+            "device_ms_by_kind": by_kind,
+            "device_ms_by_kernel": {k: v / 1e3 / N_TRACED for k, v in top},
+        }
+        rows.append(row)
+        if trace_dir is not None:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                trace_dir, f"torch_training_bf16_b{batch}.trace.json"))
+        print(f"batch {batch} bf16: untraced median "
+              f"{untraced_ms:.3f} ms over {N_TIMED} steps "
+              f"({row['untraced_img_per_s']:.1f} img/s); traced "
+              f"{wall_ms:.3f} ms per step (host clock), {device_ms:.3f} ms "
+              f"of kernels, busy share {row['device_busy_share']:.3f}, "
+              f"{row['device_ops_per_step']:g} device ops, peak memory "
+              f"{peak_gib:.2f} GiB; last loss {m['loss'].item():.6f}",
+              flush=True)
+        for k, v in sorted(by_phase.items()):
+            print(f"  {v:9.3f} ms  (kernels of phase {k})")
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"  {v:9.3f} ms  ({k})")
+        for k, v in row["device_ms_by_kernel"].items():
+            print(f"  {v:9.3f} ms  {k[:100]}")
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "dtype": "bfloat16", "rows": rows}))
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("batches", nargs="*", type=int, default=[256])
+    args = ap.parse_args()
+    main(args.batches, args.trace_dir)

@@ -243,3 +243,232 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         fused_group_norm_act(x, s.cpu(), s.cpu(), 8)
     with pytest.raises(ValueError):
         fused_group_norm_act(x.transpose(1, 2), s, s, 8)
+
+
+# (N, H, W, Cin, Cout) of the forward conv whose backward runs
+B1_BWD_SHAPES = [
+    (256, 32, 32, 3, 64),      # the flagship stem (its dgrad: 64 -> 3)
+    (256, 32, 32, 64, 64),     # layer 1
+    (256, 16, 16, 128, 128),   # layer 2
+    (3, 13, 21, 40, 72),       # ragged M, Cout 72
+    (2, 8, 8, 64, 3),          # Cout 3
+    (2, 9, 11, 5, 16),         # Cin 5: element copies in both dtypes
+    (1, 6, 6, 65, 64),         # Cin 65, M = 36: a mostly empty K step
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", B1_BWD_SHAPES)
+def test_conv3x3_dgrad_kernel_matches_plain(dev, dtype, shape):
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_dgrad,
+        flip_weights,
+        reference_conv3x3,
+    )
+
+    n, h, w, cin, cout = shape
+    dy = _randn((n, h, w, cout), 1.0, 0, dev, dtype)
+    k = _randn((3, 3, cin, cout), (9 * cout) ** -0.5, 1, dev, dtype)
+    reset_launch_counts()
+    got = conv3x3_dgrad(dy, k)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv3x3_dgrad": 1}
+    assert got.shape == (n, h, w, cin) and got.dtype == dtype
+    ref = reference_conv3x3(dy, flip_weights(k))
+    refmax = ref.float().abs().max()
+    # B1's bars: f32 sum order only; bf16 one rounding flip
+    bar = 1e-4 * max(1.0, refmax) if dtype == torch.float32 else 2.0 ** -7 * refmax
+    assert (got.float() - ref.float()).abs().max() <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", B1_BWD_SHAPES)
+def test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, shape):
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_wgrad,
+        reference_conv3x3_wgrad,
+    )
+
+    n, h, w, cin, cout = shape
+    x = _randn((n, h, w, cin), 1.0, 0, dev, dtype)
+    dy = _randn((n, h, w, cout), 1.0, 1, dev, dtype)
+    reset_launch_counts()
+    got = conv3x3_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv3x3_wgrad": 1}
+    assert got.shape == (3, 3, cin, cout) and got.dtype == dtype
+    ref = reference_conv3x3_wgrad(x, dy)
+    refmax = ref.float().abs().max()
+    # f32: sums over N*H*W pixels in another order, 1e-5 of the largest;
+    # bf16: products exact, sums f32, one rounding flip
+    bar = 1e-5 * max(1.0, refmax) if dtype == torch.float32 else 2.0 ** -7 * refmax
+    assert (got.float() - ref.float()).abs().max() <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 32, 64, 64), (256, 16, 16, 128, 128),
+                                   (5, 7, 9, 3, 72)])
+def test_conv3x3_wgrad_kernel_repeats_its_bits(dev, dtype, shape):
+    """Fixed-order sums of the K ranges: two launches, the same bits."""
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_wgrad
+
+    n, h, w, cin, cout = shape
+    x = _randn((n, h, w, cin), 1.0, 2, dev, dtype)
+    dy = _randn((n, h, w, cout), 1.0, 3, dev, dtype)
+    assert torch.equal(conv3x3_wgrad(x, dy), conv3x3_wgrad(x, dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 16, 16, 3, 64), (2, 8, 8, 64, 64),
+                                   (2, 8, 8, 128, 3)])
+def test_conv3x3_autograd_matches_conv2d(dev, dtype, shape):
+    """B1's autograd grads (dgrad and wgrad kernels) against F.conv2d's."""
+    import torch.nn.functional as F
+
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_same
+
+    n, h, w, cin, cout = shape
+    x = _randn((n, h, w, cin), 1.0, 4, dev, dtype).requires_grad_(True)
+    k = _randn((3, 3, cin, cout), (9 * cin) ** -0.5, 5, dev,
+               dtype).requires_grad_(True)
+    dy = _randn((n, h, w, cout), 1.0, 6, dev, dtype)
+    reset_launch_counts()
+    gx, gk = torch.autograd.grad(conv3x3_same(x, k), [x, k], dy)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv3x3_same": 1, "conv3x3_dgrad": 1,
+                               "conv3x3_wgrad": 1}
+    x2, k2 = x.detach().float().requires_grad_(), k.detach().float().requires_grad_()
+    y2 = F.conv2d(x2.permute(0, 3, 1, 2), k2.permute(3, 2, 0, 1), padding=1)
+    rx, rk = torch.autograd.grad(y2.permute(0, 2, 3, 1), [x2, k2], dy.float())
+    for got, ref in ((gx, rx), (gk, rk)):
+        assert got.dtype == dtype
+        refmax = ref.abs().max()
+        bar = 1e-5 * max(1.0, refmax) if dtype == torch.float32 else 2.0 ** -7 * refmax
+        assert (got.float() - ref).abs().max() <= bar
+
+
+def test_forward_only_kernels_refuse_a_gradient(dev):
+    """B2 and B3 have no backward: on CUDA tensors that require grad they
+    raise instead of returning an output cut off from autograd."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.ode_block import (
+        ode_block_rk2_forward,
+    )
+
+    y0 = _randn((1, 8, 8, 64), 0.5, 7, dev, torch.float32)
+    w = _randn((3, 3, 64, 64), 0.05, 8, dev, torch.float32)
+    s = torch.ones(64, device=dev)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ode_block_rk2_forward(y0.requires_grad_(True), w, w, 0.5, 1)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ode_block_rk2_forward(y0.detach(), w.requires_grad_(True), w, 0.5, 1)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_group_norm_act(y0, s, s, 32, act="relu")
+    assert launch_counts() == {}
+    with torch.no_grad():
+        ode_block_rk2_forward(y0, w, w, 0.5, 1)
+        fused_group_norm_act(y0, s, s, 32, act="relu")
+    assert launch_counts() == {"ode_block_rk2": 5, "group_norm_act": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_kernel_path_matches_plain_path(dev, dtype):
+    """One flagship train step (premetanode10 at in_planes 16, batch 8),
+    kernel path against plain path from one state, draws pinned by the
+    seeds: f32 the bars of chip_smoke.py phase 10 (x_adv equal but at
+    pixels with an input gradient under 1e-6 of the max, at most 0.1% of
+    them; param grads at the same x_adv within 1e-4 of max|g|); bf16 one
+    step's loss within 2e-2 and grad norm within 5e-2 relative."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import (
+        cross_entropy,
+        fgsm_random,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        cyclic_lr,
+        make_optimizer,
+        make_train_step,
+    )
+
+    mean, std = (0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)
+    model = build_model("premetanode10", in_planes=16, acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    attack = AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
+                          mean=mean, std=std)
+    noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    x = _randn((8, 32, 32, 3), 1.0, 9, dev, torch.float32)
+    y = torch.arange(8, device=dev) % 10
+    snapshot = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = {}
+    for use_kernels in (True, False):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(snapshot[k])
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, solvers, SolverOptions(), attack,
+                               noise, compute_dtype=dtype,
+                               use_kernels=use_kernels)
+        reset_launch_counts()
+        _, m = step(state, x, y, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        out[use_kernels] = (m["loss"].item(), m["grad_norm"].item(),
+                            launch_counts())
+    (lk, nk, counts_k), (lp, np_, counts_p) = out[True], out[False]
+    # 68 forward convs a pass, two passes; the training pass's input and
+    # the attack's weights are detached
+    assert counts_k == {"conv3x3_same": 136, "conv3x3_dgrad": 135,
+                        "conv3x3_wgrad": 68}
+    assert counts_p == {}
+    assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
+    assert abs(nk - np_) <= 5e-2 * np_
+    if dtype == torch.bfloat16:
+        return
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(snapshot[k])
+    frozen = model.detached_params()
+    fwd = lambda uk, train, tree=None: (
+        lambda xi: model(xi, solvers, use_kernels=uk, train=train, params=tree))
+    xa = [fgsm_random(fwd(uk, False, frozen),
+                      torch.Generator(device=dev).manual_seed(2), x, y,
+                      8 / 255, 10 / 255, mean, std)[0] for uk in (True, False)]
+    differ = xa[0] != xa[1]
+    assert differ.float().mean() <= 1e-3
+    params = [p for _, p in model.named_parameters()]
+    grads = [torch.autograd.grad(cross_entropy(fwd(uk, True)(xa[1]), y), params)
+             for uk in (True, False)]
+    gmax = max(g.abs().max() for g in grads[1])
+    assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-4 * gmax

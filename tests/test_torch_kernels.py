@@ -3,7 +3,8 @@
 B1 (``ops/conv3x3.py``) and B2 (``ops/ode_block.py``): on CPU tensors each
 wrapper runs its plain version, which must match the JAX reference and the
 Pallas kernel run in interpret mode, at the bars of ``tests/test_pallas.py``
-and ``tests/test_pallas_ode_block.py``.  B2's launch schedule (which buffer
+and ``tests/test_pallas_ode_block.py``.  B1's backward (dgrad on B1, the
+wgrad's plain version) is held to ``jax.vjp`` of the JAX reference.  B2's launch schedule (which buffer
 each launch reads and writes) runs here through a plain executor of each
 launch.  The CUDA kernels themselves are checked against these plain
 versions on the card (``test_torch_cuda.py``).
@@ -22,8 +23,12 @@ from neural_ode_metasolver_tpu.ops.pallas_ode_block import (
 )
 from neural_ode_metasolver_tpu_torch import launch_counts, reset_launch_counts
 from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+    conv3x3_dgrad,
     conv3x3_same,
+    conv3x3_wgrad,
     reference_conv3x3,
+    reference_conv3x3_wgrad,
+    wgrad_splits,
 )
 from neural_ode_metasolver_tpu_torch.ops.ode_block import (
     GELU,
@@ -221,3 +226,83 @@ def test_b2_launch_schedule_through_plain_launches_matches_pallas(u,
     got = run_schedule(torch.tensor(y0), torch.tensor(w1), torch.tensor(w2),
                        u, n_steps, plain_launch)
     np.testing.assert_allclose(got.numpy(), pallas, atol=2e-5)
+
+
+# ------------------------------------------------------- B1's backward --
+
+BWD_SHAPES = [(2, 8, 8, 24, 40), (2, 8, 8, 3, 16), (2, 6, 7, 16, 3),
+              (1, 5, 7, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_b1_backward_matches_jax_vjp(shape):
+    """conv3x3_same's autograd backward on the plain path (dgrad as B1 on
+    flipped weights, wgrad's plain version) against jax.vjp of the JAX
+    reference_conv3x3, f32, atol 1e-5; Cin 3 (the stem) and Cout 3 (the
+    stem's dgrad) included.  The plain path counts no launch."""
+    import jax
+
+    x, k = _conv_inputs(*shape, seed=6)
+    # a cotangent at a loss gradient's scale: the wgrad sums stay near 1
+    dy = (0.1 * np.random.RandomState(7).randn(*shape[:3], shape[4])).astype(
+        np.float32)
+    _, vjp = jax.vjp(j_reference_conv3x3, jnp.asarray(x), jnp.asarray(k))
+    jx, jk = (np.asarray(a) for a in vjp(jnp.asarray(dy)))
+    xt = torch.tensor(x, requires_grad=True)
+    kt = torch.tensor(k, requires_grad=True)
+    reset_launch_counts()
+    gx, gk = torch.autograd.grad(conv3x3_same(xt, kt), [xt, kt],
+                                 torch.tensor(dy))
+    assert launch_counts() == {}
+    np.testing.assert_allclose(gx.numpy(), jx, atol=1e-5)
+    np.testing.assert_allclose(gk.numpy(), jk, atol=1e-5)
+    np.testing.assert_allclose(
+        conv3x3_dgrad(torch.tensor(dy), torch.tensor(k)).numpy(), jx,
+        atol=1e-5)
+    np.testing.assert_allclose(
+        conv3x3_wgrad(torch.tensor(x), torch.tensor(dy)).numpy(), jk,
+        atol=1e-5)
+
+
+def test_b1_backward_gradcheck_f64():
+    x = torch.randn(2, 4, 5, 3, dtype=torch.float64, requires_grad=True)
+    k = torch.randn(3, 3, 3, 4, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(conv3x3_same, (x, k))
+    # only what is asked for: a frozen weight takes no wgrad
+    y = conv3x3_same(x, k.detach())
+    (gx,) = torch.autograd.grad(y.sum(), [x])
+    assert gx.shape == x.shape
+
+
+def test_b1_wgrad_plain_matches_reference_and_bf16_rounds_once():
+    """The plain wgrad is the sum over pixels of shifted products; in bf16
+    it sums in f32 and rounds once (one bf16 ulp of the largest)."""
+    x, _ = _conv_inputs(2, 5, 6, 4, 3, seed=8)
+    dy = np.random.RandomState(9).randn(2, 5, 6, 3).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = np.stack([np.einsum("nhwc,nhwd->cd", xp[:, a:a + 5, b:b + 6], dy)
+                     for a in range(3) for b in range(3)]).reshape(3, 3, 4, 3)
+    got = reference_conv3x3_wgrad(torch.tensor(x), torch.tensor(dy))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    got16 = reference_conv3x3_wgrad(torch.tensor(x).bfloat16(),
+                                    torch.tensor(dy).bfloat16())
+    assert got16.dtype == torch.bfloat16
+    xb = torch.tensor(x).bfloat16().float().numpy()
+    db = torch.tensor(dy).bfloat16().float().numpy()
+    xbp = np.pad(xb, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want16 = np.stack([np.einsum("nhwc,nhwd->cd", xbp[:, a:a + 5, b:b + 6],
+                                 db) for a in range(3) for b in range(3)])
+    np.testing.assert_allclose(got16.float().numpy().reshape(9, 4, 3),
+                               want16, atol=2.0 ** -7 * np.abs(want16).max())
+
+
+def test_b1_wgrad_splits_plan():
+    """About one block per SM over the (Cin, Cout) tiles, never more ranges
+    than K steps; the flagship shapes on 132 SMs."""
+    sms = 132
+    assert wgrad_splits(256, 32, 32, 64, 64, torch.bfloat16, sms) == 132
+    assert wgrad_splits(256, 32, 32, 3, 64, torch.bfloat16, sms) == 132
+    assert wgrad_splits(256, 16, 16, 128, 128, torch.bfloat16, sms) == 33
+    assert wgrad_splits(256, 32, 32, 64, 64, torch.float32, sms) == 33
+    assert wgrad_splits(1, 4, 4, 64, 64, torch.bfloat16, sms) == 1
+    assert wgrad_splits(1, 6, 6, 65, 64, torch.float32, sms) == 1

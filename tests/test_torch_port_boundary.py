@@ -20,8 +20,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "neural_ode_metasolver_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 18 else 0)
+required = {pkg.__name__ + "." + m for m in (
+    "ops.noise", "ops.conv3x3", "attacks", "attacks.attacks", "training",
+    "training.optimizers", "training.schedules", "training.train")}
+print(len(names), bad, sorted(required - set(names)))
+sys.exit(1 if bad or len(names) < 25 or not required <= set(names) else 0)
 """
 
 
