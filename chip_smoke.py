@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the three CUDA kernels from ``neural_ode_metasolver_tpu_torch/
      csrc`` with nvcc for sm_90a, one process per source, all at once;
-     print ptxas's registers and spills, and the tensor-core instructions
-     (HMMA, HGMMA) in each library's SASS; fail if B1's or B2's has none;
+     print ptxas's registers, spills and warnings, and the tensor-core
+     instructions (HMMA, HGMMA) in each library's SASS; fail if B1's or
+     B2's has none, or the wgrad's has no HGMMA;
   3. kernel B1 (``conv3x3_same``) against its plain version at both served
      paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-6, the
      process defaults in 7-8; the train step pins full f32 itself), with
@@ -16,9 +17,10 @@ Phases, in order; any failure exits non-zero:
      (yardstick), and the kernel's TFLOP/s and share of its bound;
   4. B1's backward against its plain versions at the flagship train step's
      shapes, batch 256, f32 and bf16: the dgrad (``conv3x3_dgrad``, B1 on
-     flipped weights, the stem's with Cout 3) and the wgrad kernel
-     (``conv3x3_wgrad``), with cuDNN's ``conv2d_input`` / ``conv2d_weight``
-     as yardsticks, and two wgrad launches compared bit for bit;
+     flipped weights, the stem's with Cout 3) with the kernel path it took,
+     and the wgrad kernel (``conv3x3_wgrad``) with its launch plan, with
+     cuDNN's ``conv2d_input`` / ``conv2d_weight`` as yardsticks, and two
+     wgrad launches compared bit for bit;
   5. kernel B2 (``ode_block_rk2_forward``) against its plain version at the
      two ODE-block shapes, u = 0.5, 8 steps, f32 and bf16 (33 launches a
      solve: one GELU of y0, four convs a step), with TFLOP/s and share;
@@ -166,11 +168,13 @@ def main():
     from neural_ode_metasolver_tpu_torch.backend import full_f32
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
         conv3x3_dgrad,
+        conv3x3_path,
         conv3x3_same,
         conv3x3_wgrad,
         flip_weights,
         reference_conv3x3,
         reference_conv3x3_wgrad,
+        wgrad_plan,
     )
     from neural_ode_metasolver_tpu_torch.ops.noise import noise_solver
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
@@ -219,6 +223,9 @@ def main():
     print(f"built {sorted(per_lib)} in {build_s:.2f} s (parallel nvcc)",
           flush=True)
     for name in per_lib:
+        for line in _build.build_log(name).splitlines():
+            if "warning" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
         lines = [l.strip() for l in _build.build_log(name).splitlines()
                  if "registers" in l or "spill" in l]
         if len(lines) <= 24:
@@ -237,9 +244,10 @@ def main():
         mma = _build.sass_opcode_counts(name, ("HMMA", "HGMMA"))
         print(f"  SASS[{name}]: {mma['HMMA']} HMMA, {mma['HGMMA']} HGMMA "
               f"(tensor-core instructions)", flush=True)
-        if name in ("conv3x3", "conv3x3_wgrad", "ode_block_rk2") \
-                and not sum(mma.values()):
+        if name in ("conv3x3", "ode_block_rk2") and not sum(mma.values()):
             fail(f"the {name} library has no tensor-core instruction")
+        if name == "conv3x3_wgrad" and not mma["HGMMA"]:
+            fail("the wgrad library has no HGMMA: its TMA path needs wgmma")
 
     gen = torch.Generator(device=dev)
 
@@ -330,6 +338,7 @@ def main():
     phase("B1 backward: dgrad (B1 on flipped weights) and the wgrad kernel "
           "vs their plain versions (batch 256)")
     bwd_rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in dtypes:
         for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2):
             n, h, w, cin, cout = shape
@@ -342,6 +351,7 @@ def main():
                 memory_format=torch.channels_last)
             dy_cl, x_cl = dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
             # dgrad: dx (n, h, w, cin) of the forward conv (cin -> cout)
+            path = conv3x3_path(n, h, w, cout, cin, dtype, dev)
             got = conv3x3_dgrad(dy, k)
             torch.cuda.synchronize()
             ref = reference_conv3x3(dy, flip_weights(k))
@@ -356,21 +366,34 @@ def main():
                 (n, cin, h, w), k_cl, dy_cl, padding=1), 20)
             b_ms, b_bytes, b_ops = bound(
                 (dy.numel() + k.numel() + got.numel()) * es, flops, dtype)
-            row = {"kind": "dgrad", "key": shape,
+            row = {"kind": "dgrad", "key": shape, "path": path,
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
                    "flops": flops, **rate(flops, ms, b_ms)}
             bwd_rows.append(row)
-            print(f"  dgrad {row['dtype']:8s} {shape} ({cout}->{cin}): "
-                  f"max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
+            print(f"  dgrad {row['dtype']:8s} {shape} ({cout}->{cin}), path "
+                  f"{path}: max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms; {row['tflops']:.1f} TFLOP/s, "
                   f"{row['bound_share']:.3f} of the bound", flush=True)
             if not err <= bar:
                 fail(f"dgrad {row['dtype']} {shape}: max|diff| {err} > {bar}")
+            if dtype == torch.bfloat16 and shape == TRAIN_STEM \
+                    and path != "halo_narrow":
+                fail(f"the bf16 stem dgrad took the {path} path, not the "
+                     f"narrow halo kernel")
             # wgrad: dW (3, 3, cin, cout); f32: sums over n*h*w pixels in
             # another order, 1e-5 of the largest; bf16: one rounding flip
+            plan = wgrad_plan(n, h, w, cin, cout, dtype, sms)
+            print(f"  wgrad {str(dtype).split('.')[-1]:8s} {shape}: plan "
+                  f"{plan.path}, {plan.splits} K ranges, "
+                  f"{plan.rows} {'image rows' if plan.path == 'tma' else 'pixels'}"
+                  f" a step, {plan.stages} ring slots", flush=True)
+            if dtype == torch.bfloat16 and shape != TRAIN_STEM \
+                    and plan.path != "tma":
+                fail(f"the bf16 wgrad at {shape} is planned on {plan.path}, "
+                     f"not on TMA")
             got = conv3x3_wgrad(x, dy)
             again = conv3x3_wgrad(x, dy)
             torch.cuda.synchronize()
@@ -387,7 +410,7 @@ def main():
                 x_cl, (cout, cin, 3, 3), dy_cl, padding=1), 20)
             b_ms, b_bytes, b_ops = bound(
                 (x.numel() + dy.numel() + got.numel()) * es, flops, dtype)
-            row = {"kind": "wgrad", "key": shape,
+            row = {"kind": "wgrad", "key": shape, "plan": plan._asdict(),
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
@@ -838,12 +861,16 @@ def main():
                                                "bfloat16"),
               dgrad={"launches": train_counts.get("conv3x3_dgrad", 0),
                      **per_request_sums(dgrad_rows, TRAIN_DGRAD,
-                                        "bfloat16")}),
+                                        "bfloat16"),
+                     "paths": {str(r["key"]): r["path"] for r in dgrad_rows
+                               if r["dtype"] == "bfloat16"}}),
         entry("conv3x3_wgrad",
               "neural_ode_metasolver_tpu_torch/csrc/conv3x3_wgrad.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
               per_request_sums(wgrad_rows, TRAIN_WGRAD, "bfloat16"),
               f32=per_request_sums(wgrad_rows, TRAIN_WGRAD, "float32"),
+              plans={str(r["key"]): r["plan"] for r in wgrad_rows
+                     if r["dtype"] == "bfloat16"},
               note="not a TPU kernel: the backward of B1 that slice 3 "
                    "needs (the Pallas B1 has no VJP)"),
         entry("ode_block_rk2",

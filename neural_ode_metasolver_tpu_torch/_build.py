@@ -53,12 +53,14 @@ _SIGNATURES = {
     "conv3x3": {
         # dtype, x, w, out, N, H, W, Cin, Cout, device, stream
         "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, N, H, W, Cin, Cout, device
+        "conv3x3_path": [_I, _I, _I, _I, _I, _I, _I],
     },
     "conv3x3_wgrad": {
-        # dtype, x, dy, workspace, out, N, H, W, Cin, Cout, splits, device,
-        # stream
+        # dtype, x, dy, workspace, out, N, H, W, Cin, Cout, then the plan
+        # (path, splits, rows, stages, cluster), device, stream
         "conv3x3_wgrad_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _P],
+                                 _I, _I, _I, _I, _I, _P],
     },
     "ode_block_rk2": {
         # dtype, epilogue, x, w, out, y, k1, aux, N, H, W, C, a, b1, b2,

@@ -20,3 +20,17 @@ extern "C" int conv3x3_same_launch(int dtype, const void* x, const void* w,
     return launch_conv3x3<__nv_bfloat16, kStore>(p, device, stream);
   return cudaErrorInvalidValue;
 }
+
+// The path launch_conv3x3 takes for these shapes on `device`
+// (nodems::ConvPath), or -1 for arguments it refuses.
+extern "C" int conv3x3_path(int dtype, int N, int H, int W, int Cin, int Cout,
+                            int device) {
+  using namespace nodems;
+  const ConvArgs p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   N, H, W, Cin, Cout, 0.f, 0.f, 0.f};
+  int optin = 0;
+  if (conv3x3_prepare(p, device, &optin) != cudaSuccess) return -1;
+  if (dtype == NODEMS_F32) return conv_path<float, kStore>(p, optin);
+  if (dtype == NODEMS_BF16) return conv_path<__nv_bfloat16, kStore>(p, optin);
+  return -1;
+}

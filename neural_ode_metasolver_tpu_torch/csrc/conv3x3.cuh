@@ -16,16 +16,20 @@
 // XOR-swizzled by row (chunk ^ (row & 7)), which is wgmma's 128-byte
 // swizzle and keeps ldmatrix and the f32 fragment reads free of bank
 // conflicts.  Each K step waits on one cp.async group and one
-// __syncthreads, then issues the copies of a later step.  Three kernels:
+// __syncthreads, then issues the copies of a later step.  Four kernels
+// (conv_path picks one):
 //
-// conv3x3_halo_kernel (bf16, Cin a multiple of 64, Cout of 8: every conv
-//   of B2 and premetanode10's B1 but the stem).  The source pixels of a
-//   block's BM output pixels under all nine taps are the contiguous pixels
-//   m0-W-1 .. m0+BM+W; each 64-channel chunk of them is copied once by
-//   16-byte cp.async.cg, and ldmatrix gathers each tap's A fragments from
+// conv3x3_halo_kernel (bf16, Cin a multiple of 64, Cout of 8 and at least
+//   16: every conv of B2 and premetanode10's B1 but the stem).  The source
+//   pixels of a block's BM output pixels under all nine taps are the
+//   contiguous pixels m0-W-1 .. m0+BM+W; each 64-channel chunk of them is
+//   copied once by 16-byte cp.async.cg, and ldmatrix gathers each tap's A fragments from
 //   it, one row address per lane, a zero row where the source pixel lies
 //   outside the image (the SAME padding).  wgmma.mma_async m64nBNk16 takes
 //   A from registers and B from shared memory, f32 accumulate.
+// conv3x3_halo_narrow_kernel (bf16, Cin a multiple of 64, Cout under 16:
+//   the stem's 64 -> 3 dgrad): the same halo and A, an N tile of 8 or 16
+//   with B K-major, copied element by element (zero past Cout); kStore only.
 // conv3x3_igemm_kernel, bf16 (the stem's Cin 3, Cin 65, halos too wide for
 //   shared memory): each K step gathers its A tile (BM shifted pixel rows)
 //   into the ring beside B, 16-byte cp.async.cg where Cin is a multiple of
@@ -270,6 +274,43 @@ struct WgmmaRS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// The same register-A product with a narrow B (N = 8 or 16) read K-major
+// (imm-trans-b 0): row n of B holds its 64 K values in one 128-byte
+// swizzled row.  Thread t holds rows as in Wgmma, columns 2*(t%4) (+1) of
+// each n8 block.
+template <int N>
+struct WgmmaRSNarrow;
+
+template <>
+struct WgmmaRSNarrow<8> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRSNarrow<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+        "1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
@@ -856,6 +897,144 @@ conv3x3_halo_kernel(ConvArgs p, int halo_rows) {
   epilogue_tile<T, EPI, BM, BN, kCRow, kThreads>(p, s_c, m0, n0, M, tid);
 }
 
+// The halo kernel's A side with a narrow N tile, for Cout under 16 (the
+// stem's 64 -> 3 dgrad): the same halo, ldmatrix gather and zero row, and
+// wgmma m64nBNk16 (BN 8 or 16) with B read K-major, BN rows of 64 channels.
+// Cout need not be a multiple of 8, so B is copied element by element
+// (zero past Cout) and the epilogue writes only the columns that exist.
+// kStore only: B2's convs are never this narrow.
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(256, 4)
+conv3x3_halo_narrow_kernel(ConvArgs p, int halo_rows) {
+  using T = __nv_bfloat16;
+  constexpr int BM = 128, kThreads = 256, BK = 64;
+  constexpr int kBBytes = BN * kRowBytes;  // BN rows of BK channels
+  constexpr int PD = STAGES - 1;
+  constexpr int kCRow = BN + 4;
+  static_assert(kBBytes % 1024 == 0, "ring slots keep the swizzle atoms");
+
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int R = halo_rows;
+  const int nchunks = p.Cin / BK;
+  const int nbuf = nchunks > 1 ? 2 : 1;
+  char* s_ring = smem;
+  char* s_halo = smem + STAGES * kBBytes;
+  char* s_zero = s_halo + nbuf * R * kRowBytes;
+
+  const T* x = static_cast<const T*>(p.x);
+  const T* w = static_cast<const T*>(p.w);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int HW = p.H * p.W;
+  const int M = p.N * HW;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int ksteps = 9 * nchunks;
+
+  if (tid < kRowBytes / 16)
+    reinterpret_cast<uint4*>(s_zero)[tid] = make_uint4(0, 0, 0, 0);
+
+  const int arow = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
+  const int ahalf = lane >> 4;
+  unsigned valid = 0;
+  if (m0 + arow < M) {
+    const int rem = (m0 + arow) % HW;
+    const int oh = rem / p.W, ow = rem % p.W;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int ih = oh + t / 3 - 1, iw = ow + t % 3 - 1;
+      if (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W) valid |= 1u << t;
+    }
+  }
+
+  // thread tid's elements of B: k = i / BN, n = i % BN for i = tid +
+  // j*kThreads, so neighbouring threads read neighbouring weights
+  auto load_stage = [&](int s, int slot) {
+    const int chunk = s / 9, tap = s - chunk * 9;
+    if (tap == 0) {
+      char* h = s_halo + (chunk % nbuf) * R * kRowBytes;
+      const int q0 = m0 - p.W - 1;
+      for (int i = tid; i < R * 8; i += kThreads) {
+        const int q = i >> 3, ch = i & 7;
+        const int pix = q0 + q;
+        const bool ok = pix >= 0 && pix < M;
+        const T* src =
+            ok ? x + static_cast<size_t>(pix) * p.Cin + chunk * BK + ch * 8
+               : x;
+        cp_async16(smem_u32(h + swz(q, ch, kRowBytes)), src, ok);
+      }
+    }
+    char* sB = s_ring + slot * kBBytes;
+    const T* wk = w + (static_cast<size_t>(tap) * p.Cin + chunk * BK) * p.Cout;
+    copy_elems<T, BN * BK / kThreads>(
+        w,
+        [&](int j) -> const T* {
+          const int i = tid + j * kThreads;
+          const int n = n0 + i % BN;
+          return n < p.Cout ? wk + static_cast<size_t>(i / BN) * p.Cout + n
+                            : nullptr;
+        },
+        [&](int j) {
+          const int i = tid + j * kThreads;
+          const int k = i / BN, n = i % BN;
+          return sB + swz(n, k >> 3, kRowBytes) + (k & 7) * 2;
+        });
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  uint32_t af[BK / 16][4];
+
+  auto step = [&](int s) {
+    cp_async_wait<PD - 1>();
+    // this thread's element stores of B and its landed copies, then every
+    // thread's, reach the async proxy that wgmma reads through
+    fence_proxy_async();
+    __syncthreads();
+    if (s + PD < ksteps) load_stage(s + PD, (s + PD) % STAGES);
+    cp_async_commit();
+    const int chunk = s / 9, tap = s - chunk * 9;
+    const char* h = s_halo + (chunk % nbuf) * R * kRowBytes;
+    const int q = arow + (tap / 3) * p.W + tap % 3;
+    const bool ok = (valid >> tap) & 1u;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int ch = kk * 2 + ahalf;
+      ldmatrix_x4(af[kk], smem_u32(ok ? h + swz(q, ch, kRowBytes)
+                                      : s_zero + ch * 16));
+    }
+    // K-major B: 8-row atoms 1024 B apart (SBO); a k16 slice starts 32 B in
+    const uint64_t db =
+        sw128_desc(smem_u32(s_ring + (s % STAGES) * kBBytes), 16, 1024);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaRSNarrow<BN>::run(acc, af[kk], db + (kk * 32 >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(af);
+  };
+
+#pragma unroll
+  for (int s = 0; s < PD; ++s) {
+    if (s < ksteps) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < ksteps; ++s) step(s);
+  cp_async_wait<0>();
+
+  __syncthreads();
+  float* s_c = reinterpret_cast<float*>(smem);
+  wgmma_sums_to_smem<BN, kCRow>(s_c, acc, warp, lane);
+  __syncthreads();
+  epilogue_tile<T, kStore, BM, BN, kCRow, kThreads>(p, s_c, m0, n0, M, tid);
+}
+
 // The device's opt-in shared memory per block, read once per device.
 inline cudaError_t smem_optin(int device, int* bytes) {
   static std::atomic<int> limit[kMaxDevices];  // 0: not read yet
@@ -870,28 +1049,29 @@ inline cudaError_t smem_optin(int device, int* bytes) {
   return cudaSuccess;
 }
 
-// Launch the halo kernel if its shared memory fits the device; *launched
-// says whether it did.  The kernel instance is allowed the whole opt-in
-// size once per device, on its first launch (which callers make outside any
-// CUDA-graph capture), since the halo's size depends on W.
-template <int BM, int BN, int STAGES, int EPI>
-cudaError_t launch_halo(const ConvArgs& p, int device, cudaStream_t stream,
-                        bool* launched) {
-  *launched = false;
-  int optin = 0;
-  cudaError_t err = smem_optin(device, &optin);
-  if (err != cudaSuccess) return err;
+// Dynamic shared memory of a halo kernel (either width): 1 KB of alignment
+// slack, a ring of STAGES B tiles of 64 channels x BN, one or two halos of
+// BM + 2W + 2 rows and the zero row, or the staged C tile where larger.
+inline long long halo_smem_bytes(const ConvArgs& p, int BM, int BN,
+                                 int STAGES) {
   const long long rows = BM + 2LL * p.W + 2;
   const long long nbuf = p.Cin > 64 ? 2 : 1;
-  long long bytes = 1024 + STAGES * (64LL * BN * 2) + nbuf * rows * kRowBytes +
-                    kRowBytes;
+  const long long bytes = 1024 + STAGES * (64LL * BN * 2) +
+                          nbuf * rows * kRowBytes + kRowBytes;
   const long long c_bytes = 1024 + static_cast<long long>(BM) * (BN + 4) * 4;
-  if (c_bytes > bytes) bytes = c_bytes;
-  if (bytes > optin) return cudaSuccess;  // the caller takes the gather path
-  auto kernel = conv3x3_halo_kernel<BM, BN, STAGES, EPI>;
-  static std::atomic<bool> opted[kMaxDevices];
+  return bytes > c_bytes ? bytes : c_bytes;
+}
+
+// Launch a halo kernel (wide or narrow) whose shared memory the caller has
+// checked fits.  The kernel instance is allowed the whole opt-in size once
+// per device, on its first launch (which callers make outside any
+// CUDA-graph capture), since the halo's size depends on W.
+template <int BM, int BN, int STAGES, typename Kernel>
+cudaError_t launch_halo(Kernel kernel, const ConvArgs& p, int device,
+                        int optin, std::atomic<bool>* opted,
+                        cudaStream_t stream) {
   if (!opted[device].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
     opted[device].store(true, std::memory_order_relaxed);
@@ -899,10 +1079,26 @@ cudaError_t launch_halo(const ConvArgs& p, int device, cudaStream_t stream,
   const long long M = static_cast<long long>(p.N) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
                   static_cast<unsigned>((p.Cout + BN - 1) / BN));
-  kernel<<<grid, 2 * BM, static_cast<size_t>(bytes), stream>>>(
-      p, static_cast<int>(rows));
-  *launched = true;
+  kernel<<<grid, 2 * BM,
+           static_cast<size_t>(halo_smem_bytes(p, BM, BN, STAGES)), stream>>>(
+      p, static_cast<int>(BM + 2 * p.W + 2));
   return cudaGetLastError();
+}
+
+template <int BM, int BN, int STAGES, int EPI>
+cudaError_t launch_halo_wide(const ConvArgs& p, int device, int optin,
+                             cudaStream_t stream) {
+  static std::atomic<bool> opted[kMaxDevices];
+  return launch_halo<BM, BN, STAGES>(conv3x3_halo_kernel<BM, BN, STAGES, EPI>,
+                                     p, device, optin, opted, stream);
+}
+
+template <int BN, int STAGES>
+cudaError_t launch_halo_narrow(const ConvArgs& p, int device, int optin,
+                               cudaStream_t stream) {
+  static std::atomic<bool> opted[kMaxDevices];
+  return launch_halo<128, BN, STAGES>(conv3x3_halo_narrow_kernel<BN, STAGES>,
+                                      p, device, optin, opted, stream);
 }
 
 // Launch one tile configuration.  Dynamic shared memory above 48 KB is
@@ -948,9 +1144,35 @@ cudaError_t launch_shape(const ConvArgs& p, int device, cudaStream_t stream) {
   }
 }
 
-// Checks the arguments and picks the copy path and the tiles.
+// The kernel a conv runs on (ops/conv3x3.py::CONV_PATHS names them).
+enum ConvPath {
+  kPathGather = 0,        // igemm kernel, 16-byte cp.async of A and B
+  kPathGatherElems = 1,   // igemm kernel, element copies
+  kPathHalo = 2,          // bf16, Cin a multiple of 64, Cout of 8 (>= 16)
+  kPathHaloNarrow = 3,    // bf16, Cin a multiple of 64, Cout under 16
+};
+
+// Picks the path from the shapes, the type and the device's opt-in shared
+// memory: a halo path where its shared memory fits, else a gather path.
 template <typename T, int EPI>
-cudaError_t launch_conv3x3(const ConvArgs& p, int device, void* stream) {
+ConvPath conv_path(const ConvArgs& p, int optin) {
+  constexpr int BK = KStep<T>::value;
+  constexpr int E = 16 / sizeof(T);
+  const bool aligned = p.Cin % BK == 0 && p.Cout % E == 0;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (EPI == kStore && p.Cin % BK == 0 && p.Cout < 16 &&
+        halo_smem_bytes(p, 128, p.Cout <= 8 ? 8 : 16, 4) <= optin)
+      return kPathHaloNarrow;
+    if (aligned &&
+        halo_smem_bytes(p, 128, p.Cout <= 64 ? 64 : 128, 4) <= optin)
+      return kPathHalo;
+  }
+  return aligned ? kPathGather : kPathGatherElems;
+}
+
+// Checks the arguments and reads the device's shared-memory limit.
+inline cudaError_t conv3x3_prepare(const ConvArgs& p, int device,
+                                   int* optin) {
   if (p.N < 1 || p.H < 1 || p.W < 1 || p.Cin < 1 || p.Cout < 1 ||
       static_cast<long long>(p.N) * p.H * p.W >= (1LL << 31) ||
       9LL * p.Cin >= (1LL << 31))
@@ -958,21 +1180,32 @@ cudaError_t launch_conv3x3(const ConvArgs& p, int device, void* stream) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  return smem_optin(device, optin);
+}
+
+template <typename T, int EPI>
+cudaError_t launch_conv3x3(const ConvArgs& p, int device, void* stream) {
+  int optin = 0;
+  cudaError_t err = conv3x3_prepare(p, device, &optin);
+  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int BK = KStep<T>::value;
-  constexpr int E = 16 / sizeof(T);
-  const bool aligned = p.Cin % BK == 0 && p.Cout % E == 0;
-  if constexpr (!std::is_same<T, float>::value) {
-    if (aligned) {
-      bool launched = false;
-      err = p.Cout <= 64
-                ? launch_halo<128, 64, 4, EPI>(p, device, st, &launched)
-                : launch_halo<128, 128, 4, EPI>(p, device, st, &launched);
-      if (err != cudaSuccess || launched) return err;
-    }
+  switch (conv_path<T, EPI>(p, optin)) {
+    case kPathHaloNarrow:
+      if constexpr (!std::is_same<T, float>::value && EPI == kStore)
+        return p.Cout <= 8 ? launch_halo_narrow<8, 4>(p, device, optin, st)
+                           : launch_halo_narrow<16, 4>(p, device, optin, st);
+      return cudaErrorInvalidValue;
+    case kPathHalo:
+      if constexpr (!std::is_same<T, float>::value)
+        return p.Cout <= 64
+                   ? launch_halo_wide<128, 64, 4, EPI>(p, device, optin, st)
+                   : launch_halo_wide<128, 128, 4, EPI>(p, device, optin, st);
+      return cudaErrorInvalidValue;
+    case kPathGather:
+      return launch_shape<T, true, EPI>(p, device, st);
+    default:
+      return launch_shape<T, false, EPI>(p, device, st);
   }
-  if (aligned) return launch_shape<T, true, EPI>(p, device, st);
-  return launch_shape<T, false, EPI>(p, device, st);
 }
 
 }  // namespace nodems

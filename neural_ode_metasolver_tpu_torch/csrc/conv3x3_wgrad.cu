@@ -16,13 +16,44 @@
 // bf16, 19.3 GFLOP and 67 MB at (256,32,32,64->64): about 0.020 ms, near
 // the ridge.
 //
-// Design:
-//  * Split K.  The K steps (BK pixels each) are cut into S contiguous
-//    ranges (ops/conv3x3.py::wgrad_splits: about one block per SM over the
-//    (Cin, Cout) tiles).  A block sums its range in f32 registers and
-//    writes its partial (9, Cin, Cout) tile to a workspace; a second launch
-//    adds each element's S partials in range order and rounds once.  No
-//    float atomics, so a launch repeats its bits.
+// Both paths split K into S contiguous ranges (ops/conv3x3.py::wgrad_plan
+// picks the path, S and the step from the shapes, the type and the SM
+// count; the entry point checks the plan).  A block sums its range in f32
+// registers and writes its partial (9, Cin, Cout) tile to a workspace (on
+// the TMA path, one partial per cluster of ranges); a second launch adds
+// each element's partials in range order and rounds once.  No float
+// atomics, so a launch repeats its bits.
+//
+// The TMA path (bf16; Cin, Cout multiples of 8 and W of 8: the flagship's
+// 64->64 and 128->128):
+//  * A K step is `rows` whole image rows of one image (rows*W pixels, 4 to
+//    8 k16 slices: a template instance each).  For each kw the producer warp loads one TMA box of
+//    x, (rows+2) image rows x W pixels x 64 channels at (h0-1, kw-1, c0),
+//    through a 4-D tensor map over (N, H, W, C): TMA writes zeros for the
+//    coordinates outside the image, which is the SAME padding at every
+//    edge, and for the channels past Cin.  One box of dy (rows x W x 64 at
+//    (h0, 0, n0)) serves all nine taps.
+//  * Tap (kh, kw) is box kw read from pixel row kh*W on.  A pixel row is
+//    128 bytes, so with W % 8 == 0 that is a whole number of the 1024-byte
+//    atoms of the 128-byte swizzle TMA writes: each tap's wgmma descriptor
+//    starts on an atom.
+//  * x and dy lie pixel-major, channels contiguous: A (co x pixels, from
+//    dy) and B (pixels x ci, from x) are both MN-major, which bf16 wgmma
+//    reads from shared memory with both transpose bits set.
+//  * Three consumer warpgroups, warpgroup kh owning taps (kh, 0..2) as one
+//    product: m64n192k16 per 16 pixels, B's three 64-channel panels being
+//    the three x boxes (the panel stride is the box's size), so dy is read
+//    from shared memory once for the three taps; 96 f32 sums a thread.
+//    The producer warp keeps a ring of 2-4 steps in flight, each guarded
+//    by a full (TMA transaction bytes) and an empty (consumer warps)
+//    mbarrier.  Its warpgroup hands its registers to the consumers
+//    (setmaxnreg), which hold 96 sums each without spilling.
+//  * Clusters of consecutive splits: each block stages its sums in shared
+//    memory and the cluster adds them in rank order through distributed
+//    shared memory before one partial is written.
+//
+// The split-K path (f32, and bf16 shapes the TMA path does not take: the
+// stem's Cin 3, MNIST's 65, W % 8 != 0, rows of more than 8 k16 slices):
 //  * A block owns one 128-byte chunk of Cin (64 bf16 or 32 f32 channels),
 //    one of Cout, and all nine taps: warp t computes tap t.  Each K step
 //    copies into shared memory, once, the x halo the step's nine taps read
@@ -37,10 +68,15 @@
 //    f32: full-f32 FMAs, 4 x 8 sums a lane of a warp's 32 x 32 tile.
 //  * A ring of 3 K steps filled by 16-byte cp.async where the channel count
 //    and the pointer allow, else by element copies into a ring zeroed once.
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and the driver's enums; no -lcuda needed
+
 #include "conv3x3.cuh"
 
 namespace nodems {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarps = 9;  // one per tap
 constexpr int kWThreads = 32 * kWarps;
@@ -345,34 +381,490 @@ cudaError_t launch_partials(const WgradArgs& p, int device,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- TMA path
+
+constexpr int kTmaConsumers = 3;  // warpgroups, one per kh
+constexpr int kTmaProducer = 4 * kTmaConsumers;  // the producer's warp
+constexpr int kTmaConsumerThreads = 128 * kTmaConsumers;
+constexpr int kTmaThreads = kTmaConsumerThreads + 128;  // + a producer group
+// registers a thread once the roles split (setmaxnreg): the producer
+// warpgroup gives its own up, the consumers take them; 128 * 40 + 384 *
+// 152 fits the SM's 65,536
+constexpr int kProducerRegs = 40, kConsumerRegs = 152;
+constexpr int kTmaMaxStages = 4;
+constexpr int kTmaChannels = 64;  // of Cin and of Cout per block: 128 B
+
+struct TmaWgradArgs {
+  float* ws;            // (splits, 9, Cin, Cout) partial sums
+  int Cin, Cout, W;
+  int rows;             // image rows per K step
+  int steps_per_image;  // ceil(H / rows)
+  int steps;            // N * steps_per_image
+  int splits, stages;
+  int cluster;          // consecutive splits summed in shared memory
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D tensor map at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory; completes transaction bytes on bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// d += A * B, m64n192k16, bf16 in, f32 accumulate, A and B both MN-major
+// in shared memory (imm-trans-a 1, imm-trans-b 1): A is dy (64 Cout rows),
+// B the three x boxes as three 64-channel panels LBO apart.  Thread t of
+// the warpgroup holds rows 16*(t/32) + (t%32)/4 (+8) and, for each n8
+// block j, columns 8j + 2*(t%4) (+1): d[4j], d[4j+1], then row + 8.
+__device__ __forceinline__ void wgmma_tt192(float (&d)[96], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// bytes of one x box and of one dy box of a K step
+__host__ __device__ __forceinline__ int tma_x_box(int rows, int W) {
+  return (rows + 2) * W * kRowBytes;
+}
+__host__ __device__ __forceinline__ int tma_dy_box(int rows, int W) {
+  return rows * W * kRowBytes;
+}
+
+// The f32 sums of a block's 9 x 64 x 64 tile staged in shared memory for
+// the cluster's sum, rows padded to kTileRow floats
+constexpr int kTileRow = kTmaChannels + 4;
+constexpr int kTileBytes = 9 * kTmaChannels * kTileRow * 4;
+
+// blockIdx = (Cin chunk, Cout chunk, split); KS k16 slices a K step.
+// Shared memory: the ring of stages (three x boxes, then the dy box, each
+// 1024-byte aligned), then the full and empty barriers; after the main
+// loop, the tile of sums where the cluster sums its splits.
+template <int KS>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+wgrad_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_dy, TmaWgradArgs p) {
+  extern __shared__ __align__(1024) char tma_smem[];
+  char* smem = tma_smem + ((1024 - (smem_u32(tma_smem) & 1023)) & 1023);
+  const int box_x = tma_x_box(p.rows, p.W);
+  const int stage_bytes = 3 * box_x + tma_dy_box(p.rows, p.W);
+  // the barriers lie past the ring and past the tile that reuses it
+  const int ring = p.stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + (p.cluster > 1 && kTileBytes > ring ? kTileBytes : ring));
+  uint64_t* empty = full + kTmaMaxStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c0 = blockIdx.x * kTmaChannels;
+  const int n0 = blockIdx.y * kTmaChannels;
+  const int split = blockIdx.z;
+  const int g0 = static_cast<int>(static_cast<long long>(p.steps) * split /
+                                  p.splits);
+  const int nsteps = static_cast<int>(static_cast<long long>(p.steps) *
+                                      (split + 1) / p.splits) - g0;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 4 * kTmaConsumers);  // lane 0 a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTmaProducer) {
+    // the producer warpgroup: one thread issues the loads; with a cluster,
+    // the group joins the block's and the cluster's barriers below
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kTmaProducer && lane == 0) {
+      for (int i = 0; i < nsteps; ++i) {
+        const int s = i % p.stages;
+        // use i / stages of slot s waits for the consumers' release of the
+        // use before it
+        if (i >= p.stages) mbar_wait(smem_u32(empty + s), (i / p.stages - 1) & 1);
+        const int g = g0 + i;
+        const int n = g / p.steps_per_image;
+        const int h0 = (g - n * p.steps_per_image) * p.rows;
+        const uint32_t st = smem_u32(smem + s * stage_bytes);
+        const uint32_t bar = smem_u32(full + s);
+        mbar_expect_tx(bar, static_cast<uint32_t>(stage_bytes));
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
+          tma_load_4d(st + kw * box_x, &tm_x, c0, kw - 1, h0 - 1, n, bar);
+        tma_load_4d(st + 3 * box_x, &tm_dy, n0, 0, h0, n, bar);
+      }
+    }
+    if (p.cluster > 1) {
+      __syncthreads();
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  // consumer warpgroup kh: taps (kh, 0), (kh, 1), (kh, 2) as one
+  // (Cout x 3*Cin) product, accumulator column 64*kw + ci
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int kh = warp >> 2;
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < nsteps; ++i) {
+    const int s = i % p.stages;
+    mbar_wait(smem_u32(full + s), (i / p.stages) & 1);
+    const uint32_t st = smem_u32(smem + s * stage_bytes);
+    const uint32_t a = st + 3 * box_x;               // dy
+    const uint32_t b = st + kh * p.W * kRowBytes;    // box 0 from row kh*W
+    fence_operands(acc);
+    wgmma_fence();
+    // MN-major operands: a k16 slice is 16 pixel rows, two 1024-byte atoms
+    // (SBO); B's three 64-channel panels are the three x boxes, box_x bytes
+    // apart (LBO); A is one 64-channel panel
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = kk * 16 * kRowBytes;
+      wgmma_tt192(acc, sw128_desc(a + off, 8192, 1024),
+                  sw128_desc(b + off, box_x, 1024));
+    }
+    wgmma_commit();
+    // the products of step i - 1 are done: its slot may be refilled
+    wgmma_wait<1>();
+    fence_operands(acc);
+    if (i > 0 && lane == 0)
+      mbar_arrive(smem_u32(empty + (i - 1) % p.stages));
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // thread rows co = 16*(warp%4) + lane/4 (+8), columns 64*kw + ci with
+  // ci = 8j + 2*(lane%4) (+1) of the block's tile: acc[4*(8kw + j) + e]
+  const int co_t = 16 * (warp & 3) + (lane >> 2);
+  const int ci_t = 2 * (lane & 3);
+  const size_t tap_stride = static_cast<size_t>(p.Cin) * p.Cout;
+  if (p.cluster == 1) {
+    // this split's partial straight to the workspace
+    float* ws0 = p.ws + (static_cast<size_t>(split) * 9 + kh * 3) * tap_stride;
+#pragma unroll
+    for (int j = 0; j < 24; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = c0 + 8 * (j & 7) + ci_t + (e & 1);
+        const int co = n0 + co_t + 8 * (e >> 1);
+        if (ci < p.Cin && co < p.Cout)
+          ws0[(j >> 3) * tap_stride + static_cast<size_t>(ci) * p.Cout + co] =
+              acc[4 * j + e];
+      }
+    return;
+  }
+
+  // The cluster's splits are consecutive: each block stages its tile in
+  // shared memory, then block rank q sums slice q of the tile over the
+  // cluster's blocks in rank order and writes the cluster's partial.
+  __syncthreads();  // every wgmma has read its last slot: the ring is free
+  float* tile = reinterpret_cast<float*>(smem);
+  float* t = tile + kh * 3 * kTmaChannels * kTileRow;
+#pragma unroll
+  for (int j = 0; j < 24; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      t[((j >> 3) * kTmaChannels + 8 * (j & 7) + ci_t + (e & 1)) * kTileRow +
+        co_t + 8 * (e >> 1)] = acc[4 * j + e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int q = static_cast<int>(cluster.block_rank());
+  constexpr int kUnits = 9 * kTmaChannels * kTmaChannels / 4;  // float4s
+  const int per = (kUnits + p.cluster - 1) / p.cluster;
+  const int u1 = min(kUnits, (q + 1) * per);
+  float* part = p.ws + static_cast<size_t>(split / p.cluster) * 9 * tap_stride;
+  for (int u = q * per + tid; u < u1; u += kTmaConsumerThreads) {
+    const int tap = u / (kTmaChannels * kTmaChannels / 4);
+    const int i = (u / (kTmaChannels / 4)) % kTmaChannels;
+    const int j = (u % (kTmaChannels / 4)) * 4;
+    const int off = (tap * kTmaChannels + i) * kTileRow + j;
+    float4 sum = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(tile, 0) + off);
+    for (int k = 1; k < p.cluster; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(tile, k) + off);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int ci = c0 + i, co = n0 + j;
+    if (ci < p.Cin && co < p.Cout)
+      *reinterpret_cast<float4*>(part + tap * tap_stride +
+                                 static_cast<size_t>(ci) * p.Cout + co) = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (so the library needs no -lcuda).
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::atomic<void*> cached{nullptr};
+  void* f = cached.load(std::memory_order_acquire);
+  if (f == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || f == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached.store(f, std::memory_order_release);
+  }
+  *fn = reinterpret_cast<EncodeTiled>(f);
+  return cudaSuccess;
+}
+
+// A bf16 tensor map over (N, H, W, C), C innermost, whose box is 64
+// channels x W x box_rows x 1 in the 128-byte swizzle; coordinates outside
+// the tensor read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* base, int N, int H, int W,
+                     int C, int box_rows) {
+  EncodeTiled encode = nullptr;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kTmaChannels),
+                             static_cast<cuuint32_t>(W),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// dynamic shared memory of the TMA path: alignment slack, the ring (or
+// the staged tile where a cluster sums its splits and that is larger),
+// then the barriers
+long long tma_smem_bytes(int rows, int W, int stages, int cluster) {
+  const long long ring =
+      stages * (3LL * tma_x_box(rows, W) + tma_dy_box(rows, W));
+  return 1024LL + (cluster > 1 && kTileBytes > ring ? kTileBytes : ring) +
+         2LL * kTmaMaxStages * sizeof(uint64_t);
+}
+
+template <int KS>
+cudaError_t launch_tma_ks(const CUtensorMap& mx, const CUtensorMap& mdy,
+                          const TmaWgradArgs& p, dim3 grid, long long bytes,
+                          int device, int optin, cudaStream_t st) {
+  auto kernel = wgrad_tma_kernel<KS>;
+  static std::atomic<bool> opted[kMaxDevices];
+  if (!opted[device].load(std::memory_order_relaxed)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    opted[device].store(true, std::memory_order_relaxed);
+  }
+  if (p.cluster == 1) {
+    kernel<<<grid, kTmaThreads, static_cast<size_t>(bytes), st>>>(mx, mdy, p);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kTmaThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = p.cluster;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, mx, mdy, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// K steps of 64 to 128 pixels: 4 to 8 k16 slices, each an instance
+constexpr int kTmaMinSlices = 4, kTmaMaxSlices = 8;
+
+cudaError_t launch_tma_partials(const void* x, const void* dy, float* ws,
+                                int N, int H, int W, int Cin, int Cout,
+                                int splits, int rows, int stages, int cluster,
+                                int device, cudaStream_t st) {
+  // what TMA and the descriptors need: 16-byte global strides and base
+  // addresses, boxes of at most 256 per dimension, taps on whole swizzle
+  // atoms, K steps of whole k16 slices; clusters of consecutive splits
+  const int ks = rows * W / 16;
+  if (Cin % 8 != 0 || Cout % 8 != 0 || W % 8 != 0 || W > 256 || rows < 1 ||
+      rows + 2 > 256 || (rows * W) % 16 != 0 || ks < kTmaMinSlices ||
+      ks > kTmaMaxSlices || stages < 2 || stages > kTmaMaxStages ||
+      cluster < 1 || cluster > 8 || splits % cluster != 0 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(dy) & 15) != 0)
+    return cudaErrorInvalidValue;
+  const int spi = (H + rows - 1) / rows;
+  const long long steps = static_cast<long long>(N) * spi;
+  if (steps >= (1LL << 31) || splits > steps) return cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err = smem_optin(device, &optin);
+  if (err != cudaSuccess) return err;
+  const long long bytes = tma_smem_bytes(rows, W, stages, cluster);
+  if (bytes > optin) return cudaErrorInvalidValue;
+  CUtensorMap mx, mdy;
+  err = make_map(&mx, x, N, H, W, Cin, rows + 2);
+  if (err != cudaSuccess) return err;
+  err = make_map(&mdy, dy, N, H, W, Cout, rows);
+  if (err != cudaSuccess) return err;
+  const TmaWgradArgs p{ws, Cin, Cout, W, rows, spi,
+                       static_cast<int>(steps), splits, stages, cluster};
+  const dim3 grid((Cin + kTmaChannels - 1) / kTmaChannels,
+                  (Cout + kTmaChannels - 1) / kTmaChannels, splits);
+  switch (ks) {
+    case 4: return launch_tma_ks<4>(mx, mdy, p, grid, bytes, device, optin, st);
+    case 5: return launch_tma_ks<5>(mx, mdy, p, grid, bytes, device, optin, st);
+    case 6: return launch_tma_ks<6>(mx, mdy, p, grid, bytes, device, optin, st);
+    case 7: return launch_tma_ks<7>(mx, mdy, p, grid, bytes, device, optin, st);
+    default: return launch_tma_ks<8>(mx, mdy, p, grid, bytes, device, optin, st);
+  }
+}
+
+// ------------------------------------------------------------ the launch
+
+enum WgradPath { kPathSplitK = 0, kPathTma = 1 };  // wgrad_plan's paths
+
 template <typename T>
-cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
-                         int N, int H, int W, int Cin, int Cout, int splits,
-                         int device, void* stream) {
+cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int N,
+                           int H, int W, int Cin, int Cout, int splits,
+                           int device, cudaStream_t st) {
   constexpr int BK = WgradBK<T>::value;
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   const long long P = static_cast<long long>(N) * H * W;
+  if (P + BK + 2LL * W + 2 >= (1LL << 31)) return cudaErrorInvalidValue;
+  const WgradArgs p{x, dy, ws, N, H, W, Cin, Cout, splits,
+                    static_cast<int>((P + BK - 1) / BK), BK + 2 * W + 2};
+  if (splits > p.steps) return cudaErrorInvalidValue;
+  const bool vx = Cin % E == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vdy =
+      Cout % E == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  if (vx && vdy) return launch_partials<T, true, true>(p, device, st);
+  if (vx) return launch_partials<T, true, false>(p, device, st);
+  if (vdy) return launch_partials<T, false, true>(p, device, st);
+  return launch_partials<T, false, false>(p, device, st);
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
+                         int N, int H, int W, int Cin, int Cout, int path,
+                         int splits, int rows, int stages, int cluster,
+                         int device, void* stream) {
   if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || splits < 1 ||
-      P + BK + 2LL * W + 2 >= (1LL << 31) ||
       9LL * Cin * Cout >= (1LL << 31))
     return cudaErrorInvalidValue;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const WgradArgs p{x, dy, ws, N, H, W, Cin, Cout, splits,
-                    static_cast<int>((P + BK - 1) / BK), BK + 2 * W + 2};
-  const bool vx = Cin % E == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vdy =
-      Cout % E == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  if (vx && vdy) err = launch_partials<T, true, true>(p, device, st);
-  else if (vx) err = launch_partials<T, true, false>(p, device, st);
-  else if (vdy) err = launch_partials<T, false, true>(p, device, st);
-  else err = launch_partials<T, false, false>(p, device, st);
+  if (path == kPathTma) {
+    if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
+    err = launch_tma_partials(x, dy, ws, N, H, W, Cin, Cout, splits, rows,
+                              stages, cluster, device, st);
+  } else if (path == kPathSplitK && rows == WgradBK<T>::value &&
+             cluster == 1) {
+    err = launch_split_k<T>(x, dy, ws, N, H, W, Cin, Cout, splits, device, st);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
+  // the partials, one per cluster, in split order
   const int n = 9 * Cin * Cout;
   wgrad_reduce_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
-      ws, static_cast<T*>(out), n, splits);
+      ws, static_cast<T*>(out), n, splits / cluster);
   return cudaGetLastError();
 }
 
@@ -380,19 +872,23 @@ cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
 }  // namespace nodems
 
 // dW (3, 3, Cin, Cout) of T from x (N, H, W, Cin) and dy (N, H, W, Cout);
-// ws: splits * 9 * Cin * Cout floats of workspace.  Two launches on
-// `stream`: the partial sums, then their sum in split order.
+// ws: splits / cluster * 9 * Cin * Cout floats of workspace.  The plan
+// (path, splits, rows, stages, cluster) is ops/conv3x3.py::wgrad_plan's; a
+// plan the shapes, the pointers or the device cannot run is refused.  Two
+// launches on `stream`: the partial sums, then their sum in split order.
 extern "C" int conv3x3_wgrad_launch(int dtype, const void* x, const void* dy,
                                     void* ws, void* out, int N, int H, int W,
-                                    int Cin, int Cout, int splits, int device,
-                                    void* stream) {
+                                    int Cin, int Cout, int path, int splits,
+                                    int rows, int stages, int cluster,
+                                    int device, void* stream) {
   using namespace nodems;
   float* w = static_cast<float*>(ws);
   if (dtype == NODEMS_F32)
-    return launch_wgrad<float>(x, dy, w, out, N, H, W, Cin, Cout, splits,
-                               device, stream);
+    return launch_wgrad<float>(x, dy, w, out, N, H, W, Cin, Cout, path,
+                               splits, rows, stages, cluster, device, stream);
   if (dtype == NODEMS_BF16)
     return launch_wgrad<__nv_bfloat16>(x, dy, w, out, N, H, W, Cin, Cout,
-                                       splits, device, stream);
+                                       path, splits, rows, stages, cluster,
+                                       device, stream);
   return cudaErrorInvalidValue;
 }

@@ -16,7 +16,9 @@ apply of an ``autograd.Function`` whose backward runs only what
     ``conv3x3_dgrad``;
   * wgrad, dW[kh, kw, ci, co] = sum over (n, h, w) of x[n, h+kh-1, w+kw-1,
     ci] * dy[n, h, w, co], zero-padded: ``csrc/conv3x3_wgrad.cu``, counted
-    as ``conv3x3_wgrad``.
+    as ``conv3x3_wgrad``, on the path ``wgrad_plan`` picks: TMA boxes and
+    ``wgmma`` (bf16, channels and W multiples of 8) or split-K with
+    ``mma.sync`` / f32 FMAs.
 The Pallas kernel has no VJP (JAX differentiates XLA's conv); these are the
 backward the port's training path needs.
 
@@ -27,6 +29,7 @@ tensors; there is no fallback.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,14 +39,30 @@ from .. import _build, backend
 
 __all__ = ["conv3x3_same", "conv3x3_dgrad", "conv3x3_wgrad",
            "reference_conv3x3", "reference_conv3x3_wgrad", "flip_weights",
-           "wgrad_splits", "conv3x3_f32"]
+           "WgradPlan", "wgrad_plan", "run_wgrad_plan", "conv3x3_path",
+           "CONV_PATHS", "conv3x3_f32"]
 
 KERNEL_NAME = "conv3x3_same"
 DGRAD_NAME = "conv3x3_dgrad"
 WGRAD_NAME = "conv3x3_wgrad"
 
-# pixels per K step of the wgrad kernel, by dtype (csrc/conv3x3_wgrad.cu)
+# pixels per K step of the wgrad kernel's split-K path, by dtype
+# (csrc/conv3x3_wgrad.cu)
 WGRAD_BK = {torch.float32: 64, torch.bfloat16: 128}
+# the wgrad paths, by their code in the C entry point
+WGRAD_PATHS = ("split_k", "tma")
+# the TMA path: pixels a K step aims at, its k16 slices (the kernel's
+# instances), channels per block and operand, ring slots, the blocks of a
+# cluster that sum their splits in shared memory, and an H100 block's
+# opt-in shared memory (bytes)
+TMA_STEP_PIXELS = 64
+TMA_SLICES = range(4, 9)
+TMA_CHANNELS = 64
+TMA_MAX_STAGES = 4
+TMA_CLUSTER = 2
+SMEM_OPTIN = 232448
+# B1's kernels, by the code of csrc/conv3x3.cuh's ConvPath
+CONV_PATHS = ("gather", "gather_elements", "halo", "halo_narrow")
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -124,29 +143,135 @@ def conv3x3_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch_conv(dy, flip_weights(w), DGRAD_NAME)
 
 
-def wgrad_splits(n: int, h: int, w: int, cin: int, cout: int,
-                 dtype: torch.dtype, sm_count: int) -> int:
-    """How many K ranges the wgrad kernel sums separately: about one block
-    per SM over the (Cin, Cout) tiles, at most one per K step.  It depends
-    on shapes and the SM count only, so a launch repeats its bits."""
-    bk = WGRAD_BK[dtype]
+class WgradPlan(NamedTuple):
+    """How the wgrad kernel runs a shape: ``path`` "tma" (TMA boxes into a
+    ring, ``wgmma``) or "split_k" (``cp.async`` halo, ``mma.sync`` or f32
+    FMAs); ``splits`` K ranges summed apart, then in order; ``rows`` image
+    rows per K step ("tma") or pixels per K step ("split_k"); ``stages``
+    ring slots; ``cluster`` consecutive splits whose blocks add their sums
+    in shared memory, in rank order, before one partial is written."""
+    path: str
+    splits: int
+    rows: int
+    stages: int
+    cluster: int
+
+
+def _tma_stage_bytes(rows: int, w: int) -> int:
+    """Shared bytes of one TMA K step: three x boxes of rows + 2 image rows
+    and one dy box of rows, 128 bytes a pixel (64 bf16 channels)."""
+    return (3 * (rows + 2) + rows) * w * 128
+
+
+def wgrad_plan(n: int, h: int, w: int, cin: int, cout: int,
+               dtype: torch.dtype, sms: int, aligned: bool = True
+               ) -> WgradPlan:
+    """The wgrad kernel's launch plan, from shapes, dtype, SM count and
+    whether x and dy start on 16 bytes; it fixes the sum order, so a launch
+    repeats its bits.
+
+    The TMA path takes bf16 with Cin and Cout multiples of 8 (TMA's 16-byte
+    strides) and W a multiple of 8 (each tap on whole swizzle atoms): a K
+    step is ``rows`` image rows, the fewest that make ``TMA_STEP_PIXELS``
+    pixels in whole k16 slices (4 to 8 of them), with as many ring slots as
+    fit (at least two), and clusters of ``TMA_CLUSTER`` splits.  Everything
+    else (f32, the stem's Cin 3, MNIST's 65, other widths) takes the split-K
+    path.  Either way K is cut into about one block per SM over the (Cin,
+    Cout) tiles (the TMA path rounds down to whole clusters), at most one
+    range per step."""
     ch = 128 // (torch.finfo(dtype).bits // 8)  # channels per 128-byte row
+    if (dtype == torch.bfloat16 and aligned and cin % 8 == 0
+            and cout % 8 == 0 and w % 8 == 0 and 0 < w <= 256):
+        rows = math.ceil(TMA_STEP_PIXELS / w)
+        while rows * w % 16:
+            rows += 1
+        stages = min(TMA_MAX_STAGES,
+                     (SMEM_OPTIN - 1024 - 64) // _tma_stage_bytes(rows, w))
+        if stages >= 2 and rows * w // 16 in TMA_SLICES:
+            tiles = math.ceil(cin / TMA_CHANNELS) * math.ceil(
+                cout / TMA_CHANNELS)
+            splits = max(1, min(n * math.ceil(h / rows),
+                                math.ceil(sms / tiles)))
+            cluster = TMA_CLUSTER if splits >= TMA_CLUSTER else 1
+            return WgradPlan("tma", splits // cluster * cluster, rows, stages,
+                             cluster)
+    bk = WGRAD_BK[dtype]
     tiles = math.ceil(cin / ch) * math.ceil(cout / ch)
     steps = math.ceil(n * h * w / bk)
-    return max(1, min(steps, math.ceil(sm_count / tiles)))
+    return WgradPlan("split_k", max(1, min(steps, math.ceil(sms / tiles))),
+                     bk, 3, 1)
+
+
+def _window(img: torch.Tensor, row0: int, col0: int, rows: int
+            ) -> torch.Tensor:
+    """Rows row0 .. row0+rows-1 and columns col0 .. col0+W-1 of an (H, W, C)
+    image, zero outside it: what a TMA box reads."""
+    h, w, c = img.shape
+    out = img.new_zeros(rows, w, c)
+    r0, r1 = max(row0, 0), min(row0 + rows, h)
+    c0, c1 = max(col0, 0), min(col0 + w, w)
+    if r0 < r1 and c0 < c1:
+        out[r0 - row0:r1 - row0, c0 - col0:c1 - col0] = img[r0:r1, c0:c1]
+    return out
+
+
+def run_wgrad_plan(x: torch.Tensor, dy: torch.Tensor, rows: int,
+                   splits: int, cluster: int = 1) -> torch.Tensor:
+    """The TMA path's decomposition in plain torch, at least f32: K in steps
+    of ``rows`` whole image rows of one image; per step, three boxes of x
+    (rows + 2 image rows from h0 - 1, columns shifted by kw - 1, zero
+    outside the image) and one of dy; tap (kh, kw) is box kw from pixel
+    row kh*W on; ``splits`` ranges of steps summed apart, each ``cluster``
+    consecutive ones added in order, then those partials in order.  Rounds
+    once to x's dtype."""
+    n, h, w, cin = x.shape
+    cout = dy.shape[3]
+    xf, df = _wide(x), _wide(dy)
+    spi = math.ceil(h / rows)
+    steps = n * spi
+    out, part = None, None
+    for split in range(splits):
+        acc = xf.new_zeros(9, cin, cout)
+        for g in range(steps * split // splits,
+                       steps * (split + 1) // splits):
+            img, blk = divmod(g, spi)
+            h0 = blk * rows
+            d = _window(df[img], h0, 0, rows).reshape(-1, cout)
+            for kw in range(3):
+                box = _window(xf[img], h0 - 1, kw - 1, rows + 2).reshape(
+                    -1, cin)
+                for kh in range(3):
+                    acc[3 * kh + kw] += box[kh * w:(kh + rows) * w].t() @ d
+        part = acc if split % cluster == 0 else part + acc
+        if split % cluster == cluster - 1:
+            out = part if out is None else out + part
+    return out.reshape(3, 3, cin, cout).to(x.dtype)
+
+
+def conv3x3_path(n: int, h: int, w: int, cin: int, cout: int,
+                 dtype: torch.dtype, device: torch.device) -> str:
+    """The kernel B1 runs for these shapes on a CUDA device (a name of
+    ``CONV_PATHS``), as the C launcher picks it."""
+    lib = _build.load("conv3x3")
+    code = lib.conv3x3_path(_build.DTYPE_CODES[dtype], n, h, w, cin, cout,
+                            torch.device(device).index or 0)
+    if code < 0:
+        raise ValueError(f"conv3x3: no path for {(n, h, w, cin, cout)} "
+                         f"{dtype}")
+    return CONV_PATHS[code]
 
 
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dW of y = conv3x3_same(x, w), in x's dtype: f32 sums rounded once.
     x (N, H, W, Cin), dy (N, H, W, Cout) -> (3, 3, Cin, Cout).
 
-    The CUDA kernel splits K = N*H*W over ``wgrad_splits`` ranges, writes
-    each range's f32 partial sums to a workspace and adds them in range
-    order in a second launch: no float atomics, so two calls give the same
-    bits.  One count per call.  A block holds three K steps' input halos
-    (BK + 2 W + 2 pixel rows each), so images wider than about 170 pixels
-    (bf16; 230 in f32) do not fit its shared memory and the launch
-    raises."""
+    The CUDA kernel runs ``wgrad_plan``: it splits K = N*H*W over its
+    ranges, writes each range's (or each cluster's) f32 partial sums to a
+    workspace and adds them in range order in a second launch: no float
+    atomics, so two calls give the same bits.  One count per call.  On the split-K path a block
+    holds three K steps' input halos (BK + 2 W + 2 pixel rows each), so
+    images wider than about 170 pixels (bf16; 230 in f32) do not fit its
+    shared memory and the launch raises."""
     if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} are not (N,H,W,C), (N,H,W,Co)")
@@ -154,21 +279,31 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return reference_conv3x3_wgrad(x, dy)
     _build.check_cuda_tensors(WGRAD_NAME, x.dtype, x=x, dy=dy)
     n, h, wd, cin = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = wgrad_plan(n, h, wd, cin, dy.shape[3], x.dtype, sms,
+                      aligned=x.data_ptr() % 16 == 0
+                      and dy.data_ptr() % 16 == 0)
+    return _launch_wgrad(x, dy, plan)
+
+
+def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, plan: WgradPlan
+                  ) -> torch.Tensor:
+    """The wgrad kernel under ``plan`` on checked CUDA tensors; counted."""
+    n, h, wd, cin = x.shape
     cout = dy.shape[3]
     out = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     if n * h * wd == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = wgrad_splits(n, h, wd, cin, cout, x.dtype, sms)
-    ws = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty((plan.splits // plan.cluster, 9, cin, cout),
+                     dtype=torch.float32, device=x.device)
     lib = _build.load("conv3x3_wgrad")
     err = lib.conv3x3_wgrad_launch(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, splits,
-        x.device.index, _build.stream_handle(x),
+        ws.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+        WGRAD_PATHS.index(plan.path), plan.splits, plan.rows, plan.stages,
+        plan.cluster, x.device.index, _build.stream_handle(x),
     )
     _build.check(lib, err, "conv3x3_wgrad launch")
     backend.count_launch(WGRAD_NAME)

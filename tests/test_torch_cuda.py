@@ -254,6 +254,16 @@ B1_BWD_SHAPES = [
     (2, 8, 8, 64, 3),          # Cout 3
     (2, 9, 11, 5, 16),         # Cin 5: element copies in both dtypes
     (1, 6, 6, 65, 64),         # Cin 65, M = 36: a mostly empty K step
+    (4, 32, 32, 64, 64),       # wgrad bf16 on TMA: 4 rows a step
+    (2, 16, 16, 128, 128),     # wgrad bf16 on TMA: 2 x 2 channel tiles
+    (3, 8, 24, 64, 128),       # wgrad TMA, W 24 (4 rows), one Cin tile
+                               # and two Cout tiles
+    (4, 8, 8, 64, 64),         # wgrad TMA, W 8: the cluster's staged tile
+                               # is larger than the ring
+    (2, 8, 8, 5, 64),          # dgrad 64 -> 5 on the narrow halo path (n8)
+    (2, 8, 8, 12, 64),         # dgrad 64 -> 12 on the narrow halo path (n16)
+    (2, 8, 8, 64, 5),          # Cout 5 and 12: wgrad split-K, the forward's
+    (2, 8, 8, 64, 12),         # conv on the narrow halo path (autograd)
 ]
 
 
@@ -315,7 +325,8 @@ def test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 32, 32, 64, 64), (256, 16, 16, 128, 128),
-                                   (5, 7, 9, 3, 72)])
+                                   (5, 7, 9, 3, 72), (256, 32, 32, 64, 64),
+                                   (3, 8, 24, 64, 128)])
 def test_conv3x3_wgrad_kernel_repeats_its_bits(dev, dtype, shape):
     """Fixed-order sums of the K ranges: two launches, the same bits."""
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_wgrad
@@ -324,6 +335,59 @@ def test_conv3x3_wgrad_kernel_repeats_its_bits(dev, dtype, shape):
     x = _randn((n, h, w, cin), 1.0, 2, dev, dtype)
     dy = _randn((n, h, w, cout), 1.0, 3, dev, dtype)
     assert torch.equal(conv3x3_wgrad(x, dy), conv3x3_wgrad(x, dy))
+
+
+@pytest.mark.parametrize("n,h,w,kind", [
+    (2, 8, 16, "tma"),     # 4 rows a step, two clusters of two splits
+    (3, 7, 24, "tma"),     # 4 rows a step: a tail step past the image
+    (2, 8, 7, "split_k"),  # W 7
+])
+def test_conv3x3_wgrad_kernel_pins_each_tap(dev, n, h, w, kind):
+    """One-hot x in bf16: each (ci) row of dW is a single dy pixel per tap,
+    or zero where the source pixel lies outside the image, so the kernel
+    must give those bits exactly: at the corners, on the edges, inside."""
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_wgrad,
+        wgrad_plan,
+    )
+
+    cin, cout = 64, 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert wgrad_plan(n, h, w, cin, cout, torch.bfloat16, sms).path == kind
+    x = torch.zeros(n, h, w, cin, device=dev, dtype=torch.bfloat16)
+    hot = [(0, 0, 0), (0, 0, w - 1), (n - 1, h - 1, 0), (n - 1, h - 1, w - 1),
+           (0, 3, 5), (n - 1, 4, w - 1), (1, 0, 4), (0, h - 1, 2)]
+    for ci, (img, r, c) in enumerate(hot):
+        x[img, r, c, ci] = 1.0
+    dy = _randn((n, h, w, cout), 1.0, 10, dev, torch.bfloat16)
+    got = conv3x3_wgrad(x, dy)
+    want = torch.zeros(3, 3, cin, cout, device=dev, dtype=torch.bfloat16)
+    for ci, (img, r, c) in enumerate(hot):
+        for kh in range(3):
+            for kw in range(3):
+                hh, ww = r - kh + 1, c - kw + 1
+                if 0 <= hh < h and 0 <= ww < w:
+                    want[kh, kw, ci] = dy[img, hh, ww]
+    assert torch.equal(got, want)
+
+
+def test_conv3x3_paths_on_the_card(dev):
+    """The path B1's launcher takes: the stem's 64 -> 3 dgrad and any Cout
+    under 16 with Cin a multiple of 64 on the narrow halo kernel, the
+    train step's other convs on the wide one."""
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_path
+
+    bf = torch.bfloat16
+    assert conv3x3_path(256, 32, 32, 64, 3, bf, dev) == "halo_narrow"
+    assert conv3x3_path(2, 8, 8, 64, 12, bf, dev) == "halo_narrow"
+    assert conv3x3_path(2, 8, 8, 128, 8, bf, dev) == "halo_narrow"
+    assert conv3x3_path(256, 32, 32, 64, 64, bf, dev) == "halo"
+    assert conv3x3_path(256, 16, 16, 128, 128, bf, dev) == "halo"
+    assert conv3x3_path(2, 8, 8, 64, 16, bf, dev) == "halo"
+    assert conv3x3_path(256, 32, 32, 3, 64, bf, dev) == "gather_elements"
+    assert conv3x3_path(256, 32, 32, 64, 3, torch.float32, dev) \
+        == "gather_elements"
+    assert conv3x3_path(1, 2, 720, 64, 64, bf, dev) == "gather"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

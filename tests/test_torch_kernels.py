@@ -4,9 +4,11 @@ B1 (``ops/conv3x3.py``) and B2 (``ops/ode_block.py``): on CPU tensors each
 wrapper runs its plain version, which must match the JAX reference and the
 Pallas kernel run in interpret mode, at the bars of ``tests/test_pallas.py``
 and ``tests/test_pallas_ode_block.py``.  B1's backward (dgrad on B1, the
-wgrad's plain version) is held to ``jax.vjp`` of the JAX reference.  B2's launch schedule (which buffer
-each launch reads and writes) runs here through a plain executor of each
-launch.  The CUDA kernels themselves are checked against these plain
+wgrad's plain version) is held to ``jax.vjp`` of the JAX reference, and so
+is a plain replay of the wgrad kernel's TMA decomposition (whole-row K
+steps, zero-filled boxes, taps as row offsets, split ranges in order).  B2's
+launch schedule (which buffer each launch reads and writes) runs here
+through a plain executor of each launch.  The CUDA kernels themselves are checked against these plain
 versions on the card (``test_torch_cuda.py``).
 """
 import numpy as np
@@ -28,7 +30,8 @@ from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
     conv3x3_wgrad,
     reference_conv3x3,
     reference_conv3x3_wgrad,
-    wgrad_splits,
+    run_wgrad_plan,
+    wgrad_plan,
 )
 from neural_ode_metasolver_tpu_torch.ops.ode_block import (
     GELU,
@@ -296,13 +299,93 @@ def test_b1_wgrad_plain_matches_reference_and_bf16_rounds_once():
                                want16, atol=2.0 ** -7 * np.abs(want16).max())
 
 
-def test_b1_wgrad_splits_plan():
-    """About one block per SM over the (Cin, Cout) tiles, never more ranges
-    than K steps; the flagship shapes on 132 SMs."""
-    sms = 132
-    assert wgrad_splits(256, 32, 32, 64, 64, torch.bfloat16, sms) == 132
-    assert wgrad_splits(256, 32, 32, 3, 64, torch.bfloat16, sms) == 132
-    assert wgrad_splits(256, 16, 16, 128, 128, torch.bfloat16, sms) == 33
-    assert wgrad_splits(256, 32, 32, 64, 64, torch.float32, sms) == 33
-    assert wgrad_splits(1, 4, 4, 64, 64, torch.bfloat16, sms) == 1
-    assert wgrad_splits(1, 6, 6, 65, 64, torch.float32, sms) == 1
+@pytest.mark.parametrize("shape,dtype,aligned,plan", [
+    # the flagship train step on 132 SMs: 64->64 and 128->128 on TMA, 64
+    # pixels a step, four ring slots, clusters of two splits, about one
+    # block per SM over the 64-channel tiles; the stem on split-K
+    ((256, 32, 32, 64, 64), torch.bfloat16, True, ("tma", 132, 2, 4, 2)),
+    ((256, 16, 16, 128, 128), torch.bfloat16, True, ("tma", 32, 4, 4, 2)),
+    ((256, 32, 32, 3, 64), torch.bfloat16, True, ("split_k", 132, 128, 3, 1)),
+    # f32 and MNIST's Cin 65 keep split-K; never more ranges than K steps
+    ((256, 32, 32, 64, 64), torch.float32, True, ("split_k", 33, 64, 3, 1)),
+    ((1, 4, 4, 64, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
+    ((1, 6, 6, 65, 64), torch.float32, True, ("split_k", 1, 64, 3, 1)),
+    ((1, 6, 6, 65, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
+    # W = 7: taps would not start on swizzle atoms
+    ((2, 7, 7, 64, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
+    # a pointer off 16 bytes: TMA cannot address it
+    ((4, 32, 32, 64, 64), torch.bfloat16, False, ("split_k", 32, 128, 3, 1)),
+    # W 72: two rows are 9 k16 slices, more than the kernel's instances
+    ((2, 7, 72, 64, 64), torch.bfloat16, True, ("split_k", 8, 128, 3, 1)),
+    # W 128: one row fits one ring slot only
+    ((1, 2, 128, 8, 8), torch.bfloat16, True, ("split_k", 2, 128, 3, 1)),
+    # TMA at the card tests' shapes: W 24 takes 4 rows (96 pixels), W 8
+    # 8 rows, W 64 one row and two slots; one step, one split, no cluster
+    ((4, 32, 32, 64, 64), torch.bfloat16, True, ("tma", 64, 2, 4, 2)),
+    ((2, 16, 16, 128, 128), torch.bfloat16, True, ("tma", 8, 4, 4, 2)),
+    ((3, 8, 24, 64, 128), torch.bfloat16, True, ("tma", 6, 4, 3, 2)),
+    ((2, 8, 8, 64, 64), torch.bfloat16, True, ("tma", 2, 8, 4, 2)),
+    ((1, 64, 64, 64, 64), torch.bfloat16, True, ("tma", 64, 1, 2, 2)),
+    ((1, 8, 8, 64, 64), torch.bfloat16, True, ("tma", 1, 8, 4, 1)),
+])
+def test_b1_wgrad_splits_plan(shape, dtype, aligned, plan):
+    """wgrad_plan: the path, the K ranges, the step (image rows on TMA,
+    pixels on split-K), the ring slots and the cluster, from shapes, dtype,
+    132 SMs and the pointers' alignment only."""
+    got = wgrad_plan(*shape, dtype, 132, aligned=aligned)
+    assert tuple(got) == plan
+
+
+def _replay_step(shape):
+    """The plan's rows, splits and cluster where it takes TMA, else 2 rows
+    (a tail step wherever H is odd) in up to 3 ranges, each its own
+    cluster."""
+    n, h, w, cin, cout = shape
+    plan = wgrad_plan(n, h, w, cin, cout, torch.bfloat16, 132)
+    if plan.path == "tma":
+        return plan.rows, plan.splits, plan.cluster
+    return 2, min(3, n * -(-h // 2)), 1
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES + [(2, 8, 8, 64, 64),
+                                                (2, 4, 16, 128, 64)])
+def test_b1_wgrad_tma_replay_matches_reference_and_jax_vjp(shape):
+    """The TMA path's decomposition, replayed in plain f32 torch, against
+    reference_conv3x3_wgrad and jax.vjp of the JAX reference_conv3x3: atol
+    1e-5 (f32 sums in another order)."""
+    import jax
+
+    x, k = _conv_inputs(*shape, seed=10)
+    dy = (0.1 * np.random.RandomState(11).randn(*shape[:3], shape[4])
+          ).astype(np.float32)
+    rows, splits, cluster = _replay_step(shape)
+    got = run_wgrad_plan(torch.tensor(x), torch.tensor(dy), rows, splits,
+                         cluster)
+    assert got.shape == (3, 3, shape[3], shape[4])
+    ref = reference_conv3x3_wgrad(torch.tensor(x), torch.tensor(dy))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    _, vjp = jax.vjp(j_reference_conv3x3, jnp.asarray(x), jnp.asarray(k))
+    _, jk = vjp(jnp.asarray(dy))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jk), atol=1e-5)
+
+
+def test_b1_wgrad_tma_replay_pins_each_tap():
+    """One-hot x: each tap's sum is one dy pixel (or zero where the source
+    pixel lies outside the image), exactly, at the corners, an edge and
+    inside, across a split boundary mid-image."""
+    n, h, w, cin, cout = 2, 5, 8, 4, 3
+    x = torch.zeros(n, h, w, cin)
+    hot = [(0, 0, 0, 0), (0, 2, 3, 1), (1, 4, 7, 2), (1, 0, 5, 3)]
+    for p in hot:
+        x[p] = 1.0
+    dy = torch.arange(n * h * w * cout, dtype=torch.float32).reshape(
+        n, h, w, cout)
+    got = run_wgrad_plan(x, dy, 2, 6, 2)
+    want = torch.zeros(3, 3, cin, cout)
+    for img, r, c, ci in hot:
+        for kh in range(3):
+            for kw in range(3):
+                hh, ww = r - kh + 1, c - kw + 1
+                if 0 <= hh < h and 0 <= ww < w:
+                    want[kh, kw, ci] = dy[img, hh, ww]
+    assert torch.equal(got, want)
