@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
      timings of the kernel, the plain version and cuDNN's ``F.conv2d``
      (yardstick), and the kernel's TFLOP/s and share of its bound;
   4. B1's backward against its plain versions at the flagship train step's
-     shapes, batch 256, f32 and bf16: the dgrad (``conv3x3_dgrad``, B1 on
+     shapes, batch 256, f32 and bf16, and at the MNIST train step's
+     ConcatConv2d (128, 6, 6, 65 -> 64) in f32: the dgrad (``conv3x3_dgrad``, B1 on
      flipped weights, the stem's with Cout 3) with the kernel path it took,
      and the wgrad kernel (``conv3x3_wgrad``) with its launch plan, with
      cuDNN's ``conv2d_input`` / ``conv2d_weight`` as yardsticks, and two
@@ -29,6 +30,12 @@ Phases, in order; any failure exits non-zero:
      f32 and bf16, with each shape's launch plan and timings of the kernel,
      the plain version and ``F.group_norm`` (yardstick), beside the launch
      floor: a one-element ``add_`` timed the same way;
+ 6b. B3's backward (``group_norm_backward``) against its plain version at
+     the MNIST train step's shapes, batch 128, relu and none, and off the
+     path at (256, 32, 32, 64), f32 and bf16: dx, dscale and dbias of the
+     full launch, the dx-only launch's dx and a second full launch bit for
+     bit, each shape's launch plan, and timings of both launches, the plain
+     version and aten's GroupNorm backward (yardstick);
   7. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
      one warm-up request at each of batch 1, 64 and 256, then five counted
      and timed requests at each size; check the logits and the kernels'
@@ -50,7 +57,21 @@ Phases, in order; any failure exits non-zero:
      with autograd) from one state with the draws pinned: in f32 at batch
      32 the adversarial images (equal but where the input gradient is
      tiny) and the parameter gradients at the same images; in bf16 at batch
-     256 one step's loss and gradient norm.
+     256 one step's loss and gradient norm;
+ 11. train: the digits recipe of ``scripts/digits_smoothing_experiment.py``
+     (MNIST MetaNODE, dim 64, RK2 u=0.5 8 steps with Normal(0.0125)
+     smoothing, PGD eps 0.3, lr 2/255, 7 iterations, RMSprop lr 1e-3,
+     weight decay 5e-4) at batch 128 in f32, seeded uniform images and
+     labels: one warm-up step, five counted and timed steps (median, img/s),
+     the launches per step (B3 408 forward and 408 backward, 51 of them
+     with dscale and dbias; B1 256, dgrad 256, wgrad 32; B2 0); then its
+     kernel path against its plain path from one state: one step's loss
+     and gradient norm, and through ``Model.forward`` one PGD step's
+     adversarial images and the parameter gradients at the same images;
+ 12. evaluate: clean ``accuracy`` and PGD-7 ``adversarial_accuracy`` over
+     four batches of 256 seeded images, kernel path and plain path, with
+     the time of each batch and the launches; the correct counts agree
+     (uniform images carry no accuracy, so none is asserted).
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -112,6 +133,45 @@ B3_CALLS = [
 ]
 GN_GROUPS = 32
 GN_OPS_PER_ELEMENT = 10  # sum, centred square, normalize, affine, act
+# B3's backward: two stats passes, xhat, y, act', two sums, dx
+GN_BWD_OPS_PER_ELEMENT = 30
+
+# The digits recipe (scripts/digits_smoothing_experiment.py:81-140): the
+# MNIST MetaNODE at dim 64, RK2 u=0.5 8 steps, Normal(0.0125) smoothing,
+# PGD at eps 0.3, lr 2/255, 7 iterations with a random start, RMSprop lr
+# 1e-3, weight decay 5e-4, f32; trained at batch 128, evaluated at 256.
+MNIST_TRAIN_BATCH = 128
+EVAL_BATCH = 256
+EVAL_BATCHES = 4
+PGD_EPS, PGD_LR, PGD_ITERS = 0.3, 2 / 255, 7
+MNIST_GN_PER_PASS = sum(c[-1] for c in B3_CALLS)  # 51
+MNIST_B1_PER_PASS = sum(c[-1] for c in B1_MNIST_CALLS)  # 32
+# B3's backward at the train step's shapes: (name, N, H, W, C, act,
+# launches per backward pass); off the path at (256, 32, 32, 64)
+B3_BWD_CALLS = [(nm, MNIST_TRAIN_BATCH, h, w, c, act, k)
+                for nm, _, h, w, c, act, k in B3_CALLS]
+B3_BWD_OFF_PATH = [("off the path", BATCH, 32, 32, MNIST_DIM, "relu", 0)]
+TRAIN_MNIST = (MNIST_TRAIN_BATCH, 6, 6, MNIST_DIM + 1, MNIST_DIM)
+# a train step: PGD_ITERS attack passes (forward, then the input's
+# backward) and the training pass (forward, then the params' backward)
+MNIST_TRAIN_PER_STEP = {
+    "group_norm_act": (PGD_ITERS + 1) * MNIST_GN_PER_PASS,
+    "conv3x3_same": (PGD_ITERS + 1) * MNIST_B1_PER_PASS,
+    "group_norm_act_bwd": (PGD_ITERS + 1) * MNIST_GN_PER_PASS,
+    "group_norm_act_bwd_params": MNIST_GN_PER_PASS,
+    "conv3x3_dgrad": (PGD_ITERS + 1) * MNIST_B1_PER_PASS,
+    "conv3x3_wgrad": MNIST_B1_PER_PASS,
+}
+# an eval batch: clean, one forward; PGD, PGD_ITERS attack passes and the
+# forward of the attacked batch
+EVAL_CLEAN_PER_BATCH = {"group_norm_act": MNIST_GN_PER_PASS,
+                        "conv3x3_same": MNIST_B1_PER_PASS}
+EVAL_PGD_PER_BATCH = {
+    "group_norm_act": (PGD_ITERS + 1) * MNIST_GN_PER_PASS,
+    "conv3x3_same": (PGD_ITERS + 1) * MNIST_B1_PER_PASS,
+    "group_norm_act_bwd": PGD_ITERS * MNIST_GN_PER_PASS,
+    "conv3x3_dgrad": PGD_ITERS * MNIST_B1_PER_PASS,
+}
 
 # The flagship train step at batch 256: forward convs (N, H, W, Cin, Cout)
 # of B1 and their launches per step.  A pass runs 68: the stem, layer 1's
@@ -179,6 +239,8 @@ def main():
     from neural_ode_metasolver_tpu_torch.ops.noise import noise_solver
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act,
+        group_norm_backward,
+        group_norm_backward_reference,
         group_norm_reference,
         launch_plan,
     )
@@ -187,11 +249,16 @@ def main():
         reference_ode_block_rk2,
     )
     from neural_ode_metasolver_tpu_torch.serving import ServedModel
+    from neural_ode_metasolver_tpu_torch.attacks import pgd
     from neural_ode_metasolver_tpu_torch.training import (
         AttackConfig,
         NoiseConfig,
+        accuracy,
+        adversarial_accuracy,
         create_train_state,
         cyclic_lr,
+        make_adversarial_predict,
+        make_eval_step,
         make_optimizer,
         make_train_step,
     )
@@ -340,7 +407,8 @@ def main():
     bwd_rows = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in dtypes:
-        for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2):
+        for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2) + (
+                (TRAIN_MNIST,) if dtype == torch.float32 else ()):
             n, h, w, cin, cout = shape
             es = torch.tensor([], dtype=dtype).element_size()
             flops = 2 * n * h * w * cin * cout * 9
@@ -534,6 +602,102 @@ def main():
                 fail(f"B3 {row['dtype']} {(n, h, w, c)} act={act}: "
                      f"max|diff| {err} > {bar}")
             del x, got, ref, x_cl
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 6b B3 backward vs plain
+    phase(f"B3 backward (group_norm_backward) vs its plain version (the "
+          f"MNIST train step's shapes at batch {MNIST_TRAIN_BATCH}, "
+          f"{GN_GROUPS} groups)")
+    b3b_rows = []
+    for dtype in dtypes:
+        for _, n, h, w, c, act, _ in B3_BWD_CALLS + B3_BWD_OFF_PATH:
+            plan = launch_plan(n, h, w, c, GN_GROUPS, dtype, backward=True)
+            x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
+            scale = randn((c,), 0.3, 7, torch.float32) + 1.0
+            bias = randn((c,), 0.5, 8, torch.float32)
+            g = randn((n, h, w, c), 1.0, 9, dtype)
+            args = (x, scale, bias, g, GN_GROUPS)
+            full = group_norm_backward(*args, act=act)
+            again = group_norm_backward(*args, act=act)
+            dx_only, none_s, _ = group_norm_backward(*args, act=act,
+                                                     params=False)
+            torch.cuda.synchronize()
+            if none_s is not None or not torch.equal(full[0], dx_only) or \
+                    not all(torch.equal(a, b) for a, b in zip(full, again)):
+                fail(f"B3 backward {dtype} {(n, h, w, c)}: two launches "
+                     f"differ, or the dx-only launch's dx differs")
+            ref = group_norm_backward_reference(*args, act=act)
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(full, ref)]
+            # dx: f32 the sum order (1e-4 of the largest), bf16 one rounding
+            # at the same point (two bf16 ulps of the largest); dscale and
+            # dbias: f32 sums of N*H*W terms in another order, 1e-5 of the
+            # sum of their magnitudes (|dpre| <= 2 |dout| for these acts)
+            dxmax = ref[0].float().abs().max().item()
+            xf = x.float().reshape(n, h * w, GN_GROUPS, c // GN_GROUPS)
+            xhat = ((xf - xf.mean((1, 3), keepdim=True)) * torch.rsqrt(
+                xf.var((1, 3), unbiased=False, keepdim=True) + 1e-5)
+                    ).reshape(n, h, w, c)
+            l1 = 2.0 * g.float().abs()
+            bars = [1e-4 * max(1.0, dxmax) if dtype == torch.float32
+                    else 2.0 ** -6 * dxmax,
+                    1e-5 * max(1.0, (l1 * xhat.abs()).sum().item()),
+                    1e-5 * max(1.0, l1.sum().item())]
+            del xf, xhat, l1
+            ms_full = time_ms(lambda: group_norm_backward(*args, act=act), 20)
+            ms_dx = time_ms(lambda: group_norm_backward(*args, act=act,
+                                                        params=False), 20)
+            plain_ms = time_ms(lambda: group_norm_backward_reference(
+                *args, act=act), 20)
+            # yardstick: PyTorch's own GroupNorm backward, aten's, as
+            # autograd calls it after F.group_norm of the channels_last
+            # NCHW view (which hands aten a contiguous NCHW copy), with the
+            # forward's saved statistics, after the relu mask; its affine
+            # in x's dtype
+            x_cl = x.permute(0, 3, 1, 2).contiguous()
+            g_cl = g.permute(0, 3, 1, 2).contiguous()
+            s_l = scale.to(dtype)
+            y_l, mean_l, rstd_l = torch.ops.aten.native_group_norm(
+                x_cl, s_l, bias.to(dtype), n, c, h * w, GN_GROUPS, 1e-5)
+
+            def library():
+                gy = (torch.ops.aten.threshold_backward(g_cl, y_l, 0.0)
+                      if act == "relu" else g_cl)
+                return torch.ops.aten.native_group_norm_backward(
+                    gy, x_cl, mean_l, rstd_l, s_l, n, c, h * w, GN_GROUPS,
+                    [True, True, True])
+
+            lib_ms = time_ms(library, 20)
+            es = x.element_size()
+            flops = GN_BWD_OPS_PER_ELEMENT * x.numel()
+            for kind_, ms, extra in (("full", ms_full, 2 * c * 4),
+                                     ("dx", ms_dx, 0)):
+                b_ms, b_bytes, b_ops = bound(3 * x.numel() * es + extra,
+                                             flops, torch.float32)
+                b3b_rows.append({
+                    "key": (n, h, w, c, act, kind_),
+                    "dtype": str(dtype).split(".")[-1],
+                    "max_abs_err": max(errs), "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
+                    "plan": plan._asdict()})
+            print(f"  B3 bwd {str(dtype).split('.')[-1]:8s} {(n, h, w, c)} "
+                  f"act={act}: plan {plan.path} ({plan.vec}-element access, "
+                  f"{plan.warps} warps a block, cluster {plan.cluster}, "
+                  f"{plan.regs} vectors a thread, {plan.smem_bytes} B "
+                  f"shared); bits repeat", flush=True)
+            print(f"     max|diff| dx {errs[0]:.3e} (bar {bars[0]:.3e}), "
+                  f"dscale {errs[1]:.3e} (bar {bars[1]:.3e}), dbias "
+                  f"{errs[2]:.3e} (bar {bars[2]:.3e}); kernel {ms_full:.4f} "
+                  f"ms (dx only {ms_dx:.4f}), plain {plain_ms:.4f} ms, aten "
+                  f"GN backward{'+relu mask' if act else ''} {lib_ms:.4f} "
+                  f"ms, bound {b3b_rows[-1]['bound_ms']:.4f} ms "
+                  f"({b3b_rows[-1]['bound_ms'] / ms_full:.3f} of it)",
+                  flush=True)
+            if not all(e <= b for e, b in zip(errs, bars)):
+                fail(f"B3 backward {dtype} {(n, h, w, c)} act={act}: "
+                     f"max|diff| {errs} > {bars}")
+            del x, g, full, again, dx_only, ref, x_cl, g_cl, y_l
     torch.cuda.empty_cache()
 
     def time_requests(served, sizes, make_input, label):
@@ -810,6 +974,192 @@ def main():
     del model, state, snapshot
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------- 11 train MNIST
+    phase(f"train: the digits recipe (MNIST MetaNODE dim {MNIST_DIM}, "
+          f"PGD-{PGD_ITERS}, smoothing, RMSprop), f32, batch "
+          f"{MNIST_TRAIN_BATCH}")
+    mnist = build_model("mnist", dim=MNIST_DIM,
+                        generator=torch.Generator().manual_seed(0))
+    mopt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+    matk = AttackConfig(mode="at", eps=PGD_EPS, pgd_lr=PGD_LR,
+                        pgd_niter=PGD_ITERS)
+
+    def mnist_step(use_kernels):
+        return make_train_step(mnist, mopt, solvers, SolverOptions(), matk,
+                               noise_cfg, use_kernels=use_kernels)
+
+    mstate = create_train_state(mnist, mopt)
+    msnap = {k: p.detach().clone() for k, p in mstate.params.items()}
+    gen_cpu.manual_seed(2)
+    xm = torch.rand(MNIST_TRAIN_BATCH, 28, 28, 1, generator=gen_cpu).to(dev)
+    ym = torch.randint(0, 10, (MNIST_TRAIN_BATCH,), generator=gen_cpu).to(dev)
+    step = mnist_step(True)
+    step_gen = torch.Generator().manual_seed(11)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstate, metrics = step(mstate, xm, ym, step_gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+          f"{metrics['loss'].item():.6f}", flush=True)
+    port.reset_launch_counts()
+    mstep_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        mstate, metrics = step(mstate, xm, ym, step_gen)
+        torch.cuda.synchronize()
+        mstep_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    mnist_train_counts = port.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    mnist_med = sorted(mstep_ms)[len(mstep_ms) // 2]
+    print(f"  losses: {[round(l, 6) for l in losses]}", flush=True)
+    print(f"  ms per step: {[round(m, 3) for m in mstep_ms]}", flush=True)
+    print(f"  median {mnist_med:.3f} ms per step over {TRAIN_STEPS} steps "
+          f"(min {min(mstep_ms):.3f}, max {max(mstep_ms):.3f}) = "
+          f"{MNIST_TRAIN_BATCH / mnist_med * 1e3:.1f} img/s (f32, batch "
+          f"{MNIST_TRAIN_BATCH}); peak memory {peak_gb:.2f} GiB", flush=True)
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"non-finite MNIST training loss: {losses}")
+    expected = {k: v * TRAIN_STEPS for k, v in MNIST_TRAIN_PER_STEP.items()}
+    print(f"  launch counts: {mnist_train_counts} (expected {expected}: per "
+          f"step {PGD_ITERS + 1} forwards of B3 {MNIST_GN_PER_PASS} and B1 "
+          f"{MNIST_B1_PER_PASS}, {PGD_ITERS + 1} backwards of B3 and dgrad, "
+          f"{MNIST_GN_PER_PASS} of B3's with dscale/dbias and "
+          f"{MNIST_B1_PER_PASS} wgrad in the training pass's, B2 0; "
+          f"{TRAIN_STEPS} steps)", flush=True)
+    if mnist_train_counts != expected:
+        fail(f"MNIST train launch counts {mnist_train_counts} != expected "
+             f"{expected}")
+
+    # kernel path vs plain path from one state, draws pinned by the seeds
+    def mrestore():
+        with torch.no_grad():
+            for k, p in mstate.params.items():
+                p.copy_(msnap[k])
+
+    results = {}
+    for use_kernels in (True, False):
+        mrestore()
+        st = create_train_state(mnist, mopt)
+        _, mt = mnist_step(use_kernels)(st, xm, ym,
+                                        torch.Generator().manual_seed(21))
+        results[use_kernels] = (mt["loss"].item(), mt["grad_norm"].item())
+    (lk, nk), (lp, np_) = results[True], results[False]
+    loss_bar = 2e-2 * max(1.0, abs(lp))
+    norm_rel = abs(nk - np_) / np_
+    print(f"  f32 batch {MNIST_TRAIN_BATCH}: loss {lk:.6f} vs plain "
+          f"{lp:.6f} (|diff| {abs(lk - lp):.3e}, bar {loss_bar:.3e}); grad "
+          f"norm {nk:.6f} vs {np_:.6f} (relative {norm_rel:.3e}, bar 5e-2; "
+          f"PGD's sign steps carry rounding differences on)", flush=True)
+    if not (abs(lk - lp) <= loss_bar and norm_rel <= 5e-2):
+        fail("MNIST train step: kernel and plain paths disagree")
+    mrestore()
+    mfrozen = mnist.detached_params()
+    mparams = list(mstate.params.values())
+    xb, yb = xm[:32], ym[:32]
+    with full_f32():
+        def mfwd(use_kernels, train, tree=None):
+            return lambda xi: mnist(xi, solvers, use_kernels=use_kernels,
+                                    train=train, params=tree)
+
+        xa = [pgd(mfwd(uk, False, mfrozen),
+                  torch.Generator(device=dev).manual_seed(4), xb, yb,
+                  PGD_EPS, PGD_LR, 1)[0] for uk in (True, False)]
+        share = (xa[0] != xa[1]).float().mean().item()
+        grads = [torch.autograd.grad(cross_entropy(
+            mfwd(uk, True)(xa[1]), yb), mparams) for uk in (True, False)]
+        gmax = max(g.abs().max().item() for g in grads[1])
+        gerr = max((a - b).abs().max().item() for a, b in zip(*grads))
+    # the bar: ReLU masks at pre-activations within rounding of 0 flip
+    # between two forwards that differ by rounding (B3's forward kernel and
+    # its plain version, 1e-7 apart); at this random init, 1e-6 relative
+    # noise on every GroupNorm's output moves these grads by 3.1e-3 of
+    # max|g| (on the CPU), so 1e-3 (the flagship's GeLUpoly has no masks:
+    # 1e-4 there)
+    print(f"  f32 batch 32, through Model.forward: one PGD step's x_adv "
+          f"differs at {share:.2e} of the pixels (at most 1e-3); param "
+          f"grads at the plain x_adv, max|diff| {gerr:.3e} (bar 1e-3 x "
+          f"max|g| = {1e-3 * gmax:.3e})", flush=True)
+    if share > 1e-3 or not gerr <= 1e-3 * gmax:
+        fail(f"MNIST kernel and plain paths differ: x_adv share {share}, "
+             f"grads {gerr}")
+    del grads, xa
+
+    # --------------------------------------------------- 12 evaluate MNIST
+    phase(f"evaluate: clean accuracy and PGD-{PGD_ITERS} adversarial "
+          f"accuracy, {EVAL_BATCHES} batches of {EVAL_BATCH}, f32")
+    mrestore()
+    gen_cpu.manual_seed(3)
+    eval_data = [(torch.rand(EVAL_BATCH, 28, 28, 1, generator=gen_cpu)
+                  .to(dev), torch.randint(0, 10, (EVAL_BATCH,),
+                                          generator=gen_cpu).to(dev))
+                 for _ in range(EVAL_BATCHES)]
+    eatk = AttackConfig(mode="at", eps=PGD_EPS, pgd_lr=PGD_LR,
+                        pgd_niter=PGD_ITERS)
+
+    def timed(batches, marks):
+        """The batches, with a synchronized host-clock mark before each
+        and after the last (the harness itself reads back only at the
+        end)."""
+        for b in batches:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    evals = {}
+    for use_kernels in (True, False):
+        predict = make_eval_step(mnist, solvers, use_kernels=use_kernels)
+        apredict = make_adversarial_predict(mnist, solvers, SolverOptions(),
+                                            eatk, use_kernels=use_kernels)
+        predict(eval_data[0][0])  # warm-up
+        apredict(*eval_data[0], torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        marks = []
+        acc = accuracy(mnist, solvers, SolverOptions(),
+                       timed(eval_data, marks), predict=predict)
+        clean_counts = port.launch_counts()
+        port.reset_launch_counts()
+        amarks = []
+        rob = adversarial_accuracy(mnist, solvers, SolverOptions(),
+                                   timed(eval_data, amarks), eatk,
+                                   torch.Generator().manual_seed(5),
+                                   predict=apredict)
+        evals[use_kernels] = dict(
+            acc=acc, rob=rob, clean_counts=clean_counts,
+            pgd_counts=port.launch_counts(),
+            clean_ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+            pgd_ms=[(b - a) * 1e3 for a, b in zip(amarks, amarks[1:])])
+        e = evals[use_kernels]
+        print(f"  {'kernel' if use_kernels else 'plain '} path: clean "
+              f"accuracy {acc:.4f} (ms per batch "
+              f"{[round(m, 3) for m in e['clean_ms']]}), PGD-{PGD_ITERS} "
+              f"accuracy {rob:.4f} (ms per batch "
+              f"{[round(m, 3) for m in e['pgd_ms']]}); launches clean "
+              f"{e['clean_counts']}, PGD {e['pgd_counts']}", flush=True)
+    ek, ep = evals[True], evals[False]
+    want_clean = {k: v * EVAL_BATCHES for k, v in EVAL_CLEAN_PER_BATCH.items()}
+    want_pgd = {k: v * EVAL_BATCHES for k, v in EVAL_PGD_PER_BATCH.items()}
+    n_eval = EVAL_BATCHES * EVAL_BATCH
+    pgd_apart = abs(round(ek["rob"] * n_eval) - round(ep["rob"] * n_eval))
+    print(f"  expected launches: clean {want_clean}, PGD {want_pgd} (plain "
+          f"path none); correct counts kernel vs plain: clean "
+          f"{round(ek['acc'] * n_eval)} vs {round(ep['acc'] * n_eval)} "
+          f"(equal), PGD {round(ek['rob'] * n_eval)} vs "
+          f"{round(ep['rob'] * n_eval)} (at most 2 of {n_eval} apart: "
+          f"sign steps)", flush=True)
+    if ek["clean_counts"] != want_clean or ek["pgd_counts"] != want_pgd \
+            or ep["clean_counts"] or ep["pgd_counts"]:
+        fail("evaluation launch counts differ from the expected ones")
+    if round(ek["acc"] * n_eval) != round(ep["acc"] * n_eval) \
+            or pgd_apart > 2:
+        fail("evaluation: kernel and plain paths count differently")
+    eval_counts = Counter(ek["clean_counts"]) + Counter(ek["pgd_counts"])
+    del mnist, mstate, msnap, eval_data
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -841,6 +1191,11 @@ def main():
                           "launches": mnist_counts.get(name, 0)},
             "flagship train bf16": {"steps": TRAIN_STEPS,
                                     "launches": train_counts.get(name, 0)},
+            "mnist train f32": {
+                "steps": TRAIN_STEPS,
+                "launches": mnist_train_counts.get(name, 0)},
+            "mnist eval f32": {"batches": 2 * EVAL_BATCHES,
+                               "launches": eval_counts.get(name, 0)},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -852,6 +1207,13 @@ def main():
     b1_mnist = {c[1:6]: c[6] for c in B1_MNIST_CALLS}
     dgrad_rows = [r for r in bwd_rows if r["kind"] == "dgrad"]
     wgrad_rows = [r for r in bwd_rows if r["kind"] == "wgrad"]
+    # a train step's B3 backwards: PGD_ITERS dx-only ones and one full one
+    # for each GroupNorm of a pass
+    b3b_step = {}
+    for _, n, h, w, c, act, k in B3_BWD_CALLS:
+        b3b_step[(n, h, w, c, act, "dx")] = PGD_ITERS * k
+        b3b_step[(n, h, w, c, act, "full")] = k
+    b1b_mnist = {TRAIN_MNIST: (PGD_ITERS + 1) * MNIST_B1_PER_PASS}
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -859,6 +1221,8 @@ def main():
               mnist_f32=per_request_sums(b1_rows, b1_mnist, "float32"),
               train_step_bf16=per_request_sums(b1_rows, TRAIN_FWD,
                                                "bfloat16"),
+              mnist_train_dgrad_f32=per_request_sums(
+                  dgrad_rows, b1b_mnist, "float32"),
               dgrad={"launches": train_counts.get("conv3x3_dgrad", 0),
                      **per_request_sums(dgrad_rows, TRAIN_DGRAD,
                                         "bfloat16"),
@@ -869,6 +1233,8 @@ def main():
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
               per_request_sums(wgrad_rows, TRAIN_WGRAD, "bfloat16"),
               f32=per_request_sums(wgrad_rows, TRAIN_WGRAD, "float32"),
+              mnist_train_f32=per_request_sums(
+                  wgrad_rows, {TRAIN_MNIST: MNIST_B1_PER_PASS}, "float32"),
               plans={str(r["key"]): r["plan"] for r in wgrad_rows
                      if r["dtype"] == "bfloat16"},
               note="not a TPU kernel: the backward of B1 that slice 3 "
@@ -884,6 +1250,21 @@ def main():
               per_request_sums(b3_rows, b3_mnist, "float32"),
               bf16=per_request_sums(b3_rows, b3_mnist, "bfloat16"),
               launch_floor_ms=floor_ms),
+        entry("group_norm_act_bwd",
+              "neural_ode_metasolver_tpu_torch/csrc/group_norm_act_bwd.cu",
+              "neural_ode_metasolver_tpu/ops/pallas_kernels.py:159 (the "
+              "custom VJP _bwd of fused_group_norm_act: jnp in JAX, not "
+              "Pallas)",
+              per_request_sums(b3b_rows, b3b_step, "float32"),
+              bf16=per_request_sums(b3b_rows, b3b_step, "bfloat16"),
+              full_launches=mnist_train_counts.get(
+                  "group_norm_act_bwd_params", 0),
+              dx_only_launches=(
+                  mnist_train_counts.get("group_norm_act_bwd", 0)
+                  - mnist_train_counts.get("group_norm_act_bwd_params", 0)
+                  + eval_counts.get("group_norm_act_bwd", 0)),
+              plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
+                     if r["dtype"] == "float32" and r["key"][5] == "full"}),
     ]
     units = ("launches: total over the counted requests of both served "
              "paths (by_path splits them); ms, plain_ms, bound_ms, "
@@ -901,7 +1282,17 @@ def main():
              "launches counted as conv3x3_dgrad) the 135 dgrad launches a "
              "step; conv3x3_wgrad's numbers sum its 68 launches a step "
              "(f32: the same calls in f32), its library_ms "
-             "torch.nn.grad.conv2d_weight (dgrad: conv2d_input)")
+             "torch.nn.grad.conv2d_weight (dgrad: conv2d_input).  The "
+             "digits train step (MNIST, f32, batch 128): conv3x3_same's "
+             "mnist_train_dgrad_f32 and conv3x3_wgrad's mnist_train_f32 sum "
+             "a step's 256 dgrad and 32 wgrad launches at (128, 6, 6, "
+             "65 -> 64); group_norm_act_bwd's numbers sum a step's 408 "
+             "backward launches (357 dx only, 51 with dscale and dbias) at "
+             "the MNIST shapes in f32 (bf16: the same calls in bf16), its "
+             "library_ms aten's native_group_norm_backward (after "
+             "threshold_backward where the kernel fuses relu), its bound "
+             "the bytes of x, dout and dx; by_path's mnist eval f32 counts "
+             "the clean and the PGD evaluation's batches")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,11 +5,13 @@ and ``numpy`` only, never ``jax`` and nothing of ``neural_ode_metasolver_tpu``.
 Module names mirror the JAX package's.  Public functions keep its layouts:
 NHWC activations, HWIO conv kernels.
 
-It serves the flagship ``premetanode10`` forward and the MNIST MetaNODE
-with three hand-written CUDA kernels (``csrc/``): B1, the stride-1 3x3
-conv; B2, the RK2 solve of a CIFAR ODE block; B3, GroupNorm fused with its
-activation.  Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.
+It serves the flagship ``premetanode10`` forward and the MNIST MetaNODE,
+trains both families adversarially and measures clean and PGD accuracy,
+with three hand-written CUDA kernels (``csrc/``) and their backward: B1,
+the stride-1 3x3 conv (dgrad on B1, a wgrad kernel); B2, the RK2 solve of
+a CIFAR ODE block (forward only); B3, GroupNorm fused with its activation
+(a backward kernel).  Entry points run on the CUDA card unless the caller
+passes ``device="cpu"``.
 """
 from .backend import launch_counts, reset_launch_counts, resolve_device
 

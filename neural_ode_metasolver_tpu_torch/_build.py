@@ -37,7 +37,10 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "conv3x3": ("conv3x3.cu", ("conv3x3.cuh", "common.cuh")),
     "conv3x3_wgrad": ("conv3x3_wgrad.cu", ("conv3x3.cuh", "common.cuh")),
     "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3.cuh", "common.cuh")),
-    "group_norm_act": ("group_norm_act.cu", ("common.cuh",)),
+    "group_norm_act": ("group_norm_act.cu", ("group_norm_act.cuh",
+                                             "common.cuh")),
+    "group_norm_act_bwd": ("group_norm_act_bwd.cu", ("group_norm_act.cuh",
+                                                     "common.cuh")),
 }
 
 NVCC_FLAGS = [
@@ -75,6 +78,14 @@ _SIGNATURES = {
         # (path, vec, warps, cluster, regs), device, stream
         "group_norm_act_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "group_norm_act_bwd": {
+        # dtype, act, x, dout, scale, bias, dx, part, dscale, dbias, N, HW,
+        # C, G, eps, then the plan (path, vec, warps, cluster, regs),
+        # device, stream
+        "group_norm_act_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                      _I, _P],
     },
 }
 

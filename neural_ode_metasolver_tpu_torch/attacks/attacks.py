@@ -6,11 +6,14 @@ parameters and solvers) and returns the attacked, normalized input,
 detached.  The input gradient is ``torch.autograd.grad`` of the mean
 cross-entropy with respect to the perturbation only.
 
-Ported: ``cross_entropy``, ``normalize``/``inv_normalize``, ``clean`` and
-``fgsm_random`` (FGSM with a random start in normalized space, per-channel
-eps/alpha and box scaled by the dataset std, fgsm.py:54-106: the flagship
-CIFAR recipe).  ``fgsm``, ``pgd`` and the ensemble attacks land with
-ROADMAP A9 and raise until then.
+Ported: ``cross_entropy``, ``normalize``/``inv_normalize``, ``clean``,
+``fgsm`` (one signed step in pixel space, fgsm.py:21-43), ``fgsm_random``
+(FGSM with a random start in normalized space, per-channel eps/alpha and
+box scaled by the dataset std, fgsm.py:54-106: the flagship CIFAR recipe)
+and ``pgd`` (pgd.py:23-57: optional uniform start in the eps-box, n_iter
+signed steps, each clipped to the eps-box and to [0, 1]; the MNIST recipe).
+The ensemble attacks (ROADMAP A9's rest, queued with A10) raise until
+then.
 """
 from __future__ import annotations
 
@@ -96,6 +99,56 @@ def fgsm_random(forward: Forward, generator: Optional[torch.Generator],
     return x + delta, y
 
 
+def _input_grad(forward: Forward, x: torch.Tensor, y: torch.Tensor
+                ) -> torch.Tensor:
+    """d mean-CE(forward(x), y) / dx, with grad mode on whatever the
+    caller's mode (an eval harness may run under no_grad)."""
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        (grad,) = torch.autograd.grad(cross_entropy(forward(x), y), x)
+    return grad
+
+
+def fgsm(forward: Forward, x: torch.Tensor, y: torch.Tensor, eps: float,
+         mean=None, std=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-step FGSM in pixel space (fgsm.py:21-43): x01 + eps *
+    sign(grad), clipped to [0, 1], normalized again."""
+    x01 = inv_normalize(x.detach(), mean, std)
+    grad = _input_grad(lambda z: forward(normalize(z, mean, std)), x01, y)
+    x_adv = torch.clamp(x01 + eps * torch.sign(grad), 0.0, 1.0)
+    return normalize(x_adv, mean, std), y
+
+
+def pgd(forward: Forward, generator: Optional[torch.Generator],
+        x: torch.Tensor, y: torch.Tensor, eps: float, lr: float,
+        n_iter: int, randomized_start: bool = True, mean=None, std=None,
+        per_iteration: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Projected gradient descent (pgd.py:23-57) in pixel space.
+
+    The start is x01, or with ``randomized_start`` x01 + U(-eps, eps)
+    clipped to [0, 1], drawn on x's device from ``generator``.  Each of the
+    ``n_iter`` steps adds lr * sign(grad) and clips to x01 +- eps and to
+    [0, 1]; the result is normalized again.  With ``per_iteration``
+    ``forward`` is called as ``forward(x, i)`` at iteration i: the hook for
+    regimes that draw anew on every forward (the JAX ``fwd_key``; switch
+    and ensemble land with ROADMAP A10, and standalone draws nothing)."""
+    x01 = inv_normalize(x.detach(), mean, std)
+    xa = x01
+    if randomized_start:
+        if generator is None:
+            raise ValueError("pgd with randomized_start needs a generator")
+        u = uniform_like(x01, generator)
+        xa = torch.clamp(x01 + (2.0 * eps * u - eps), 0.0, 1.0)
+    for i in range(n_iter):
+        call = ((lambda z, i=i: forward(normalize(z, mean, std), i))
+                if per_iteration else
+                (lambda z: forward(normalize(z, mean, std))))
+        grad = _input_grad(call, xa, y)
+        xa = torch.clamp(xa + lr * torch.sign(grad), x01 - eps, x01 + eps)
+        xa = torch.clamp(xa, 0.0, 1.0)
+    return normalize(xa, mean, std), y
+
+
 def _not_ported(name: str):
     def attack(*args, **kwargs):
         raise NotImplementedError(
@@ -106,7 +159,5 @@ def _not_ported(name: str):
 
 
 clean2ensemble = _not_ported("clean2ensemble")
-fgsm = _not_ported("fgsm")
-pgd = _not_ported("pgd")
 fgsm2ensemble = _not_ported("fgsm2ensemble")
 fgsm_mean_prob_attack = _not_ported("fgsm_mean_prob_attack")

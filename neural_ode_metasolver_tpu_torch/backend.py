@@ -12,9 +12,9 @@ them).  The plain versions the wrappers take for CPU tensors count nothing.
 ``full_f32()`` pins f32 convs and matmuls to full f32 (no TF32) for the
 duration of a call, whatever the process flags say.
 
-``check_forward_only`` guards the wrappers of forward-only kernels (B2, B3):
-their outputs are fresh tensors with no ``grad_fn``, so where a gradient
-could flow they raise instead of silently cutting it off.
+``check_forward_only`` guards the wrapper of the forward-only kernel B2:
+its outputs are fresh tensors with no ``grad_fn``, so where a gradient
+could flow it raises instead of silently cutting it off.
 """
 from __future__ import annotations
 

@@ -1,0 +1,461 @@
+// Kernel B3's backward: the vector-Jacobian product of GroupNorm (eps, f32
+// affine) + activation over NHWC.
+//
+// Replaces the custom VJP of neural_ode_metasolver_tpu/ops/pallas_kernels.py
+// ::fused_group_norm_act (_bwd), which is jnp there, not Pallas: recompute
+// the two-pass f32 mean and rstd of each (sample, group), xhat and
+// y = xhat * scale + bias; dpre = act'(y) * dout; dscale = sum over N, H, W
+// of dpre * xhat and dbias = sum of dpre; and
+//   dx = rstd * (dxhat - mean_g(dxhat) - xhat * mean_g(dxhat * xhat)),
+// dxhat = dpre * scale, rounded once to x's dtype.
+//
+// Bound on the H100: bytes.  It reads x and dout and writes dx (3 * N*H*W*C
+// * sizeof(T)) against about 30 f32 operations an element.  At the MNIST
+// train step's shapes, batch 128, f32, at 3.35 TB/s: 31.4 us at
+// (26, 26, 64), 7.9 us at (13, 13, 64) and 1.7 us at (6, 6, 64).
+//
+// Design: the forward's launch plan and thread layout
+// (ops/group_norm.py::launch_plan with backward=True; group_norm_act.cuh),
+// one block or one cluster a sample.  On the register and cluster paths a
+// thread loads its vectors of x and of dout once into registers, and every
+// pass reads them there: twice the forward's registers, so the backward's
+// plan holds at most 8 vectors of each a thread and splits a sample over
+// more blocks of a cluster where the forward would hold 16.  The re-reading
+// path reads x and dout again in each pass.  Four passes:
+//   1. the group means, 2. the centred squares, as in the forward (shuffled
+//      or shared-memory group sums, the cluster's in rank order);
+//   3. per channel, A = sum of dpre * xhat and B = sum of dpre over the
+//      thread's pixels, written by row slot to shared memory and added over
+//      the row slots in order: the block's per-channel sums.  With `part`
+//      the block writes them there (dscale and dbias partials, one row per
+//      block).  The group sums of dxhat and dxhat * xhat are then
+//      sum over the group's channels of scale * B and scale * A, added over
+//      the cluster's blocks in rank order;
+//   4. dx from the registers (or x and dout again), with 16-byte stores.
+// A second kernel adds the partials' rows (N * cluster of them) in a fixed
+// order: no float atomics anywhere, so two launches give the same bits.
+// The attack's backward needs dx only and passes no `part`.
+#include "group_norm_act.cuh"
+
+namespace nodems {
+
+template <typename T, int ACT, int V, int REGS>
+__global__ void __launch_bounds__(kGnMaxThreads)
+gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ dx,
+                  float* __restrict__ part, const GnArgs a) {
+  constexpr bool SHUFFLE = REGS > 0;
+  using IO = Io<T, V>;
+  using Raw = typename IO::Raw;
+  extern __shared__ __align__(16) float smem[];
+
+  const int t = static_cast<int>(threadIdx.x);
+  const int rank = a.k > 1 ? cluster_rank() : 0;
+  const int n = a.k > 1 ? cluster_index() : static_cast<int>(blockIdx.x);
+  const int col0 = SHUFFLE ? t & (a.P - 1) : t % a.P;
+  const int row0 = SHUFFLE ? t >> a.lg_P : t / a.P;
+  const int W = a.warps;
+
+  // this block's slice of the sample: pixels [p0, p0 + npx)
+  const int p0 = min(a.HW, rank * a.per);
+  const int npx = min(a.HW, p0 + a.per) - p0;
+  const bool owner = row0 < a.R;  // holds a row slot
+  int nrows = 0;
+  if (owner && row0 < npx)
+    nrows = SHUFFLE ? (npx - row0 + a.R - 1) >> a.lg_R
+                    : (npx - row0 + a.R - 1) / a.R;
+  const int ncols = SHUFFLE ? 1 : (owner ? (a.vpp - col0 + a.P - 1) / a.P : 0);
+  const int cnt = nrows * ncols;
+  const size_t start =
+      (static_cast<size_t>(n) * a.HW + p0 + row0) * a.C +
+      static_cast<size_t>(col0) * V;
+  const T* xs = x + start;
+  const T* gs = dout + start;
+  T* os = dx + start;
+  const size_t row_step = static_cast<size_t>(a.R) * a.C;
+  const int col_step = a.P * V;
+
+  // shared memory (gn_bwd_smem_bytes): the statistics' area, SHUFFLE
+  // [2][warps][G] then the cluster's [2][G], else [R][C] then [4][G]; then
+  // pass 3's [2][R][C], [2][C] and [4][G]
+  float* s_w1 = smem;
+  float* s_w2 = s_w1 + W * a.G;
+  float* s_cta1 = s_w2 + W * a.G;
+  float* s_cta2 = s_cta1 + a.G;
+  float* s_ch = smem;
+  float* s_part1 = s_ch + a.R * a.C;
+  float* s_part2 = s_part1 + a.G;
+  float* s_mean = s_part2 + a.G;
+  float* s_rstd = s_mean + a.G;
+  float* s_a = smem + (SHUFFLE ? 2 * W * a.G + 2 * a.G : a.R * a.C + 4 * a.G);
+  float* s_b = s_a + a.R * a.C;
+  float* s_ca = s_b + a.R * a.C;  // scale * A of the block, by channel
+  float* s_cb = s_ca + a.C;       // scale * B
+  float* s_p1 = s_cb + a.C;       // the block's group sums (the cluster's)
+  float* s_p2 = s_p1 + a.G;
+  float* s_m1 = s_p2 + a.G;  // mean over the group of dxhat
+  float* s_m2 = s_m1 + a.G;  // mean over the group of dxhat * xhat
+
+  // the current column's statistics, scale and bias (SHUFFLE: of its one
+  // column)
+  float mch[V], rch[V], sc[V], bi[V], m1[V], m2[V];
+  auto column_affine = [&](int j) {
+    const int c0 = (col0 + j * a.P) * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sc[v] = __ldg(scale + c0 + v);
+      bi[v] = __ldg(bias + c0 + v);
+    }
+  };
+  auto column_stats = [&](int j, const float* s_stat, float (&dst)[V]) {
+    const int c0 = (col0 + j * a.P) * V;
+    const int cg = a.C / a.G;
+#pragma unroll
+    for (int v = 0; v < V; ++v) dst[v] = s_stat[(c0 + v) / cg];
+  };
+  // a column's partial sums are done: to row slot row0 of `dst` ([R][C])
+  auto flush = [&](float* dst, int j, float (&acc)[V]) {
+    float* p = dst + row0 * a.C + (col0 + j * a.P) * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      p[v] = acc[v];
+      acc[v] = 0.0f;
+    }
+  };
+
+  if (SHUFFLE && cnt > 0) column_affine(0);
+
+  // zero-filled: the front end cannot see that pass 1 fills them first
+  Raw xr[REGS > 0 ? REGS : 1] = {}, gr[REGS > 0 ? REGS : 1] = {};
+  auto get_x = [&](int kk, size_t off) -> Raw {
+    if constexpr (REGS > 0) return xr[kk];
+    return IO::load(xs + off);
+  };
+  auto get_g = [&](int kk, size_t off) -> Raw {
+    if constexpr (REGS > 0) return gr[kk];
+    return IO::load(gs + off);
+  };
+  auto walk = [&](auto&& f) {
+    visit<REGS, SHUFFLE>(cnt, nrows, row_step, col_step, f);
+  };
+
+  // pass 1: the sum of each of the thread's channels over its rows
+  if constexpr (REGS > 0)
+    walk([&](int kk, int, int, size_t off) {
+      xr[kk] = IO::load(xs + off);
+      gr[kk] = IO::load(gs + off);
+    });
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+  if (!SHUFFLE && owner && nrows == 0)
+    for (int j = 0; j < ncols; ++j) flush(s_ch, j, acc);
+  walk([&](int kk, int j, int r, size_t off) {
+    float f[V];
+    IO::unpack(get_x(kk, off), f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += f[v];
+    if (!SHUFFLE && r == nrows - 1) flush(s_ch, j, acc);
+  });
+  if constexpr (SHUFFLE) {
+    shuffle_group_total<V>(acc, a, t, col0, s_w1, s_cta1);
+#pragma unroll
+    for (int v = 0; v < V; ++v) mch[v] = acc[v] * a.inv_count;
+  } else {
+    shared_group_total(a, t, s_ch, s_part1, s_mean,
+                       [&](float s) { return s * a.inv_count; });
+  }
+
+  // pass 2: centred squares
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+  if (!SHUFFLE && owner && nrows == 0)
+    for (int j = 0; j < ncols; ++j) flush(s_ch, j, acc);
+  walk([&](int kk, int j, int r, size_t off) {
+    if (!SHUFFLE && r == 0) column_stats(j, s_mean, mch);
+    float f[V];
+    IO::unpack(get_x(kk, off), f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float d = f[v] - mch[v];
+      acc[v] = fmaf(d, d, acc[v]);
+    }
+    if (!SHUFFLE && r == nrows - 1) flush(s_ch, j, acc);
+  });
+  if constexpr (SHUFFLE) {
+    shuffle_group_total<V>(acc, a, t, col0, s_w2, s_cta2);
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      rch[v] = rsqrtf(fmaf(acc[v], a.inv_count, a.eps));
+  } else {
+    shared_group_total(a, t, s_ch, s_part2, s_rstd, [&](float q) {
+      return rsqrtf(fmaf(q, a.inv_count, a.eps));
+    });
+  }
+
+  // pass 3: A = sum of dpre * xhat and B = sum of dpre, per channel
+  float sa[V], sb[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sa[v] = sb[v] = 0.0f;
+  auto load_column = [&](int j) {  // !SHUFFLE: a new column's constants
+    column_stats(j, s_mean, mch);
+    column_stats(j, s_rstd, rch);
+    column_affine(j);
+  };
+  if (owner && nrows == 0)
+    for (int j = 0; j < ncols; ++j) {
+      flush(s_a, j, sa);
+      flush(s_b, j, sb);
+    }
+  walk([&](int kk, int j, int r, size_t off) {
+    if (!SHUFFLE && r == 0) load_column(j);
+    float f[V], g[V];
+    IO::unpack(get_x(kk, off), f);
+    IO::unpack(get_g(kk, off), g);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (f[v] - mch[v]) * rch[v];
+      const float dp = activate_vjp<ACT>(fmaf(xh, sc[v], bi[v]), g[v]);
+      sa[v] = fmaf(dp, xh, sa[v]);
+      sb[v] += dp;
+    }
+    if (r == nrows - 1) {
+      flush(s_a, j, sa);
+      flush(s_b, j, sb);
+    }
+  });
+  __syncthreads();
+  // the block's per-channel sums: row slots added in order
+  for (int c = t; c < a.C; c += W * 32) {
+    float ca = 0.0f, cb = 0.0f;
+    for (int r = 0; r < a.R; ++r) {
+      ca += s_a[r * a.C + c];
+      cb += s_b[r * a.C + c];
+    }
+    if (part != nullptr) {
+      float* p = part + (static_cast<size_t>(n) * a.k + rank) * 2 * a.C;
+      p[c] = ca;
+      p[a.C + c] = cb;
+    }
+    const float s = __ldg(scale + c);
+    s_ca[c] = s * ca;
+    s_cb[c] = s * cb;
+  }
+  __syncthreads();
+  // the group sums of dxhat and dxhat * xhat, the cluster's in rank order
+  const int cgs = a.C / a.G;
+  for (int g = t; g < a.G; g += W * 32) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int c = 0; c < cgs; ++c) {
+      s1 += s_cb[g * cgs + c];
+      s2 += s_ca[g * cgs + c];
+    }
+    if (a.k == 1) {
+      s_m1[g] = s1 * a.inv_count;
+      s_m2[g] = s2 * a.inv_count;
+    } else {
+      s_p1[g] = s1;
+      s_p2[g] = s2;
+    }
+  }
+  if (a.k > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int g = t; g < a.G; g += W * 32) {
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int r = 0; r < a.k; ++r) {
+        s1 += cluster.map_shared_rank(s_p1, r)[g];
+        s2 += cluster.map_shared_rank(s_p2, r)[g];
+      }
+      s_m1[g] = s1 * a.inv_count;
+      s_m2[g] = s2 * a.inv_count;
+    }
+  }
+  __syncthreads();
+  // no block may leave while another still reads its shared memory
+  if (a.k > 1) cluster_arrive();
+
+  // pass 4: dx, rounded once, 16-byte stores
+  if (SHUFFLE && cnt > 0) {
+    column_stats(0, s_m1, m1);
+    column_stats(0, s_m2, m2);
+  }
+  walk([&](int kk, int j, int r, size_t off) {
+    if (!SHUFFLE && r == 0) {
+      load_column(j);
+      column_stats(j, s_m1, m1);
+      column_stats(j, s_m2, m2);
+    }
+    float f[V], g[V];
+    IO::unpack(get_x(kk, off), f);
+    IO::unpack(get_g(kk, off), g);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (f[v] - mch[v]) * rch[v];
+      const float dp = activate_vjp<ACT>(fmaf(xh, sc[v], bi[v]), g[v]);
+      f[v] = rch[v] * (dp * sc[v] - m1[v] - xh * m2[v]);
+    }
+    IO::store(os + off, f);
+  });
+  if (a.k > 1) cluster_wait();
+}
+
+// dscale and dbias: the partials' rows (one a block) added in row order.
+// A block takes 32 of the 2C columns ([dscale | dbias]); its 32 warps each
+// add every 32nd row, then one warp adds the 32 sums in order.
+__global__ void __launch_bounds__(1024)
+gn_param_grad_reduce(const float* __restrict__ part, int rows, int C,
+                     float* __restrict__ dscale, float* __restrict__ dbias) {
+  __shared__ float s[32][33];
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int slot = static_cast<int>(threadIdx.x) >> 5;
+  const int col = static_cast<int>(blockIdx.x) * 32 + lane;
+  const int width = 2 * C;
+  float acc = 0.0f;
+  if (col < width)
+    for (int r = slot; r < rows; r += 32)
+      acc += part[static_cast<size_t>(r) * width + col];
+  s[slot][lane] = acc;
+  __syncthreads();
+  if (slot == 0 && col < width) {
+    float tot = 0.0f;
+    for (int i = 0; i < 32; ++i) tot += s[i][lane];
+    if (col < C)
+      dscale[col] = tot;
+    else
+      dbias[col - C] = tot;
+  }
+}
+
+template <typename T, int ACT, int V, int REGS>
+cudaError_t launch_gn_bwd(const void* x, const void* dout, const float* scale,
+                          const float* bias, void* dx, float* part,
+                          float* dscale, float* dbias, int N, int HW, int C,
+                          int G, float eps, const GnPlan& p, int device,
+                          cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  auto kernel = gn_act_bwd_kernel<T, ACT, V, REGS>;
+  GnArgs a;
+  long long smem = 0;
+  cudaError_t err =
+      plan_args(p, sizeof(T), N, HW, C, G, eps, x, dx, true, &a, &smem);
+  if (err != cudaSuccess) return err;
+  if (p.vec > 1 && reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  if ((part == nullptr) != (dscale == nullptr) ||
+      (part == nullptr) != (dbias == nullptr))
+    return cudaErrorInvalidValue;
+  err = allow_smem(kernel, device, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(dout);
+  T* dt = static_cast<T*>(dx);
+  const unsigned threads = p.warps * 32;
+  if (p.cluster == 1) {
+    kernel<<<N, threads, smem, stream>>>(xt, gt, scale, bias, dt, part, a);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(N) * p.cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, xt, gt, scale, bias, dt, part, a);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return err;
+  gn_param_grad_reduce<<<(2 * C + 31) / 32, 1024, 0, stream>>>(
+      part, N * p.cluster, C, dscale, dbias);
+  return cudaGetLastError();
+}
+
+// The instances: the forward's menu with at most 8 vectors of each input a
+// thread (the backward's plans never ask for 16).
+template <typename T, int ACT>
+cudaError_t dispatch_bwd_regs(const void* x, const void* g, const float* s,
+                              const float* b, void* dx, float* part,
+                              float* ds, float* db, int N, int HW, int C,
+                              int G, float eps, const GnPlan& p, int device,
+                              cudaStream_t st) {
+  constexpr int VW = 16 / sizeof(T);
+#define NODEMS_GN_BWD(V, REGS)                                           \
+  return launch_gn_bwd<T, ACT, V, REGS>(x, g, s, b, dx, part, ds, db, N, \
+                                        HW, C, G, eps, p, device, st)
+  if (p.vec == VW) {
+    if (p.regs == 0) NODEMS_GN_BWD(VW, 0);
+    if (p.regs == 4) NODEMS_GN_BWD(VW, 4);
+    if (p.regs == 8) NODEMS_GN_BWD(VW, 8);
+  } else if (p.vec == 1 && p.regs == 0) {
+    NODEMS_GN_BWD(1, 0);
+  }
+#undef NODEMS_GN_BWD
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_bwd_act(int act, const void* x, const void* g,
+                             const float* s, const float* b, void* dx,
+                             float* part, float* ds, float* db, int N, int HW,
+                             int C, int G, float eps, const GnPlan& p,
+                             int device, cudaStream_t st) {
+#define NODEMS_GN_BWD_ACT(A)                                             \
+  return dispatch_bwd_regs<T, A>(x, g, s, b, dx, part, ds, db, N, HW, C, \
+                                 G, eps, p, device, st)
+  switch (act) {
+    case kActNone:
+      NODEMS_GN_BWD_ACT(kActNone);
+    case kActRelu:
+      NODEMS_GN_BWD_ACT(kActRelu);
+    case kActGelu:
+      NODEMS_GN_BWD_ACT(kActGelu);
+    case kActTanh:
+      NODEMS_GN_BWD_ACT(kActTanh);
+    case kActSoftsign:
+      NODEMS_GN_BWD_ACT(kActSoftsign);
+  }
+#undef NODEMS_GN_BWD_ACT
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace nodems
+
+// x, dout, dx (N, HW, C) contiguous of the dtype; scale, bias (C,) f32; the
+// plan as ops/group_norm.py::launch_plan(..., backward=True) gives it.  With
+// part (N * cluster, 2, C) f32 scratch, also dscale and dbias (C,) f32;
+// with part, dscale and dbias null, dx only.  Returns cudaSuccess or why
+// the launch was refused or failed.
+extern "C" int group_norm_act_bwd_launch(int dtype, int act, const void* x,
+                                         const void* dout, const void* scale,
+                                         const void* bias, void* dx,
+                                         void* part, void* dscale,
+                                         void* dbias, int N, int HW, int C,
+                                         int G, float eps, int path, int vec,
+                                         int warps, int cluster, int regs,
+                                         int device, void* stream) {
+  using namespace nodems;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const GnPlan p{path, vec, warps, cluster, regs};
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  float* pt = static_cast<float*>(part);
+  float* ds = static_cast<float*>(dscale);
+  float* db = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == NODEMS_F32)
+    return dispatch_bwd_act<float>(act, x, dout, s, b, dx, pt, ds, db, N, HW,
+                                   C, G, eps, p, device, st);
+  if (dtype == NODEMS_BF16)
+    return dispatch_bwd_act<__nv_bfloat16>(act, x, dout, s, b, dx, pt, ds, db,
+                                           N, HW, C, G, eps, p, device, st);
+  return cudaErrorInvalidValue;
+}

@@ -1,6 +1,10 @@
 """Models of the PyTorch port (mirrors the JAX ``models``)."""
 from .api import Model, build_model
-from .convert import cifar_params_from_jax, mnist_params_from_jax
+from .convert import (
+    cifar_params_from_jax,
+    mnist_params_from_jax,
+    rmsprop_state_from_jax,
+)
 from .odenet_cifar10 import (
     MODEL_REGISTRY,
     CifarConfig,
@@ -31,4 +35,5 @@ __all__ = [
     "premetanode10",
     "premetanode18",
     "premetanode34",
+    "rmsprop_state_from_jax",
 ]

@@ -80,14 +80,14 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
                 use_kernels: bool = True, train: bool = False,
-                params: Any = None) -> torch.Tensor:
+                params: Any = None, **options: Any):
         if solver_options is None:
             solver_options = SolverOptions()
         with full_f32():
             return self.apply_fn(
                 self.params if params is None else params, x, solvers,
                 solver_options, cfg=self.cfg, use_kernels=use_kernels,
-                train=train)
+                train=train, **options)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,

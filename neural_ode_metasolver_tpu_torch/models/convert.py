@@ -13,6 +13,17 @@ JAX parameter tree as nested dicts and lists of numpy arrays
 For CIFAR only the norm-free NF/PNF family converts: its norm leaves are
 ``None`` and are dropped; a tree that carries norm parameters raises.  The
 MNIST tree's GroupNorm scales and biases convert like any other leaf.
+
+``rmsprop_state_from_jax`` carries an RMSprop optimizer state across, so a
+JAX checkpoint's training resumes in the port:
+
+    state = create_train_state(model, make_optimizer("rmsprop", ...),
+                               mnist_params_from_jax(np_params),
+                               rmsprop_state_from_jax(np_opt_state, step),
+                               step=step)
+
+with ``np_opt_state = jax.tree_util.tree_map(np.asarray, ts.opt_state)``
+and ``step = int(ts.step)``.
 """
 from __future__ import annotations
 
@@ -22,7 +33,8 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["cifar_params_from_jax", "mnist_params_from_jax"]
+__all__ = ["cifar_params_from_jax", "mnist_params_from_jax",
+           "rmsprop_state_from_jax"]
 
 _CIFAR_NORM_KEYS = ("bn1", "bn2", "sc_bn")
 
@@ -59,4 +71,50 @@ def mnist_params_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.
     ``state_dict`` (f32 CPU tensors, names ``params.<tree path>``)."""
     out: OrderedDict = OrderedDict()
     _walk(params, "params", out, ())
+    return out
+
+
+def _state_fields(node: Any, found: dict) -> None:
+    """Collect the optax state fields ``nu`` and ``trace`` and every
+    ``count`` of an optimizer-state tree (named tuples, tuples, lists,
+    dicts)."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        for name in fields:
+            value = getattr(node, name)
+            if name == "count":
+                found.setdefault("counts", []).append(int(np.asarray(value)))
+            elif name in ("nu", "trace"):
+                if name in found:
+                    raise ValueError(f"optimizer state holds more than one "
+                                     f"{name!r}")
+                found[name] = value
+            else:
+                _state_fields(value, found)
+    elif isinstance(node, Mapping):
+        for value in node.values():
+            _state_fields(value, found)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _state_fields(value, found)
+
+
+def rmsprop_state_from_jax(opt_state: Any, step: int) -> dict:
+    """A JAX ``make_optimizer("rmsprop", ...)`` state (numpy leaves) -> the
+    port's ``RMSprop`` state: ``nu`` by parameter name (``params.<tree
+    path>``), the momentum trace where the JAX chain has one (a callable
+    momentum), and the update count.  A constant-lr chain keeps no count,
+    so it is ``step``, the TrainState's; the counts of schedules must
+    equal it."""
+    found: dict = {}
+    _state_fields(opt_state, found)
+    if "nu" not in found:
+        raise ValueError("no RMSprop state (nu) in this optimizer state")
+    count = int(step)
+    if any(c != count for c in found.get("counts", [])):
+        raise ValueError(f"the optimizer's counts {found['counts']} are "
+                         f"not step {count}")
+    out = {"count": count, "nu": dict(mnist_params_from_jax(found["nu"]))}
+    if "trace" in found:
+        out["momentum"] = dict(mnist_params_from_jax(found["trace"]))
     return out

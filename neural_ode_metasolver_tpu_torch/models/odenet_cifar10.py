@@ -194,7 +194,8 @@ def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
         or any(p["kernel"].requires_grad for p in p_eff.values()))
 
 
-def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels):
+def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
+                      remat=False):
     for i, bp in enumerate(p["res"]):
         x = _pre_block_apply(cfg, bp, x, strides[i], use_kernels)
     u_k = _ode_kernel_u(cfg, solvers, options) if use_kernels else None
@@ -208,7 +209,7 @@ def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels):
         else:
             rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
                                                         use_kernels)
-            x, _ = meta_integrate(solvers, rhs, x, options)
+            x, _ = meta_integrate(solvers, rhs, x, options, remat=remat)
     return x
 
 
@@ -248,10 +249,12 @@ def apply_cifar(
     cfg: CifarConfig = CifarConfig(),
     use_kernels: bool = True,
     train: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Forward of NHWC ``x``; returns the logits in x's dtype.  ``train``
     selects train mode, the same function for the ported NF/PNF norms (as
-    in JAX, where train mode only changes BN/SN, ROADMAP A11)."""
+    in JAX, where train mode only changes BN/SN, ROADMAP A11); ``remat``
+    checkpoints each RK step of the generic ODE-block path."""
     del train
     _check_ported(cfg)
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
@@ -264,7 +267,7 @@ def apply_cifar(
     for li in range(len(cfg.num_blocks)):
         out = _meta_layer_apply(
             cfg, params[f"layer{li + 1}"], out, _layer_strides(cfg, li),
-            solvers, solver_options, use_kernels,
+            solvers, solver_options, use_kernels, remat,
         )
     return fnn.linear(params["fc"], fnn.global_avg_pool(out))
 

@@ -1,4 +1,5 @@
-"""MNIST MetaNODE (port of models/odenet_mnist.py), eval-mode forward.
+"""MNIST MetaNODE (port of models/odenet_mnist.py): forward, with the
+training options of the JAX ``apply_mnist``.
 
 Architecture (reference odenet_mnist/layers.py:96-209):
 
@@ -27,13 +28,20 @@ Dispatch (``use_kernels=True``):
 integrates with the generic ``meta_integrate``: B2 computes the CIFAR
 block's RHS, not this one.
 
-The training options of the JAX ``apply_mnist`` (ss_loss, remat, unroll,
-the adjoint) raise ``NotImplementedError``: ROADMAP A12, MNIST training.
+Training options (JAX ``apply_mnist``, ``odenet_mnist.py:192-252``):
+``train`` is accepted and changes nothing (GroupNorm has no train mode);
+``ss_loss`` re-integrates t in [1, 2] from each ODE block's output (with
+``|RHS|`` under ``ss_loss_abs``) and adds the batch mean of the f32 L2 norm
+of z - x; ``remat`` checkpoints each RK step; ``unroll`` is accepted and
+ignored, as the step loop is a Python loop.  With ``return_aux=True`` the
+result is ``(logits, {"ss_loss": ...})``, the JAX function's aux (0 when
+``ss_loss`` is off).  The adjoint raises ``NotImplementedError`` (ROADMAP
+A18).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +55,6 @@ Params = Dict[str, Any]
 __all__ = ["MnistConfig", "init_mnist", "apply_mnist"]
 
 _ACT_TYPES = ("tanh", "softplus", "softsign", "relu")
-_TRAINING = "ROADMAP A12, MNIST training"
 
 
 @dataclass(frozen=True)
@@ -123,12 +130,14 @@ def _concat_conv(params: Params, t, x: torch.Tensor,
 
 
 def _odefunc_apply(params: Params, t, x: torch.Tensor, act: str,
-                   use_kernels: bool = True) -> torch.Tensor:
+                   use_kernels: bool = True, ss_abs: bool = False
+                   ) -> torch.Tensor:
     out = _gn_act(params["norm1"], x, act, use_kernels)
     out = _concat_conv(params["conv1"], t, out, use_kernels)
     out = _gn_act(params["norm2"], out, act, use_kernels)
     out = _concat_conv(params["conv2"], t, out, use_kernels)
-    return _gn_act(params["norm3"], out, None, use_kernels)
+    out = _gn_act(params["norm3"], out, None, use_kernels)
+    return out.abs() if ss_abs else out
 
 
 def _resblock_init(gen: torch.Generator, inplanes: int, planes: int,
@@ -214,34 +223,47 @@ def apply_mnist(
     use_kernels: bool = True,
     train: bool = False,
     ss_loss: bool = False,
+    ss_loss_abs: bool = False,
     remat: bool = False,
     unroll: int = 1,
     integration_method: str = "backprop",
-) -> torch.Tensor:
-    """Eval-mode forward of NHWC ``x``; returns the logits in x's dtype."""
+    return_aux: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Forward of NHWC ``x``; returns the logits in x's dtype, and with
+    ``return_aux`` also ``{"ss_loss": ...}`` (a 0-dim tensor in x's
+    dtype)."""
+    del train, unroll
     _check_cfg(cfg)
-    for name, value, off in (("train", train, False),
-                             ("ss_loss", ss_loss, False),
-                             ("remat", remat, False), ("unroll", unroll, 1)):
-        if value != off:
-            raise NotImplementedError(
-                f"{name}={value!r} is a training option, not ported yet "
-                f"({_TRAINING})")
     if integration_method == "adjoint":
         raise NotImplementedError(
-            f"integration_method='adjoint' is not ported yet ({_TRAINING})")
+            "integration_method='adjoint' is not ported yet (ROADMAP A18)")
+    if integration_method != "backprop":
+        raise ValueError(f"unknown integration_method "
+                         f"{integration_method!r}")
     if cfg.is_odenet and solvers is None:
         raise ValueError("this config integrates an ODE block: pass "
                          "solvers=[create_solver('rk2', 'u', n_steps=8)]")
     act = _act(cfg)
     x = _downsample(params, x, cfg, use_kernels)
+    ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
     for block in params["blocks"]:
-        if cfg.is_odenet:
-            rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
-                                                        use_kernels)
-            x, _ = meta_integrate(solvers, rhs, x, solver_options)
-        else:
+        if not cfg.is_odenet:
             x = _resblock_apply(block, x, 1, use_kernels)
+            continue
+        rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
+                                                    use_kernels)
+        x, aux = meta_integrate(solvers, rhs, x, solver_options, remat=remat)
+        if ss_loss:
+            # re-integrate t in [1, 2] from the block output, replaying the
+            # forward's regime draws (layers.py:53-93)
+            rhs_ss = lambda t, y, _p=block: _odefunc_apply(
+                _p, t, y, act, use_kernels, ss_abs=ss_loss_abs)
+            z, _ = meta_integrate(solvers, rhs_ss, x, solver_options,
+                                  t0=1.0, t1=2.0, aux_in=aux, remat=remat)
+            diff = (z - x).reshape(x.shape[0], -1).float()
+            ss_total = ss_total + torch.linalg.vector_norm(
+                diff, dim=1).mean().to(ss_total.dtype)
     h = params["head"]
     x = _gn_act(h["norm"], x, "relu", use_kernels)
-    return fnn.linear(h["fc"], fnn.global_avg_pool(x))
+    logits = fnn.linear(h["fc"], fnn.global_avg_pool(x))
+    return (logits, {"ss_loss": ss_total}) if return_aux else logits

@@ -6,7 +6,12 @@ from .conv3x3 import (
     reference_conv3x3,
     reference_conv3x3_wgrad,
 )
-from .group_norm import fused_group_norm_act, group_norm_reference
+from .group_norm import (
+    fused_group_norm_act,
+    group_norm_backward,
+    group_norm_backward_reference,
+    group_norm_reference,
+)
 from .integrate import make_time_grid, odeint_final, rk_step
 from .noise import noise_params, noise_solver, sample_noise
 from .ode_block import ode_block_rk2_forward, reference_ode_block_rk2
@@ -31,6 +36,8 @@ __all__ = [
     "create_solver",
     "euler_tableau",
     "fused_group_norm_act",
+    "group_norm_backward",
+    "group_norm_backward_reference",
     "group_norm_reference",
     "make_time_grid",
     "meta_integrate",

@@ -1,4 +1,4 @@
-"""Kernel B3: GroupNorm (+ activation) over NHWC, forward.
+"""Kernel B3: GroupNorm (+ activation) over NHWC, with its backward.
 
 Port of ``ops/pallas_kernels.py::fused_group_norm_act``: torch
 ``nn.GroupNorm(num_groups, C)`` parity (eps 1e-5, affine with f32 scale and
@@ -29,9 +29,19 @@ The register and cluster paths finish group sums by warp shuffles, the
 re-reading path through shared memory; both add in a fixed order, so a
 launch repeats its bits.  ``fused_group_norm_act`` launches the kernel for
 CUDA tensors and takes the plain version, ``group_norm_reference``, only
-for CPU tensors.  The backward (the JAX package's custom VJP) comes with
-MNIST training; until then the CUDA wrapper raises when a gradient could
-flow (``backend.check_forward_only``).
+for CPU tensors.
+
+Where a gradient can flow, ``fused_group_norm_act`` is the apply of an
+``autograd.Function`` whose backward is the JAX custom VJP (``_bwd``, jnp
+there): ``group_norm_backward``, a hand-written kernel
+(``csrc/group_norm_act_bwd.cu``, counted as ``group_norm_act_bwd``) on the
+same kind of plan (``launch_plan(..., backward=True)``: at most 8 vectors
+of x and 8 of dout a thread, since it holds both), and its plain version
+``group_norm_backward_reference`` for CPU tensors.  It writes dx, and
+dscale and dbias only where autograd asks for them: their per-block
+partial sums are then added in a fixed order by a second kernel of the
+same library (those launches are also counted as
+``group_norm_act_bwd_params``), so two launches repeat their bits.
 """
 from __future__ import annotations
 
@@ -41,12 +51,17 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.autograd.function import once_differentiable
+
 from .. import _build, backend
 
-__all__ = ["fused_group_norm_act", "group_norm_reference", "launch_plan",
-           "GnPlan"]
+__all__ = ["fused_group_norm_act", "group_norm_reference",
+           "group_norm_backward", "group_norm_backward_reference",
+           "launch_plan", "GnPlan"]
 
 KERNEL_NAME = "group_norm_act"
+BWD_KERNEL_NAME = "group_norm_act_bwd"
+BWD_PARAMS_NAME = "group_norm_act_bwd_params"
 
 _ACTS = {
     None: lambda y: y,
@@ -66,6 +81,8 @@ _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 # vectors a thread of the register and cluster paths holds: the kernel
 # instances of csrc/group_norm_act.cu
 _REGS = (4, 8, 16)
+# the backward's (csrc/group_norm_act_bwd.cu): it holds x and dout
+_BWD_REGS = (4, 8)
 _ELEMS = 32  # elements a thread of the register path aims to hold
 
 
@@ -109,8 +126,14 @@ def access(c: int, groups: int, dtype: torch.dtype, aligned: bool = True):
 
 
 def _smem_bytes(path: str, c: int, groups: int, vec: int, warps: int,
-                cluster: int) -> int:
-    """``gn_smem_bytes`` of the CUDA source."""
+                cluster: int, backward: bool = False) -> int:
+    """``gn_smem_bytes`` of the CUDA source (``gn_bwd_smem_bytes`` with
+    ``backward``)."""
+    if backward:
+        rows = _layout(c, vec, 32 * warps)[2]
+        stats = (rows * c + 4 * groups if path == "reread" else
+                 2 * warps * groups + 2 * groups)
+        return 4 * (stats + 2 * rows * c + 2 * c + 4 * groups)
     if path == "reread":
         rows = _layout(c, vec, 32 * warps)[2]
         return 4 * (rows * c + 4 * groups)
@@ -120,22 +143,29 @@ def _smem_bytes(path: str, c: int, groups: int, vec: int, warps: int,
 
 
 def make_plan(path: str, vec: int, warps: int, cluster: int, regs: int,
-              c: int, groups: int) -> GnPlan:
+              c: int, groups: int, backward: bool = False) -> GnPlan:
     """A plan with its shared-memory bytes for (c, groups)."""
     return GnPlan(path, vec, warps, cluster, regs,
-                  _smem_bytes(path, c, groups, vec, warps, cluster))
+                  _smem_bytes(path, c, groups, vec, warps, cluster,
+                              backward))
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(n: int, h: int, w: int, c: int, groups: int,
-                dtype: torch.dtype, aligned: bool = True) -> GnPlan:
+                dtype: torch.dtype, aligned: bool = True,
+                backward: bool = False) -> GnPlan:
     """The launch that ``fused_group_norm_act`` makes for x (n, h, w, c) of
     ``dtype`` (f32 or bf16) in ``groups`` groups; ``aligned`` says whether
     x's data pointer is 16-byte aligned.  Every sample gets the same
     block or cluster, so n does not change the plan.  Raises ValueError for
     a shape the kernel cannot take (group statistics beyond a block's
     ``SMEM_OPTIN`` bytes of shared memory).  The rules below follow the
-    timings of ``scripts/bench_group_norm_plans.py`` (PERF.md)."""
+    timings of ``scripts/bench_group_norm_plans.py`` (PERF.md).
+
+    ``backward=True`` plans ``group_norm_backward``'s launch by the same
+    rules, with at most 8 vectors a thread (it holds x and dout) and its
+    own shared memory."""
+    menu = _BWD_REGS if backward else _REGS
     if c % groups:
         raise ValueError(f"channels ({c}) must be divisible by num_groups "
                          f"({groups})")
@@ -143,25 +173,29 @@ def launch_plan(n: int, h: int, w: int, c: int, groups: int,
     hw = h * w
     # a whole sample in one block: the fewest warps that leave a thread at
     # most 32 elements (a block's time is mostly its threads' serial work),
-    # else 8 warps if they hold it in 16 vectors
+    # else 8 warps if they hold it in 16 vectors (the backward: 8)
     for warps in (1, 2, 4, 8):
         most = _per_thread(hw, c, vec, 32 * warps, 1)
-        if most <= _REGS[-1] and (most * vec <= _ELEMS or warps == 8):
-            regs = next(r for r in _REGS if r >= most)
-            plan = (make_plan("register", vec, warps, 1, regs, c, groups)
+        if most <= menu[-1] and (most * vec <= _ELEMS or warps == 8):
+            regs = next(r for r in menu if r >= most)
+            plan = (make_plan("register", vec, warps, 1, regs, c, groups,
+                              backward)
                     if shuffle else
-                    make_plan("reread", vec, warps, 1, 0, c, groups))
+                    make_plan("reread", vec, warps, 1, 0, c, groups,
+                              backward))
             break
     else:
         # slices of 8-warp blocks over a cluster: as few blocks as hold it
-        # in 16 vectors a thread (a cluster waits at each of its two
+        # in 16 vectors a thread (the backward: 8; a cluster waits at each of its two
         # exchanges for its slowest block), else 8 blocks re-reading
         k = next((k for k in range(2, MAX_CLUSTER + 1)
-                  if _per_thread(hw, c, vec, MAX_THREADS, k) <= _REGS[-1]),
+                  if _per_thread(hw, c, vec, MAX_THREADS, k) <= menu[-1]),
                  None)
-        plan = (make_plan("cluster", vec, 8, k, _REGS[-1], c, groups)
+        plan = (make_plan("cluster", vec, 8, k, menu[-1], c, groups,
+                          backward)
                 if shuffle and k is not None else
-                make_plan("reread", vec, 8, k or MAX_CLUSTER, 0, c, groups))
+                make_plan("reread", vec, 8, k or MAX_CLUSTER, 0, c, groups,
+                          backward))
     if plan.smem_bytes > SMEM_OPTIN:
         raise ValueError(
             f"group norm: the statistics of {groups} groups of "
@@ -201,6 +235,52 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return _ACTS[act](y).to(x.dtype)
 
 
+def _act_vjp(act: Optional[str], y: torch.Tensor, g: torch.Tensor
+             ) -> torch.Tensor:
+    """g * act'(y) in f32 (the JAX ``_bwd``'s dpre; ReLU masks y > 0)."""
+    if act is None:
+        return g
+    if act == "relu":
+        return g * (y > 0)
+    if act == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(y * 0.7071067811865476))
+        pdf = 0.3989422804014327 * torch.exp(-0.5 * y * y)
+        return g * (cdf + y * pdf)
+    if act == "tanh":
+        return g * (1.0 - torch.tanh(y) ** 2)
+    return g / (1.0 + y.abs()) ** 2  # softsign
+
+
+def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
+                                  bias: torch.Tensor, dout: torch.Tensor,
+                                  num_groups: int, eps: float = 1e-5,
+                                  act: Optional[str] = None):
+    """Plain version of the backward, the JAX custom VJP ``_bwd``
+    (``ops/pallas_kernels.py``): recompute the two-pass f32 statistics,
+    xhat and y; dpre = act'(y) * dout; dscale = sum(dpre * xhat), dbias =
+    sum(dpre) over N, H, W in f32; dx = rstd * (dxhat - mean_g(dxhat) -
+    xhat * mean_g(dxhat * xhat)), dxhat = dpre * scale, in x's dtype.
+    Returns (dx, dscale, dbias)."""
+    _check_args(x, scale, bias, num_groups, act)
+    n, h, w, c = x.shape
+    g, cg = num_groups, c // num_groups
+    xf = x.float().reshape(n, h * w, g, cg)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xf - mean) * rstd).reshape(n, h, w, c)
+    y = xhat * scale.float() + bias.float()
+    dpre = _act_vjp(act, y, dout.float())
+    dscale = (dpre * xhat).sum(dim=(0, 1, 2))
+    dbias = dpre.sum(dim=(0, 1, 2))
+    dxhat = (dpre * scale.float()).reshape(n, h * w, g, cg)
+    xhat_g = xhat.reshape(n, h * w, g, cg)
+    m1 = dxhat.mean(dim=(1, 3), keepdim=True)
+    m2 = (dxhat * xhat_g).mean(dim=(1, 3), keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat_g * m2)
+    return dx.reshape(n, h, w, c).to(x.dtype), dscale, dbias
+
+
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             num_groups: int, eps: float, act: Optional[str],
             plan: GnPlan) -> torch.Tensor:
@@ -223,27 +303,120 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
-                         bias: torch.Tensor, num_groups: int,
-                         eps: float = 1e-5, act: Optional[str] = None
-                         ) -> torch.Tensor:
-    """GroupNorm + activation (None | 'relu' | 'gelu' | 'tanh' |
-    'softsign').  x (N, H, W, C) f32 or bf16; scale, bias (C,) f32;
-    ``C % num_groups`` must be 0.  Returns x's shape and dtype."""
-    _check_args(x, scale, bias, num_groups, act)
+def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                dout: torch.Tensor, num_groups: int, eps: float,
+                act: Optional[str], plan: GnPlan, params: bool):
+    """The backward kernel on checked CUDA tensors with ``plan``: dx, and
+    with ``params`` dscale and dbias (else None)."""
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    part = dscale = dbias = None
+    if params:
+        part = torch.empty((n * plan.cluster, 2, c), dtype=torch.float32,
+                           device=x.device)
+        dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+        dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("group_norm_act_bwd")
+    err = lib.group_norm_act_bwd_launch(
+        _build.DTYPE_CODES[x.dtype], _ACT_CODES[act], x.data_ptr(),
+        dout.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+        ptr(part), ptr(dscale), ptr(dbias), n, h * w, c, num_groups,
+        float(eps), _PATH_CODES[plan.path], plan.vec, plan.warps,
+        plan.cluster, plan.regs, x.device.index, _build.stream_handle(x),
+    )
+    _build.check(lib, err, f"group_norm_act_bwd launch ({plan})")
+    backend.count_launch(BWD_KERNEL_NAME)
+    if params:
+        backend.count_launch(BWD_PARAMS_NAME)
+    return dx, dscale, dbias
+
+
+def _check_cuda(what: str, x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, **more: torch.Tensor) -> None:
+    _build.check_cuda_tensors(what, x.dtype, x=x, **more)
+    _build.check_cuda_tensors(what, torch.float32, scale=scale, bias=bias)
+    if scale.device != x.device:
+        raise ValueError(f"{what}: x on {x.device}, scale and bias on "
+                         f"{scale.device}")
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             num_groups: int, eps: float, act: Optional[str]
+             ) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if all(t.device.type == "cpu" for t in (x, scale, bias)):
         return group_norm_reference(x, scale, bias, num_groups, eps, act)
-    backend.check_forward_only("fused_group_norm_act", x=x, scale=scale,
-                               bias=bias)
-    _build.check_cuda_tensors("fused_group_norm_act", x.dtype, x=x)
-    _build.check_cuda_tensors("fused_group_norm_act", torch.float32,
-                              scale=scale, bias=bias)
-    if scale.device != x.device:
-        raise ValueError(f"fused_group_norm_act: x on {x.device}, scale "
-                         f"and bias on {scale.device}")
+    _check_cuda("fused_group_norm_act", x, scale, bias)
     n, h, w, c = x.shape
     if x.numel() == 0:
         return torch.empty_like(x)
     plan = launch_plan(n, h, w, c, num_groups, x.dtype,
                        aligned=x.data_ptr() % 16 == 0)
     return _launch(x, scale, bias, num_groups, eps, act, plan)
+
+
+def group_norm_backward(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, dout: torch.Tensor,
+                        num_groups: int, eps: float = 1e-5,
+                        act: Optional[str] = None, params: bool = True):
+    """The VJP of ``fused_group_norm_act`` at (x, scale, bias) for the
+    output gradient ``dout`` (x's shape and dtype): (dx, dscale, dbias),
+    the last two f32 (C,), or None without ``params``.  The backward kernel
+    for CUDA tensors, ``group_norm_backward_reference`` for CPU tensors."""
+    _check_args(x, scale, bias, num_groups, act)
+    if tuple(dout.shape) != tuple(x.shape):
+        raise ValueError(f"group norm backward: dout {tuple(dout.shape)} is "
+                         f"not x's {tuple(x.shape)}")
+    if all(t.device.type == "cpu" for t in (x, scale, bias, dout)):
+        dx, dscale, dbias = group_norm_backward_reference(
+            x, scale, bias, dout, num_groups, eps, act)
+        return (dx, dscale, dbias) if params else (dx, None, None)
+    _check_cuda("group_norm_backward", x, scale, bias, dout=dout)
+    n, h, w, c = x.shape
+    if x.numel() == 0:
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return (torch.empty_like(x),) + ((zeros, zeros.clone()) if params
+                                         else (None, None))
+    plan = launch_plan(n, h, w, c, num_groups, x.dtype,
+                       aligned=x.data_ptr() % 16 == 0
+                       and dout.data_ptr() % 16 == 0, backward=True)
+    return _launch_bwd(x, scale, bias, dout, num_groups, eps, act, plan,
+                       params)
+
+
+class _GroupNormAct(torch.autograd.Function):
+    """Forward B3; backward ``group_norm_backward``, with dscale and dbias
+    only when autograd asks for them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return _forward(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        x, scale, bias = ctx.saved_tensors
+        need_x, need_s, need_b = ctx.needs_input_grad[:3]
+        dx, dscale, dbias = group_norm_backward(
+            x, scale, bias, dout.contiguous(), *ctx.cfg,
+            params=need_s or need_b)
+        return (dx if need_x else None, dscale if need_s else None,
+                dbias if need_b else None, None, None, None)
+
+
+def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, num_groups: int,
+                         eps: float = 1e-5, act: Optional[str] = None
+                         ) -> torch.Tensor:
+    """GroupNorm + activation (None | 'relu' | 'gelu' | 'tanh' |
+    'softsign').  x (N, H, W, C) f32 or bf16; scale, bias (C,) f32;
+    ``C % num_groups`` must be 0.  Returns x's shape and dtype;
+    differentiable in x, scale and bias."""
+    _check_args(x, scale, bias, num_groups, act)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
+        return _GroupNormAct.apply(x, scale, bias, num_groups, eps, act)
+    return _forward(x, scale, bias, num_groups, eps, act)

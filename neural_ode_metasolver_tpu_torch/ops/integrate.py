@@ -14,6 +14,10 @@ Carry-dtype rule (JAX ``integrate.py:140-142`` and ``:164-172``): the stage
 input is cast to the carry dtype before each RHS call, and the step combines
 in at least float32 before the new carry is cast back, so bf16 activations
 keep a bf16 carry while the tableau arithmetic stays in f32.
+
+``remat=True`` runs each step under ``torch.utils.checkpoint`` (the JAX
+``jax.checkpoint`` of the scan body, ``integrate.py:175``): a backward keeps
+only the steps' input carries and recomputes each step's stages.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .tableau import ButcherTableau
 
@@ -90,17 +95,23 @@ def odeint_final(
     n_steps: Optional[int] = None,
     step_size: Optional[float] = None,
     time_grid: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Integrate over the grid and return only y(t1), in y0's dtype."""
+    """Integrate over the grid and return only y(t1), in y0's dtype; with
+    ``remat`` each step is checkpointed."""
     if time_grid is None:
         time_grid = make_time_grid(
             t0, t1, n_steps=n_steps, step_size=step_size,
             dtype=torch.promote_types(y0.dtype, torch.float32),
         )
+
+    def step(y, t, dt):
+        return (_wide(y) + rk_step(tableau, rhs, y, t, dt)).to(y.dtype)
+
     y = y0
     for k in range(time_grid.shape[0] - 1):
         t = time_grid[k]
         dt = time_grid[k + 1] - time_grid[k]
-        dy = rk_step(tableau, rhs, y, t, dt)
-        y = (_wide(y) + dy).to(y.dtype)
+        y = (checkpoint(step, y, t, dt, use_reentrant=False) if remat
+             else step(y, t, dt))
     return y

@@ -8,7 +8,7 @@ with the options that configure them; until then they raise
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,9 +32,14 @@ def meta_integrate(
     *,
     t0: float = 0.0,
     t1: float = 1.0,
+    aux_in: Optional[Dict[str, Any]] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Integrate ``y0`` over [t0, t1] under the configured regime; returns
-    ``(y(t1), aux)`` with an empty aux in standalone mode."""
+    ``(y(t1), aux)``.  ``aux`` records the regime's draws and ``aux_in``
+    replays a previous call's (the ss-loss pass replays the forward's);
+    standalone mode draws nothing, so its aux is empty and ``aux_in`` has
+    nothing to replay.  ``remat`` checkpoints each RK step."""
     mode = options.solver_mode
     if mode not in ("standalone", "switch", "ensemble"):
         raise ValueError(f"unknown solver_mode {mode!r}")
@@ -42,4 +47,5 @@ def meta_integrate(
         raise NotImplementedError(
             f"solver_mode {mode!r} is not ported yet (ROADMAP A10)"
         )
-    return solvers[0].integrate_final(rhs, y0, t0, t1), {}
+    del aux_in
+    return solvers[0].integrate_final(rhs, y0, t0, t1, remat=remat), {}

@@ -98,15 +98,18 @@ class ParametricSolver:
                               step_size=self.step_size)
 
     def integrate_final(self, rhs, y0: torch.Tensor, t0: float = 0.0,
-                        t1: float = 1.0) -> torch.Tensor:
+                        t1: float = 1.0, remat: bool = False
+                        ) -> torch.Tensor:
         """Only y(t1): what the ODE blocks consume.  With neither n_steps
-        nor step_size the grid is the single step [t0, t1]."""
+        nor step_size the grid is the single step [t0, t1]; ``remat``
+        checkpoints each step."""
         grid = None
         if self.n_steps is None and self.step_size is None:
             grid = torch.tensor([t0, t1], dtype=torch.float32)
         return odeint_final(
             self.tableau(), rhs, y0, t0, t1,
             n_steps=self.n_steps, step_size=self.step_size, time_grid=grid,
+            remat=remat,
         )
 
 

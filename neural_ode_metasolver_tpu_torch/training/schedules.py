@@ -6,21 +6,44 @@ Plain Python functions of the step count, evaluated on the host each step:
 'triangular2', step_size_down == step_size_up), the backbone of the flagship
 CIFAR run (train_and_attack.py:104-108,503-508: base 1e-7, max 0.1,
 step_size_up 3186, triangular2), and ``cyclic_momentum`` its
-``cycle_momentum=True`` companion.  ``learning_rate_with_decay`` (the MNIST
-boundary decay) lands with ROADMAP A14.
+``cycle_momentum=True`` companion; ``learning_rate_with_decay`` is the
+MNIST runner's piecewise-constant decay (runners/mnist_runner.py:222-226).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
-__all__ = ["constant_lr", "cyclic_lr", "cyclic_momentum"]
+__all__ = ["constant_lr", "cyclic_lr", "cyclic_momentum",
+           "learning_rate_with_decay"]
 
 Schedule = Callable[[int], float]
 
 
 def constant_lr(lr: float) -> Schedule:
     return lambda step: float(lr)
+
+
+def learning_rate_with_decay(
+    lr0: float,
+    batch_size: int,
+    batches_per_epoch: int,
+    batch_denom: int = 128,
+    boundary_epochs: Sequence[int] = (60, 100, 140),
+    decay_rates: Sequence[float] = (1.0, 0.1, 0.01, 0.001),
+) -> Schedule:
+    """Piecewise-constant decay on the iteration axis
+    (odenet_mnist/utils.py:7-18): lr0 * batch_size / batch_denom times
+    decay_rates[i], i the number of boundaries (batches_per_epoch *
+    boundary_epochs) the step has reached."""
+    if len(decay_rates) != len(boundary_epochs) + 1:
+        raise ValueError(
+            f"need len(boundary_epochs)+1 = {len(boundary_epochs) + 1} "
+            f"decay_rates, got {len(decay_rates)}")
+    initial = lr0 * batch_size / batch_denom
+    boundaries = [batches_per_epoch * e for e in boundary_epochs]
+    values = [initial * d for d in decay_rates]
+    return lambda step: values[sum(step >= b for b in boundaries)]
 
 
 def _cyclic_amplitude(step_size_up: int, mode: str) -> Schedule:

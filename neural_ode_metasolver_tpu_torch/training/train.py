@@ -1,26 +1,31 @@
-"""The training step: smoothing noise -> attack -> forward -> update (port of
-training/train.py).
+"""The training step: smoothing noise -> attack -> forward -> update, and the
+eval step (port of training/train.py).
 
 One step follows the reference's per-iteration recipe
-(examples/cifar10/train_and_attack.py:246-323):
+(examples/cifar10/train_and_attack.py:246-323;
+odenet_mnist/train_validate.py:19-115):
 
   1. [smoothing] perturb each solver's (u, v) around (u0, v0), per batch;
-  2. build the adversarial batch (``clean`` or ``fgsm_random``), attacking
-     through the noised solvers with the model in eval mode, on detached
-     weights: the attack differentiates its loss with respect to the
-     perturbation only, so its backward runs B1's dgrad and no wgrad;
+  2. build the adversarial batch (``clean``, ``fgsm``, ``fgsm_random`` or
+     ``at``, PGD), attacking through the noised solvers with the model in
+     eval mode, on detached weights: the attack differentiates its loss with
+     respect to the input only, so its backward runs B1's dgrad and B3's
+     dx-only backward, and no wgrad;
   3. optional Gaussian data noise;
-  4. forward in train mode, mean cross-entropy, gradients of the
-     parameters (``torch.autograd.grad``);
-  5. the SGD update, in place.
+  4. forward in train mode, mean cross-entropy (+ ``ss_loss_reg`` times the
+     MNIST ss-loss), gradients of the parameters (``torch.autograd.grad``);
+  5. the optimizer update (SGD or RMSprop), in place.
 
 The base solvers are immutable, so the reference's denoise step is
 implicit.  ``compute_dtype=torch.bfloat16`` is the port of JAX's
 ``_cast_model``: the input is cast to bf16 at the model's door (the attack
 gradient is taken with respect to the f32 image through that cast), each
-conv casts its f32 weight to bf16 at the call, and logits and loss are f32,
-as are the master params and the optimizer state.  The step runs under
-``backend.full_f32()``, backward included, so f32 convs never take TF32.
+conv casts its f32 weight to bf16 at the call, and logits, ss-loss and loss
+are f32, as are the master params and the optimizer state.  The step runs
+under ``backend.full_f32()``, backward included, so f32 convs never take
+TF32.  ``remat`` checkpoints each RK step of the ODE solves (the attack's
+and the training pass's); ``unroll`` is accepted and ignored (the step
+loop is a Python loop).
 
 Randomness: ``step(state, x, y, generator)`` takes a CPU
 ``torch.Generator`` and draws three seeds from it, one each for the noise
@@ -32,35 +37,42 @@ The phases run inside ``torch.profiler.record_function`` ranges
 ``nodems.attack``, ``nodems.train_pass`` and ``nodems.update``, which a
 trace reads for device time by phase (``scripts/profile_torch_training.py``).
 
-Not ported yet: other attack modes (ROADMAP A9), the ss-loss (A10/A12),
-``make_eval_step`` (A13), ``remat``/``unroll``, the adjoint and
+``make_eval_step`` returns the clean predictor the eval harness
+(``training/evaluate.py``) runs under ``torch.inference_mode()``.
+
+Not ported yet: the CIFAR ss-loss (ROADMAP A10), the adjoint and
 ``dynamic_solvers`` (A13/A18).  JAX compiler options have no counterpart.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import record_function
 
 from ..attacks import attacks
 from ..backend import full_f32
+from ..models.odenet_mnist import MnistConfig
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
-from .optimizers import SGD
+from .optimizers import SGD, RMSprop
 
 __all__ = ["AttackConfig", "NoiseConfig", "LossConfig", "TrainState",
-           "create_train_state", "make_train_step"]
+           "create_train_state", "make_train_step", "make_eval_step"]
 
 
 @dataclass(frozen=True)
 class AttackConfig:
-    """Adversarial-training attack settings (train_and_attack.py:130-158)."""
+    """Adversarial-training/eval attack settings
+    (train_and_attack.py:130-158 flag set)."""
 
-    mode: str = "clean"  # clean | fgsm_random (fgsm | at: ROADMAP A9)
+    mode: str = "clean"  # clean | fgsm | at (=PGD) | fgsm_random
     eps: float = 8 / 255
     alpha: float = 10 / 255  # fgsm_random step size
+    pgd_lr: float = 2 / 255
+    pgd_niter: int = 7
+    pgd_random_start: bool = True
     mean: Optional[Tuple[float, ...]] = None
     std: Optional[Tuple[float, ...]] = None
 
@@ -77,7 +89,9 @@ class NoiseConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    ss_loss: bool = False  # ROADMAP A10/A12
+    ss_loss: bool = False  # MNIST only; the CIFAR ss-loss is ROADMAP A10
+    ss_loss_reg: float = 0.1
+    ss_loss_abs: bool = False
     data_noise_std: float = 0.0
 
 
@@ -92,16 +106,34 @@ class TrainState:
     opt_state: Any
 
 
-def create_train_state(model, optimizer: SGD,
-                       state_dict: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> TrainState:
-    """A fresh state at step 0.  ``state_dict`` loads weights first, e.g.
-    ``cifar_params_from_jax(np_params)`` to start from a JAX TrainState's
-    params (the optimizer state is always fresh)."""
+def create_train_state(model, optimizer: Union[SGD, RMSprop],
+                       state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                       opt_state: Optional[dict] = None,
+                       step: int = 0) -> TrainState:
+    """A state at ``step`` (default 0).  ``state_dict`` loads weights first,
+    e.g. ``mnist_params_from_jax(np_params)`` to start from a JAX
+    TrainState's params; ``opt_state`` resumes the optimizer, e.g.
+    ``rmsprop_state_from_jax(np_opt_state, step)`` (its tensors are copied
+    to the parameters' devices), else it starts fresh."""
     if state_dict is not None:
         model.load_state_dict(state_dict)
     params = dict(model.named_parameters())
-    return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+    fresh = optimizer.init(params)
+    if opt_state is not None:
+        if set(opt_state) != set(fresh):
+            raise ValueError(f"opt_state holds {sorted(opt_state)}, the "
+                             f"optimizer's state {sorted(fresh)}")
+        for key, bufs in fresh.items():
+            if key == "count":
+                fresh[key] = int(opt_state[key])
+                continue
+            if set(opt_state[key]) != set(bufs):
+                raise ValueError(f"opt_state[{key!r}] does not name the "
+                                 "model's parameters")
+            with torch.no_grad():
+                for name, buf in bufs.items():
+                    buf.copy_(opt_state[key][name])
+    return TrainState(step=step, params=params, opt_state=fresh)
 
 
 def _noise_solvers(solvers, generator: torch.Generator,
@@ -117,28 +149,58 @@ def _noise_solvers(solvers, generator: torch.Generator,
 
 def _run_attack(forward, attack_cfg: AttackConfig, x, y,
                 generator: torch.Generator) -> torch.Tensor:
-    m = attack_cfg.mode
+    """The adversarial batch (JAX ``train.py:154-173``); ``forward`` runs
+    the model in eval mode on detached weights."""
+    m, c = attack_cfg.mode, attack_cfg
     if m == "clean":
         return attacks.clean(x, y)[0]
+    if m == "fgsm":
+        return attacks.fgsm(forward, x, y, c.eps, c.mean, c.std)[0]
     if m == "fgsm_random":
-        return attacks.fgsm_random(forward, generator, x, y, attack_cfg.eps,
-                                   attack_cfg.alpha, attack_cfg.mean,
-                                   attack_cfg.std)[0]
-    if m in ("fgsm", "at"):
-        raise NotImplementedError(
-            f"attack mode {m!r} is not ported yet (ROADMAP A9)")
+        return attacks.fgsm_random(forward, generator, x, y, c.eps, c.alpha,
+                                   c.mean, c.std)[0]
+    if m == "at":
+        # JAX also passes a per-iteration forward key, which only the
+        # switch and ensemble regimes read (ROADMAP A10)
+        return attacks.pgd(forward, generator, x, y, c.eps, c.pgd_lr,
+                           c.pgd_niter, c.pgd_random_start, c.mean,
+                           c.std)[0]
     raise ValueError("Attack type not understood.")
+
+
+def _model_forward(model, solver_options, use_kernels: bool,
+                   compute_dtype: Optional[torch.dtype], remat: bool):
+    """``forward(x, solvers, train, params=None, ss=None) -> (logits, ss)``
+    in f32: the input cast to ``compute_dtype`` at the model's door; ``ss``
+    a LossConfig whose ss-loss the MNIST forward adds (else 0)."""
+
+    def forward(x, solvers_t, train, params=None, ss=None):
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        kw = dict(use_kernels=use_kernels, train=train, params=params,
+                  remat=remat)
+        if ss is not None and ss.ss_loss:
+            logits, aux = model(x, solvers_t, solver_options, ss_loss=True,
+                                ss_loss_abs=ss.ss_loss_abs, return_aux=True,
+                                **kw)
+            return logits.float(), aux["ss_loss"].float()
+        logits = model(x, solvers_t, solver_options, **kw)
+        return logits.float(), torch.zeros((), device=logits.device)
+
+    return forward
 
 
 def _seeds(generator: torch.Generator, n: int):
     return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
 
 
-def make_train_step(model, optimizer: SGD, solvers: Sequence,
+def make_train_step(model, optimizer: Union[SGD, RMSprop],
+                    solvers: Sequence,
                     solver_options: SolverOptions = SolverOptions(),
                     attack_cfg: AttackConfig = AttackConfig(),
                     noise_cfg: NoiseConfig = NoiseConfig(),
                     loss_cfg: LossConfig = LossConfig(), *,
+                    remat: bool = False, unroll: int = 1,
                     compute_dtype: Optional[torch.dtype] = None,
                     skip_nonfinite: bool = False,
                     use_kernels: bool = True):
@@ -146,23 +208,21 @@ def make_train_step(model, optimizer: SGD, solvers: Sequence,
 
     x (B, H, W, C) f32 normalized images and y (B,) int64 labels on the
     model's device; metrics are 0-dim tensors there: loss, xentropy,
-    accuracy, grad_norm (the global L2 norm of the gradients), and with
-    ``skip_nonfinite`` also skipped_nonfinite (1 when a non-finite loss or
-    gradient left the params and optimizer state unchanged; the check reads
-    one value back to the host).  ``use_kernels=False`` runs the model's
-    plain path (``F.conv2d`` everywhere), which the kernel path is checked
-    against on the card."""
-    if loss_cfg.ss_loss:
-        raise NotImplementedError("ss_loss is not ported yet (ROADMAP A10/A12)")
+    ss_loss (0 unless ``loss_cfg.ss_loss``), accuracy, grad_norm (the
+    global L2 norm of the gradients), and with ``skip_nonfinite`` also
+    skipped_nonfinite (1 when a non-finite loss or gradient left the params
+    and optimizer state unchanged; the check reads one value back to the
+    host).  ``use_kernels=False`` runs the model's plain path (``F.conv2d``
+    and autograd everywhere), which the kernel path is checked against on
+    the card."""
+    del unroll
+    if loss_cfg.ss_loss and not isinstance(model.cfg, MnistConfig):
+        raise NotImplementedError(
+            "ss_loss of the CIFAR family is not ported yet (ROADMAP A10)")
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype} not supported")
-
-    def forward(x, solvers_t, train, params=None):
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
-        logits = model(x, solvers_t, solver_options, use_kernels=use_kernels,
-                       train=train, params=params)
-        return logits.float()
+    forward = _model_forward(model, solver_options, use_kernels,
+                             compute_dtype, remat)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: torch.Generator):
@@ -173,7 +233,7 @@ def make_train_step(model, optimizer: SGD, solvers: Sequence,
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 x_adv = _run_attack(
-                    lambda xi: forward(xi, solvers_t, False, frozen),
+                    lambda xi: forward(xi, solvers_t, False, frozen)[0],
                     attack_cfg, x, y,
                     torch.Generator(device=x.device).manual_seed(s_attack))
             if loss_cfg.data_noise_std > 1e-12:
@@ -182,13 +242,16 @@ def make_train_step(model, optimizer: SGD, solvers: Sequence,
                     x_adv.shape, generator=g, dtype=x_adv.dtype,
                     device=x_adv.device)
             with record_function("nodems.train_pass"), torch.enable_grad():
-                logits = forward(x_adv, solvers_t, True)
+                logits, ss = forward(x_adv, solvers_t, True, ss=loss_cfg)
                 xent = attacks.cross_entropy(logits, y)
                 loss = xent
+                if loss_cfg.ss_loss:
+                    loss = loss + loss_cfg.ss_loss_reg * ss
                 grads = torch.autograd.grad(loss, list(state.params.values()))
             gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
             metrics = {"loss": loss.detach(), "xentropy": xent.detach(),
+                       "ss_loss": ss.detach(),
                        "accuracy": (logits.argmax(-1) == y).float().mean(),
                        "grad_norm": gnorm}
             ok = True
@@ -203,3 +266,26 @@ def make_train_step(model, optimizer: SGD, solvers: Sequence,
             metrics
 
     return step
+
+
+def make_eval_step(model, solvers: Sequence,
+                   solver_options: SolverOptions = SolverOptions(), *,
+                   remat: bool = False, unroll: int = 1,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   use_kernels: bool = True):
+    """Returns ``predict(x) -> logits``: the eval-mode forward of x (B, H,
+    W, C) on the model's device, f32 logits, under
+    ``torch.inference_mode()`` (JAX ``train.py:336-360``).  ``remat`` and
+    ``unroll`` shape only a differentiated graph, so under inference mode
+    they change nothing; they are accepted for the JAX signature."""
+    del remat, unroll
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype} not supported")
+    forward = _model_forward(model, solver_options, use_kernels,
+                             compute_dtype, False)
+
+    def predict(x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return forward(x, solvers, False)[0]
+
+    return predict

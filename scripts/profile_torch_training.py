@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
-"""Where a flagship train step's time goes in the PyTorch port, on the card.
+"""Where a train step's time goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_training.py [--trace-dir DIR] [batch ...]
+    python3 scripts/profile_torch_training.py [--model {flagship,mnist}]
+        [--trace-dir DIR] [batch ...]
 
-Runs the train step of ``bench.py:94-113`` (premetanode10, in_planes 64,
-GeLUpoly, RK2 u=0.5 8 steps with Normal(0.0125) smoothing, FGSM-random
-8/255 and 10/255, SGD momentum 0.9, weight decay 5e-4, cyclic lr), random
-weights from seed 0, seeded images and labels, in bf16.  For each batch
-size (default 256), after a warm-up
+``flagship`` (the default) runs the train step of ``bench.py:94-113``
+(premetanode10, in_planes 64, GeLUpoly, RK2 u=0.5 8 steps with
+Normal(0.0125) smoothing, FGSM-random 8/255 and 10/255, SGD momentum 0.9,
+weight decay 5e-4, cyclic lr) in bf16, batch 256 by default, on seeded
+normal images.  ``mnist`` runs the digits recipe of
+``scripts/digits_smoothing_experiment.py:81-140`` (the MNIST MetaNODE at
+dim 64, RK2 u=0.5 8 steps with Normal(0.0125) smoothing, PGD eps 0.3, lr
+2/255, 7 iterations with a random start, RMSprop lr 1e-3, weight decay
+5e-4) in f32, batch 128 by default, on seeded uniform images in [0, 1].
+Random weights from seed 0, seeded labels.  For each batch size, after a
+warm-up
 step, it times 5 steps without the profiler (host clock, median), then
 traces 2 steps with ``torch.profiler`` (CPU and CUDA activities).  Prints
 per traced step: the host-clock time, the device time summed over kernels,
@@ -15,8 +22,9 @@ the device busy share (their ratio; 1 minus it is the idle share), the
 number of device operations, device time by phase of the step (the
 kernels of the ops launched while a ``nodems.*`` range of
 ``training/train.py`` was open, by their CPU start), by kind (B1's forward and
-dgrad kernels, the wgrad kernel, cuDNN's convs, copies, other PyTorch
-kernels) and by kernel name (the 16 largest), and the peak device memory.
+dgrad kernels, the wgrad kernel, B3's forward and backward kernels, cuDNN's
+convs, copies, other PyTorch kernels) and by kernel name (the 16 largest),
+and the peak device memory.
 With ``--trace-dir`` it also writes each chrome trace there.  Imports no
 JAX; needs a CUDA device.
 """
@@ -38,7 +46,11 @@ CIFAR10_STD = (0.2023, 0.1994, 0.2010)
 
 def kind(name):
     """The kind of a device operation, by its kernel name."""
-    if "nodems::" in name:  # B2 and B3 do not run in training
+    if "nodems::" in name:  # B2 does not run in training
+        if "gn_act_bwd" in name or "gn_param_grad" in name:
+            return "B3 backward"
+        if "gn_act" in name:
+            return "B3 forward"
         return "wgrad kernel" if "wgrad" in name else "B1 forward and dgrad"
     if name.startswith(("Memcpy", "Memset")):
         return "copies"
@@ -48,7 +60,7 @@ def kind(name):
     return "other PyTorch kernels"
 
 
-def main(batches, trace_dir=None):
+def main(model_name, batches, trace_dir=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -70,22 +82,39 @@ def main(batches, trace_dir=None):
     )
 
     dev = torch.device("cuda")
-    model = build_model("premetanode10", in_planes=64, acts=("GeLUpoly",) * 3,
-                        generator=torch.Generator().manual_seed(0))
-    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
-                         weight_decay=5e-4)
-    step = make_train_step(
-        model, opt, parse_solver_dsl("rk2,u,8,-1,0.5,-1"), SolverOptions(),
-        AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
-                     mean=CIFAR10_MEAN, std=CIFAR10_STD),
-        NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0),
-        compute_dtype=torch.bfloat16)
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    if model_name == "mnist":
+        dtype, image = torch.float32, (28, 28, 1)
+        model = build_model("mnist", dim=64,
+                            generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+        step = make_train_step(
+            model, opt, solvers, SolverOptions(),
+            AttackConfig(mode="at", eps=0.3, pgd_lr=2 / 255, pgd_niter=7),
+            noise)
+        batches = batches or [128]
+    else:
+        dtype, image = torch.bfloat16, (32, 32, 3)
+        model = build_model("premetanode10", in_planes=64,
+                            acts=("GeLUpoly",) * 3,
+                            generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186),
+                             momentum=0.9, weight_decay=5e-4)
+        step = make_train_step(
+            model, opt, solvers, SolverOptions(),
+            AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
+                         mean=CIFAR10_MEAN, std=CIFAR10_STD),
+            noise, compute_dtype=dtype)
+        batches = batches or [256]
+    label = str(dtype).split(".")[-1]
     state = create_train_state(model, opt)
     gen = torch.Generator().manual_seed(10)
     rows = []
     for batch in batches:
         g = torch.Generator().manual_seed(1)
-        x = torch.randn(batch, 32, 32, 3, generator=g).to(dev)
+        x = (torch.rand if model_name == "mnist" else torch.randn)(
+            batch, *image, generator=g).to(dev)
         y = torch.randint(0, 10, (batch,), generator=g).to(dev)
         state, _ = step(state, x, y, gen)  # warm-up
         torch.cuda.synchronize()
@@ -150,8 +179,9 @@ def main(batches, trace_dir=None):
         if trace_dir is not None:
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(
-                trace_dir, f"torch_training_bf16_b{batch}.trace.json"))
-        print(f"batch {batch} bf16: untraced median "
+                trace_dir,
+                f"torch_training_{model_name}_{label}_b{batch}.trace.json"))
+        print(f"{model_name} batch {batch} {label}: untraced median "
               f"{untraced_ms:.3f} ms over {N_TIMED} steps "
               f"({row['untraced_img_per_s']:.1f} img/s); traced "
               f"{wall_ms:.3f} ms per step (host clock), {device_ms:.3f} ms "
@@ -166,12 +196,14 @@ def main(batches, trace_dir=None):
         for k, v in row["device_ms_by_kernel"].items():
             print(f"  {v:9.3f} ms  {k[:100]}")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "dtype": "bfloat16", "rows": rows}))
+                      "model": model_name, "dtype": label, "rows": rows}))
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("flagship", "mnist"),
+                    default="flagship")
     ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("batches", nargs="*", type=int, default=[256])
+    ap.add_argument("batches", nargs="*", type=int)
     args = ap.parse_args()
-    main(args.batches, args.trace_dir)
+    main(args.model, args.batches, args.trace_dir)

@@ -264,6 +264,7 @@ B1_BWD_SHAPES = [
     (2, 8, 8, 12, 64),         # dgrad 64 -> 12 on the narrow halo path (n16)
     (2, 8, 8, 64, 5),          # Cout 5 and 12: wgrad split-K, the forward's
     (2, 8, 8, 64, 12),         # conv on the narrow halo path (autograd)
+    (128, 6, 6, 65, 64),       # the MNIST train step's ConcatConv2d
 ]
 
 
@@ -424,14 +425,17 @@ def test_conv3x3_autograd_matches_conv2d(dev, dtype, shape):
 
 
 def test_forward_only_kernels_refuse_a_gradient(dev):
-    """B2 and B3 have no backward: on CUDA tensors that require grad they
-    raise instead of returning an output cut off from autograd."""
+    """B2 has no backward: on CUDA tensors that require grad it raises
+    instead of returning an output cut off from autograd.  B3 has one now:
+    its output carries a grad_fn, and the gradient runs its backward
+    kernel."""
     from neural_ode_metasolver_tpu_torch import (
         launch_counts,
         reset_launch_counts,
     )
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act,
+        group_norm_backward_reference,
     )
     from neural_ode_metasolver_tpu_torch.ops.ode_block import (
         ode_block_rk2_forward,
@@ -445,13 +449,131 @@ def test_forward_only_kernels_refuse_a_gradient(dev):
         ode_block_rk2_forward(y0.requires_grad_(True), w, w, 0.5, 1)
     with pytest.raises(RuntimeError, match="forward-only"):
         ode_block_rk2_forward(y0.detach(), w.requires_grad_(True), w, 0.5, 1)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_group_norm_act(y0, s, s, 32, act="relu")
     assert launch_counts() == {}
+    out = fused_group_norm_act(y0, s, s, 32, act="relu")
+    assert out.grad_fn is not None
+    g = _randn(tuple(y0.shape), 1.0, 9, dev, torch.float32)
+    (dx,) = torch.autograd.grad(out, y0, g)
+    ref = group_norm_backward_reference(y0.detach(), s, s, g, 32,
+                                        act="relu")[0]
+    assert (dx - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max())
     with torch.no_grad():
         ode_block_rk2_forward(y0, w, w, 0.5, 1)
-        fused_group_norm_act(y0, s, s, 32, act="relu")
-    assert launch_counts() == {"ode_block_rk2": 5, "group_norm_act": 1}
+    assert launch_counts() == {"ode_block_rk2": 5, "group_norm_act": 1,
+                               "group_norm_act_bwd": 1}
+
+
+# (shape, groups, act) of B3's backward: the MNIST train step's shapes at
+# batch 128, the off-path (256, 32, 32, 64), ragged C, every activation
+GN_BWD_CASES = [
+    ((128, 26, 26, 64), 32, "relu"),   # cluster of 6 (f32), 3 (bf16)
+    ((128, 13, 13, 64), 32, "relu"),   # cluster of 2 (f32), one block bf16
+    ((128, 6, 6, 64), 32, "relu"),
+    ((128, 6, 6, 64), 32, None),
+    ((256, 32, 32, 64), 32, "relu"),   # cluster of 8 (f32)
+    ((2, 6, 6, 48), 16, "relu"),       # cg 3: re-read
+    ((1, 2, 2, 1056), 32, "relu"),     # C > 1024: re-read, 4 columns a thread
+    ((3, 6, 6, 64), 32, "gelu"),
+    ((2, 13, 13, 64), 32, "tanh"),
+    ((2, 7, 5, 96), 8, "softsign"),    # cg 12
+    ((2, 5, 5, 6), 3, "gelu"),         # one-element access
+    ((1, 29, 31, 64), 32, "relu"),     # a ragged last slice of the cluster
+    ((1, 48, 48, 128), 32, "relu"),    # too large for 8 blocks: re-read
+]
+
+
+def _gn_bwd_bars(ref, dtype, terms):
+    """dx: f32 the sum order (1e-4 of the largest), bf16 one rounding at the
+    same point, two bf16 ulps of the largest; dscale, dbias: f32 sums of
+    N*H*W terms in another order, 1e-5 of the sum of their magnitudes."""
+    dx_bar = (1e-4 * max(1.0, ref.float().abs().max())
+              if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs().max())
+    return dx_bar, [1e-5 * max(1.0, t) for t in terms]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,act", GN_BWD_CASES)
+def test_group_norm_backward_kernel_matches_plain(dev, dtype, shape, groups,
+                                                  act):
+    """dx, dscale and dbias of the full launch against
+    group_norm_backward_reference; the dx-only launch gives the same dx
+    bits; two full launches repeat their bits."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        group_norm_backward,
+        group_norm_backward_reference,
+    )
+
+    x, scale, bias = _gn_inputs(shape, dev, dtype)
+    g = _randn(shape, 1.0, 3, dev, torch.float32).to(dtype)
+    reset_launch_counts()
+    dx, dscale, dbias = group_norm_backward(x, scale, bias, g, groups,
+                                            act=act)
+    dx_only, none_s, none_b = group_norm_backward(x, scale, bias, g, groups,
+                                                  act=act, params=False)
+    again = group_norm_backward(x, scale, bias, g, groups, act=act)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"group_norm_act_bwd": 3,
+                               "group_norm_act_bwd_params": 2}
+    assert none_s is None and none_b is None
+    assert dx.dtype == dtype and dscale.dtype == torch.float32
+    assert torch.equal(dx, dx_only)
+    for a, b in zip((dx, dscale, dbias), again):
+        assert torch.equal(a, b)
+    rdx, rds, rdb = group_norm_backward_reference(x, scale, bias, g, groups,
+                                                  act=act)
+    # the sums' terms, for the bars
+    xf = x.float().reshape(shape[0], -1, groups, shape[-1] // groups)
+    xhat = ((xf - xf.mean((1, 3), keepdim=True))
+            * torch.rsqrt(xf.var((1, 3), unbiased=False, keepdim=True)
+                          + 1e-5)).reshape(shape)
+    dpre_abs = (g.float() * (1 if act is None else 2)).abs()
+    terms = [(dpre_abs * xhat.abs()).sum().item(), dpre_abs.sum().item()]
+    dx_bar, (ds_bar, db_bar) = _gn_bwd_bars(rdx, dtype, terms)
+    assert (dx.float() - rdx.float()).abs().max() <= dx_bar
+    assert (dscale - rds).abs().max() <= ds_bar
+    assert (dbias - rdb).abs().max() <= db_bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_autograd_matches_plain(dev, dtype):
+    """Gradients through fused_group_norm_act (the autograd Function) equal
+    torch autograd through group_norm_reference, at the bars above; only
+    what autograd asks for is computed."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+        group_norm_reference,
+    )
+
+    shape = (4, 13, 13, 64)
+    x, scale, bias = _gn_inputs(shape, dev, dtype)
+    g = _randn(shape, 1.0, 3, dev, torch.float32).to(dtype)
+    x, scale, bias = (t.requires_grad_(True) for t in (x, scale, bias))
+    reset_launch_counts()
+    got = torch.autograd.grad(
+        fused_group_norm_act(x, scale, bias, 32, act="gelu"),
+        (x, scale, bias), g)
+    (dx_only,) = torch.autograd.grad(
+        fused_group_norm_act(x, scale.detach(), bias.detach(), 32,
+                             act="gelu"), x, g)
+    assert launch_counts() == {"group_norm_act": 2, "group_norm_act_bwd": 2,
+                               "group_norm_act_bwd_params": 1}
+    assert torch.equal(got[0], dx_only)
+    ref = torch.autograd.grad(
+        group_norm_reference(x, scale, bias, 32, act="gelu"),
+        (x, scale, bias), g)
+    terms = [g.float().abs().sum().item() * 3] * 2
+    dx_bar, (ds_bar, db_bar) = _gn_bwd_bars(ref[0], dtype, terms)
+    assert (got[0].float() - ref[0].float()).abs().max() <= 2 * dx_bar
+    assert (got[1] - ref[1]).abs().max() <= ds_bar
+    assert (got[2] - ref[2]).abs().max() <= db_bar
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -536,3 +658,85 @@ def test_train_step_kernel_path_matches_plain_path(dev, dtype):
              for uk in (True, False)]
     gmax = max(g.abs().max() for g in grads[1])
     assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-4 * gmax
+
+
+def test_mnist_train_step_kernel_path_matches_plain_path(dev):
+    """The digits recipe's train step (MNIST MetaNODE at dim 64, RK2 u=0.5
+    8 steps, Normal(0.0125) smoothing, PGD-7 at eps 0.3, RMSprop) at batch
+    8 in f32, kernel path against plain path from one state, draws pinned
+    by the seeds: the launches of one step; one step's loss and grad norm
+    within 2e-2 and 5e-2 relative (PGD's seven sign steps carry rounding
+    differences on, as phase 10 of chip_smoke.py allows for the flagship);
+    then through Model.forward one PGD step's x_adv equal at all but 0.1%
+    of the pixels, and the param grads at the same x_adv within 1e-3 of
+    max|g| (ReLU masks flip where a pre-activation is within rounding of
+    0, and B3's forward kernel and its plain version round apart; as
+    phase 11 of chip_smoke.py)."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy, pgd
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    model = build_model("mnist", dim=64,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+    attack = AttackConfig(mode="at", eps=0.3, pgd_lr=2 / 255, pgd_niter=7)
+    noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    x = torch.tensor(np.random.RandomState(9).rand(8, 28, 28, 1)
+                     .astype(np.float32), device=dev)
+    y = torch.arange(8, device=dev) % 10
+    snapshot = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = {}
+    for use_kernels in (True, False):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(snapshot[k])
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, solvers, SolverOptions(), attack,
+                               noise, use_kernels=use_kernels)
+        reset_launch_counts()
+        _, m = step(state, x, y, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        out[use_kernels] = (m["loss"].item(), m["grad_norm"].item(),
+                            launch_counts())
+    (lk, nk, counts_k), (lp, np_, counts_p) = out[True], out[False]
+    # 8 forwards (7 PGD iterations, the training pass) of 51 GroupNorms and
+    # 32 ConcatConv2ds; 8 backwards: 7 for the input only, 1 for the params
+    assert counts_k == {"group_norm_act": 408, "conv3x3_same": 256,
+                        "group_norm_act_bwd": 408,
+                        "group_norm_act_bwd_params": 51,
+                        "conv3x3_dgrad": 256, "conv3x3_wgrad": 32}
+    assert counts_p == {}
+    assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
+    assert abs(nk - np_) <= 5e-2 * np_
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(snapshot[k])
+    frozen = model.detached_params()
+    fwd = lambda uk, train, tree=None: (
+        lambda xi: model(xi, solvers, use_kernels=uk, train=train,
+                         params=tree))
+    xa = [pgd(fwd(uk, False, frozen),
+              torch.Generator(device=dev).manual_seed(2), x, y, 0.3, 2 / 255,
+              1)[0] for uk in (True, False)]
+    assert (xa[0] != xa[1]).float().mean() <= 1e-3
+    params = [p for _, p in model.named_parameters()]
+    grads = [torch.autograd.grad(cross_entropy(fwd(uk, True)(xa[1]), y),
+                                 params) for uk in (True, False)]
+    assert all(g.grad_fn is None for g in grads[0])
+    gmax = max(g.abs().max() for g in grads[1])
+    assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-3 * gmax

@@ -7,10 +7,15 @@ with bf16 I/O), also above 1024 channels; ``nn.group_norm`` must match the
 JAX ``nn.group_norm``.  ``launch_plan`` (pure Python) must pick the paths
 the MNIST shapes are designed for, stay within a block's shared memory and
 a portable cluster, and lay threads out so that each element is read
-once.  The CUDA kernel itself is checked against the plain version on the
-card (``test_torch_cuda.py``).
+once.  The gradient (the autograd Function, whose backward on CPU tensors is
+``group_norm_backward_reference``) must match ``jax.vjp`` of the Pallas
+kernel at the bars of ``tests/test_pallas.py:41-57`` (atol/rtol 5e-4), and
+the backward's plans must cover every element once within a block's
+resources.  The CUDA kernels themselves are checked against the plain
+versions on the card (``test_torch_cuda.py``).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -26,7 +31,10 @@ from neural_ode_metasolver_tpu_torch.ops.group_norm import (
     _layout,
     _per_thread,
     access,
+    _smem_bytes,
     fused_group_norm_act,
+    group_norm_backward,
+    group_norm_backward_reference,
     group_norm_reference,
     launch_plan,
 )
@@ -226,3 +234,100 @@ def test_b3_plans_stay_within_a_block_and_a_cluster(dtype):
                 assert (plan.regs > 0) == (plan.path != "reread")
                 if plan.regs:
                     assert access(c, groups, dtype, aligned)[1]
+
+
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "tanh", "softsign"])
+@pytest.mark.parametrize("shape,groups", [((2, 6, 6, 64), 32),
+                                          ((2, 5, 5, 48), 16)])
+def test_b3_gradient_matches_pallas_vjp(act, shape, groups):
+    """dx, dscale and dbias through fused_group_norm_act on CPU tensors
+    (the autograd Function, backward group_norm_backward_reference) against
+    jax.vjp of the Pallas kernel in interpret mode: atol/rtol 5e-4."""
+    x, scale, bias = _inputs(shape, seed=6)
+    g = np.random.RandomState(7).randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, s, b: j_fused_group_norm_act(
+        a, s, b, groups, 1e-5, act, True), *(jnp.asarray(v) for v in (
+            x, scale, bias)))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.tensor(v, requires_grad=True) for v in (x, scale, bias)]
+    out = fused_group_norm_act(*ts, groups, 1e-5, act)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ts, torch.tensor(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b, np.float32),
+                                   atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "tanh", "softsign"])
+def test_b3_backward_reference_matches_autograd(dtype, act):
+    """group_norm_backward_reference against torch autograd through
+    group_norm_reference: f32 within 1e-5 (dx relative to its largest);
+    bf16 x and dout, dx within two bf16 ulps of its largest; dscale and
+    dbias in f32 within 1e-5 relative; params=False returns dx only."""
+    x, scale, bias = _inputs((2, 5, 7, 16), seed=8)
+    g = np.random.RandomState(9).randn(*x.shape).astype(np.float32)
+    xt = torch.tensor(x).to(dtype).requires_grad_(True)
+    st, bt = (torch.tensor(v, requires_grad=True) for v in (scale, bias))
+    gt = torch.tensor(g).to(dtype)
+    want = torch.autograd.grad(group_norm_reference(xt, st, bt, 4, act=act),
+                               (xt, st, bt), gt)
+    got = group_norm_backward_reference(xt.detach(), st.detach(),
+                                        bt.detach(), gt, 4, act=act)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    dx_bar = (1e-5 if dtype == torch.float32 else 2.0 ** -6) * float(
+        want[0].float().abs().max())
+    assert (got[0].float() - want[0].float()).abs().max() <= dx_bar
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dx, ds, db = group_norm_backward(xt.detach(), st.detach(), bt.detach(),
+                                     gt, 4, act=act, params=False)
+    assert ds is None and db is None and torch.equal(dx, got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 26, 26, 64), 32), ((2, 13, 13, 64), 32), ((3, 6, 6, 64), 32),
+    ((1, 32, 32, 64), 32), ((1, 29, 31, 64), 32), ((2, 6, 6, 48), 16),
+    ((1, 2, 2, 1056), 32), ((2, 5, 5, 6), 3), ((1, 48, 48, 128), 32),
+])
+def test_b3_backward_plan_touches_every_element_once(dtype, shape, groups):
+    """The backward's plan: the forward's layout rules with at most 8
+    vectors a thread (it holds x and dout), so MNIST's 13x13 (f32) and
+    26x26 go to more blocks of a cluster than the forward's; every element
+    is read by one thread."""
+    n, h, w, c = shape
+    fwd = launch_plan(n, h, w, c, groups, dtype)
+    plan = launch_plan(n, h, w, c, groups, dtype, backward=True)
+    assert plan.regs <= 8 and plan.path in ("register", "cluster", "reread")
+    assert (plan.regs > 0) == (fwd.regs > 0)  # the same access and sums
+    assert plan.cluster >= fwd.cluster
+    assert (_covered(plan, n, h * w, c) == 1).all()
+    if plan.regs:
+        assert _per_thread(h * w, c, plan.vec, 32 * plan.warps,
+                           plan.cluster) <= plan.regs
+    assert plan.smem_bytes == _smem_bytes(plan.path, c, groups, plan.vec,
+                                          plan.warps, plan.cluster, True)
+    if (h, w, c) == (26, 26, 64):
+        assert plan.path == "cluster" and plan.cluster == (
+            6 if dtype == torch.float32 else 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_backward_plans_stay_within_a_block_and_a_cluster(dtype):
+    rs = np.random.RandomState(6)
+    shapes = [(256, 26, 26, 64), (256, 32, 32, 64), (8, 64, 64, 256),
+              (2, 112, 112, 64)]
+    for _ in range(200):
+        c = int(rs.choice([3, 6, 8, 16, 24, 32, 64, 96, 128, 320, 1056]))
+        shapes.append((int(rs.randint(1, 300)), int(rs.randint(1, 70)),
+                       int(rs.randint(1, 70)), c))
+    for n, h, w, c in shapes:
+        for groups in {g for g in (1, 2, 3, 8, 32, c) if c % g == 0}:
+            for aligned in (True, False):
+                plan = launch_plan(n, h, w, c, groups, dtype,
+                                   aligned=aligned, backward=True)
+                assert plan.smem_bytes <= 232448
+                assert 1 <= plan.cluster <= 8 and plan.regs in (0, 4, 8)
+                assert 32 * plan.warps <= 256
+                assert (plan.regs > 0) == (plan.path != "reread")

@@ -223,13 +223,24 @@ def test_mnist_entry_point_needs_a_card_or_an_explicit_cpu():
 
 
 def test_mnist_training_options_and_bad_configs_raise():
+    """The training options run (their parity with JAX is in
+    tests/test_torch_mnist_training.py) and leave the logits as they are;
+    the adjoint, not ported, raises; bad configs raise."""
     model = build_model("mnist", device="cpu", dim=16)
-    x = torch.zeros(1, 28, 28, 1)
+    x = torch.tensor(_images(1))
     solvers = parse_solver_dsl("rk2,u,2,-1,0.5,-1")
-    for kw in (dict(ss_loss=True), dict(remat=True), dict(unroll=2),
-               dict(integration_method="adjoint")):
-        with pytest.raises(NotImplementedError, match="MNIST training"):
-            apply_mnist(model.params, x, solvers, cfg=model.cfg, **kw)
+    with torch.no_grad():
+        ref = model(x, solvers)
+        for kw in (dict(ss_loss=True), dict(remat=True), dict(unroll=2),
+                   dict(train=True)):
+            got = apply_mnist(model.params, x, solvers, cfg=model.cfg, **kw)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        _, aux = apply_mnist(model.params, x, solvers, cfg=model.cfg,
+                             ss_loss=True, return_aux=True)
+        assert float(aux["ss_loss"]) > 0
+    with pytest.raises(NotImplementedError, match="A18"):
+        apply_mnist(model.params, x, solvers, cfg=model.cfg,
+                    integration_method="adjoint")
     with pytest.raises(ValueError, match="solvers"):
         model(x, None)
     with pytest.raises(ValueError, match="downsampling"):

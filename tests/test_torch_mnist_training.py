@@ -1,0 +1,527 @@
+"""The MNIST training and robust-evaluation slice of the PyTorch port
+against the JAX package, on the CPU: FGSM and PGD, RMSprop and
+``learning_rate_with_decay``, the MNIST train step (PGD-7 adversarial
+training, solver smoothing, the ss-loss, RMSprop), ``remat``, and clean and
+PGD accuracy on the shipped checkpoint, whose RMSprop state is carried
+across to resume its training.
+
+Inputs come from numpy seeds; the JAX side is cast to f32 (``conftest.py``
+turns on x64).  Random draws are pinned in both frameworks where the
+streams differ: PGD's uniform start and the noised u, as in
+``tests/test_torch_training.py``.  Each JAX train-step variant is compiled
+once.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neural_ode_metasolver_tpu.attacks import fgsm as j_fgsm
+from neural_ode_metasolver_tpu.attacks import pgd as j_pgd
+from neural_ode_metasolver_tpu.models.api import build_model as j_build_model
+from neural_ode_metasolver_tpu.ops import SolverOptions as JSolverOptions
+from neural_ode_metasolver_tpu.ops import create_solver as j_create_solver
+from neural_ode_metasolver_tpu.training import (
+    AttackConfig as JAttackConfig,
+    LossConfig as JLossConfig,
+    NoiseConfig as JNoiseConfig,
+    TrainState as JTrainState,
+    accuracy as j_accuracy,
+    adversarial_accuracy as j_adversarial_accuracy,
+    learning_rate_with_decay as j_learning_rate_with_decay,
+    make_optimizer as j_make_optimizer,
+    make_train_step as j_make_train_step,
+)
+from neural_ode_metasolver_tpu.training import train as j_train_mod
+from neural_ode_metasolver_tpu_torch import launch_counts, reset_launch_counts
+from neural_ode_metasolver_tpu_torch.attacks import attacks as p_attacks
+from neural_ode_metasolver_tpu_torch.models import (
+    build_model,
+    mnist_params_from_jax,
+    rmsprop_state_from_jax,
+)
+from neural_ode_metasolver_tpu_torch.ops import SolverOptions, create_solver
+from neural_ode_metasolver_tpu_torch.training import (
+    AttackConfig,
+    LossConfig,
+    NoiseConfig,
+    RMSprop,
+    accuracy,
+    adversarial_accuracy,
+    create_train_state,
+    learning_rate_with_decay,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
+from neural_ode_metasolver_tpu_torch.training import train as p_train_mod
+from test_torch_mnist import CKPT, _restore_shipped
+
+DIM, B, N_RK, N = 16, 8, 2, 3  # width, batch, RK2 steps, train steps
+EPS, PGD_LR, PGD_N = 0.3, 2 / 255, 7  # the digits recipe's PGD
+U_PIN = 0.55
+
+
+def _jax_model(dim=DIM, seed=0):
+    jmodel = j_build_model("mnist", dim=dim)
+    params, state = jmodel.init(jax.random.key(seed))
+    return jmodel, params, state
+
+
+def _port_model(params, dim=DIM):
+    pmodel = build_model("mnist", device="cpu", dim=dim)
+    pmodel.load_state_dict(mnist_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return pmodel
+
+
+def _solvers(n_steps=N_RK):
+    return ([j_create_solver("rk2", "u", n_steps=n_steps, u0=np.float32(0.5))],
+            [create_solver("rk2", "u", n_steps=n_steps, u0=0.5)])
+
+
+def _batch(seed, n=B):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, 28, 28, 1).astype(np.float32),
+            rs.randint(0, 10, size=n))
+
+
+@pytest.fixture
+def pinned_uniform(monkeypatch):
+    """Pin the attack's uniform draw in both frameworks: JAX's
+    ``uniform(key, shape, dtype, minval, maxval)`` gives minval + (maxval -
+    minval) * U, the port's ``uniform_like`` U."""
+    box = {}
+    uniform = jax.random.uniform
+
+    def pinned(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
+        if "U" in box and tuple(shape) == box["U"].shape:
+            u = jnp.asarray(box["U"])
+            return (minval + (maxval - minval) * u).astype(dtype)
+        return uniform(key, shape, dtype, minval, maxval)
+
+    monkeypatch.setattr(jax.random, "uniform", pinned)
+    monkeypatch.setattr(p_attacks, "uniform_like",
+                        lambda x, generator: torch.tensor(box["U"]))
+    return box
+
+
+# ----------------------------------------------------------- the attacks
+
+
+@pytest.mark.parametrize("random_start", [False, True])
+def test_pgd_matches_jax(pinned_uniform, random_start):
+    """PGD-7 at eps 0.3 through the MNIST forward (dim 16, RK2 u=0.5, 2
+    steps) in eval mode: no random start, then the start pinned.  x_adv
+    within 1e-6 of JAX's but where a sign of the input gradient flips on
+    rounding (an ulp-scale gradient), at most 1% of the pixels."""
+    jmodel, params, state = _jax_model()
+    pmodel = _port_model(params)
+    x, y = _batch(1)
+    pinned_uniform["U"] = np.random.RandomState(2).rand(*x.shape).astype(
+        np.float32)
+    jsolvers, psolvers = _solvers()
+    jfwd = lambda xi: jmodel.apply(params, state, xi, jsolvers,
+                                   JSolverOptions(), train=False)[0]
+    j_adv = np.asarray(j_pgd(jfwd, jax.random.key(0), jnp.asarray(x),
+                             jnp.asarray(y), EPS, PGD_LR, PGD_N,
+                             random_start)[0])
+    frozen = pmodel.detached_params()
+    pfwd = lambda xi: pmodel(xi, psolvers, params=frozen)
+    p_adv, _ = p_attacks.pgd(pfwd, torch.Generator(), torch.tensor(x),
+                             torch.tensor(y), EPS, PGD_LR, PGD_N,
+                             random_start)
+    assert not p_adv.requires_grad
+    assert all(p.grad is None for p in pmodel.parameters())
+    diff = np.abs(p_adv.numpy() - j_adv)
+    assert (diff > 1e-6).mean() <= 1e-2
+    assert diff.max() <= 2 * EPS + 1e-6
+    assert p_adv.min() >= 0 and p_adv.max() <= 1
+    assert np.abs(p_adv.numpy() - x).max() <= EPS + 1e-6
+
+
+def test_fgsm_and_pgd_hooks():
+    """FGSM against JAX on one forward; PGD's per-iteration hook sees the
+    iteration index; a random start needs a generator."""
+    jmodel, params, state = _jax_model()
+    pmodel = _port_model(params)
+    x, y = _batch(3)
+    mean, std = (0.1307,), (0.3081,)
+    xn = (x - mean[0]) / std[0]
+    jsolvers, psolvers = _solvers()
+    jfwd = lambda xi: jmodel.apply(params, state, xi, jsolvers,
+                                   JSolverOptions(), train=False)[0]
+    j_adv = np.asarray(j_fgsm(jfwd, jnp.asarray(xn), jnp.asarray(y), 0.1,
+                              mean, std)[0])
+    frozen = pmodel.detached_params()
+    pfwd = lambda xi: pmodel(xi, psolvers, params=frozen)
+    p_adv, _ = p_attacks.fgsm(pfwd, torch.tensor(xn), torch.tensor(y), 0.1,
+                              mean, std)
+    np.testing.assert_allclose(p_adv.numpy(), j_adv, rtol=0, atol=1e-5)
+    seen = []
+    p_attacks.pgd(lambda xi, i: (seen.append(i), pfwd(xi))[1], None,
+                  torch.tensor(x), torch.tensor(y), EPS, PGD_LR, 3,
+                  randomized_start=False, per_iteration=True)
+    assert seen == [0, 1, 2]
+    with pytest.raises(ValueError, match="generator"):
+        p_attacks.pgd(pfwd, None, torch.tensor(x), torch.tensor(y), EPS,
+                      PGD_LR, 1)
+
+
+# ------------------------------------------------- optimizer and schedule
+
+
+@pytest.mark.parametrize("momentum", [0.9, "cyclic"])
+def test_rmsprop_matches_optax(momentum):
+    """Five updates of make_optimizer('rmsprop', lr, momentum, wd 5e-4):
+    coupled decay, nu from 0 with decay 0.99, eps outside the sqrt, no bias
+    correction; a float momentum ignored, a callable one traced.  Params
+    within 1e-6 (the first update is about lr * sign(g), so a few ulps of
+    the update)."""
+    import optax
+
+    from neural_ode_metasolver_tpu.training import (
+        cyclic_momentum as j_cyclic_momentum,
+    )
+    from neural_ode_metasolver_tpu_torch.training import cyclic_momentum
+
+    rs = np.random.RandomState(0)
+    shapes = {"a": (3, 3, 4, 5), "b": (7,), "c": (6, 2)}
+    p0 = {k: (0.1 * rs.randn(*s)).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: rs.randn(*s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(5)]
+    lr = j_learning_rate_with_decay(1e-3, 128, 2, boundary_epochs=(1,),
+                                    decay_rates=(1.0, 0.1))
+    plr = learning_rate_with_decay(1e-3, 128, 2, boundary_epochs=(1,),
+                                   decay_rates=(1.0, 0.1))
+    jm = j_cyclic_momentum(3) if momentum == "cyclic" else momentum
+    pm = cyclic_momentum(3) if momentum == "cyclic" else momentum
+    tx = j_make_optimizer("rmsprop", lr, momentum=jm, weight_decay=5e-4)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    js = tx.init(jp)
+    opt = make_optimizer("rmsprop", plr, momentum=pm, weight_decay=5e-4)
+    assert isinstance(opt, RMSprop)
+    tp = {k: torch.tensor(v) for k, v in p0.items()}
+    ts = opt.init(tp)
+    assert ("momentum" in ts) == (momentum == "cyclic")
+    for g in grads:
+        upd, js = tx.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.update(tp, [torch.tensor(g[k]) for k in tp], ts)
+        for k in tp:
+            np.testing.assert_allclose(tp[k].numpy(),
+                                       np.asarray(jp[k], np.float32),
+                                       rtol=0, atol=1e-6)
+    assert ts["count"] == 5
+    # the state comes back across the converter, by name
+    back = rmsprop_state_from_jax(jax.tree_util.tree_map(np.asarray, js), 5)
+    assert back["count"] == 5 and set(back["nu"]) == {
+        f"params.{k}" for k in shapes}
+    for k in shapes:
+        np.testing.assert_allclose(back["nu"][f"params.{k}"].numpy(),
+                                   ts["nu"][k].numpy(), rtol=1e-5, atol=0)
+    if momentum == "cyclic":  # the schedules' counts must be the step
+        with pytest.raises(ValueError, match="counts"):
+            rmsprop_state_from_jax(jax.tree_util.tree_map(np.asarray, js), 4)
+
+
+def test_learning_rate_with_decay_matches_jax():
+    """Every step 0 .. 40 across three boundaries (JAX evaluates in f32),
+    and the length check."""
+    kw = dict(batch_size=256, batches_per_epoch=4, batch_denom=128,
+              boundary_epochs=(2, 5, 9), decay_rates=(1.0, 0.1, 0.01, 0.001))
+    ours = learning_rate_with_decay(0.1, **kw)
+    theirs = j_learning_rate_with_decay(0.1, **kw)
+    got = np.array([ours(s) for s in range(41)])
+    want = np.array([float(theirs(s)) for s in range(41)])
+    np.testing.assert_allclose(got, want, rtol=1e-7, atol=0)
+    assert ours(0) == pytest.approx(0.2) and ours(40) == pytest.approx(2e-4)
+    with pytest.raises(ValueError, match="decay_rates"):
+        learning_rate_with_decay(0.1, 128, 10, boundary_epochs=(1, 2),
+                                 decay_rates=(1.0, 0.1))
+
+
+# -------------------------------------------------------- the train step
+
+
+def _lr():
+    return (j_learning_rate_with_decay(1e-3, B, 2, boundary_epochs=(1,),
+                                       decay_rates=(1.0, 0.1)),
+            learning_rate_with_decay(1e-3, B, 2, boundary_epochs=(1,),
+                                     decay_rates=(1.0, 0.1)))
+
+
+def _param_dev(pmodel, jparams):
+    sd = pmodel.state_dict()
+    jd = mnist_params_from_jax(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jparams))
+    assert sd.keys() == jd.keys()
+    d = np.concatenate([np.abs(sd[k].numpy() - jd[k].numpy()).ravel()
+                        for k in sd])
+    return d.max(), d.mean()
+
+
+@pytest.mark.parametrize("mode,smoothing,ss", [
+    ("at", True, True),  # the digits recipe, with the ss-loss
+    ("clean", False, True),
+    ("clean", False, False),
+])
+def test_mnist_train_step_matches_jax(monkeypatch, pinned_uniform, mode,
+                                      smoothing, ss):
+    """The port's MNIST make_train_step against JAX's: dim 16, RK2 u=0.5 in
+    2 steps, batch 8, three steps of RMSprop (wd 5e-4) on the decay
+    schedule (a boundary after step 2), PGD at eps 0.3 with the start
+    pinned, Normal smoothing with u pinned to 0.55, the ss-loss at reg 0.1.
+    The bounds of tests/test_train_step_parity.py:386-405: step 0's loss
+    within 1e-5, step 1's within 5e-4, max param diff under N * 2e-2, mean
+    under 2e-4.
+
+    PGD runs 2 iterations here, not the recipe's 7.  At this width and a
+    random init its sign steps turn the frameworks' f32 differences (input
+    gradients 4e-6 apart, relative to their largest, with no sign apart at
+    the first iteration) into different trajectories: 7.7% of the pixels
+    apart after 7 iterations on the first batch, step 0's losses 5.6e-4
+    apart, so the bound would measure that chaos and not the port.
+    test_pgd_matches_jax holds PGD-7 itself, and the shipped checkpoint's
+    resumed step runs the full PGD-7 within these bounds.
+
+    For the same reason mode ``at`` does not run free: RMSprop's first
+    update is about 10 lr sign(g), so the 10-20 kernel entries whose
+    gradients are within rounding of 0 move 1e-2 in opposite directions in
+    the two frameworks; clean mode stays within the bounds, but the next
+    attack amplifies it (step 1's losses 3e-3 apart).  So there each step
+    starts from JAX's params and RMSprop state, carried across by the
+    converters, and is held to step 1's 5e-4 (1.1e-4 measured) and to one
+    step's share of the parameter bounds."""
+    jmodel, params, state = _jax_model()
+    pmodel = _port_model(params)
+    jsolvers, psolvers = _solvers()
+    jlr, plr = _lr()
+    tx = j_make_optimizer("rmsprop", jlr, weight_decay=5e-4)
+    jts = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                      model_state=state, opt_state=tx.init(params))
+    opt = make_optimizer("rmsprop", plr, weight_decay=5e-4)
+    pts = create_train_state(pmodel, opt)
+    jatk = JAttackConfig(mode=mode, eps=EPS, pgd_lr=PGD_LR, pgd_niter=2)
+    patk = AttackConfig(mode=mode, eps=EPS, pgd_lr=PGD_LR, pgd_niter=2)
+    jnoise, pnoise = JNoiseConfig(), NoiseConfig()
+    if smoothing:
+        jnoise = JNoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+        pnoise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+        monkeypatch.setattr(j_train_mod, "_noise_solvers", lambda base, k, c: [
+            s.replace(u=jnp.asarray(U_PIN, jnp.float32)) for s in base])
+        monkeypatch.setattr(p_train_mod, "_noise_solvers", lambda base, g, c: [
+            s.with_params(u=U_PIN) for s in base])
+    jloss, ploss = (JLossConfig(ss_loss=ss), LossConfig(ss_loss=ss))
+    jstep = j_make_train_step(jmodel, tx, jsolvers, JSolverOptions(), jatk,
+                              jnoise, jloss, donate=False)
+    pstep = make_train_step(pmodel, opt, psolvers, SolverOptions(), patk,
+                            pnoise, ploss)
+    # one pinned start for every step: the jitted JAX step holds the draw
+    # it was traced with
+    pinned_uniform["U"] = np.random.RandomState(20).rand(
+        B, 28, 28, 1).astype(np.float32)
+    resync = mode == "at"
+    losses, ss_pairs = [], []
+    reset_launch_counts()
+    for i in range(N):
+        if resync and i:  # JAX's params and RMSprop state, converted
+            pts = create_train_state(
+                pmodel, opt, mnist_params_from_jax(jax.tree_util.tree_map(
+                    np.asarray, jts.params)),
+                rmsprop_state_from_jax(jax.tree_util.tree_map(
+                    np.asarray, jts.opt_state), i), step=i)
+        x, y = _batch(10 + i)
+        jts, jm = jstep(jts, jnp.asarray(x), jnp.asarray(y),
+                        jax.random.key(i))
+        pts, pm = pstep(pts, torch.tensor(x), torch.tensor(y),
+                        torch.Generator().manual_seed(i))
+        losses.append((float(jm["loss"]), pm["loss"].item()))
+        ss_pairs.append((float(jm["ss_loss"]), pm["ss_loss"].item()))
+        if resync:  # every step from the same state
+            assert abs(losses[i][0] - losses[i][1]) < (5e-4 if i else 1e-5), \
+                losses
+            d_max, d_mean = _param_dev(pmodel, jts.params)
+            assert d_max < 2e-2 and d_mean < 2e-4 / N, (i, d_max, d_mean)
+    assert launch_counts() == {}  # the CPU runs the plain versions
+    assert set(pm) == {"loss", "xentropy", "ss_loss", "accuracy",
+                       "grad_norm"}
+    assert pts.step == N and pts.opt_state["count"] == N
+    assert abs(losses[0][0] - losses[0][1]) < 1e-5, losses
+    assert abs(losses[1][0] - losses[1][1]) < 5e-4, losses
+    for lj, lt in losses:
+        assert abs(lj - lt) < 5e-2
+    if ss:  # step 0's ss-loss, at the same x_adv
+        assert ss_pairs[0][0] > 0
+        assert abs(ss_pairs[0][0] - ss_pairs[0][1]) < 1e-5 * ss_pairs[0][0]
+    else:
+        assert all(sj == st == 0.0 for sj, st in ss_pairs)
+    d_max, d_mean = _param_dev(pmodel, jts.params)
+    assert d_max < N * 2e-2, f"max abs param diff {d_max}"
+    assert d_mean < 2e-4, f"mean abs param diff {d_mean}"
+
+
+def test_remat_gives_the_same_gradients():
+    """remat=True checkpoints each RK step: the attack's input gradient and
+    the parameter gradients (with the ss-loss, |RHS| variant) equal
+    remat=False's."""
+    _, params, _ = _jax_model(seed=1)
+    pmodel = _port_model(params)
+    _, psolvers = _solvers(3)
+    x, y = _batch(4)
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    ps = list(pmodel.parameters())
+    out = []
+    for remat in (False, True):
+        logits, aux = pmodel(xt, psolvers, train=True, remat=remat,
+                             ss_loss=True, ss_loss_abs=True, return_aux=True)
+        loss = torch.nn.functional.cross_entropy(logits, yt) + \
+            0.1 * aux["ss_loss"]
+        grads = torch.autograd.grad(loss, ps)
+        frozen = pmodel.detached_params()
+        xa, _ = p_attacks.pgd(
+            lambda xi: pmodel(xi, psolvers, params=frozen, remat=remat),
+            None, xt, yt, EPS, PGD_LR, 2, randomized_start=False)
+        out.append((loss, grads, xa))
+    (l0, g0, x0), (l1, g1, x1) = out
+    assert float(aux["ss_loss"].detach()) > 0
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=1e-7)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(x1, x0, rtol=0, atol=1e-6)
+
+
+def test_ss_loss_aux_matches_jax():
+    """apply_mnist's aux: the ss-loss (and its |RHS| variant) within 1e-5
+    relative of JAX's, the logits unchanged by it, and 0 when off."""
+    jmodel, params, state = _jax_model(seed=2)
+    pmodel = _port_model(params)
+    jsolvers, psolvers = _solvers()
+    x, _ = _batch(5)
+    for ss_abs in (False, True):
+        jl, _, jaux = jmodel.apply(params, state, jnp.asarray(x), jsolvers,
+                                   JSolverOptions(), ss_loss=True,
+                                   ss_loss_abs=ss_abs)
+        with torch.no_grad():
+            pl, paux = pmodel(torch.tensor(x), psolvers, ss_loss=True,
+                              ss_loss_abs=ss_abs, return_aux=True)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-4)
+        np.testing.assert_allclose(float(paux["ss_loss"]),
+                                   float(jaux["ss_loss"]), rtol=1e-5)
+    with torch.no_grad():
+        _, paux = pmodel(torch.tensor(x), psolvers, return_aux=True)
+    assert float(paux["ss_loss"]) == 0.0
+
+
+def test_eval_step_and_options_raise():
+    """make_eval_step runs under inference mode and matches the model's
+    forward; the CIFAR ss-loss raises with its label; train modes fgsm and
+    at run."""
+    _, params, _ = _jax_model()
+    pmodel = _port_model(params)
+    _, psolvers = _solvers()
+    x, y = _batch(6, 4)
+    predict = make_eval_step(pmodel, psolvers)
+    logits = predict(torch.tensor(x))
+    assert logits.is_inference() and logits.dtype == torch.float32
+    with torch.no_grad():
+        torch.testing.assert_close(logits, pmodel(torch.tensor(x), psolvers),
+                                   rtol=0, atol=0)
+    cifar = build_model("premetanode10", device="cpu", in_planes=8)
+    opt = make_optimizer("rmsprop", 1e-3)
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_train_step(cifar, opt, psolvers, loss_cfg=LossConfig(
+            ss_loss=True))
+    for mode in ("fgsm", "at"):
+        state = create_train_state(pmodel, opt)
+        step = make_train_step(pmodel, opt, psolvers, attack_cfg=AttackConfig(
+            mode=mode, eps=EPS, pgd_niter=1))
+        _, m = step(state, torch.tensor(x), torch.tensor(y),
+                    torch.Generator().manual_seed(0))
+        assert torch.isfinite(m["loss"])
+
+
+# ------------------------------------------------ the shipped checkpoint
+
+
+@pytest.mark.skipif(not os.path.isdir(CKPT),
+                    reason="shipped artifact not present")
+def test_shipped_checkpoint_accuracy_and_resumed_step_match_jax(
+        pinned_uniform):
+    """The trained MetaNODE of examples/checkpoints with its params and
+    RMSprop state carried into the port, on 64 sklearn digits: clean counts
+    equal to JAX's; PGD-7 (eps 0.3, no random start) counts within 2
+    samples of JAX's; one resumed training step of the digits recipe (PGD
+    start and smoothing u pinned) within the parity bounds."""
+    from neural_ode_metasolver_tpu.data import load_digits_dataset
+
+    j_model, ts, cfg = _restore_shipped()
+    _, test_ds = load_digits_dataset(seed=0)
+    x, y = test_ds.images[:64], test_ds.labels[:64].astype(np.int64)
+    data = lambda: [(x[:48], y[:48]), (x[48:], y[48:])]  # a tail batch
+    jsolvers, psolvers = _solvers(8)
+    np_params = jax.tree_util.tree_map(np.asarray, ts.params)
+    step = int(ts.step)
+    tx = j_make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+    opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+    pmodel = build_model("mnist", device="cpu", dim=64)
+    pts = create_train_state(
+        pmodel, opt, mnist_params_from_jax(np_params),
+        rmsprop_state_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                      ts.opt_state), step),
+        step=step)
+    assert pts.step == step == 396 and pts.opt_state["count"] == step
+    nu = pts.opt_state["nu"]["params.head.fc.kernel"]
+    assert float(nu.abs().max()) > 0
+
+    j_clean = j_accuracy(j_model, ts.params, ts.model_state, jsolvers,
+                         JSolverOptions(), data())
+    p_clean = accuracy(pmodel, psolvers, SolverOptions(), data())
+    assert round(p_clean * 64) == round(j_clean * 64)
+    assert p_clean > 0.8
+    jatk = JAttackConfig(mode="at", eps=EPS, pgd_lr=PGD_LR, pgd_niter=PGD_N,
+                         pgd_random_start=False)
+    patk = AttackConfig(mode="at", eps=EPS, pgd_lr=PGD_LR, pgd_niter=PGD_N,
+                        pgd_random_start=False)
+    j_rob = j_adversarial_accuracy(j_model, ts.params, ts.model_state,
+                                   jsolvers, JSolverOptions(), data(), jatk,
+                                   jax.random.key(0))
+    p_rob = adversarial_accuracy(pmodel, psolvers, SolverOptions(), data(),
+                                 patk, torch.Generator().manual_seed(0))
+    assert abs(round(p_rob * 64) - round(j_rob * 64)) <= 2
+    assert p_rob < p_clean
+
+    # one resumed step of the recipe on 8 digits
+    xb, yb = x[:8], y[:8]
+    pinned_uniform["U"] = np.random.RandomState(7).rand(*xb.shape).astype(
+        np.float32)
+    jnoise = JNoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    pnoise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    j_noise = lambda base, k, c: [s.replace(u=jnp.asarray(U_PIN, jnp.float32))
+                                  for s in base]
+    p_noise = lambda base, g, c: [s.with_params(u=U_PIN) for s in base]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_train_mod, "_noise_solvers", j_noise)
+        mp.setattr(p_train_mod, "_noise_solvers", p_noise)
+        jts = JTrainState(step=ts.step, params=ts.params,
+                          model_state=ts.model_state, opt_state=ts.opt_state)
+        jstep = j_make_train_step(
+            j_model, tx, jsolvers, JSolverOptions(),
+            JAttackConfig(mode="at", eps=EPS, pgd_lr=PGD_LR,
+                          pgd_niter=PGD_N), jnoise, donate=False)
+        pstep = make_train_step(
+            pmodel, opt, psolvers, SolverOptions(),
+            AttackConfig(mode="at", eps=EPS, pgd_lr=PGD_LR, pgd_niter=PGD_N),
+            pnoise)
+        jts, jm = jstep(jts, jnp.asarray(xb), jnp.asarray(yb),
+                        jax.random.key(1))
+        pts, pm = pstep(pts, torch.tensor(xb), torch.tensor(yb),
+                        torch.Generator().manual_seed(1))
+    assert abs(float(jm["loss"]) - pm["loss"].item()) < 1e-5
+    assert pts.step == step + 1 and pts.opt_state["count"] == step + 1
+    d_max, d_mean = _param_dev(pmodel, jts.params)
+    assert d_max < 2e-2 and d_mean < 2e-4, (d_max, d_mean)
