@@ -71,12 +71,34 @@ Phases, in order; any failure exits non-zero:
  12. evaluate: clean ``accuracy`` and PGD-7 ``adversarial_accuracy`` over
      four batches of 256 seeded images, kernel path and plain path, with
      the time of each batch and the launches; the correct counts agree
-     (uniform images carry no accuracy, so none is asserted).
+     (uniform images carry no accuracy, so none is asserted);
+ 13. the Evaluate-notebook regime table (``notebook_regime_grid``:
+     standalone, switch[0.6,0.4], solver_ens[0.6,0.4], model ensembling)
+     on the MNIST MetaNODE (dim 64, f32, RK2 u=0.5 8 steps) over four
+     seeded batches of 256: clean and FGSM (eps 0.3) accuracy through
+     ``accuracy``, ``adversarial_accuracy`` and the ensemble entry points,
+     and the clean step-count sweep over 1, 2, 4, 8 (``sn_test`` for
+     standalone), kernel path and plain path from the same seeds: exact
+     launches per batch, logits within 1e-4 of max(1, max|logit|), clean
+     predictions equal but at near-ties (top two scores within twice the
+     paths' difference), FGSM counts within 2 a batch, one batch's FGSM in
+     f32 with x_adv equal at all but 0.1% of the pixels and at most 1% of
+     the input gradients more than 1e-3 of their max apart (ReLU masks
+     flip on rounding, as in phase 11; the plain path in f64 against f32
+     is printed beside, as what rounding alone moves), sweep counts equal,
+     and the median ms per batch after a warm-up batch;
+ 14. the same table on premetanode10 (in_planes 64, bf16, batch 256, two
+     batches), FGSM at eps 8/255 with the CIFAR mean and std: logits within
+     2^-5 of max|logit|, the predictions as in 13 (bf16 near-ties flip),
+     and the f32 FGSM held to phase 10's bars (x_adv equal wherever the
+     input gradient is above 1e-6 of its max, input gradients within 1e-4
+     of it); no sweep.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  It writes no file besides the kernels it builds.
 """
+import copy
 import json
 import math
 import os
@@ -164,6 +186,9 @@ MNIST_TRAIN_PER_STEP = {
 }
 # an eval batch: clean, one forward; PGD, PGD_ITERS attack passes and the
 # forward of the attacked batch
+# the regime table's MNIST bar on the share of input gradients more than
+# 1e-3 of their max apart between the kernel and the plain path (phase 13)
+MNIST_GRAD_FAR_BAR = 1e-2
 EVAL_CLEAN_PER_BATCH = {"group_norm_act": MNIST_GN_PER_PASS,
                         "conv3x3_same": MNIST_B1_PER_PASS}
 EVAL_PGD_PER_BATCH = {
@@ -192,6 +217,138 @@ TRAIN_PER_STEP = {"conv3x3_same": sum(TRAIN_FWD.values()),
 # JAX data/datasets.py:43-44
 CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR10_STD = (0.2023, 0.1994, 0.2010)
+
+# The Evaluate-notebook regime table (training/evaluate.py::
+# notebook_regime_grid: standalone, switch[0.6,0.4] over u in {0.5, 1.0},
+# solver_ens[0.6,0.4] at ensemble_prob 1, model ensembling of two
+# Normal(0.2)-noised solvers), clean and FGSM: the MNIST MetaNODE at eps 0.3
+# with the step-count sweep of scripts/digits_regimes_eval.py:83-176, and
+# premetanode10 in bf16 at eps 8/255 (scripts/replicate_baseline.py).
+MNIST_FGSM_EPS = 0.3
+SWEEP = (1, 2, 4, 8)
+CIFAR_EVAL_BATCHES = 2
+# a regime's model forwards and ODE solves a forward: switch takes one
+# branch; solver_ens at ensemble_prob 1 integrates both solvers; model
+# ensembling runs the model once a member
+REGIME_MODELS = {"standalone": 1, "switch": 1, "solver_ens": 1,
+                 "model_ensembling": 2}
+REGIME_SOLVES = {"standalone": 1, "switch": 1, "solver_ens": 2,
+                 "model_ensembling": 2}
+
+
+def mnist_forward_counts(kind, n):
+    """Launches of one MNIST forward at n steps, with or without a
+    gradient: B3 three GroupNorms outside the ODE block a model, three an
+    RHS call; B1 two an RHS call (two RHS calls a step)."""
+    return {"group_norm_act": 3 * REGIME_MODELS[kind]
+            + 6 * n * REGIME_SOLVES[kind],
+            "conv3x3_same": 4 * n * REGIME_SOLVES[kind]}
+
+
+def cifar_forward_counts(kind, n, b2=True):
+    """Launches of one premetanode10 forward at n steps: four B1 convs
+    outside the ODE blocks a model; an ODE block is B2 (4n + 1 launches)
+    where it may take it (standalone, no gradient: ``b2``), else 4n B1
+    convs a solve."""
+    models, solves = REGIME_MODELS[kind], REGIME_SOLVES[kind]
+    if b2 and kind in ("standalone", "model_ensembling"):
+        return {"conv3x3_same": 4 * models,
+                "ode_block_rk2": 2 * (4 * n + 1) * models}
+    return {"conv3x3_same": 4 * models + 2 * 4 * n * solves}
+
+
+def argmax_apart(scores, ref):
+    """``(moved, near)``: rows whose argmax differs between ``scores`` and
+    ``ref`` although ``ref``'s top two are more than twice the largest
+    difference of the two apart, and the rows where they are not (near
+    ties, whose argmax rounding may move: bf16 flips them)."""
+    d = (scores - ref).abs().max()
+    top2 = ref.topk(2, dim=-1).values
+    near = top2[:, 0] - top2[:, 1] <= 2 * d
+    moved = scores.argmax(-1) != ref.argmax(-1)
+    return int((moved & ~near).sum()), int(near.sum())
+
+
+def member_logits_apart(model, solvers, x, logit_bar):
+    """``[(max|diff|, bar)]``: each model-ensemble member's logits on
+    ``x``, kernel path against plain path, and ``logit_bar`` of the plain
+    path's logits."""
+    import torch
+
+    out = []
+    with torch.inference_mode():
+        for s in solvers:
+            lk, lp = (model(x, [s], use_kernels=uk).float()
+                      for uk in (True, False))
+            out.append(((lk - lp).abs().max().item(), logit_bar(lp)))
+    return out
+
+
+def member_forwards(model, spec, use_kernels, seed, f64=False):
+    """The forwards ``x_normalized -> logits`` of the regime ``spec``'s
+    members (one but for model ensembling) on detached weights, every
+    forward's regime draws from ``seed``; ``f64`` runs the plain path in
+    f64 (on a copy of the model)."""
+    import torch
+
+    from neural_ode_metasolver_tpu_torch.ops import SolverOptions
+
+    if f64:
+        model, use_kernels = copy.deepcopy(model).double(), False
+    frozen = model.detached_params()
+    members = ([([s], SolverOptions()) for s in spec.solvers]
+               if spec.is_model_ensemble
+               else [(list(spec.solvers), spec.options)])
+    return [lambda xi, sv=sv, o=o: model(
+                xi.double() if f64 else xi, sv, o,
+                use_kernels=use_kernels, params=frozen,
+                generator=torch.Generator().manual_seed(seed))
+            for sv, o in members]
+
+
+def fgsm_apart(paths, x, y, eps, mean=None, std=None):
+    """One batch's FGSM through each of ``paths`` with TF32 off.  A path is
+    a list of member forwards ``x_normalized -> logits``: one member takes
+    ``fgsm``, several ``fgsm2ensemble``'s joint step, as the entry points
+    do.  For each path after the first, how far it lies from the first:
+    x_adv's pixels apart (``differ``, their share ``share``, and ``worst``,
+    the largest input gradient among them as a share of the max) and the
+    input gradients of the members' mean-softmax NLL (``grad_err``, the
+    largest difference, and ``grad_far``, the share of them more than 1e-3
+    apart, both of the first path's max)."""
+    import torch
+
+    from neural_ode_metasolver_tpu_torch.attacks import (
+        fgsm,
+        fgsm2ensemble,
+        inv_normalize,
+        normalize,
+    )
+    from neural_ode_metasolver_tpu_torch.backend import full_f32
+
+    xas, grads = [], []
+    with full_f32(), torch.enable_grad():
+        for fwds in paths:
+            xas.append((fgsm2ensemble(fwds, x, y, eps, mean, std)
+                        if len(fwds) > 1 else
+                        fgsm(fwds[0], x, y, eps, mean, std))[0])
+            x01 = inv_normalize(x, mean, std).requires_grad_(True)
+            p = sum(torch.softmax(f(normalize(x01, mean, std)), -1)
+                    for f in fwds) / len(fwds)
+            grads += torch.autograd.grad(
+                -torch.log(p).gather(-1, y[:, None]).mean(), x01)
+    scale = grads[0].abs().max()
+    out = []
+    for xa, g in zip(xas[1:], grads[1:]):
+        differ = xa != xas[0]
+        gap = (g - grads[0]).abs() / scale
+        out.append(dict(
+            differ=int(differ.sum()), share=differ.float().mean().item(),
+            worst=(grads[0].abs()[differ].max() / scale).item()
+            if bool(differ.any()) else 0.0,
+            grad_err=gap.max().item(),
+            grad_far=(gap > 1e-3).float().mean().item()))
+    return out
 
 
 def fail(msg):
@@ -249,18 +406,25 @@ def main():
         reference_ode_block_rk2,
     )
     from neural_ode_metasolver_tpu_torch.serving import ServedModel
-    from neural_ode_metasolver_tpu_torch.attacks import pgd
+    from neural_ode_metasolver_tpu_torch.attacks import normalize, pgd
+    from neural_ode_metasolver_tpu_torch.ops import create_solver
     from neural_ode_metasolver_tpu_torch.training import (
         AttackConfig,
         NoiseConfig,
         accuracy,
+        accuracy_ensemble,
         adversarial_accuracy,
+        adversarial_accuracy_ensemble,
         create_train_state,
         cyclic_lr,
         make_adversarial_predict,
+        make_ensemble_attacked_probs,
+        make_ensemble_probs,
         make_eval_step,
         make_optimizer,
         make_train_step,
+        notebook_regime_grid,
+        sn_test,
     )
 
     # the kernel phases hold f32 kernels against plain versions that run on
@@ -1160,6 +1324,275 @@ def main():
     del mnist, mstate, msnap, eval_data
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 13, 14 regime tables
+    def regime_evaluators(model, spec, fgsm_cfg, dtype, use_kernels):
+        """(clean, fgsm): the accuracy entry points of ``spec``'s regime,
+        each ``f(data, generator, out)`` appending every batch's scores
+        (logits, or the ensemble's mean softmax) to ``out``."""
+        def keep(fn, out):
+            def scores(*args):
+                out.append(fn(*args).float())
+                return out[-1]
+            return scores
+
+        if spec.is_model_ensemble:
+            members = [(model, [s], SolverOptions()) for s in spec.solvers]
+            probs = make_ensemble_probs(members, compute_dtype=dtype,
+                                        use_kernels=use_kernels)
+            atk = make_ensemble_attacked_probs(
+                members, fgsm_cfg, compute_dtype=dtype,
+                use_kernels=use_kernels)
+            return (lambda d, g, out: accuracy_ensemble(
+                        members, d, g, predict=keep(probs, out)),
+                    lambda d, g, out: adversarial_accuracy_ensemble(
+                        members, d, fgsm_cfg, g, predict=keep(atk, out)))
+        sv, opts = list(spec.solvers), spec.options
+        predict = make_eval_step(model, sv, opts, compute_dtype=dtype,
+                                 use_kernels=use_kernels)
+        apredict = make_adversarial_predict(model, sv, opts, fgsm_cfg,
+                                            compute_dtype=dtype,
+                                            use_kernels=use_kernels)
+        return (lambda d, g, out: accuracy(model, sv, opts, d,
+                                           predict=keep(predict, out),
+                                           generator=g),
+                lambda d, g, out: adversarial_accuracy(
+                    model, sv, opts, d, fgsm_cfg, g,
+                    predict=keep(apredict, out)))
+
+    def gen_of(seed):
+        return None if seed is None else torch.Generator().manual_seed(seed)
+
+    def regime_table(label, model, grid, data, fgsm_cfg, dtype, logit_bar,
+                     forward_counts, attack_counts, x_adv_bar, grad_bar,
+                     far_bar, sweep=()):
+        """The Evaluate-notebook table on ``model`` over ``data``: per
+        regime clean and FGSM accuracy, kernel path and plain path from
+        the same seeds (clean 11, 13, ... where the regime draws; FGSM 10,
+        12, ...).  Checks the launch counts per batch
+        (``forward_counts(kind, n)`` a clean forward,
+        ``attack_counts(kind, n)`` the attack's forward under grad),
+        logits within ``logit_bar``, clean predictions equal wherever the
+        plain path's top two scores are more than twice the paths' largest
+        difference apart (where they are not, bf16 rounding may flip an
+        argmax), FGSM counts within 2 a batch; on the first batch in f32
+        (``fgsm_apart``) x_adv equal but at most 0.1% of the pixels, each
+        with an input gradient under ``x_adv_bar`` of its max, the input
+        gradients within ``grad_bar`` of their max and at most ``far_bar``
+        of them more than 1e-3 of it apart (each bar where given; all
+        printed), beside the same readings of the plain path in f64
+        against f32, which show what rounding alone moves; with ``sweep``
+        the clean counts at each step count.  Returns the kernel path's
+        launches and the table's rows."""
+        nb = len(data)
+        totals, rows = Counter(), []
+        for i, spec in enumerate(grid):
+            kind = spec.name.split("[")[0]
+            clean_seed = 11 + 2 * i if spec.needs_key else None
+            fgsm_seed = 10 + 2 * i
+            res = {}
+            for uk in (True, False):
+                clean, fgsm_eval = regime_evaluators(model, spec, fgsm_cfg,
+                                                     dtype, uk)
+                clean(data[:1], gen_of(clean_seed), [])  # warm-up
+                fgsm_eval(data[:1], gen_of(fgsm_seed), [])
+                torch.cuda.synchronize()
+                port.reset_launch_counts()
+                marks, c_out = [], []
+                acc = clean(timed(data, marks), gen_of(clean_seed), c_out)
+                c_counts = port.launch_counts()
+                port.reset_launch_counts()
+                amarks, f_out = [], []
+                rob = fgsm_eval(timed(data, amarks), gen_of(fgsm_seed), f_out)
+                f_counts = port.launch_counts()
+                res[uk] = dict(
+                    acc=acc, rob=rob, c_counts=c_counts, f_counts=f_counts,
+                    c_out=c_out, f_out=f_out,
+                    clean_ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+                    fgsm_ms=[(b - a) * 1e3
+                             for a, b in zip(amarks, amarks[1:])])
+            k, p = res[True], res[False]
+            # launches: the clean forward; FGSM's attack forward (under
+            # grad, so the generic path: B1, never B2) with its backward
+            # (B1's dgrad, B3's dx-only backward), then the clean forward
+            want_c = forward_counts(kind, N_STEPS)
+            atk = attack_counts(kind, N_STEPS)
+            want_f = Counter(want_c) + Counter(atk) + Counter({
+                "conv3x3_dgrad": atk.get("conv3x3_same", 0),
+                "group_norm_act_bwd": atk.get("group_norm_act", 0)})
+            want_c = {n: v * nb for n, v in want_c.items() if v}
+            want_f = {n: v * nb for n, v in want_f.items() if v}
+            if k["c_counts"] != want_c or k["f_counts"] != want_f \
+                    or p["c_counts"] or p["f_counts"]:
+                fail(f"{label} {spec.name}: launches clean {k['c_counts']} "
+                     f"(expected {want_c}), FGSM {k['f_counts']} (expected "
+                     f"{want_f}); plain path {p['c_counts']}, "
+                     f"{p['f_counts']}")
+            totals += Counter(k["c_counts"]) + Counter(k["f_counts"])
+            ys = [yb for _, yb in data]
+            hits = lambda out: [int((o.argmax(-1) == yb).sum())
+                                for o, yb in zip(out, ys)]
+            ck, cp = hits(k["c_out"]), hits(p["c_out"])
+            flips = ties = 0
+            for a, b in zip(k["c_out"], p["c_out"]):
+                moved, near = argmax_apart(a, b)
+                flips, ties = flips + moved, ties + near
+            fk, fp = hits(k["f_out"]), hits(p["f_out"])
+            if spec.is_model_ensemble:  # each member's logits
+                errs, bars = zip(*member_logits_apart(
+                    model, spec.solvers,
+                    data[0][0] if dtype is None else data[0][0].to(dtype),
+                    logit_bar))
+            else:
+                errs = [(a - b).abs().max().item()
+                        for a, b in zip(k["c_out"], p["c_out"])]
+                bars = [logit_bar(b) for b in p["c_out"]]
+            x, y = data[0]
+            fa, f64 = fgsm_apart(
+                [member_forwards(model, spec, False, 99),
+                 member_forwards(model, spec, True, 99),
+                 member_forwards(model, spec, False, 99, f64=True)],
+                x, y, fgsm_cfg.eps, fgsm_cfg.mean, fgsm_cfg.std)
+            share, worst = fa["share"], fa["worst"]
+            g_err, g_far = fa["grad_err"], fa["grad_far"]
+            sweep_k, sweep_p = [], []
+            for uk, accs in ((True, sweep_k), (False, sweep_p)):
+                if not sweep:
+                    break
+                port.reset_launch_counts()
+                if kind == "standalone":
+                    accs += sn_test(model, spec.solvers[0], spec.options,
+                                    lambda: iter(data), sweep,
+                                    compute_dtype=dtype, use_kernels=uk)
+                for n in sweep if kind != "standalone" else ():
+                    sp = spec._replace(solvers=[
+                        s.replace(n_steps=n, step_size=None, custom_grid=None)
+                        for s in spec.solvers])
+                    accs.append(regime_evaluators(model, sp, fgsm_cfg, dtype,
+                                                  uk)[0](
+                        iter(data), gen_of(clean_seed), []))
+                got = port.launch_counts()
+                want = Counter()
+                for n in sweep if uk else ():
+                    want += Counter({m: v * nb for m, v in
+                                     forward_counts(kind, n).items()})
+                if got != dict(want):
+                    fail(f"{label} {spec.name} sweep: launches {got}, "
+                         f"expected {dict(want)}")
+                totals += Counter(got)
+            med = lambda v: sorted(v)[len(v) // 2]
+            row = dict(regime=spec.name, clean_kernel=sum(ck),
+                       clean_plain=sum(cp), near_ties=ties,
+                       fgsm_kernel=fk, fgsm_plain=fp,
+                       n=nb * data[0][1].shape[0],
+                       logit_err=max(errs), logit_bar=min(bars),
+                       x_adv_differ=fa["differ"], x_adv_worst=worst,
+                       input_grad_err=g_err, input_grad_far=g_far,
+                       f64_x_adv_differ=f64["differ"],
+                       f64_x_adv_worst=f64["worst"],
+                       f64_input_grad_err=f64["grad_err"],
+                       f64_input_grad_far=f64["grad_far"],
+                       sweep=sweep, sweep_kernel=sweep_k, sweep_plain=sweep_p,
+                       clean_ms=med(k["clean_ms"]), fgsm_ms=med(k["fgsm_ms"]),
+                       plain_clean_ms=med(p["clean_ms"]),
+                       plain_fgsm_ms=med(p["fgsm_ms"]))
+            rows.append(row)
+            print(f"  {spec.name:20s} clean {sum(ck)}/{row['n']} (plain "
+                  f"{sum(cp)}; {ties} near-ties, {flips} other predictions "
+                  f"apart), FGSM per batch {fk} (plain {fp}); logits "
+                  f"max|diff| {row['logit_err']:.3e} (bar "
+                  f"{row['logit_bar']:.3e}); x_adv (f32, batch "
+                  f"{x.shape[0]}) differs at {row['x_adv_differ']} pixels "
+                  f"({share:.2e}), largest |grad| there {worst:.2e} of the "
+                  f"max; input grads max|diff| {g_err:.2e} of the max, "
+                  f"{g_far:.2e} of them over 1e-3 of it; plain path f64 vs "
+                  f"f32: x_adv {f64['differ']} pixels ({f64['share']:.2e}, "
+                  f"largest |grad| {f64['worst']:.2e}), input grads "
+                  f"{f64['grad_err']:.2e}, {f64['grad_far']:.2e} over 1e-3"
+                  + (f"; sweep {list(sweep)}: {sweep_k} (plain {sweep_p})"
+                     if sweep else ""), flush=True)
+            print(f"  {spec.name:20s} ms per batch (median of {nb} after a "
+                  f"warm-up): clean {row['clean_ms']:.3f} (plain "
+                  f"{row['plain_clean_ms']:.3f}), FGSM {row['fgsm_ms']:.3f} "
+                  f"(plain {row['plain_fgsm_ms']:.3f}); per batch clean "
+                  f"{[round(m, 3) for m in k['clean_ms']]}, FGSM "
+                  f"{[round(m, 3) for m in k['fgsm_ms']]}", flush=True)
+            if flips or abs(sum(ck) - sum(cp)) > ties:
+                fail(f"{label} {spec.name}: clean counts {sum(ck)} vs plain "
+                     f"{sum(cp)}, {flips} predictions apart beyond the "
+                     f"{ties} near-ties")
+            if any(abs(a - b) > 2 for a, b in zip(fk, fp)):
+                fail(f"{label} {spec.name}: FGSM counts {fk} vs plain {fp}")
+            if any(e > b for e, b in zip(errs, bars)):
+                fail(f"{label} {spec.name}: logits {errs} over bars {bars}")
+            over = lambda v, bar: bar is not None and v > bar
+            if share > 1e-3 or over(worst, x_adv_bar) \
+                    or over(g_err, grad_bar) or over(g_far, far_bar):
+                fail(f"{label} {spec.name}: x_adv differs at {share:.2e} of "
+                     f"the pixels, where the input gradient is up to "
+                     f"{worst:.2e} of its max (bar {x_adv_bar}); input "
+                     f"gradients {g_err:.2e} of the max apart (bar "
+                     f"{grad_bar}), {g_far:.2e} of them over 1e-3 of it "
+                     f"(bar {far_bar})")
+            if sweep_k != sweep_p:
+                fail(f"{label} {spec.name}: sweep {sweep_k} vs plain "
+                     f"{sweep_p}")
+        return totals, rows
+
+    phase(f"regimes: the Evaluate-notebook table on the MNIST MetaNODE (dim "
+          f"{MNIST_DIM}, f32), clean and FGSM eps {MNIST_FGSM_EPS}, sn_test "
+          f"over {SWEEP}, {EVAL_BATCHES} batches of {EVAL_BATCH}")
+    mnist = build_model("mnist", dim=MNIST_DIM,
+                        generator=torch.Generator().manual_seed(0))
+    gen_cpu.manual_seed(13)
+    mdata = [(torch.rand(EVAL_BATCH, 28, 28, 1, generator=gen_cpu).to(dev),
+              torch.randint(0, 10, (EVAL_BATCH,), generator=gen_cpu).to(dev))
+             for _ in range(EVAL_BATCHES)]
+    s05 = create_solver("rk2", "u", n_steps=N_STEPS, u0=U)
+    mgrid = notebook_regime_grid(s05, torch.Generator().manual_seed(15))
+    print(f"  noised member u {float(mgrid[3].solvers[1].u):.6f}",
+          flush=True)
+    mnist_regime_counts, mnist_regime_rows = regime_table(
+        "MNIST", mnist, mgrid, mdata,
+        AttackConfig(mode="fgsm", eps=MNIST_FGSM_EPS), None,
+        lambda lp: 1e-4 * max(1.0, lp.abs().max().item()),
+        mnist_forward_counts, mnist_forward_counts,
+        # ReLU masks at pre-activations within rounding of 0 flip between
+        # two forwards that round apart (phase 11), so a sample's input
+        # gradient can move by a share of the max and flip a sign well
+        # above 1e-6 of it; the plain path in f64 against f32 shows how far
+        # rounding alone moves them.  The bars are x_adv's share of pixels
+        # apart (phase 11's) and the share of gradients apart by 1e-3
+        x_adv_bar=None, grad_bar=None, far_bar=MNIST_GRAD_FAR_BAR,
+        sweep=SWEEP)
+    print("regime table MNIST f32: " + json.dumps(mnist_regime_rows),
+          flush=True)
+    del mnist, mdata
+    torch.cuda.empty_cache()
+
+    phase(f"regimes: the Evaluate-notebook table on premetanode10 (in_planes "
+          f"64, bf16), clean and FGSM eps 8/255, {CIFAR_EVAL_BATCHES} batches "
+          f"of {BATCH}")
+    model = build_model("premetanode10", in_planes=64,
+                        generator=torch.Generator().manual_seed(0))
+    gen_cpu.manual_seed(14)
+    cdata = [(normalize(torch.rand(BATCH, 32, 32, 3, generator=gen_cpu),
+                        CIFAR10_MEAN, CIFAR10_STD).to(dev),
+              torch.randint(0, 10, (BATCH,), generator=gen_cpu).to(dev))
+             for _ in range(CIFAR_EVAL_BATCHES)]
+    cgrid = notebook_regime_grid(s05, torch.Generator().manual_seed(55))
+    cifar_regime_counts, cifar_regime_rows = regime_table(
+        "premetanode10", model, cgrid, cdata,
+        AttackConfig(mode="fgsm", eps=8 / 255, mean=CIFAR10_MEAN,
+                     std=CIFAR10_STD), torch.bfloat16,
+        lambda lp: 2.0 ** -5 * lp.abs().max().item(), cifar_forward_counts,
+        lambda kind, n: cifar_forward_counts(kind, n, b2=False),
+        x_adv_bar=1e-6, grad_bar=1e-4, far_bar=None)  # GELU has no
+    # masks: phase 10's bars
+    print("regime table premetanode10 bf16: "
+          + json.dumps(cifar_regime_rows), flush=True)
+    del model, cdata
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -1196,6 +1629,10 @@ def main():
                 "launches": mnist_train_counts.get(name, 0)},
             "mnist eval f32": {"batches": 2 * EVAL_BATCHES,
                                "launches": eval_counts.get(name, 0)},
+            "mnist regimes f32": {
+                "launches": mnist_regime_counts.get(name, 0)},
+            "premetanode10 regimes bf16": {
+                "launches": cifar_regime_counts.get(name, 0)},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -1262,7 +1699,8 @@ def main():
               dx_only_launches=(
                   mnist_train_counts.get("group_norm_act_bwd", 0)
                   - mnist_train_counts.get("group_norm_act_bwd_params", 0)
-                  + eval_counts.get("group_norm_act_bwd", 0)),
+                  + eval_counts.get("group_norm_act_bwd", 0)
+                  + mnist_regime_counts.get("group_norm_act_bwd", 0)),
               plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
                      if r["dtype"] == "float32" and r["key"][5] == "full"}),
     ]
@@ -1292,7 +1730,9 @@ def main():
              "library_ms aten's native_group_norm_backward (after "
              "threshold_backward where the kernel fuses relu), its bound "
              "the bytes of x, dout and dx; by_path's mnist eval f32 counts "
-             "the clean and the PGD evaluation's batches")
+             "the clean and the PGD evaluation's batches, its regimes paths "
+             "the kernel path's launches of phases 13 and 14 (each regime's "
+             "clean and FGSM batches, and MNIST's step-count sweep)")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

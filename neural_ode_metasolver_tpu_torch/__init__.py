@@ -6,8 +6,10 @@ Module names mirror the JAX package's.  Public functions keep its layouts:
 NHWC activations, HWIO conv kernels.
 
 It serves the flagship ``premetanode10`` forward and the MNIST MetaNODE,
-trains both families adversarially and measures clean and PGD accuracy,
-with three hand-written CUDA kernels (``csrc/``) and their backward: B1,
+trains both families adversarially, measures clean, FGSM and PGD accuracy
+and runs the four meta-solver regimes (standalone, switching, smoothing,
+solver and model ensembling) with the reference's regime table and
+step-count sweep, with three hand-written CUDA kernels (``csrc/``) and their backward: B1,
 the stride-1 3x3 conv (dgrad on B1, a wgrad kernel); B2, the RK2 solve of
 a CIFAR ODE block (forward only); B3, GroupNorm fused with its activation
 (a backward kernel).  Entry points run on the CUDA card unless the caller

@@ -10,14 +10,16 @@ Ported: ``cross_entropy``, ``normalize``/``inv_normalize``, ``clean``,
 ``fgsm`` (one signed step in pixel space, fgsm.py:21-43), ``fgsm_random``
 (FGSM with a random start in normalized space, per-channel eps/alpha and
 box scaled by the dataset std, fgsm.py:54-106: the flagship CIFAR recipe)
-and ``pgd`` (pgd.py:23-57: optional uniform start in the eps-box, n_iter
-signed steps, each clipped to the eps-box and to [0, 1]; the MNIST recipe).
-The ensemble attacks (ROADMAP A9's rest, queued with A10) raise until
-then.
+``pgd`` (pgd.py:23-57: optional uniform start in the eps-box, n_iter
+signed steps, each clipped to the eps-box and to [0, 1]; the MNIST recipe),
+and the ensemble attacks: ``clean2ensemble`` (base.py:8-10) and
+``fgsm2ensemble`` (fgsm.py:109-155), one signed step in pixel space on the
+NLL of the log of the members' mean softmax, whose core is
+``fgsm_mean_prob_attack``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -129,9 +131,9 @@ def pgd(forward: Forward, generator: Optional[torch.Generator],
     clipped to [0, 1], drawn on x's device from ``generator``.  Each of the
     ``n_iter`` steps adds lr * sign(grad) and clips to x01 +- eps and to
     [0, 1]; the result is normalized again.  With ``per_iteration``
-    ``forward`` is called as ``forward(x, i)`` at iteration i: the hook for
-    regimes that draw anew on every forward (the JAX ``fwd_key``; switch
-    and ensemble land with ROADMAP A10, and standalone draws nothing)."""
+    ``forward`` is called as ``forward(x, i)`` at iteration i: the hook
+    through which switch and ensemble draw anew on every attack forward
+    (the JAX ``fwd_key``; standalone draws nothing)."""
     x01 = inv_normalize(x.detach(), mean, std)
     xa = x01
     if randomized_start:
@@ -149,15 +151,42 @@ def pgd(forward: Forward, generator: Optional[torch.Generator],
     return normalize(xa, mean, std), y
 
 
-def _not_ported(name: str):
-    def attack(*args, **kwargs):
-        raise NotImplementedError(
-            f"attack {name!r} is not ported yet (ROADMAP A9)")
-
-    attack.__name__ = name
-    return attack
+def clean2ensemble(x: torch.Tensor, y: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """No-op ensemble attack (base.py:8-10)."""
+    return x, y
 
 
-clean2ensemble = _not_ported("clean2ensemble")
-fgsm2ensemble = _not_ported("fgsm2ensemble")
-fgsm_mean_prob_attack = _not_ported("fgsm_mean_prob_attack")
+def fgsm_mean_prob_attack(mean_probs_fn: Forward, x: torch.Tensor,
+                          y: torch.Tensor, eps: float, mean=None, std=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One signed step in pixel space on the mean NLL of
+    ``log(mean_probs_fn(x_normalized))`` (fgsm.py:121-155), clipped to
+    [0, 1], normalized again and detached."""
+    x01 = inv_normalize(x.detach(), mean, std)
+
+    def nll(z):
+        logp = torch.log(mean_probs_fn(normalize(z, mean, std)))
+        return -logp.gather(-1, y[:, None]).mean()
+
+    x01 = x01.requires_grad_(True)
+    with torch.enable_grad():
+        (grad,) = torch.autograd.grad(nll(x01), x01)
+    x_adv = torch.clamp(x01.detach() + eps * torch.sign(grad), 0.0, 1.0)
+    return normalize(x_adv, mean, std), y
+
+
+def fgsm2ensemble(forwards: Sequence[Forward], x: torch.Tensor,
+                  y: torch.Tensor, eps: float, mean=None, std=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FGSM against a softmax-averaged ensemble (fgsm.py:109-155): each of
+    ``forwards`` is one member's closure."""
+
+    def mean_probs(xn):
+        probs = None
+        for fwd in forwards:
+            p = torch.softmax(fwd(xn), dim=-1)
+            probs = p if probs is None else probs + p
+        return probs / len(forwards)
+
+    return fgsm_mean_prob_attack(mean_probs, x, y, eps, mean, std)

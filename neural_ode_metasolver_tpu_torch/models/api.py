@@ -59,7 +59,9 @@ class Model(nn.Module):
     runs under ``backend.full_f32()``, so cuDNN never takes TF32 for its
     convs whatever the process flags say.  ``params`` runs the forward on
     another tree of the same structure, such as ``detached_params()`` (the
-    attack's forward, which must not reach the weights)."""
+    attack's forward, which must not reach the weights).  ``generator``, a
+    CPU ``torch.Generator``, serves the switch and ensemble regimes one
+    draw per ODE block; standalone draws nothing."""
 
     def __init__(self, cfg: Any, params: dict, apply_fn: Callable,
                  input_shape: Tuple[int, int, int]):
@@ -80,14 +82,15 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
                 use_kernels: bool = True, train: bool = False,
-                params: Any = None, **options: Any):
+                params: Any = None,
+                generator: Optional[torch.Generator] = None, **options: Any):
         if solver_options is None:
             solver_options = SolverOptions()
         with full_f32():
             return self.apply_fn(
                 self.params if params is None else params, x, solvers,
                 solver_options, cfg=self.cfg, use_kernels=use_kernels,
-                train=train, **options)
+                train=train, generator=generator, **options)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,

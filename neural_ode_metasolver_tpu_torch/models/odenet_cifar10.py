@@ -7,8 +7,9 @@ Architecture (reference odenet_cifar10/layers.py:317-426):
   meta-ODE blocks) -> global average pool -> Linear
 
 This port covers the forward of the ``prebasic`` ODE-net family
-(premetanode4..34) with NF norms and PNF param-norms, in standalone mode,
-in eval and train mode (the same function for these norms, as in JAX), and
+(premetanode4..34) with NF norms and PNF param-norms, in every regime
+(a ``generator`` serves switch and ensemble one draw per ODE block), in
+eval and train mode (the same function for these norms, as in JAX), and
 differentiable end to end.  It runs act(bn1(conv1(x))) up front, as the
 JAX package's default ``faithful_preact_bug=True`` and every published
 checkpoint do.  The ``basic`` family, the ResNet block counts
@@ -165,7 +166,9 @@ def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
     if options.solver_mode != "standalone" or len(solvers) != 1:
         return None
     s = solvers[0]
-    if s.method != "rk2" or s.n_steps is None or s.step_size is not None:
+    # B2 runs n_steps uniform steps; a custom grid takes precedence over them
+    if (s.method != "rk2" or s.custom_grid is not None or s.n_steps is None
+            or s.step_size is not None):
         return None
     if s.u is None or s.u.numel() != 1:
         return None
@@ -195,7 +198,7 @@ def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
 
 
 def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
-                      remat=False):
+                      remat=False, generator=None):
     for i, bp in enumerate(p["res"]):
         x = _pre_block_apply(cfg, bp, x, strides[i], use_kernels)
     u_k = _ode_kernel_u(cfg, solvers, options) if use_kernels else None
@@ -209,7 +212,8 @@ def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
         else:
             rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
                                                         use_kernels)
-            x, _ = meta_integrate(solvers, rhs, x, options, remat=remat)
+            x, _ = meta_integrate(solvers, rhs, x, options, generator,
+                                  remat=remat)
     return x
 
 
@@ -250,11 +254,13 @@ def apply_cifar(
     use_kernels: bool = True,
     train: bool = False,
     remat: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Forward of NHWC ``x``; returns the logits in x's dtype.  ``train``
     selects train mode, the same function for the ported NF/PNF norms (as
     in JAX, where train mode only changes BN/SN, ROADMAP A11); ``remat``
-    checkpoints each RK step of the generic ODE-block path."""
+    checkpoints each RK step of the generic ODE-block path; ``generator``
+    (a CPU generator) serves the switch and ensemble draws."""
     del train
     _check_ported(cfg)
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
@@ -267,7 +273,7 @@ def apply_cifar(
     for li in range(len(cfg.num_blocks)):
         out = _meta_layer_apply(
             cfg, params[f"layer{li + 1}"], out, _layer_strides(cfg, li),
-            solvers, solver_options, use_kernels, remat,
+            solvers, solver_options, use_kernels, remat, generator,
         )
     return fnn.linear(params["fc"], fnn.global_avg_pool(out))
 

@@ -228,10 +228,12 @@ def apply_mnist(
     unroll: int = 1,
     integration_method: str = "backprop",
     return_aux: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """Forward of NHWC ``x``; returns the logits in x's dtype, and with
     ``return_aux`` also ``{"ss_loss": ...}`` (a 0-dim tensor in x's
-    dtype)."""
+    dtype).  ``generator`` (a CPU generator) serves the switch and
+    ensemble regimes one draw per ODE block."""
     del train, unroll
     _check_cfg(cfg)
     if integration_method == "adjoint":
@@ -252,7 +254,8 @@ def apply_mnist(
             continue
         rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
                                                     use_kernels)
-        x, aux = meta_integrate(solvers, rhs, x, solver_options, remat=remat)
+        x, aux = meta_integrate(solvers, rhs, x, solver_options, generator,
+                                remat=remat)
         if ss_loss:
             # re-integrate t in [1, 2] from the block output, replaying the
             # forward's regime draws (layers.py:53-93)

@@ -12,8 +12,19 @@ from .group_norm import (
     group_norm_backward_reference,
     group_norm_reference,
 )
-from .integrate import make_time_grid, odeint_final, rk_step
-from .noise import noise_params, noise_solver, sample_noise
+from .integrate import (
+    make_time_grid,
+    odeint,
+    odeint_final,
+    odeint_grid,
+    rk_step,
+)
+from .noise import (
+    noise_params,
+    noise_solver,
+    sample_noise,
+    solver_ensemble_by_noising,
+)
 from .ode_block import ode_block_rk2_forward, reference_ode_block_rk2
 from .regimes import SolverOptions, meta_integrate
 from .solver import ParametricSolver, create_solver, parse_solver_dsl
@@ -44,7 +55,9 @@ __all__ = [
     "noise_params",
     "noise_solver",
     "ode_block_rk2_forward",
+    "odeint",
     "odeint_final",
+    "odeint_grid",
     "parse_solver_dsl",
     "reference_conv3x3",
     "reference_conv3x3_wgrad",
@@ -54,5 +67,6 @@ __all__ = [
     "rk4_tableau",
     "rk_step",
     "sample_noise",
+    "solver_ensemble_by_noising",
     "validity_eps",
 ]

@@ -18,18 +18,24 @@ keep a bf16 carry while the tableau arithmetic stays in f32.
 ``remat=True`` runs each step under ``torch.utils.checkpoint`` (the JAX
 ``jax.checkpoint`` of the scan body, ``integrate.py:175``): a backward keeps
 only the steps' input carries and recomputes each step's stages.
+
+``odeint_grid`` returns the trajectory at every grid point; ``odeint`` (the
+reference's ``RKParametricSolver.integrate``, rk_parametric.py:89-123)
+integrates on the solver grid and interpolates linearly onto the requested
+times, a backward-in-time grid included, with exact values at grid points.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .tableau import ButcherTableau
 
-__all__ = ["make_time_grid", "rk_step", "odeint_final"]
+__all__ = ["make_time_grid", "rk_step", "odeint_grid", "odeint_final",
+           "odeint"]
 
 RHS = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # rhs(t, y)
 
@@ -85,6 +91,34 @@ def rk_step(tableau: ButcherTableau, rhs: RHS, y: torch.Tensor,
     return dy
 
 
+def _steps(tableau: ButcherTableau, rhs: RHS, y0: torch.Tensor,
+           time_grid: torch.Tensor, remat: bool, trajectory: bool):
+    """Step over the grid; returns y(grid[-1]) and, with ``trajectory``,
+    the carry after every step."""
+
+    def step(y, t, dt):
+        return (_wide(y) + rk_step(tableau, rhs, y, t, dt)).to(y.dtype)
+
+    y, ys = y0, []
+    for k in range(time_grid.shape[0] - 1):
+        t = time_grid[k]
+        dt = time_grid[k + 1] - time_grid[k]
+        y = (checkpoint(step, y, t, dt, use_reentrant=False) if remat
+             else step(y, t, dt))
+        if trajectory:
+            ys.append(y)
+    return y, ys
+
+
+def odeint_grid(tableau: ButcherTableau, rhs: RHS, y0: torch.Tensor,
+                time_grid: torch.Tensor, *, remat: bool = False
+                ) -> torch.Tensor:
+    """The trajectory at every grid point, shape ``(len(grid),
+    *y0.shape)``; row 0 is y0."""
+    _, ys = _steps(tableau, rhs, y0, time_grid, remat, True)
+    return torch.stack([y0] + ys)
+
+
 def odeint_final(
     tableau: ButcherTableau,
     rhs: RHS,
@@ -104,14 +138,58 @@ def odeint_final(
             t0, t1, n_steps=n_steps, step_size=step_size,
             dtype=torch.promote_types(y0.dtype, torch.float32),
         )
+    return _steps(tableau, rhs, y0, time_grid, remat, False)[0]
 
-    def step(y, t, dt):
-        return (_wide(y) + rk_step(tableau, rhs, y, t, dt)).to(y.dtype)
 
-    y = y0
-    for k in range(time_grid.shape[0] - 1):
-        t = time_grid[k]
-        dt = time_grid[k + 1] - time_grid[k]
-        y = (checkpoint(step, y, t, dt, use_reentrant=False) if remat
-             else step(y, t, dt))
-    return y
+def _check_grid_spans(time_grid: torch.Tensor, t: torch.Tensor) -> None:
+    """Refuse requested times outside the grid, which interpolation would
+    silently extrapolate (the reference asserts the grid's ends,
+    rk_parametric.py:94-95); the grid may run backward in time."""
+    lo, hi = sorted((float(time_grid[0]), float(time_grid[-1])))
+    t_lo, t_hi = float(t.min()), float(t.max())
+    if t_lo < lo or t_hi > hi:
+        raise ValueError(
+            f"requested times [{t_lo}, {t_hi}] fall outside the "
+            f"integration grid [{lo}, {hi}]; interpolation would "
+            f"silently extrapolate")
+
+
+def odeint(
+    tableau: ButcherTableau,
+    rhs: RHS,
+    y0: torch.Tensor,
+    t: Union[torch.Tensor, Sequence[float]],
+    *,
+    n_steps: Optional[int] = None,
+    step_size: Optional[float] = None,
+    time_grid: Optional[torch.Tensor] = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """The solution at the requested times ``t``, shape ``(len(t),
+    *y0.shape)``: integrate on the solver grid, then interpolate linearly
+    (rk_parametric.py:89-123).  With no ``n_steps``, ``step_size`` or
+    ``time_grid`` the grid is ``t`` itself (rk_parametric.py:20)."""
+    dtype = torch.promote_types(y0.dtype, torch.float32)
+    t = torch.as_tensor(t, dtype=dtype)
+    if time_grid is None and n_steps is None and step_size is None:
+        time_grid = t
+    else:
+        if time_grid is None:
+            time_grid = make_time_grid(t[0], t[-1], n_steps=n_steps,
+                                       step_size=step_size, dtype=dtype)
+        time_grid = torch.as_tensor(time_grid, dtype=dtype)
+        _check_grid_spans(time_grid, t)
+    ys = odeint_grid(tableau, rhs, y0, time_grid, remat=remat)
+    # searchsorted needs an ascending sequence: a backward grid flips the
+    # sign of the grid and the requested times
+    sign = 1.0 if float(time_grid[-1]) >= float(time_grid[0]) else -1.0
+    idx = torch.searchsorted(sign * time_grid, sign * t, side="left").clamp(
+        1, time_grid.shape[0] - 1)
+    t_lo, t_hi = time_grid[idx - 1], time_grid[idx]
+    frac = (t - t_lo) / (t_hi - t_lo)
+    # a requested time on a grid point takes its value with no rounding
+    frac = torch.where(t == t_hi, torch.ones_like(frac), frac)
+    frac = torch.where(t == t_lo, torch.zeros_like(frac), frac)
+    frac = frac.reshape((t.shape[0],) + (1,) * (ys.dim() - 1))
+    y_lo, y_hi = ys[idx - 1], ys[idx]
+    return (y_lo + (y_hi - y_lo) * frac).to(ys.dtype)

@@ -18,11 +18,12 @@ gate, u, v; the results are f32 CPU scalars, so the noise adds no work and
 no synchronisation on the card (the tableau is built on the host).  The
 stream differs from JAX's threefry, so parity tests pin the draws
 (``sample_noise`` is looked up from this module at each call) and compare
-distributions.  ``solver_ensemble_by_noising`` lands with ROADMAP A10.
+distributions.  ``solver_ensemble_by_noising`` builds the members of model
+ensembling: the original first, then noised copies (utils.py:112-117).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -87,6 +88,11 @@ def noise_solver(solver: ParametricSolver, generator: torch.Generator,
     return solver.with_params(u=u, v=v)
 
 
-def solver_ensemble_by_noising(*args, **kwargs):
-    raise NotImplementedError(
-        "solver ensembles by noising are not ported yet (ROADMAP A10)")
+def solver_ensemble_by_noising(solver: ParametricSolver,
+                               generator: torch.Generator,
+                               ensemble_size: int = 1, **noise_kwargs
+                               ) -> List[ParametricSolver]:
+    """``[original, noised_1, ..., noised_{n-1}]``, each copy drawn in turn
+    from ``generator`` with ``noise_solver``'s keyword arguments."""
+    return [solver] + [noise_solver(solver, generator, **noise_kwargs)
+                       for _ in range(1, ensemble_size)]

@@ -7,9 +7,10 @@ and ``reset_params`` restores (u0, v0), the reference's denoise step.  ``create_
 and the ``--solvers`` mini-DSL keep CLI parity with the reference
 (odenet_mnist/runner.py:31-41; solvers/utils.py:13-57).
 
-Not in this slice (ROADMAP A18 and A2's remainder): freezing for trainable
-solver parameters, explicit ``custom_grid`` integration grids, and the
-trajectory-returning ``integrate``.
+A grid comes from ``custom_grid`` (explicit time points, the reference's
+custom ``grid_constructor``, rk_parametric.py:17-18) before ``n_steps``
+before ``step_size``; ``replace`` regrids a solver, as ``sn_test`` does.
+Not in this slice (ROADMAP A18): freezing for trainable solver parameters.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import List, Optional
 
 import torch
 
-from .integrate import make_time_grid, odeint_final
+from .integrate import make_time_grid, odeint, odeint_final
 from .tableau import (
     ButcherTableau,
     euler_tableau,
@@ -45,10 +46,16 @@ class ParametricSolver:
     v0: Optional[float] = None
     n_steps: Optional[int] = None
     step_size: Optional[float] = None
+    custom_grid: Optional[tuple] = None  # explicit time points, if any
 
     @property
     def order(self) -> int:
         return _ORDERS[self.method]
+
+    def replace(self, **changes) -> "ParametricSolver":
+        """A copy with ``changes`` to its fields (the JAX pytree's
+        ``replace``)."""
+        return replace(self, **changes)
 
     def with_params(self, u=None, v=None) -> "ParametricSolver":
         """A solver with new u/v in the dtypes of the current ones.  Raises
@@ -92,19 +99,33 @@ class ParametricSolver:
 
     def time_grid(self, t0: float = 0.0, t1: float = 1.0
                   ) -> Optional[torch.Tensor]:
+        if self.custom_grid is not None:
+            return torch.tensor(self.custom_grid, dtype=torch.float32)
         if self.n_steps is None and self.step_size is None:
             return None
         return make_time_grid(t0, t1, n_steps=self.n_steps,
                               step_size=self.step_size)
 
+    def integrate(self, rhs, y0: torch.Tensor, t, *, remat: bool = False
+                  ) -> torch.Tensor:
+        """The trajectory at the requested times ``t`` (rk_parametric.py:
+        89-113), shape ``(len(t), *y0.shape)``."""
+        if self.custom_grid is not None:
+            return odeint(self.tableau(), rhs, y0, t,
+                          time_grid=self.time_grid(), remat=remat)
+        return odeint(self.tableau(), rhs, y0, t, n_steps=self.n_steps,
+                      step_size=self.step_size, remat=remat)
+
     def integrate_final(self, rhs, y0: torch.Tensor, t0: float = 0.0,
                         t1: float = 1.0, remat: bool = False
                         ) -> torch.Tensor:
-        """Only y(t1): what the ODE blocks consume.  With neither n_steps
-        nor step_size the grid is the single step [t0, t1]; ``remat``
-        checkpoints each step."""
+        """Only y(t1): what the ODE blocks consume.  With no grid source
+        the grid is the single step [t0, t1]; ``remat`` checkpoints each
+        step."""
         grid = None
-        if self.n_steps is None and self.step_size is None:
+        if self.custom_grid is not None:
+            grid = self.time_grid()
+        elif self.n_steps is None and self.step_size is None:
             grid = torch.tensor([t0, t1], dtype=torch.float32)
         return odeint_final(
             self.tableau(), rhs, y0, t0, t1,

@@ -1,6 +1,18 @@
 """Adversarial training and evaluation of the port (mirrors the JAX
 ``training``)."""
-from .evaluate import accuracy, adversarial_accuracy, make_adversarial_predict
+from .evaluate import (
+    RegimeSpec,
+    accuracy,
+    accuracy_ensemble,
+    adversarial_accuracy,
+    adversarial_accuracy_ensemble,
+    make_adversarial_predict,
+    make_ensemble_attacked_probs,
+    make_ensemble_probs,
+    notebook_regime_grid,
+    sn_test,
+)
+from .metrics import RunningAverageMeter, nfe_per_forward, nfe_per_solve
 from .optimizers import SGD, RMSprop, make_optimizer
 from .schedules import (
     constant_lr,
@@ -23,17 +35,27 @@ __all__ = [
     "LossConfig",
     "NoiseConfig",
     "RMSprop",
+    "RegimeSpec",
+    "RunningAverageMeter",
     "SGD",
     "TrainState",
     "accuracy",
+    "accuracy_ensemble",
     "adversarial_accuracy",
+    "adversarial_accuracy_ensemble",
     "constant_lr",
     "create_train_state",
     "cyclic_lr",
     "cyclic_momentum",
     "learning_rate_with_decay",
     "make_adversarial_predict",
+    "make_ensemble_attacked_probs",
+    "make_ensemble_probs",
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "nfe_per_forward",
+    "nfe_per_solve",
+    "notebook_regime_grid",
+    "sn_test",
 ]

@@ -31,7 +31,12 @@ Randomness: ``step(state, x, y, generator)`` takes a CPU
 ``torch.Generator`` and draws three seeds from it, one each for the noise
 (drawn on the CPU: the tableau is built on the host), the attack's uniform
 start and the data noise (drawn on x's device), like the JAX step's key
-split.
+split.  Under the switch and ensemble regimes it then draws two more, for
+the attack's forwards and the training forward (JAX ``k_afwd``, ``k_fwd``),
+whose regime draws come from CPU generators seeded with them; standalone
+draws nothing there, so its stream is unchanged.  FGSM's one attack forward
+draws from the attack-forward seed, PGD's iteration i from that seed plus
+1 + i (JAX ``fold_in(k_afwd, i)``).
 
 The phases run inside ``torch.profiler.record_function`` ranges
 ``nodems.attack``, ``nodems.train_pass`` and ``nodems.update``, which a
@@ -41,7 +46,7 @@ trace reads for device time by phase (``scripts/profile_torch_training.py``).
 (``training/evaluate.py``) runs under ``torch.inference_mode()``.
 
 Not ported yet: the CIFAR ss-loss (ROADMAP A10), the adjoint and
-``dynamic_solvers`` (A13/A18).  JAX compiler options have no counterpart.
+``dynamic_solvers`` (A18).  JAX compiler options have no counterpart.
 """
 from __future__ import annotations
 
@@ -147,38 +152,48 @@ def _noise_solvers(solvers, generator: torch.Generator,
             for s in solvers]
 
 
+def _regime_generator(seed: Optional[int]) -> Optional[torch.Generator]:
+    """A CPU generator for the regime draws of one forward, or None."""
+    return None if seed is None else torch.Generator().manual_seed(seed)
+
+
 def _run_attack(forward, attack_cfg: AttackConfig, x, y,
-                generator: torch.Generator) -> torch.Tensor:
-    """The adversarial batch (JAX ``train.py:154-173``); ``forward`` runs
-    the model in eval mode on detached weights."""
+                generator: torch.Generator,
+                fwd_seed: Optional[int] = None) -> torch.Tensor:
+    """The adversarial batch (JAX ``train.py:154-173``); ``forward(xi,
+    g)`` runs the model in eval mode on detached weights, with ``g`` the
+    regime generator of that forward (from ``fwd_seed``, or None)."""
     m, c = attack_cfg.mode, attack_cfg
+    one = lambda xi: forward(xi, _regime_generator(fwd_seed))
     if m == "clean":
         return attacks.clean(x, y)[0]
     if m == "fgsm":
-        return attacks.fgsm(forward, x, y, c.eps, c.mean, c.std)[0]
+        return attacks.fgsm(one, x, y, c.eps, c.mean, c.std)[0]
     if m == "fgsm_random":
-        return attacks.fgsm_random(forward, generator, x, y, c.eps, c.alpha,
+        return attacks.fgsm_random(one, generator, x, y, c.eps, c.alpha,
                                    c.mean, c.std)[0]
     if m == "at":
-        # JAX also passes a per-iteration forward key, which only the
-        # switch and ensemble regimes read (ROADMAP A10)
-        return attacks.pgd(forward, generator, x, y, c.eps, c.pgd_lr,
-                           c.pgd_niter, c.pgd_random_start, c.mean,
-                           c.std)[0]
+        # each iteration draws its own regime choice, as JAX's fwd_key does
+        return attacks.pgd(
+            lambda xi, i: forward(xi, _regime_generator(
+                None if fwd_seed is None else fwd_seed + 1 + i)),
+            generator, x, y, c.eps, c.pgd_lr, c.pgd_niter,
+            c.pgd_random_start, c.mean, c.std, per_iteration=True)[0]
     raise ValueError("Attack type not understood.")
 
 
 def _model_forward(model, solver_options, use_kernels: bool,
                    compute_dtype: Optional[torch.dtype], remat: bool):
-    """``forward(x, solvers, train, params=None, ss=None) -> (logits, ss)``
-    in f32: the input cast to ``compute_dtype`` at the model's door; ``ss``
-    a LossConfig whose ss-loss the MNIST forward adds (else 0)."""
+    """``forward(x, solvers, train, params=None, ss=None, generator=None)
+    -> (logits, ss)`` in f32: the input cast to ``compute_dtype`` at the
+    model's door; ``ss`` a LossConfig whose ss-loss the MNIST forward adds
+    (else 0); ``generator`` serves the regime draws."""
 
-    def forward(x, solvers_t, train, params=None, ss=None):
+    def forward(x, solvers_t, train, params=None, ss=None, generator=None):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         kw = dict(use_kernels=use_kernels, train=train, params=params,
-                  remat=remat)
+                  remat=remat, generator=generator)
         if ss is not None and ss.ss_loss:
             logits, aux = model(x, solvers_t, solver_options, ss_loss=True,
                                 ss_loss_abs=ss.ss_loss_abs, return_aux=True,
@@ -192,6 +207,15 @@ def _model_forward(model, solver_options, use_kernels: bool,
 
 def _seeds(generator: torch.Generator, n: int):
     return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
+
+
+def _regime_seeds(generator: torch.Generator, solver_options: SolverOptions,
+                  n: int):
+    """``n`` seeds for the regime draws of switch and ensemble; standalone
+    draws none (n Nones), so its generator stream is unchanged."""
+    if solver_options.solver_mode == "standalone":
+        return [None] * n
+    return _seeds(generator, n)
 
 
 def make_train_step(model, optimizer: Union[SGD, RMSprop],
@@ -227,22 +251,26 @@ def make_train_step(model, optimizer: Union[SGD, RMSprop],
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: torch.Generator):
         s_noise, s_attack, s_data = _seeds(generator, 3)
+        s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         solvers_t = _noise_solvers(
             solvers, torch.Generator().manual_seed(s_noise), noise_cfg)
         with full_f32():
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 x_adv = _run_attack(
-                    lambda xi: forward(xi, solvers_t, False, frozen)[0],
+                    lambda xi, g: forward(xi, solvers_t, False, frozen,
+                                          generator=g)[0],
                     attack_cfg, x, y,
-                    torch.Generator(device=x.device).manual_seed(s_attack))
+                    torch.Generator(device=x.device).manual_seed(s_attack),
+                    s_afwd)
             if loss_cfg.data_noise_std > 1e-12:
                 g = torch.Generator(device=x.device).manual_seed(s_data)
                 x_adv = x_adv + loss_cfg.data_noise_std * torch.randn(
                     x_adv.shape, generator=g, dtype=x_adv.dtype,
                     device=x_adv.device)
             with record_function("nodems.train_pass"), torch.enable_grad():
-                logits, ss = forward(x_adv, solvers_t, True, ss=loss_cfg)
+                logits, ss = forward(x_adv, solvers_t, True, ss=loss_cfg,
+                                     generator=_regime_generator(s_fwd))
                 xent = attacks.cross_entropy(logits, y)
                 loss = xent
                 if loss_cfg.ss_loss:
@@ -273,9 +301,10 @@ def make_eval_step(model, solvers: Sequence,
                    remat: bool = False, unroll: int = 1,
                    compute_dtype: Optional[torch.dtype] = None,
                    use_kernels: bool = True):
-    """Returns ``predict(x) -> logits``: the eval-mode forward of x (B, H,
-    W, C) on the model's device, f32 logits, under
-    ``torch.inference_mode()`` (JAX ``train.py:336-360``).  ``remat`` and
+    """Returns ``predict(x, generator=None) -> logits``: the eval-mode
+    forward of x (B, H, W, C) on the model's device, f32 logits, under
+    ``torch.inference_mode()`` (JAX ``train.py:336-360``); ``generator``, a
+    CPU generator, serves the switch and ensemble draws.  ``remat`` and
     ``unroll`` shape only a differentiated graph, so under inference mode
     they change nothing; they are accepted for the JAX signature."""
     del remat, unroll
@@ -284,8 +313,9 @@ def make_eval_step(model, solvers: Sequence,
     forward = _model_forward(model, solver_options, use_kernels,
                              compute_dtype, False)
 
-    def predict(x: torch.Tensor) -> torch.Tensor:
+    def predict(x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with torch.inference_mode():
-            return forward(x, solvers, False)[0]
+            return forward(x, solvers, False, generator=generator)[0]
 
     return predict

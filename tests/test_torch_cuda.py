@@ -740,3 +740,129 @@ def test_mnist_train_step_kernel_path_matches_plain_path(dev):
     assert all(g.grad_fn is None for g in grads[0])
     gmax = max(g.abs().max() for g in grads[1])
     assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-3 * gmax
+
+
+REGIMES = ["standalone", "switch[0.6,0.4]", "solver_ens[0.6,0.4]",
+           "model_ensembling"]
+
+
+@pytest.mark.parametrize("family", ["mnist", "premetanode10"])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_regime_table_kernel_path_matches_plain_path(dev, family, regime):
+    """One row of the Evaluate-notebook table (``notebook_regime_grid`` on
+    RK2 u=0.5 in 8 steps) on one batch: the MNIST MetaNODE at dim 64 in f32
+    (batch 8, FGSM eps 0.3), premetanode10 at in_planes 64 in bf16 (batch 4,
+    FGSM eps 8/255 with the CIFAR mean and std).  The kernel path against
+    the plain path from the same seeds: the launches of a clean batch and
+    an FGSM batch (the attack forward under grad takes B1, never B2),
+    clean scores within the serving bars (1e-4 of max(1, max|logit|), or
+    2^-5 of max|logit|; the ensemble's mean softmax within the bar of its
+    members' logits), clean predictions equal but at near-ties; FGSM in
+    f32: x_adv equal but at most 0.1% of the pixels; for MNIST (ReLU masks
+    flip on rounding) at most ``MNIST_GRAD_FAR_BAR`` of the input gradients
+    more than 1e-3 of their max apart; for premetanode10 the input
+    gradients within 1e-4 of their max and each pixel apart with an input
+    gradient under 1e-6 of it.  The counts, helpers and bars are
+    chip_smoke.py's (phases 13 and 14)."""
+    from collections import Counter
+
+    from chip_smoke import (
+        MNIST_GRAD_FAR_BAR,
+        argmax_apart,
+        cifar_forward_counts,
+        fgsm_apart,
+        member_forwards,
+        member_logits_apart,
+        mnist_forward_counts,
+    )
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import normalize
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        create_solver,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        make_adversarial_predict,
+        make_ensemble_attacked_probs,
+        make_ensemble_probs,
+        make_eval_step,
+        notebook_regime_grid,
+    )
+
+    mnist = family == "mnist"
+    kind = regime.split("[")[0]
+    mean, std = (None, None) if mnist else (
+        (0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010))
+    if mnist:
+        model = build_model("mnist", dim=64,
+                            generator=torch.Generator().manual_seed(0))
+        x = torch.tensor(np.random.RandomState(3).rand(8, 28, 28, 1)
+                         .astype(np.float32), device=dev)
+        dtype, eps = None, 0.3
+        fwd_counts = mnist_forward_counts(kind, 8)
+        atk_counts = fwd_counts
+        bar = lambda ref: 1e-4 * max(1.0, ref.abs().max().item())
+    else:
+        model = build_model("premetanode10", in_planes=64,
+                            generator=torch.Generator().manual_seed(0))
+        x = normalize(torch.tensor(np.random.RandomState(3).rand(
+            4, 32, 32, 3).astype(np.float32), device=dev), mean, std)
+        dtype, eps = torch.bfloat16, 8 / 255
+        fwd_counts = cifar_forward_counts(kind, 8)
+        atk_counts = cifar_forward_counts(kind, 8, b2=False)
+        bar = lambda ref: 2.0 ** -5 * ref.abs().max().item()
+    y = torch.arange(x.shape[0], device=dev) % 10
+    attack = AttackConfig(mode="fgsm", eps=eps, mean=mean, std=std)
+    spec = {r.name: r for r in notebook_regime_grid(
+        create_solver("rk2", "u", n_steps=8, u0=0.5),
+        torch.Generator().manual_seed(15))}[regime]
+    want_f = Counter(fwd_counts) + Counter(atk_counts) + Counter({
+        "conv3x3_dgrad": atk_counts["conv3x3_same"],
+        "group_norm_act_bwd": atk_counts.get("group_norm_act", 0)})
+    members = [(model, [s], SolverOptions()) for s in spec.solvers]
+    out = {}
+    for uk in (True, False):
+        if spec.is_model_ensemble:
+            clean = lambda: make_ensemble_probs(
+                members, compute_dtype=dtype, use_kernels=uk)(x)
+            attacked = lambda: make_ensemble_attacked_probs(
+                members, attack, compute_dtype=dtype, use_kernels=uk)(
+                x, y, [5, 6])
+        else:
+            clean = lambda: make_eval_step(
+                model, spec.solvers, spec.options, compute_dtype=dtype,
+                use_kernels=uk)(x, torch.Generator().manual_seed(5))
+            attacked = lambda: make_adversarial_predict(
+                model, spec.solvers, spec.options, attack,
+                compute_dtype=dtype, use_kernels=uk)(x, y, None, 6)
+        reset_launch_counts()
+        scores = clean()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        reset_launch_counts()
+        attacked()
+        torch.cuda.synchronize()
+        out[uk] = (scores.float(), counts, launch_counts())
+    (sk, ck, fk), (sp, cp, fp) = out[True], out[False]
+    assert ck == fwd_counts and fk == {k: v for k, v in want_f.items() if v}
+    assert cp == {} and fp == {}
+    if spec.is_model_ensemble:
+        xin = x if dtype is None else x.to(dtype)
+        assert all(e <= b for e, b in member_logits_apart(
+            model, spec.solvers, xin, bar))
+    else:
+        assert (sk - sp).abs().max().item() <= bar(sp)
+    assert argmax_apart(sk, sp)[0] == 0
+    (fa,) = fgsm_apart([member_forwards(model, spec, False, 7),
+                        member_forwards(model, spec, True, 7)],
+                       x, y, eps, mean, std)
+    assert fa["share"] <= 1e-3
+    if mnist:
+        assert fa["grad_far"] <= MNIST_GRAD_FAR_BAR
+    else:  # GELU has no masks to flip on rounding: phase 10's bars
+        assert fa["grad_err"] <= 1e-4 and fa["worst"] <= 1e-6

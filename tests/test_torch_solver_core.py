@@ -261,8 +261,10 @@ def test_meta_integrate_standalone_and_unported_modes():
                                      tregimes.SolverOptions())
     assert aux == {}
     torch.testing.assert_close(y, ts.integrate_final(trhs, torch.tensor(y0)))
+    # switch and ensemble are ported (tests/test_torch_regimes.py); they
+    # draw, so without a generator they raise
     for mode in ("switch", "ensemble"):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="needs a PRNG key"):
             tregimes.meta_integrate([ts], trhs, torch.tensor(y0),
                                     tregimes.SolverOptions(solver_mode=mode))
     with pytest.raises(ValueError):

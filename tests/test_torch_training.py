@@ -270,8 +270,11 @@ def test_noise_solver_and_solver_params():
     reset = rk3.reset_params()
     assert float(reset.u) == pytest.approx(1 / 3)
     assert float(reset.v) == pytest.approx(2 / 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        p_noise.solver_ensemble_by_noising(s, torch.Generator())
+    members = p_noise.solver_ensemble_by_noising(
+        s, torch.Generator().manual_seed(0), ensemble_size=3, std=0.0125,
+        noise_type="normal")
+    assert members[0] is s and len(members) == 3
+    assert len({float(m.u) for m in members}) == 3
 
 
 # ------------------------------------------------------- models and attack
@@ -340,10 +343,8 @@ def test_fgsm_random_matches_jax(pinned_uniform):
 
 def test_attacks_not_ported_raise_and_helpers_match():
     x = torch.rand(2, 4, 4, 3)
-    for fn in (p_attacks.fgsm2ensemble, p_attacks.clean2ensemble,
-               p_attacks.fgsm_mean_prob_attack):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(None, x, None)
+    # the ensemble attacks are ported (tests/test_torch_regime_eval.py)
+    assert p_attacks.clean2ensemble(x, 3) == (x, 3)
     assert p_attacks.clean(x, 3) == (x, 3)
     xn = p_attacks.normalize(x, MEAN, STD)
     torch.testing.assert_close(p_attacks.inv_normalize(xn, MEAN, STD), x)
