@@ -93,10 +93,36 @@ Phases, in order; any failure exits non-zero:
      and the f32 FGSM held to phase 10's bars (x_adv equal wherever the
      input gradient is above 1e-6 of its max, input gradients within 1e-4
      of it); no sweep.
+ 15. ``mnist_runner.main`` at full width in f32: the digits recipe (as in
+     11, PGD-7 training, smoothing, RMSprop lr 1e-3 wd 5e-4, batch 128) on
+     1280 synthetic training and 512 test images, 2 epochs with validation
+     and a PGD-7 test each: finite losses, the ``native`` data backend,
+     exact launches (10 x phase 11's step an epoch, plus one validation
+     and one PGD batch), ``last/`` and ``best_solver_0/`` committed with
+     their sidecars, the metrics log's config and epoch lines; the seconds
+     an epoch, the runner's ``batch_time`` and img/s; then ``--resume
+     --nepochs 3 --prefetch 0``, whose restored params and optimizer state
+     equal the saved ones bit for bit and whose steps continue from 20 (its
+     ``batch_time`` without the prefetch beside the first run's);
+ 16. ``cifar_runner.main`` at full width in bf16: the flagship recipe (as
+     in 9) on 2816 synthetic images (2535 train in 9 steps of 256, 281
+     validate), two epochs, each with the PGD-7 test over 512 images at
+     batch 256: finite losses, exact launches (9 x phase 9's step, plus
+     validation and PGD, an epoch), the runner's step time beside phase
+     9's bare one (the first epoch's carries the run's first step); then
+     the PGD-7 test batches again from the ``last`` checkpoint, kernel
+     path and plain path from the same seeds, ms per batch, correct
+     counts within 2 a batch, and the attacked predictions that differ;
+ 17. ``attacks_runner.main`` over the ``last`` checkpoints of 15 and 16
+     (clean, FGSM and PGD-7 at one epsilon each): the CSV's columns and
+     rows, and its seconds.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
-and prints no result.  It writes no file besides the kernels it builds.
+and prints no result.  Besides the kernels it builds (and the data
+library, built with g++ into the package's ``_build_out/``), it writes
+files only under a temporary directory that phases 15-17 delete at their
+end.
 """
 import copy
 import json
@@ -358,6 +384,356 @@ def fail(msg):
 
 def phase(msg):
     print(f"== {msg}", flush=True)
+
+
+# Phases 15-17: the CLIs.  Phase 15 is the digits recipe through
+# mnist_runner (as phase 11, synthetic data; validation and the PGD-7 test
+# each one batch of the 512 test images), phase 16 the flagship recipe
+# through cifar_runner (as phase 9; 2816 synthetic images, of which 281
+# validate in two batches, and a PGD-7 test over 512 in two batches).
+RUNNER_MNIST_TRAIN, RUNNER_MNIST_TEST = 1280, 512
+RUNNER_MNIST_EPOCHS, RUNNER_MNIST_RESUME_EPOCHS = 2, 3
+RUNNER_MNIST_STEPS = RUNNER_MNIST_TRAIN // MNIST_TRAIN_BATCH  # an epoch
+RUNNER_CIFAR_TRAIN, RUNNER_CIFAR_TEST = 2816, 512
+RUNNER_CIFAR_VAL = int(math.floor(0.1 * RUNNER_CIFAR_TRAIN))  # --val_perc
+RUNNER_CIFAR_STEPS = (RUNNER_CIFAR_TRAIN - RUNNER_CIFAR_VAL) // BATCH
+# two epochs: the first one's batch_time carries the run's first step
+# (allocations after the earlier phases emptied the cache; phase 9's
+# warm-up step is about 0.9 s), the second is the steady state
+RUNNER_CIFAR_EPOCHS = 2
+# a premetanode10 pass under GeLUpoly runs B1 68 times (no B2); a PGD
+# batch is PGD_ITERS attack passes (forward and the input's backward) and
+# the forward of the attacked batch
+CIFAR_PASS_B1 = sum(TRAIN_FWD.values()) // 2
+CIFAR_PGD_PER_BATCH = {"conv3x3_same": (PGD_ITERS + 1) * CIFAR_PASS_B1,
+                       "conv3x3_dgrad": PGD_ITERS * CIFAR_PASS_B1}
+
+
+def scaled(counts, k):
+    return Counter({name: v * k for name, v in counts.items()})
+
+
+def read_metrics(save_dir):
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_checkpoint_dir(path):
+    """A checkpoint base holds a committed step with its sidecar."""
+    steps = sorted(d for d in os.listdir(path) if d.startswith("step_")) \
+        if os.path.isdir(path) else []
+    if not steps or not all(
+            os.path.isfile(os.path.join(path, d, f))
+            for d in steps for f in ("state", "config.json")):
+        fail(f"{path}: no committed step with its sidecar ({steps})")
+    return steps
+
+
+def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
+    """Phases 15-17: the three CLIs at full width, under a temporary
+    directory that is deleted at the end.  Returns the launches of the
+    phases' runs."""
+    import argparse
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.data import (
+        batch_iterator,
+        synthetic_dataset,
+    )
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+    from neural_ode_metasolver_tpu_torch.runners import (
+        attacks_runner,
+        cifar_runner,
+        common,
+        mnist_runner,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        create_train_state,
+        make_adversarial_predict,
+        restore_checkpoint,
+    )
+
+    totals = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runners_") as tmp:
+        # ------------------------------------------------ 15 mnist_runner
+        phase(f"mnist_runner: the digits recipe (dim {MNIST_DIM}, PGD-"
+              f"{PGD_ITERS}, smoothing, RMSprop), f32, batch "
+              f"{MNIST_TRAIN_BATCH}, {RUNNER_MNIST_EPOCHS} epochs of "
+              f"{RUNNER_MNIST_STEPS} steps, then --resume")
+        msave = os.path.join(tmp, "mnist")
+        margv = ["--solvers", f"rk2,u,{N_STEPS},-1,{U},-1",
+                 "--adv_training_mode", "at", "--eps_adv_training",
+                 str(PGD_EPS), "--pgd_lr_training", str(PGD_LR),
+                 "--pgd_niter_training", str(PGD_ITERS),
+                 "--noise_type", "normal", "--noise_sigma", "0.0125",
+                 "--noise_prob", "1.0", "--optim", "rmsprop", "--lr",
+                 "1e-3", "--weight_decay", "5e-4", "--batch_size",
+                 str(MNIST_TRAIN_BATCH), "--adv_testing_mode", "at",
+                 "--eps_adv_testing", str(PGD_EPS), "--pgd_lr_testing",
+                 str(PGD_LR), "--pgd_niter_testing", str(PGD_ITERS),
+                 "--synthetic_train_size", str(RUNNER_MNIST_TRAIN),
+                 "--synthetic_test_size", str(RUNNER_MNIST_TEST),
+                 "--save_dir", msave]
+        per_epoch = (scaled(MNIST_TRAIN_PER_STEP, RUNNER_MNIST_STEPS)
+                     + Counter(EVAL_CLEAN_PER_BATCH)
+                     + Counter(EVAL_PGD_PER_BATCH))
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts = mnist_runner.main(margv + ["--nepochs",
+                                        str(RUNNER_MNIST_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = port.launch_counts()
+        totals += Counter(got)
+        recs = read_metrics(msave)
+        epochs = [r for r in recs if "train_loss" in r]
+        with open(os.path.join(msave, "logs")) as f:
+            log = f.read()
+        backend = "native" if "data backend: native" in log else "numpy"
+        for r in epochs:
+            print(f"  epoch {int(r['epoch'])}: train loss "
+                  f"{r['train_loss']:.6f}, batch_time "
+                  f"{r['batch_time'] * 1e3:.3f} ms = "
+                  f"{MNIST_TRAIN_BATCH / r['batch_time']:.1f} img/s, "
+                  f"{r['batch_time'] * RUNNER_MNIST_STEPS:.3f} s of steps "
+                  f"(phase 11's bare step: {bare_mnist_ms:.3f} ms)",
+                  flush=True)
+        print(f"  {wall:.3f} s for {RUNNER_MNIST_EPOCHS} epochs with "
+              f"validation, PGD-{PGD_ITERS} test and checkpoints "
+              f"({wall / RUNNER_MNIST_EPOCHS:.3f} s an epoch); data "
+              f"backend {backend}; adversarial test "
+              f"{[r['adv_test_acc'] for r in recs if 'adv_test_acc' in r]}",
+              flush=True)
+        want = dict(scaled(per_epoch, RUNNER_MNIST_EPOCHS))
+        print(f"  launches {got} (expected {want}: per epoch "
+              f"{RUNNER_MNIST_STEPS} x phase 11's step, one validation "
+              f"batch and one PGD-{PGD_ITERS} batch)", flush=True)
+        losses = [r["train_loss"] for r in epochs]
+        if len(epochs) != RUNNER_MNIST_EPOCHS or not all(
+                math.isfinite(v) for v in losses):
+            fail(f"mnist_runner: epoch losses {losses}")
+        if backend != "native":
+            fail("mnist_runner: the data backend is not native")
+        if got != want:
+            fail(f"mnist_runner: launches {got} != expected {want}")
+        if recs[0].get("_type") != "config" or ts.step != \
+                RUNNER_MNIST_EPOCHS * RUNNER_MNIST_STEPS:
+            fail(f"mnist_runner: metrics {recs[0].get('_type')}, step "
+                 f"{ts.step}")
+        last_steps = check_checkpoint_dir(os.path.join(msave, "last"))
+        check_checkpoint_dir(os.path.join(msave, "best_solver_0"))
+        saved = torch.load(os.path.join(msave, "last", last_steps[-1],
+                                        "state"), map_location="cpu",
+                           weights_only=True)
+
+        # --resume: the restored state against the saved file, bit for bit
+        restored = {}
+        real_restore = common.restore_checkpoint
+
+        def spy(base, target):
+            out, cfg = real_restore(base, target)
+            restored["step"] = out.step
+            restored["params"] = {k: v.detach().cpu().clone()
+                                  for k, v in out.params.items()}
+            restored["opt"] = {k: ({n: t.detach().cpu().clone()
+                                    for n, t in v.items()}
+                                   if isinstance(v, dict) else v)
+                               for k, v in out.opt_state.items()}
+            return out, cfg
+
+        common.restore_checkpoint = spy
+        try:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            # the resumed run copies each batch in the step (--prefetch
+            # 0): its batch_time against the first run's shows what the
+            # prefetch thread costs or saves on this host-bound step
+            ts = mnist_runner.main(margv + [
+                "--nepochs", str(RUNNER_MNIST_RESUME_EPOCHS), "--resume",
+                "--prefetch", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            common.restore_checkpoint = real_restore
+        got = port.launch_counts()
+        totals += Counter(got)
+        same = (restored.get("step") == saved["step"]
+                and restored["params"].keys() == saved["params"].keys()
+                and all(torch.equal(restored["params"][k], v)
+                        for k, v in saved["params"].items())
+                and restored["opt"].keys() == saved["opt_state"].keys()
+                and all((restored["opt"][k].keys() == v.keys() and all(
+                    torch.equal(restored["opt"][k][n], t)
+                    for n, t in v.items())) if isinstance(v, dict)
+                    else restored["opt"][k] == v
+                    for k, v in saved["opt_state"].items()))
+        recs = [r for r in read_metrics(msave) if "train_loss" in r]
+        steps = [int(r["step"]) for r in recs]
+        want = dict(scaled(per_epoch, RUNNER_MNIST_RESUME_EPOCHS))
+        print(f"  --resume --nepochs {RUNNER_MNIST_RESUME_EPOCHS}: restored "
+              f"step {restored.get('step')} from {last_steps[-1]}, params "
+              f"and optimizer state bit for bit: {same}; epoch steps "
+              f"{steps}; {wall:.3f} s; batch_time without the prefetch "
+              f"{[round(r['batch_time'] * 1e3, 3) for r in recs[-3:]]} ms "
+              f"(with it {[round(r['batch_time'] * 1e3, 3) for r in recs[:2]]}"
+              f"); launches {got} (expected {want})", flush=True)
+        first = RUNNER_MNIST_EPOCHS * RUNNER_MNIST_STEPS
+        if not same or restored.get("step") != first:
+            fail("mnist_runner --resume: the restored state differs from "
+                 "the saved one")
+        if steps[RUNNER_MNIST_EPOCHS:] != [
+                first + RUNNER_MNIST_STEPS * (e + 1)
+                for e in range(RUNNER_MNIST_RESUME_EPOCHS)]:
+            fail(f"mnist_runner --resume: epoch steps {steps}")
+        if got != want:
+            fail(f"mnist_runner --resume: launches {got} != {want}")
+
+        # ------------------------------------------------ 16 cifar_runner
+        phase(f"cifar_runner: the flagship recipe (premetanode10, in_planes "
+              f"64, GeLUpoly, FGSM-random, smoothing, SGD), bf16, batch "
+              f"{BATCH}, {RUNNER_CIFAR_EPOCHS} epochs of {RUNNER_CIFAR_STEPS} "
+              f"steps, PGD-{PGD_ITERS} test")
+        csave = os.path.join(tmp, "cifar")
+        cargv = ["--network", "premetanode10", "--in_planes", "64",
+                 "--activation_resblock", "GeLUpoly",
+                 "--activation_odeblock", "GeLUpoly",
+                 "--activation_bn1", "GeLUpoly",
+                 "--solvers", f"rk2,u,{N_STEPS},-1,{U},-1",
+                 "--adv_training_mode", "fgsm_random",
+                 "--eps_adv_training", str(8 / 255),
+                 "--fgsm_random_step_size_training", str(10 / 255),
+                 "--noise_type", "normal", "--noise_sigma", "0.0125",
+                 "--noise_prob", "1.0", "--optim", "sgd",
+                 "--precision", "bf16", "--batch_size", str(BATCH),
+                 "--synthetic_train_size", str(RUNNER_CIFAR_TRAIN),
+                 "--synthetic_test_size", str(RUNNER_CIFAR_TEST),
+                 "--adv_testing_mode", "at", "--test_batch_size",
+                 str(BATCH), "--nepochs", str(RUNNER_CIFAR_EPOCHS),
+                 "--save_dir", csave]
+        n_val = -(-RUNNER_CIFAR_VAL // BATCH)
+        n_test = -(-RUNNER_CIFAR_TEST // BATCH)
+        want = dict(scaled(
+            scaled(TRAIN_PER_STEP, RUNNER_CIFAR_STEPS)
+            + Counter({"conv3x3_same": CIFAR_PASS_B1 * n_val})
+            + scaled(CIFAR_PGD_PER_BATCH, n_test), RUNNER_CIFAR_EPOCHS))
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts = cifar_runner.main(cargv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = port.launch_counts()
+        totals += Counter(got)
+        recs = read_metrics(csave)
+        ep = [r for r in recs if "train_loss" in r]
+        for r in ep:
+            print(f"  epoch {int(r['epoch'])}: train loss "
+                  f"{r['train_loss']:.6f}, batch_time "
+                  f"{r['batch_time'] * 1e3:.3f} ms a step = "
+                  f"{BATCH / r['batch_time']:.1f} img/s (phase 9's bare "
+                  f"step: {bare_flagship_ms:.3f} ms)", flush=True)
+        print(f"  {wall:.3f} s for {RUNNER_CIFAR_EPOCHS} epochs with "
+              f"validation ({n_val} batches), the PGD-{PGD_ITERS} test "
+              f"({n_test} batches) and checkpoints; adversarial test "
+              f"{[r['adv_test_acc'] for r in recs if 'adv_test_acc' in r]}",
+              flush=True)
+        print(f"  launches {got} (expected {want}: per epoch "
+              f"{RUNNER_CIFAR_STEPS} x phase 9's step, B1 {CIFAR_PASS_B1} a "
+              f"validation batch, {CIFAR_PGD_PER_BATCH} a PGD batch)",
+              flush=True)
+        if len(ep) != RUNNER_CIFAR_EPOCHS or not all(
+                math.isfinite(r["train_loss"]) for r in ep):
+            fail(f"cifar_runner: epoch records {ep}")
+        if got != want:
+            fail(f"cifar_runner: launches {got} != expected {want}")
+        check_checkpoint_dir(os.path.join(csave, "last"))
+
+        # the PGD-7 test batches again, kernel path against plain path,
+        # each batch's attack from the same seed
+        with open(os.path.join(csave, "last", check_checkpoint_dir(
+                os.path.join(csave, "last"))[-1], "config.json")) as f:
+            cfg = json.load(f)
+        cmodel = cifar_runner.build_cifar_model(cfg["args"], dev)
+        restore_checkpoint(os.path.join(csave, "last"), create_train_state(
+            cmodel, common.optimizer_from_saved_args(cfg["args"])))
+        test_ds = synthetic_dataset(RUNNER_CIFAR_TEST, (32, 32, 3),
+                                    seed=602 + 1)
+        tbatches = [(torch.as_tensor(x, device=dev),
+                     torch.as_tensor(y, device=dev).long())
+                    for x, y in batch_iterator(
+                        test_ds, BATCH, shuffle=False, drop_last=False,
+                        mean=CIFAR10_MEAN, std=CIFAR10_STD)]
+        atk = AttackConfig(mode="at", eps=8 / 255, pgd_lr=2 / 255,
+                           pgd_niter=PGD_ITERS, mean=CIFAR10_MEAN,
+                           std=CIFAR10_STD)
+        solvers = parse_solver_dsl(cfg["solvers"])
+        pgd_rows = {}
+        for use_kernels in (True, False):
+            predict = make_adversarial_predict(
+                cmodel, solvers, common.build_solver_options(
+                    argparse.Namespace(**cfg["args"])), atk,
+                compute_dtype=torch.bfloat16, use_kernels=use_kernels)
+            predict(*tbatches[0], torch.Generator(device=dev).manual_seed(0))
+            ms, correct, preds = [], [], []
+            for b, (x, y) in enumerate(tbatches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = predict(x, y, torch.Generator(
+                    device=dev).manual_seed(100 + b))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                preds.append(logits.argmax(-1))
+                correct.append(int((preds[-1] == y).sum()))
+            pgd_rows[use_kernels] = (ms, correct, preds)
+            path = "kernel" if use_kernels else "plain "
+            print(f"  PGD-{PGD_ITERS} bf16 {path} path: ms per batch "
+                  f"{[round(m, 3) for m in ms]}, correct per batch "
+                  f"{correct} of {[int(y.shape[0]) for _, y in tbatches]}",
+                  flush=True)
+        apart = [abs(a - b) for a, b in zip(pgd_rows[True][1],
+                                            pgd_rows[False][1])]
+        # where the attack leaves few samples right the counts say little;
+        # the attacked predictions compared one by one say more
+        differ = [int((a != b).sum()) for a, b in zip(pgd_rows[True][2],
+                                                      pgd_rows[False][2])]
+        print(f"  correct counts apart per batch {apart} (bar 2); attacked "
+              f"predictions that differ between the paths per batch "
+              f"{differ}", flush=True)
+        if max(apart) > 2:
+            fail(f"cifar_runner's PGD test: kernel and plain paths count "
+                 f"{apart} apart in a batch (bar 2)")
+        del cmodel, tbatches
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------- 17 attacks_runner
+        phase("attacks_runner: clean, FGSM and PGD-7 over the checkpoints "
+              "of phases 15 and 16")
+        for name, base, eps in (("mnist", msave, PGD_EPS),
+                                ("premetanode10", csave, 8 / 255)):
+            out = os.path.join(tmp, f"{name}.csv")
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            attacks_runner.main([
+                "--checkpoints_glob", os.path.join(base, "last"),
+                "--modes", "clean,fgsm,at", "--epsilons", str(eps),
+                "--pgd_niter", str(PGD_ITERS), "--batch_size", str(BATCH),
+                "--output_csv", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals += Counter(port.launch_counts())
+            with open(out) as f:
+                lines = f.read().splitlines()
+            rows = [dict(zip(lines[0].split(","), l.split(",")))
+                    for l in lines[1:]]
+            print(f"  {name}: {wall:.3f} s; {lines}", flush=True)
+            ok = (lines[0] == "checkpoint,mode,eps,accuracy"
+                  and [r["mode"] for r in rows] == ["clean", "fgsm", "at"]
+                  and [float(r["eps"]) for r in rows] == [0.0, eps, eps]
+                  and all(0.0 <= float(r["accuracy"]) <= 1.0
+                          for r in rows))
+            if not ok:
+                fail(f"attacks_runner {name}: CSV {lines}")
+    return totals
 
 
 def main():
@@ -1592,6 +1968,11 @@ def main():
           + json.dumps(cifar_regime_rows), flush=True)
     del model, cdata
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 15-17 the CLIs
+    runner_counts = runner_phases(port, torch, dev, med, mnist_med)
+    print(f"  launches over phases 15-17's runs: {dict(runner_counts)}",
+          flush=True)
 
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):

@@ -9,12 +9,15 @@ Architecture (reference odenet_cifar10/layers.py:317-426):
 This port covers the forward of the ``prebasic`` ODE-net family
 (premetanode4..34) with NF norms and PNF param-norms, in every regime
 (a ``generator`` serves switch and ensemble one draw per ODE block), in
-eval and train mode (the same function for these norms, as in JAX), and
+eval and train mode (the same function for these norms, as in JAX), with
+the ss-loss (JAX ``odenet_cifar10.py:372-385``: each ODE block's output
+re-integrated over t in [1, 2], replaying the forward's regime draws, the
+batch mean of the L2 norm of the difference reduced in f32), and
 differentiable end to end.  It runs act(bn1(conv1(x))) up front, as the
 JAX package's default ``faithful_preact_bug=True`` and every published
 checkpoint do.  The ``basic`` family, the ResNet block counts
-(``is_odenet=False``), the ``faithful_preact_bug=False`` order, other norms
-and the ss-loss land with ROADMAP A10/A11.
+(``is_odenet=False``), the ``faithful_preact_bug=False`` order and other
+norms land with ROADMAP A11.
 
 Dispatch (``use_kernels=True``):
   * every stride-1 3x3 conv, inside the ODE RHS and out, goes to kernel B1
@@ -22,18 +25,19 @@ Dispatch (``use_kernels=True``):
     wgrad kernel); other convs use ``F.conv2d``;
   * an ODE block goes to kernel B2 (``ops.ode_block.ode_block_rk2_forward``)
     when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2, the solver list is
-    one rk2 solver with n_steps set, in standalone mode, and no gradient can
-    flow (grad mode off, or neither the block's input nor its weights
-    require grad): B2, like the Pallas kernel, has no backward.  Otherwise
-    it takes the generic ``meta_integrate`` over the torch RHS, the port's
-    counterpart of the JAX package's XLA path.
+    one rk2 solver with n_steps set, in standalone mode, no ss-loss is
+    asked for, and no gradient can flow (grad mode off, or neither the
+    block's input nor its weights require grad): B2, like the Pallas
+    kernel, has no backward.  Otherwise it takes the generic
+    ``meta_integrate`` over the torch RHS, the port's counterpart of the
+    JAX package's XLA path.
 ``use_kernels=False`` takes the generic path with ``F.conv2d`` everywhere:
 the plain path the kernels are checked against on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -146,15 +150,17 @@ def _materialize_odefunc(cfg, p):
             "conv2": pnd.materialize(p["conv2"])}
 
 
-def _odefunc_apply(cfg, p_eff, t, x, use_kernels=False):
+def _odefunc_apply(cfg, p_eff, t, x, use_kernels=False, ss_abs=False):
     """PreBasicBlock2 RHS (layers.py:148-161); t is unused (autonomous).
-    Its two convs go to kernel B1 when ``use_kernels``."""
+    Its two convs go to kernel B1 when ``use_kernels``; ``ss_abs`` returns
+    |RHS| (the ss-loss's ``ss_loss_abs``)."""
     del t
     nd, act = cfg.norm_def(1), cfg.act(1)
     out = act(nd.apply(x))
     out = _conv(p_eff["conv1"], out, 1, 1, use_kernels)
     out = act(nd.apply(out))
-    return _conv(p_eff["conv2"], out, 1, 1, use_kernels)
+    out = _conv(p_eff["conv2"], out, 1, 1, use_kernels)
+    return out.abs() if ss_abs else out
 
 
 def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
@@ -198,10 +204,14 @@ def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
 
 
 def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
-                      remat=False, generator=None):
+                      remat=False, generator=None, ss_loss=False,
+                      ss_loss_abs=False):
+    """The layer's output and its ss-loss (0 without ``ss_loss``)."""
     for i, bp in enumerate(p["res"]):
         x = _pre_block_apply(cfg, bp, x, strides[i], use_kernels)
-    u_k = _ode_kernel_u(cfg, solvers, options) if use_kernels else None
+    ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
+    u_k = (_ode_kernel_u(cfg, solvers, options)
+           if use_kernels and not ss_loss else None)
     for bp in p["ode"]:
         p_eff = _materialize_odefunc(cfg, bp)
         if u_k is not None and not _grad_can_flow(x, p_eff):  # kernel B2
@@ -209,12 +219,22 @@ def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
                 x, p_eff["conv1"]["kernel"].to(x.dtype),
                 p_eff["conv2"]["kernel"].to(x.dtype), u_k, solvers[0].n_steps,
             )
-        else:
-            rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
-                                                        use_kernels)
-            x, _ = meta_integrate(solvers, rhs, x, options, generator,
-                                  remat=remat)
-    return x
+            continue
+        rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
+                                                    use_kernels)
+        x, aux = meta_integrate(solvers, rhs, x, options, generator,
+                                remat=remat)
+        if ss_loss:
+            rhs_ss = lambda t, y, _p=p_eff: _odefunc_apply(
+                cfg, _p, t, y, use_kernels, ss_abs=ss_loss_abs)
+            z, _ = meta_integrate(solvers, rhs_ss, x, options, t0=1.0,
+                                  t1=2.0, aux_in=aux, remat=remat)
+            # f32 reduction: the squared sum over HW*C elements loses
+            # mantissa in bf16 (the torch reference reduces in f32)
+            diff = (z - x).reshape(x.shape[0], -1).float()
+            ss_total = ss_total + torch.linalg.vector_norm(
+                diff, dim=1).mean().to(ss_total.dtype)
+    return x, ss_total
 
 
 # ----------------------------------------------------------------- model --
@@ -255,12 +275,17 @@ def apply_cifar(
     train: bool = False,
     remat: bool = False,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
-    """Forward of NHWC ``x``; returns the logits in x's dtype.  ``train``
-    selects train mode, the same function for the ported NF/PNF norms (as
-    in JAX, where train mode only changes BN/SN, ROADMAP A11); ``remat``
-    checkpoints each RK step of the generic ODE-block path; ``generator``
-    (a CPU generator) serves the switch and ensemble draws."""
+    ss_loss: bool = False,
+    ss_loss_abs: bool = False,
+    return_aux: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Forward of NHWC ``x``; returns the logits in x's dtype, and with
+    ``return_aux`` also ``{"ss_loss": ...}`` (a 0-dim tensor in x's dtype,
+    0 unless ``ss_loss``).  ``train`` selects train mode, the same function
+    for the ported NF/PNF norms (as in JAX, where train mode only changes
+    BN/SN, ROADMAP A11); ``remat`` checkpoints each RK step of the generic
+    ODE-block path; ``generator`` (a CPU generator) serves the switch and
+    ensemble draws."""
     del train
     _check_ported(cfg)
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
@@ -270,12 +295,16 @@ def apply_cifar(
 
     out = _pn_conv(pnd_bn1, params["conv1"], x, 1, 1, use_kernels)
     out = act_bn1(nd_bn1.apply(out))
+    ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
     for li in range(len(cfg.num_blocks)):
-        out = _meta_layer_apply(
+        out, ss = _meta_layer_apply(
             cfg, params[f"layer{li + 1}"], out, _layer_strides(cfg, li),
             solvers, solver_options, use_kernels, remat, generator,
+            ss_loss, ss_loss_abs,
         )
-    return fnn.linear(params["fc"], fnn.global_avg_pool(out))
+        ss_total = ss_total + ss
+    logits = fnn.linear(params["fc"], fnn.global_avg_pool(out))
+    return (logits, {"ss_loss": ss_total}) if return_aux else logits
 
 
 # ------------------------------------------------------------- registry --

@@ -12,8 +12,17 @@ from .evaluate import (
     notebook_regime_grid,
     sn_test,
 )
+from .accuracy_tables import load_accuracy_table, save_accuracy_table
+from .checkpoint import (
+    latest_step,
+    load_checkpoint_config,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
+from .logging import MetricsLogger
 from .metrics import RunningAverageMeter, nfe_per_forward, nfe_per_solve
-from .optimizers import SGD, RMSprop, make_optimizer
+from .optimizers import SGD, Adam, Optimizer, RMSprop, make_optimizer
 from .schedules import (
     constant_lr,
     cyclic_lr,
@@ -31,9 +40,12 @@ from .train import (
 )
 
 __all__ = [
+    "Adam",
     "AttackConfig",
     "LossConfig",
+    "MetricsLogger",
     "NoiseConfig",
+    "Optimizer",
     "RMSprop",
     "RegimeSpec",
     "RunningAverageMeter",
@@ -47,7 +59,10 @@ __all__ = [
     "create_train_state",
     "cyclic_lr",
     "cyclic_momentum",
+    "latest_step",
     "learning_rate_with_decay",
+    "load_accuracy_table",
+    "load_checkpoint_config",
     "make_adversarial_predict",
     "make_ensemble_attacked_probs",
     "make_ensemble_probs",
@@ -57,5 +72,9 @@ __all__ = [
     "nfe_per_forward",
     "nfe_per_solve",
     "notebook_regime_grid",
+    "restore_checkpoint",
+    "save_accuracy_table",
+    "save_checkpoint",
     "sn_test",
+    "wait_for_checkpoints",
 ]

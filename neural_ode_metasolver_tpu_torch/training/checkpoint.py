@@ -1,0 +1,166 @@
+"""Checkpoint / resume (port of training/checkpoint.py).
+
+One checkpoint is ``base/step_%08d/{state, config.json}``: ``state`` holds
+the whole TrainState (step, params by name, optimizer state), written with
+``torch.save`` to a temporary name and then renamed, and that rename is the
+commit, as orbax's is, so ``latest_step`` counts only steps whose ``state``
+exists.  The sidecar is ``json.dump(config, indent=2, default=str)`` with
+the JAX package's schema (the runner args under ``"args"``, the solver
+DSL, the model name), from which evaluation rebuilds model, solvers and
+optimizer as ``attacks_runner.py:65`` does.
+
+``save_checkpoint(..., block=False)`` copies the tensors to the host before
+it returns (so the train step may update them in place right after) and
+writes on one background thread, in the order of the calls;
+``wait_for_checkpoints()`` waits for every write.  ``restore_checkpoint``
+copies the saved values into a target state's tensors in place, on the
+target's devices (the model's own parameters, so the model sees them).
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .train import TrainState, load_opt_state
+
+__all__ = [
+    "save_checkpoint",
+    "restore_checkpoint",
+    "load_checkpoint_config",
+    "latest_step",
+    "wait_for_checkpoints",
+]
+
+_writer: Optional[ThreadPoolExecutor] = None
+_pending: List[Future] = []
+_lock = threading.Lock()
+
+
+def _ckpt_dir(base: str, step: int) -> str:
+    return os.path.join(os.path.abspath(base), f"step_{step:08d}")
+
+
+def _to_host(tree: Any) -> Any:
+    """Nested dicts of tensors and numbers with every tensor copied to the
+    host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree
+
+
+def _write_state(path: str, payload: dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, "state")
+    tmp = f"{final}.{os.getpid()}.{threading.get_ident()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, final)
+
+
+def save_checkpoint(
+    base_dir: str,
+    ts: TrainState,
+    config: Optional[Dict[str, Any]] = None,
+    block: bool = True,
+) -> str:
+    """Write one checkpoint (+ config sidecar) for ``ts``'s step; returns
+    its directory."""
+    global _writer
+    step = int(ts.step)
+    path = _ckpt_dir(base_dir, step)
+    payload = {"step": step, "params": _to_host(ts.params),
+               "opt_state": _to_host(ts.opt_state)}
+    if config is not None:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
+    if block:
+        _write_state(path, payload)
+        return path
+    with _lock:
+        if _writer is None:
+            _writer = ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="checkpoint")
+        _pending.append(_writer.submit(_write_state, path, payload))
+    return path
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every ``save_checkpoint(..., block=False)`` has
+    committed; raise the first write's error, if any."""
+    with _lock:
+        pending = list(_pending)
+        _pending.clear()
+    for fut in pending:
+        fut.result()
+
+
+def latest_step(base_dir: str) -> Optional[int]:
+    """Newest committed step: a step dir counts only once its ``state``
+    exists, so a crash between a sidecar and its state's commit cannot
+    shadow the older complete checkpoint for ``--resume``."""
+    if not os.path.isdir(base_dir):
+        return None
+    steps = []
+    for name in os.listdir(base_dir):
+        if name.startswith("step_") and os.path.isfile(
+                os.path.join(base_dir, name, "state")):
+            try:
+                steps.append(int(name[5:]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None
+
+
+def _step_or_latest(base_dir: str, step: Optional[int]) -> int:
+    if step is None:
+        step = latest_step(base_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {base_dir}")
+    return step
+
+
+def load_checkpoint_config(base_dir: str, step: Optional[int] = None
+                           ) -> Optional[dict]:
+    """Read a checkpoint's ``config.json`` sidecar without restoring the
+    state (the optimizer flags in it decide the state's layout); None if
+    the checkpoint has no sidecar."""
+    cfg_path = os.path.join(_ckpt_dir(base_dir, _step_or_latest(base_dir,
+                                                                 step)),
+                            "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            return json.load(f)
+    return None
+
+
+def restore_checkpoint(base_dir: str, target: TrainState,
+                       step: Optional[int] = None
+                       ) -> Tuple[TrainState, Optional[dict]]:
+    """Restore into ``target`` (a state of the same structure, e.g. a
+    fresh ``create_train_state``): its params and optimizer tensors get the
+    saved values in place.  Returns (state, config|None)."""
+    step = _step_or_latest(base_dir, step)
+    path = _ckpt_dir(base_dir, step)
+    saved = torch.load(os.path.join(path, "state"), map_location="cpu",
+                       weights_only=True)
+    if set(saved["params"]) != set(target.params):
+        raise ValueError(f"checkpoint {path} holds parameters "
+                         f"{sorted(set(saved['params']) ^ set(target.params))}"
+                         " that the target does not, or the reverse")
+    with torch.no_grad():
+        for name, p in target.params.items():
+            if saved["params"][name].shape != p.shape:
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(saved['params'][name].shape)}, "
+                                 f"target {tuple(p.shape)}")
+            p.copy_(saved["params"][name])
+    load_opt_state(target.opt_state, saved["opt_state"])
+    return (TrainState(int(saved["step"]), target.params, target.opt_state),
+            load_checkpoint_config(base_dir, step))

@@ -13,8 +13,8 @@ odenet_mnist/train_validate.py:19-115):
      dx-only backward, and no wgrad;
   3. optional Gaussian data noise;
   4. forward in train mode, mean cross-entropy (+ ``ss_loss_reg`` times the
-     MNIST ss-loss), gradients of the parameters (``torch.autograd.grad``);
-  5. the optimizer update (SGD or RMSprop), in place.
+     ss-loss), gradients of the parameters (``torch.autograd.grad``);
+  5. the optimizer update (``training/optimizers.py``), in place.
 
 The base solvers are immutable, so the reference's denoise step is
 implicit.  ``compute_dtype=torch.bfloat16`` is the port of JAX's
@@ -45,8 +45,8 @@ trace reads for device time by phase (``scripts/profile_torch_training.py``).
 ``make_eval_step`` returns the clean predictor the eval harness
 (``training/evaluate.py``) runs under ``torch.inference_mode()``.
 
-Not ported yet: the CIFAR ss-loss (ROADMAP A10), the adjoint and
-``dynamic_solvers`` (A18).  JAX compiler options have no counterpart.
+Not ported yet: the adjoint and ``dynamic_solvers`` (ROADMAP A18).  JAX
+compiler options have no counterpart.
 """
 from __future__ import annotations
 
@@ -58,10 +58,11 @@ from torch.profiler import record_function
 
 from ..attacks import attacks
 from ..backend import full_f32
-from ..models.odenet_mnist import MnistConfig
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
-from .optimizers import SGD, RMSprop
+from .optimizers import Adam, Optimizer, RMSprop, SGD
+
+AnyOptimizer = Union[SGD, RMSprop, Adam, Optimizer]
 
 __all__ = ["AttackConfig", "NoiseConfig", "LossConfig", "TrainState",
            "create_train_state", "make_train_step", "make_eval_step"]
@@ -94,7 +95,7 @@ class NoiseConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    ss_loss: bool = False  # MNIST only; the CIFAR ss-loss is ROADMAP A10
+    ss_loss: bool = False
     ss_loss_reg: float = 0.1
     ss_loss_abs: bool = False
     data_noise_std: float = 0.0
@@ -111,7 +112,7 @@ class TrainState:
     opt_state: Any
 
 
-def create_train_state(model, optimizer: Union[SGD, RMSprop],
+def create_train_state(model, optimizer: AnyOptimizer,
                        state_dict: Optional[Dict[str, torch.Tensor]] = None,
                        opt_state: Optional[dict] = None,
                        step: int = 0) -> TrainState:
@@ -125,20 +126,27 @@ def create_train_state(model, optimizer: Union[SGD, RMSprop],
     params = dict(model.named_parameters())
     fresh = optimizer.init(params)
     if opt_state is not None:
-        if set(opt_state) != set(fresh):
-            raise ValueError(f"opt_state holds {sorted(opt_state)}, the "
-                             f"optimizer's state {sorted(fresh)}")
-        for key, bufs in fresh.items():
-            if key == "count":
-                fresh[key] = int(opt_state[key])
-                continue
-            if set(opt_state[key]) != set(bufs):
-                raise ValueError(f"opt_state[{key!r}] does not name the "
-                                 "model's parameters")
-            with torch.no_grad():
-                for name, buf in bufs.items():
-                    buf.copy_(opt_state[key][name])
+        load_opt_state(fresh, opt_state)
     return TrainState(step=step, params=params, opt_state=fresh)
+
+
+def load_opt_state(target: dict, saved: dict) -> None:
+    """Copy an optimizer state ``saved`` into ``target``, a state of the
+    same structure (numbers are replaced, tensors copied in place onto
+    their devices); raise where the structures differ."""
+    if set(saved) != set(target):
+        raise ValueError(f"opt_state holds {sorted(saved)}, the "
+                         f"optimizer's state {sorted(target)}")
+    for key, bufs in target.items():
+        if not isinstance(bufs, dict):
+            target[key] = type(bufs)(saved[key])
+            continue
+        if set(saved[key]) != set(bufs):
+            raise ValueError(f"opt_state[{key!r}] does not name the "
+                             "model's parameters")
+        with torch.no_grad():
+            for name, buf in bufs.items():
+                buf.copy_(saved[key][name])
 
 
 def _noise_solvers(solvers, generator: torch.Generator,
@@ -218,7 +226,7 @@ def _regime_seeds(generator: torch.Generator, solver_options: SolverOptions,
     return _seeds(generator, n)
 
 
-def make_train_step(model, optimizer: Union[SGD, RMSprop],
+def make_train_step(model, optimizer: AnyOptimizer,
                     solvers: Sequence,
                     solver_options: SolverOptions = SolverOptions(),
                     attack_cfg: AttackConfig = AttackConfig(),
@@ -240,9 +248,6 @@ def make_train_step(model, optimizer: Union[SGD, RMSprop],
     and autograd everywhere), which the kernel path is checked against on
     the card."""
     del unroll
-    if loss_cfg.ss_loss and not isinstance(model.cfg, MnistConfig):
-        raise NotImplementedError(
-            "ss_loss of the CIFAR family is not ported yet (ROADMAP A10)")
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype} not supported")
     forward = _model_forward(model, solver_options, use_kernels,

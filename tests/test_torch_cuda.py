@@ -866,3 +866,72 @@ def test_regime_table_kernel_path_matches_plain_path(dev, family, regime):
         assert fa["grad_far"] <= MNIST_GRAD_FAR_BAR
     else:  # GELU has no masks to flip on rounding: phase 10's bars
         assert fa["grad_err"] <= 1e-4 and fa["worst"] <= 1e-6
+
+
+@pytest.mark.parametrize("thread", [False, True])
+def test_prefetch_copies_batches_on_a_side_stream(dev, thread):
+    """Pinned host memory copied on a side stream gives the numpy batches
+    bit for bit, on the card, and the consumer's work on them is ordered
+    after the copies."""
+    from neural_ode_metasolver_tpu_torch.data import (
+        batch_iterator,
+        prefetch_to_device,
+        synthetic_dataset,
+    )
+
+    ds = synthetic_dataset(96, (32, 32, 3), seed=1)
+    kw = dict(seed=5, crop_padding=4, hflip=True, mean=(0.5, 0.5, 0.5),
+              std=(0.25, 0.25, 0.25))
+    want = list(batch_iterator(ds, 16, **kw))
+    got, sums = [], []
+    for x, y in prefetch_to_device(batch_iterator(ds, 16, **kw), size=2,
+                                   device=dev, thread=thread):
+        assert x.device.type == "cuda" and y.device.type == "cuda"
+        sums.append(x.double().sum())  # queued on the consumer's stream
+        got.append((x, y))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 6
+    for (wx, wy), (gx, gy), s in zip(want, got, sums):
+        np.testing.assert_array_equal(gx.cpu().numpy(), wx)
+        np.testing.assert_array_equal(gy.cpu().numpy(), wy)
+        assert float(s) == float(wx.astype(np.float64).sum())
+
+
+def test_mnist_runner_two_steps_on_the_card(tmp_path):
+    """The MNIST CLI on the card: two steps of the digits recipe (PGD-1 to
+    keep it short), validation and a PGD test through the kernels, its
+    checkpoints and a resume."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.runners import mnist_runner
+
+    argv = ["--solvers", "rk2,u,2,-1,0.5,-1", "--nepochs", "1",
+            "--batch_size", "16", "--test_batch_size", "32",
+            "--synthetic_train_size", "32", "--synthetic_test_size", "32",
+            "--adv_training_mode", "at", "--pgd_niter_training", "1",
+            "--adv_testing_mode", "at", "--pgd_niter_testing", "1",
+            "--noise_type", "normal", "--noise_sigma", "0.0125",
+            "--noise_prob", "1.0", "--lr", "1e-3",
+            "--save_dir", str(tmp_path)]
+    reset_launch_counts()
+    ts = mnist_runner.main(argv)
+    counts = launch_counts()
+    assert ts.step == 2 and all(p.is_cuda for p in ts.params.values())
+    for name in ("group_norm_act", "group_norm_act_bwd", "conv3x3_same",
+                 "conv3x3_dgrad", "conv3x3_wgrad"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    with open(tmp_path / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert np.isfinite([r["train_loss"] for r in recs
+                        if "train_loss" in r]).all()
+    assert [r for r in recs if "adv_test_acc" in r]
+    with open(tmp_path / "logs") as f:
+        assert "data backend: native" in f.read()
+    ts2 = mnist_runner.main(argv + ["--resume"])
+    assert ts2.step == 4

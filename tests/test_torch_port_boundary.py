@@ -1,6 +1,6 @@
-"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points never fall back to the CPU on their own, and a
-CPU run launches no kernel."""
+"""Boundaries of the PyTorch port: it imports neither JAX (nor orbax or
+optax) nor the JAX package, its entry points never fall back to the CPU on
+their own, and a CPU run launches no kernel."""
 import os
 import subprocess
 import sys
@@ -19,10 +19,14 @@ names = [pkg.__name__] + [
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "neural_ode_metasolver_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "optax",
+                                    "neural_ode_metasolver_tpu"))
 required = {pkg.__name__ + "." + m for m in (
     "ops.noise", "ops.conv3x3", "attacks", "attacks.attacks", "training",
-    "training.optimizers", "training.schedules", "training.train")}
+    "training.optimizers", "training.schedules", "training.train",
+    "data.datasets", "data.prefetch", "training.checkpoint",
+    "runners.common", "runners.mnist_runner", "runners.cifar_runner",
+    "runners.attacks_runner")}
 print(len(names), bad, sorted(required - set(names)))
 sys.exit(1 if bad or len(names) < 25 or not required <= set(names) else 0)
 """

@@ -153,12 +153,18 @@ def test_sgd_update_matches_optax(momentum, ssu, atol):
 
 
 def test_optimizer_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_optimizer("adam", 0.1)
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_optimizer("sgd", 0.1, grad_clip=1.0)
+    """adam and the wrappers are ported (checked against optax in
+    tests/test_torch_optimizers.py); unknown names and every_k < 1
+    raise."""
+    from neural_ode_metasolver_tpu_torch.training import Adam, Optimizer
+
+    assert isinstance(make_optimizer("adam", 0.1), Adam)
+    wrapped = make_optimizer("sgd", 0.1, grad_clip=1.0)
+    assert isinstance(wrapped, Optimizer) and wrapped.grad_clip == 1.0
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("lamb", 0.1)
+    with pytest.raises(ValueError, match="every_k"):
+        make_optimizer("sgd", 0.1, every_k=0)
 
 
 # ------------------------------------------------------------------ noise
@@ -503,7 +509,7 @@ def test_train_step_bf16_policy(monkeypatch, pinned_uniform):
 def test_train_step_options(monkeypatch):
     """skip_nonfinite leaves params and optimizer state unchanged on a
     non-finite batch; clean mode and data noise run; the PGD mode runs on
-    the CIFAR family; the CIFAR ss-loss, not ported, raises."""
+    the CIFAR family, and so does the CIFAR ss-loss."""
     pmodel = build_model("premetanode10", device="cpu", in_planes=8)
     opt = make_optimizer("sgd", 0.1, momentum=0.9)
     solvers = [create_solver("rk2", "u", n_steps=2, u0=0.5)]
@@ -523,12 +529,16 @@ def test_train_step_options(monkeypatch):
     assert m["skipped_nonfinite"].item() == 0.0
     assert state.opt_state["count"] == 1
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step(pmodel, opt, solvers, loss_cfg=LossConfig(ss_loss=True))
+    state, m = make_train_step(pmodel, opt, solvers, loss_cfg=LossConfig(
+        ss_loss=True))(
+        state, torch.rand(2, 32, 32, 3), y, torch.Generator().manual_seed(3))
+    assert torch.isfinite(m["loss"]) and m["ss_loss"].item() > 0
+    assert m["loss"].item() == pytest.approx(
+        m["xentropy"].item() + 0.1 * m["ss_loss"].item(), rel=1e-6)
     state, m = make_train_step(pmodel, opt, solvers, attack_cfg=AttackConfig(
         mode="at", pgd_niter=1))(
         state, torch.rand(2, 32, 32, 3), y, torch.Generator().manual_seed(2))
-    assert torch.isfinite(m["loss"]) and state.opt_state["count"] == 2
+    assert torch.isfinite(m["loss"]) and state.opt_state["count"] == 3
 
 
 def test_train_step_takes_the_generic_path_not_b2(monkeypatch):
