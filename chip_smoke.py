@@ -27,12 +27,15 @@ Phases, in order; any failure exits non-zero:
      solve: one GELU of y0, four convs a step), with TFLOP/s and share;
   6. kernel B3 (``fused_group_norm_act``) against its plain version at the
      MNIST path's shapes and off the path at (256, 32, 32, 64), batch 256,
-     f32 and bf16, with each shape's launch plan and timings of the kernel,
-     the plain version and ``F.group_norm`` (yardstick), beside the launch
-     floor: a one-element ``add_`` timed the same way;
+     f32 and bf16, and at phase 18's CIFAR shapes ((256, 32, 32, 64) and
+     (256, 16, 16, 128), 32 groups, GELU and none) in bf16, with each
+     shape's launch plan and timings of the kernel, the plain version and
+     ``F.group_norm`` (+ ``F.gelu``; yardstick), beside the launch floor: a
+     one-element ``add_`` timed the same way;
  6b. B3's backward (``group_norm_backward``) against its plain version at
      the MNIST train step's shapes, batch 128, relu and none, and off the
-     path at (256, 32, 32, 64), f32 and bf16: dx, dscale and dbias of the
+     path at (256, 32, 32, 64), f32 and bf16, and at phase 18's shapes in
+     bf16: dx, dscale and dbias of the
      full launch, the dx-only launch's dx and a second full launch bit for
      bit, each shape's launch plan, and timings of both launches, the plain
      version and aten's GroupNorm backward (yardstick);
@@ -115,14 +118,35 @@ Phases, in order; any failure exits non-zero:
      counts within 2 a batch, and the attacked predictions that differ;
  17. ``attacks_runner.main`` over the ``last`` checkpoints of 15 and 16
      (clean, FGSM and PGD-7 at one epsilon each): the CSV's columns and
-     rows, and its seconds.
+     rows, and its seconds;
+ 18. train metanode10 (the basic-block family) with GroupNorm of 32 groups
+     in every slot and the exact GELU, which B3 fuses, under phase 9's
+     recipe at batch 256 in bf16: one warm-up step, five counted and timed
+     steps, finite losses and the launches a step (B1 136, dgrad 135,
+     wgrad 68, B3 140 forward and 140 backward, 70 of them with dscale and
+     dbias, B2 0); then, with phase 10's checks but for the comparison of
+     the adversarial images, kernel path against plain path from one
+     state: in f32 at batch 32 the parameter gradients at the same images
+     (1e-4 of max|g|), in bf16 at batch 256 one step's loss (2e-2) and
+     gradient norm (5e-2), and the clean eval logits of two batches of 256 in bf16
+     (2^-5 of max|logit|);
+ 19. ``cifar_runner.main`` with a model state: premetanode10 with BN in the
+     res blocks and bn1, SN in the res and ODE blocks and the orthogonal
+     init, in bf16 at batch 256 on synthetic data, two epochs of two steps
+     with validation: finite losses, exact launches, every BN statistic and
+     SN vector moved off the init; ``--resume --nepochs 0`` hands back the
+     model state bit for bit, ``--resume --nepochs 1`` trains on; the eval
+     logits of the restored model, kernel path against plain path; then
+     one clean batch of ResNet-10 (``metanode10 --is_odenet False``) with
+     GN: its launches (B1 8, B3 10) and its logits against the plain
+     path.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under a temporary directory that phases 15-17 delete at their
-end.
+files only under temporary directories that phases 15-17 and 19 delete at
+their end.
 """
 import copy
 import json
@@ -407,6 +431,46 @@ RUNNER_CIFAR_EPOCHS = 2
 CIFAR_PASS_B1 = sum(TRAIN_FWD.values()) // 2
 CIFAR_PGD_PER_BATCH = {"conv3x3_same": (PGD_ITERS + 1) * CIFAR_PASS_B1,
                        "conv3x3_dgrad": PGD_ITERS * CIFAR_PASS_B1}
+
+
+# Phase 18: metanode10 (the basic-block family) with GroupNorm of 32 groups
+# in every slot and the exact GELU, which B3 fuses, under the flagship
+# recipe of phase 9 at batch 256 in bf16.  A pass runs B1 68 times, as
+# phase 9's, and B3 70 times: (name, N, H, W, C, act, launches a pass) --
+# the stem's bn1, layer 1's res block (bn1 with the GELU, bn2 without), an
+# RHS call's two norms (16 calls a block) and layer 2's res block (bn1,
+# bn2 and the shortcut's norm).
+GN_NET = dict(in_planes=64, norms=("GN",) * 3, num_gn_groups=GN_GROUPS)
+B3_CIFAR_CALLS = [
+    ("stem bn1, layer1 res bn1, layer1 RHS norms + gelu", BATCH, 32, 32, 64,
+     "gelu", 2 + 4 * N_STEPS),
+    ("layer1 res bn2", BATCH, 32, 32, 64, None, 1),
+    ("layer2 res bn1, layer2 RHS norms + gelu", BATCH, 16, 16, 128, "gelu",
+     1 + 4 * N_STEPS),
+    ("layer2 res bn2, shortcut norm", BATCH, 16, 16, 128, None, 2),
+]
+GN_PASS_B3 = sum(c[-1] for c in B3_CIFAR_CALLS)  # 70
+# a step: the attack pass's backward is dx only, the training pass's also
+# gives dscale and dbias
+GN_TRAIN_PER_STEP = {**TRAIN_PER_STEP, "group_norm_act": 2 * GN_PASS_B3,
+                     "group_norm_act_bwd": 2 * GN_PASS_B3,
+                     "group_norm_act_bwd_params": GN_PASS_B3}
+# Phase 19: the model state through cifar_runner: premetanode10 with BN in
+# the res blocks and bn1, SN in the res and ODE blocks, the orthogonal init
+# (B1 68 a pass: no B2, since the ODE blocks' SN leaves B2's RHS; no B3)
+FAMILY_ARGV = ["--network", "premetanode10", "--in_planes", "64",
+               "--normalization_resblock", "BN", "--normalization_bn1", "BN",
+               "--param_normalization_resblock", "SN",
+               "--param_normalization_odeblock", "SN", "--init",
+               "orthogonal"]
+FAMILY_TRAIN = 570  # 57 validate (one batch), 513 train: 2 steps an epoch
+FAMILY_VAL = int(math.floor(0.1 * FAMILY_TRAIN))
+FAMILY_STEPS = (FAMILY_TRAIN - FAMILY_VAL) // BATCH
+FAMILY_EPOCHS = 2
+# ResNet-10 (metanode10 --is_odenet False) with GN: a clean batch runs B1 8
+# times (the stem, layer 1's four convs, layer 2's three stride-1 convs) and
+# B3 10 times (the stem's bn1, two norms a block, the shortcut's norm)
+RESNET10_PER_BATCH = {"conv3x3_same": 8, "group_norm_act": 10}
 
 
 def scaled(counts, k):
@@ -736,6 +800,309 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
     return totals
 
 
+def train_step_phase(port, torch, dev, model, label, per_step, solvers,
+                     x_train, y_train, compare_attacks=False):
+    """The flagship recipe's train step on ``model`` (Normal(0.0125)
+    smoothing, FGSM-random at 8/255 and 10/255, SGD momentum 0.9 wd 5e-4 on
+    cyclic_lr(1e-7, 0.1, 3186)) in bf16: one warm-up step, then TRAIN_STEPS
+    counted and timed, with finite losses and exactly ``per_step`` launches
+    a step.  Then the kernel path against the plain path from the initial
+    weights with the draws pinned: the f32 param grads at batch 32 at the
+    plain path's x_adv (1e-4 of max|g|; with ``compare_attacks`` also where
+    the two paths' x_adv differ), and one bf16 step's loss (2e-2) and grad
+    norm (5e-2 relative).  Returns (the counted steps' launches, their
+    median ms, the peak GiB allocated)."""
+    from neural_ode_metasolver_tpu_torch.attacks import (
+        cross_entropy,
+        fgsm_random,
+    )
+    from neural_ode_metasolver_tpu_torch.backend import full_f32
+    from neural_ode_metasolver_tpu_torch.ops import SolverOptions
+    from neural_ode_metasolver_tpu_torch.ops.noise import noise_solver
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        cyclic_lr,
+        make_optimizer,
+        make_train_step,
+    )
+
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    attack_cfg = AttackConfig(mode="fgsm_random", eps=8 / 255,
+                              alpha=10 / 255, mean=CIFAR10_MEAN,
+                              std=CIFAR10_STD)
+    noise_cfg = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+
+    def train_step(use_kernels, dtype):
+        return make_train_step(model, opt, solvers, SolverOptions(),
+                               attack_cfg, noise_cfg, compute_dtype=dtype,
+                               use_kernels=use_kernels)
+
+    snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, opt)
+    step = train_step(True, torch.bfloat16)
+    step_gen = torch.Generator().manual_seed(10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, x_train, y_train, step_gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+          f"{metrics['loss'].item():.6f}", flush=True)
+    port.reset_launch_counts()
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, x_train, y_train, step_gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    counts = port.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"  losses: {[round(l, 6) for l in losses]}", flush=True)
+    print(f"  ms per step: {[round(m, 3) for m in step_ms]}", flush=True)
+    print(f"  median {med:.3f} ms per step over {TRAIN_STEPS} steps (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
+          f"{x_train.shape[0] / med * 1e3:.1f} img/s (bf16, batch "
+          f"{x_train.shape[0]}); peak memory {peak_gb:.2f} GiB", flush=True)
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"{label}: non-finite training loss: {losses}")
+    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"  launch counts: {counts} (expected {per_step} per step, "
+          f"{TRAIN_STEPS} steps)", flush=True)
+    if counts != expected:
+        fail(f"{label}: launch counts {counts} != expected {expected}")
+    del state, metrics
+
+    phase(f"{label}: kernel path vs plain path from one state, draws pinned")
+    model.load_state_dict(snapshot)
+    solvers_t = [noise_solver(s, torch.Generator().manual_seed(3),
+                              std=0.0125, bernoulli_p=1.0,
+                              noise_type="normal") for s in solvers]
+    frozen = model.detached_params()
+    params = [p for _, p in model.named_parameters()]
+    xb, yb = x_train[:32], y_train[:32]
+
+    def forward(use_kernels, train, tree=None):
+        return lambda xi: model(xi, solvers_t, use_kernels=use_kernels,
+                                train=train, params=tree)
+
+    def attack(use_kernels):
+        return fgsm_random(forward(use_kernels, False, frozen),
+                           torch.Generator(device=dev).manual_seed(4), xb,
+                           yb, attack_cfg.eps, attack_cfg.alpha,
+                           CIFAR10_MEAN, CIFAR10_STD)[0]
+
+    with full_f32():
+        xa_p = attack(False)
+        if compare_attacks:
+            xa_k = attack(True)
+            # the plain path's input gradient at the pinned random start
+            u = torch.rand(xb.shape, generator=torch.Generator(
+                device=dev).manual_seed(4), device=dev)
+            m = torch.tensor(CIFAR10_MEAN, device=dev)
+            sd = torch.tensor(CIFAR10_STD, device=dev)
+            eps_c = attack_cfg.eps / sd
+            delta = torch.clamp(eps_c - 2.0 * eps_c * u,
+                                (0.0 - m) / sd - xb,
+                                (1.0 - m) / sd - xb).requires_grad_(True)
+            (g_in,) = torch.autograd.grad(cross_entropy(
+                forward(False, False, frozen)(xb + delta), yb), delta)
+            differ = xa_k != xa_p
+            n_differ = int(differ.sum())
+            tiny = g_in.abs() < 1e-6 * g_in.abs().max()
+            worst = (g_in.abs()[differ].max() / g_in.abs().max()).item() \
+                if n_differ else 0.0
+            share = n_differ / differ.numel()
+            print(f"  f32 batch 32: x_adv differs at {n_differ} of "
+                  f"{differ.numel()} pixels ({share:.2e}; at most 1e-3), "
+                  f"largest |input grad| there {worst:.2e} of the max "
+                  f"(below 1e-6), {int(tiny.sum())} pixels under 1e-6",
+                  flush=True)
+            if share > 1e-3 or bool((differ & ~tiny).any()):
+                fail(f"{label}: kernel and plain attacks differ at "
+                     f"{n_differ} pixels, gradient up to {worst:.2e} of "
+                     f"the max")
+            del g_in, delta, xa_k
+        grads = [torch.autograd.grad(cross_entropy(
+            forward(uk, True)(xa_p), yb), params) for uk in (True, False)]
+    gmax = max(g.abs().max().item() for g in grads[1])
+    gerr = max((a - b).abs().max().item() for a, b in zip(*grads))
+    print(f"  f32 batch 32: param grads at the plain x_adv, max|diff| "
+          f"{gerr:.3e} (bar 1e-4 x max|g| = {1e-4 * gmax:.3e})", flush=True)
+    if not gerr <= 1e-4 * gmax:
+        fail(f"{label}: kernel and plain param grads differ by {gerr}")
+    del grads, xa_p
+
+    results = {}
+    for use_kernels in (True, False):
+        model.load_state_dict(snapshot)
+        st = create_train_state(model, opt)
+        _, mt = train_step(use_kernels, torch.bfloat16)(
+            st, x_train, y_train, torch.Generator().manual_seed(20))
+        results[use_kernels] = (mt["loss"].item(), mt["grad_norm"].item())
+    (lk, nk), (lp, np_) = results[True], results[False]
+    loss_bar = 2e-2 * max(1.0, abs(lp))
+    norm_rel = abs(nk - np_) / np_
+    print(f"  bf16 batch {x_train.shape[0]}: loss {lk:.6f} vs plain "
+          f"{lp:.6f} (|diff| {abs(lk - lp):.3e}, bar {loss_bar:.3e}); grad "
+          f"norm {nk:.6f} vs {np_:.6f} (relative {norm_rel:.3e}, bar 5e-2)",
+          flush=True)
+    if not (abs(lk - lp) <= loss_bar and norm_rel <= 5e-2):
+        fail(f"{label}: bf16 train step: kernel and plain paths disagree")
+    del snapshot
+    torch.cuda.empty_cache()
+    return counts, med, peak_gb
+
+
+def cifar_family_phases(port, torch, dev, flagship_ms):
+    """Phases 18-19: the GN train step of the basic-block family, and the
+    model state (BN, SN) through cifar_runner.  Returns (the launches of
+    phase 18's counted steps, its median ms a step, the launches of phase
+    19's runs)."""
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.runners import cifar_runner, common
+    from neural_ode_metasolver_tpu_torch.training import (
+        create_train_state,
+        make_eval_step,
+        restore_checkpoint,
+    )
+
+    solvers = parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1")
+    gen = torch.Generator().manual_seed(18)
+    x_train = torch.randn(BATCH, 32, 32, 3, generator=gen).to(dev)
+    y_train = torch.randint(0, 10, (BATCH,), generator=gen).to(dev)
+
+    def logits_apart(model, x, what):
+        """Eval logits in bf16, kernel path against plain path, within
+        2^-5 of max|logit|."""
+        outs = []
+        for uk in (True, False):
+            predict = make_eval_step(model, solvers, SolverOptions(),
+                                     compute_dtype=torch.bfloat16,
+                                     use_kernels=uk)
+            outs.append(torch.cat([predict(xb) for xb in x]))
+        err = (outs[0] - outs[1]).abs().max().item()
+        bar = 2.0 ** -5 * outs[1].abs().max().item()
+        print(f"  {what}: eval logits (bf16, {len(x)} x {x[0].shape[0]}) "
+              f"kernel vs plain max|diff| {err:.3e} (bar {bar:.3e})",
+              flush=True)
+        if not (torch.isfinite(outs[0]).all() and err <= bar):
+            fail(f"{what}: kernel and plain eval logits differ by {err} "
+                 f"(bar {bar})")
+
+    # ------------------------------------------------ 18 metanode10-GN
+    phase(f"train: metanode10 with GroupNorm ({GN_GROUPS} groups, exact "
+          f"GELU fused into B3), the flagship recipe, bf16, batch {BATCH} "
+          f"(phase 9's premetanode10 NF step: {flagship_ms:.3f} ms)")
+    model = build_model("metanode10", dev, generator=torch.Generator(
+        ).manual_seed(0), **GN_NET)
+    gn_counts, gn_med, _ = train_step_phase(
+        port, torch, dev, model, "metanode10-GN", GN_TRAIN_PER_STEP, solvers,
+        x_train, y_train)
+    logits_apart(model, [x_train, torch.randn(
+        BATCH, 32, 32, 3, generator=gen).to(dev)], "metanode10-GN")
+    del model
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 19 model state via the CLI
+    phase(f"cifar_runner: the model state (premetanode10, BN, SN, "
+          f"orthogonal init), bf16, batch {BATCH}, {FAMILY_EPOCHS} epochs of "
+          f"{FAMILY_STEPS} steps, then --resume; ResNet-10 with GN")
+    family_counts = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as tmp:
+        save = os.path.join(tmp, "cifar")
+        argv = FAMILY_ARGV + [
+            "--solvers", f"rk2,u,{N_STEPS},-1,{U},-1",
+            "--adv_training_mode", "fgsm_random", "--noise_type", "normal",
+            "--noise_sigma", "0.0125", "--noise_prob", "1.0",
+            "--precision", "bf16", "--batch_size", str(BATCH),
+            "--test_batch_size", str(BATCH), "--synthetic_train_size",
+            str(FAMILY_TRAIN), "--synthetic_test_size", str(BATCH),
+            "--save_dir", save]
+        margs = vars(cifar_runner.parse_args(argv))
+        start = dict(cifar_runner.build_cifar_model(
+            margs, dev, seed=margs["seed"]).named_buffers())
+        want = dict(scaled(scaled(TRAIN_PER_STEP, FAMILY_STEPS) + Counter(
+            {"conv3x3_same": CIFAR_PASS_B1}), FAMILY_EPOCHS))
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts = cifar_runner.main(argv + ["--nepochs", str(FAMILY_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = port.launch_counts()
+        family_counts += Counter(got)
+        ep = [r for r in read_metrics(save) if "train_loss" in r]
+        print(f"  {wall:.3f} s; train losses "
+              f"{[round(r['train_loss'], 6) for r in ep]}, batch_time "
+              f"{[round(r['batch_time'] * 1e3, 3) for r in ep]} ms; "
+              f"launches {got} (expected {want})", flush=True)
+        if len(ep) != FAMILY_EPOCHS or not all(
+                math.isfinite(r["train_loss"]) for r in ep):
+            fail(f"cifar_runner BN+SN: epoch records {ep}")
+        if got != want:
+            fail(f"cifar_runner BN+SN: launches {got} != expected {want}")
+        trained = {k: v.clone() for k, v in ts.model_state.items()}
+        kinds = Counter(k.rsplit(".", 1)[-1] for k in trained)
+        # BN inside the ODE RHS would keep its statistics; this net has none
+        moved = [k for k in trained if not torch.equal(trained[k], start[k])]
+        print(f"  model state: {len(trained)} buffers ({dict(kinds)}), "
+              f"{len(moved)} moved off the init", flush=True)
+        if not trained or len(moved) != len(trained) or not all(
+                torch.isfinite(v).all() for v in trained.values()):
+            fail(f"cifar_runner BN+SN: model state moved at {len(moved)} of "
+                 f"{len(trained)} buffers")
+        # --resume with no epoch to run hands back what it restored
+        resumed = cifar_runner.main(argv + ["--resume", "--nepochs", "0"])
+        same = all(torch.equal(resumed.model_state[k], v)
+                   for k, v in trained.items())
+        print(f"  --resume: step {resumed.step}, model state bit for bit "
+              f"{same}", flush=True)
+        if resumed.step != ts.step or not same:
+            fail("cifar_runner --resume: the model state is not restored "
+                 "bit for bit")
+        again = cifar_runner.main(argv + ["--resume", "--nepochs", "1"])
+        print(f"  --resume --nepochs 1: step {again.step}", flush=True)
+        if again.step != ts.step + FAMILY_STEPS:
+            fail(f"cifar_runner --resume: step {again.step}")
+        cmodel = cifar_runner.build_cifar_model(margs, dev)
+        restore_checkpoint(os.path.join(save, "last"), create_train_state(
+            cmodel, common.optimizer_from_saved_args(margs)), ts.step)
+        gen.manual_seed(19)
+        port.reset_launch_counts()
+        logits_apart(cmodel, [torch.randn(BATCH, 32, 32, 3, generator=gen)
+                              .to(dev)], "premetanode10 BN+SN (restored)")
+        family_counts += Counter(port.launch_counts())
+        del cmodel
+
+    resnet = build_model("metanode10", dev, is_odenet=False,
+                         generator=torch.Generator().manual_seed(0), **GN_NET)
+    xr = [torch.randn(BATCH, 32, 32, 3, generator=gen).to(dev)]
+    port.reset_launch_counts()
+    with torch.inference_mode():
+        resnet(xr[0].to(torch.bfloat16), None)
+    torch.cuda.synchronize()
+    got = port.launch_counts()
+    print(f"  ResNet-10 GN clean batch: launches {got} (expected "
+          f"{RESNET10_PER_BATCH})", flush=True)
+    if got != RESNET10_PER_BATCH:
+        fail(f"ResNet-10 GN launches {got} != {RESNET10_PER_BATCH}")
+    port.reset_launch_counts()
+    logits_apart(resnet, xr, "ResNet-10 GN")
+    family_counts += Counter(port.launch_counts()) + Counter(got)
+    del resnet
+    torch.cuda.empty_cache()
+    return gn_counts, gn_med, family_counts
+
+
 def main():
     import torch
 
@@ -754,10 +1121,7 @@ def main():
         SolverOptions,
         parse_solver_dsl,
     )
-    from neural_ode_metasolver_tpu_torch.attacks import (
-        cross_entropy,
-        fgsm_random,
-    )
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy
     from neural_ode_metasolver_tpu_torch.backend import full_f32
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
         conv3x3_dgrad,
@@ -769,7 +1133,6 @@ def main():
         reference_conv3x3_wgrad,
         wgrad_plan,
     )
-    from neural_ode_metasolver_tpu_torch.ops.noise import noise_solver
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act,
         group_norm_backward,
@@ -792,7 +1155,6 @@ def main():
         adversarial_accuracy,
         adversarial_accuracy_ensemble,
         create_train_state,
-        cyclic_lr,
         make_adversarial_predict,
         make_ensemble_attacked_probs,
         make_ensemble_probs,
@@ -1089,7 +1451,9 @@ def main():
           f"ms", flush=True)
     b3_rows = []
     for dtype in dtypes:
-        for _, n, h, w, c, act, _ in B3_CALLS + B3_OFF_PATH:
+        # phase 18's shapes run in bf16 only
+        for _, n, h, w, c, act, _ in B3_CALLS + B3_OFF_PATH + (
+                B3_CIFAR_CALLS if dtype == torch.bfloat16 else []):
             plan = launch_plan(n, h, w, c, GN_GROUPS, dtype)
             x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
             scale = randn((c,), 0.3, 7, torch.float32) + 1.0
@@ -1109,14 +1473,16 @@ def main():
             plain_ms = time_ms(lambda: group_norm_reference(
                 x, scale, bias, GN_GROUPS, act=act), 20)
             # yardstick: F.group_norm on the channels_last NCHW view (its
-            # affine in x's dtype), then torch.relu where B3 fuses relu
+            # affine in x's dtype), then torch.relu or F.gelu where B3
+            # fuses the activation
             x_cl = x.permute(0, 3, 1, 2)
             s_l, b_l = scale.to(dtype), bias.to(dtype)
+            lib_act = {None: lambda y: y, "relu": torch.relu,
+                       "gelu": torch.nn.functional.gelu}[act]
 
             def library():
-                y = torch.nn.functional.group_norm(x_cl, GN_GROUPS, s_l,
-                                                   b_l, 1e-5)
-                return torch.relu(y) if act == "relu" else y
+                return lib_act(torch.nn.functional.group_norm(
+                    x_cl, GN_GROUPS, s_l, b_l, 1e-5))
 
             lib_ms = time_ms(library, 20)
             nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
@@ -1135,7 +1501,7 @@ def main():
                   f"vectors a thread, {plan.smem_bytes} B shared)", flush=True)
             print(f"     max|diff| {err:.3e} (bar {bar:.3e}) kernel {ms:.4f} "
                   f"ms ({ms - floor_ms:.4f} above the floor), plain "
-                  f"{plain_ms:.4f} ms, F.group_norm{'+relu' if act else ''} "
+                  f"{plain_ms:.4f} ms, F.group_norm{'+' + act if act else ''} "
                   f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_ms / ms:.3f} of it)", flush=True)
             if not err <= bar:
@@ -1150,7 +1516,8 @@ def main():
           f"{GN_GROUPS} groups)")
     b3b_rows = []
     for dtype in dtypes:
-        for _, n, h, w, c, act, _ in B3_BWD_CALLS + B3_BWD_OFF_PATH:
+        for _, n, h, w, c, act, _ in B3_BWD_CALLS + B3_BWD_OFF_PATH + (
+                B3_CIFAR_CALLS if dtype == torch.bfloat16 else []):
             plan = launch_plan(n, h, w, c, GN_GROUPS, dtype, backward=True)
             x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
             scale = randn((c,), 0.3, 7, torch.float32) + 1.0
@@ -1192,8 +1559,8 @@ def main():
             # yardstick: PyTorch's own GroupNorm backward, aten's, as
             # autograd calls it after F.group_norm of the channels_last
             # NCHW view (which hands aten a contiguous NCHW copy), with the
-            # forward's saved statistics, after the relu mask; its affine
-            # in x's dtype
+            # forward's saved statistics, after the relu mask or GELU's
+            # backward; its affine in x's dtype
             x_cl = x.permute(0, 3, 1, 2).contiguous()
             g_cl = g.permute(0, 3, 1, 2).contiguous()
             s_l = scale.to(dtype)
@@ -1202,7 +1569,9 @@ def main():
 
             def library():
                 gy = (torch.ops.aten.threshold_backward(g_cl, y_l, 0.0)
-                      if act == "relu" else g_cl)
+                      if act == "relu" else
+                      torch.ops.aten.gelu_backward(g_cl, y_l)
+                      if act == "gelu" else g_cl)
                 return torch.ops.aten.native_group_norm_backward(
                     gy, x_cl, mean_l, rstd_l, s_l, n, c, h * w, GN_GROUPS,
                     [True, True, True])
@@ -1230,7 +1599,8 @@ def main():
                   f"dscale {errs[1]:.3e} (bar {bars[1]:.3e}), dbias "
                   f"{errs[2]:.3e} (bar {bars[2]:.3e}); kernel {ms_full:.4f} "
                   f"ms (dx only {ms_dx:.4f}), plain {plain_ms:.4f} ms, aten "
-                  f"GN backward{'+relu mask' if act else ''} {lib_ms:.4f} "
+                  f"GN backward{' after ' + act + ' backward' if act else ''} "
+                  f"{lib_ms:.4f} "
                   f"ms, bound {b3b_rows[-1]['bound_ms']:.4f} ms "
                   f"({b3b_rows[-1]['bound_ms'] / ms_full:.3f} of it)",
                   flush=True)
@@ -1378,140 +1748,14 @@ def main():
     model = build_model("premetanode10", in_planes=64,
                         acts=("GeLUpoly",) * 3,
                         generator=torch.Generator().manual_seed(0))
-    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
-                         weight_decay=5e-4)
-    attack_cfg = AttackConfig(mode="fgsm_random", eps=8 / 255,
-                              alpha=10 / 255, mean=CIFAR10_MEAN,
-                              std=CIFAR10_STD)
-    noise_cfg = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
-
-    def train_step(use_kernels, dtype):
-        return make_train_step(model, opt, solvers, SolverOptions(),
-                               attack_cfg, noise_cfg, compute_dtype=dtype,
-                               use_kernels=use_kernels)
-
-    state = create_train_state(model, opt)
-    snapshot = {k: p.detach().clone() for k, p in state.params.items()}
     gen_cpu.manual_seed(1)
     x_train = torch.randn(BATCH, 32, 32, 3, generator=gen_cpu).to(dev)
     y_train = torch.randint(0, 10, (BATCH,), generator=gen_cpu).to(dev)
-    step = train_step(True, torch.bfloat16)
-    step_gen = torch.Generator().manual_seed(10)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, metrics = step(state, x_train, y_train, step_gen)  # warm-up
-    torch.cuda.synchronize()
-    print(f"  warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
-          f"{metrics['loss'].item():.6f}", flush=True)
-    port.reset_launch_counts()
-    step_ms, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, x_train, y_train, step_gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-    train_counts = port.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = sorted(step_ms)[len(step_ms) // 2]
-    print(f"  losses: {[round(l, 6) for l in losses]}", flush=True)
-    print(f"  ms per step: {[round(m, 3) for m in step_ms]}", flush=True)
-    print(f"  median {med:.3f} ms per step over {TRAIN_STEPS} steps (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
-          f"{BATCH / med * 1e3:.1f} img/s (bf16, batch {BATCH}); peak "
-          f"memory {peak_gb:.2f} GiB", flush=True)
-    if not all(math.isfinite(l) for l in losses):
-        fail(f"non-finite training loss: {losses}")
-    expected = {k: v * TRAIN_STEPS for k, v in TRAIN_PER_STEP.items()}
-    print(f"  launch counts: {train_counts} (expected {expected}: B1 "
-          f"{TRAIN_PER_STEP['conv3x3_same']}, dgrad "
-          f"{TRAIN_PER_STEP['conv3x3_dgrad']}, wgrad "
-          f"{TRAIN_PER_STEP['conv3x3_wgrad']}, B2 0, B3 0 per step, "
-          f"{TRAIN_STEPS} steps)", flush=True)
-    if train_counts != expected:
-        fail(f"train launch counts {train_counts} != expected {expected}")
-
     # ------------------------------------------------ 10 train vs plain
-    phase("train: kernel path vs plain path from one state, draws pinned")
-
-    def restore():
-        with torch.no_grad():
-            for k, p in state.params.items():
-                p.copy_(snapshot[k])
-
-    restore()
-    solvers_t = [noise_solver(s, torch.Generator().manual_seed(3),
-                              std=0.0125, bernoulli_p=1.0,
-                              noise_type="normal") for s in solvers]
-    frozen = model.detached_params()
-    params = list(state.params.values())
-    xb, yb = x_train[:32], y_train[:32]
-
-    def forward(use_kernels, train, tree=None):
-        return lambda xi: model(xi, solvers_t, use_kernels=use_kernels,
-                                train=train, params=tree)
-
-    def attack(use_kernels):
-        return fgsm_random(forward(use_kernels, False, frozen),
-                           torch.Generator(device=dev).manual_seed(4), xb,
-                           yb, attack_cfg.eps, attack_cfg.alpha,
-                           CIFAR10_MEAN, CIFAR10_STD)[0]
-
-    with full_f32():
-        xa_k, xa_p = attack(True), attack(False)
-        # the plain path's input gradient at the pinned random start
-        u = torch.rand(xb.shape, generator=torch.Generator(
-            device=dev).manual_seed(4), device=dev)
-        m = torch.tensor(CIFAR10_MEAN, device=dev)
-        sd = torch.tensor(CIFAR10_STD, device=dev)
-        eps_c = attack_cfg.eps / sd
-        delta = torch.clamp(eps_c - 2.0 * eps_c * u, (0.0 - m) / sd - xb,
-                            (1.0 - m) / sd - xb).requires_grad_(True)
-        (g_in,) = torch.autograd.grad(cross_entropy(
-            forward(False, False, frozen)(xb + delta), yb), delta)
-        differ = xa_k != xa_p
-        n_differ = int(differ.sum())
-        tiny = g_in.abs() < 1e-6 * g_in.abs().max()
-        worst = (g_in.abs()[differ].max() / g_in.abs().max()).item() \
-            if n_differ else 0.0
-        share = n_differ / differ.numel()
-        print(f"  f32 batch 32: x_adv differs at {n_differ} of "
-              f"{differ.numel()} pixels ({share:.2e}; at most 1e-3), "
-              f"largest |input grad| there {worst:.2e} of the max (below "
-              f"1e-6), {int(tiny.sum())} pixels under 1e-6", flush=True)
-        if share > 1e-3 or bool((differ & ~tiny).any()):
-            fail(f"kernel and plain attacks differ at {n_differ} pixels, "
-                 f"gradient up to {worst:.2e} of the max")
-        grads = []
-        for use_kernels in (True, False):
-            loss = cross_entropy(forward(use_kernels, True)(xa_p), yb)
-            grads.append(torch.autograd.grad(loss, params))
-        gmax = max(g.abs().max().item() for g in grads[1])
-        gerr = max((a - b).abs().max().item()
-                   for a, b in zip(*grads))
-        print(f"  f32 batch 32: param grads at the plain x_adv, max|diff| "
-              f"{gerr:.3e} (bar 1e-4 x max|g| = {1e-4 * gmax:.3e})",
-              flush=True)
-        if not gerr <= 1e-4 * gmax:
-            fail(f"kernel and plain param grads differ by {gerr}")
-    del grads, g_in, delta
-
-    results = {}
-    for use_kernels in (True, False):
-        restore()
-        st = create_train_state(model, opt)
-        _, mt = train_step(use_kernels, torch.bfloat16)(
-            st, x_train, y_train, torch.Generator().manual_seed(20))
-        results[use_kernels] = (mt["loss"].item(), mt["grad_norm"].item())
-    (lk, nk), (lp, np_) = results[True], results[False]
-    loss_bar = 2e-2 * max(1.0, abs(lp))
-    norm_rel = abs(nk - np_) / np_
-    print(f"  bf16 batch {BATCH}: loss {lk:.6f} vs plain {lp:.6f} (|diff| "
-          f"{abs(lk - lp):.3e}, bar {loss_bar:.3e}); grad norm {nk:.6f} vs "
-          f"{np_:.6f} (relative {norm_rel:.3e}, bar 5e-2)", flush=True)
-    if not (abs(lk - lp) <= loss_bar and norm_rel <= 5e-2):
-        fail("bf16 train step: kernel and plain paths disagree")
-    del model, state, snapshot
+    train_counts, med, _ = train_step_phase(
+        port, torch, dev, model, "train", TRAIN_PER_STEP, solvers, x_train,
+        y_train, compare_attacks=True)
+    del model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 11 train MNIST
@@ -1523,6 +1767,7 @@ def main():
     mopt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
     matk = AttackConfig(mode="at", eps=PGD_EPS, pgd_lr=PGD_LR,
                         pgd_niter=PGD_ITERS)
+    noise_cfg = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
 
     def mnist_step(use_kernels):
         return make_train_step(mnist, mopt, solvers, SolverOptions(), matk,
@@ -1974,6 +2219,12 @@ def main():
     print(f"  launches over phases 15-17's runs: {dict(runner_counts)}",
           flush=True)
 
+    # ------------------------------------------- 18-19 the CIFAR family
+    gn_counts, gn_med, family_counts = cifar_family_phases(port, torch, dev,
+                                                           med)
+    print(f"  launches over phase 19's runs: {dict(family_counts)}",
+          flush=True)
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -2014,6 +2265,10 @@ def main():
                 "launches": mnist_regime_counts.get(name, 0)},
             "premetanode10 regimes bf16": {
                 "launches": cifar_regime_counts.get(name, 0)},
+            "metanode10 GN train bf16": {"steps": TRAIN_STEPS,
+                                         "launches": gn_counts.get(name, 0)},
+            "cifar family runner bf16": {
+                "launches": family_counts.get(name, 0)},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -2032,6 +2287,13 @@ def main():
         b3b_step[(n, h, w, c, act, "dx")] = PGD_ITERS * k
         b3b_step[(n, h, w, c, act, "full")] = k
     b1b_mnist = {TRAIN_MNIST: (PGD_ITERS + 1) * MNIST_B1_PER_PASS}
+    # phase 18's step: two forward passes; the backward of the attack pass
+    # is dx only, the training pass's gives dscale and dbias too
+    b3_gn_step = {c[1:6]: 2 * c[6] for c in B3_CIFAR_CALLS}
+    b3b_gn_step = {}
+    for _, n, h, w, c, act, k in B3_CIFAR_CALLS:
+        b3b_gn_step[(n, h, w, c, act, "dx")] = k
+        b3b_gn_step[(n, h, w, c, act, "full")] = k
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -2067,6 +2329,10 @@ def main():
               "neural_ode_metasolver_tpu/ops/pallas_kernels.py:111",
               per_request_sums(b3_rows, b3_mnist, "float32"),
               bf16=per_request_sums(b3_rows, b3_mnist, "bfloat16"),
+              metanode10_gn_train_bf16={
+                  **per_request_sums(b3_rows, b3_gn_step, "bfloat16"),
+                  "launches_per_step":
+                      gn_counts.get("group_norm_act", 0) // TRAIN_STEPS},
               launch_floor_ms=floor_ms),
         entry("group_norm_act_bwd",
               "neural_ode_metasolver_tpu_torch/csrc/group_norm_act_bwd.cu",
@@ -2075,11 +2341,20 @@ def main():
               "Pallas)",
               per_request_sums(b3b_rows, b3b_step, "float32"),
               bf16=per_request_sums(b3b_rows, b3b_step, "bfloat16"),
-              full_launches=mnist_train_counts.get(
-                  "group_norm_act_bwd_params", 0),
+              metanode10_gn_train_bf16={
+                  **per_request_sums(b3b_rows, b3b_gn_step, "bfloat16"),
+                  "launches_per_step":
+                      gn_counts.get("group_norm_act_bwd", 0) // TRAIN_STEPS,
+                  "full_launches_per_step": gn_counts.get(
+                      "group_norm_act_bwd_params", 0) // TRAIN_STEPS},
+              full_launches=(
+                  mnist_train_counts.get("group_norm_act_bwd_params", 0)
+                  + gn_counts.get("group_norm_act_bwd_params", 0)),
               dx_only_launches=(
                   mnist_train_counts.get("group_norm_act_bwd", 0)
                   - mnist_train_counts.get("group_norm_act_bwd_params", 0)
+                  + gn_counts.get("group_norm_act_bwd", 0)
+                  - gn_counts.get("group_norm_act_bwd_params", 0)
                   + eval_counts.get("group_norm_act_bwd", 0)
                   + mnist_regime_counts.get("group_norm_act_bwd", 0)),
               plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
@@ -2113,7 +2388,17 @@ def main():
              "the bytes of x, dout and dx; by_path's mnist eval f32 counts "
              "the clean and the PGD evaluation's batches, its regimes paths "
              "the kernel path's launches of phases 13 and 14 (each regime's "
-             "clean and FGSM batches, and MNIST's step-count sweep)")
+             "clean and FGSM batches, and MNIST's step-count sweep).  "
+             "metanode10_gn_train_bf16 (group_norm_act and "
+             "group_norm_act_bwd): phase 18's metanode10-GN train step in "
+             "bf16 at batch 256, summed over a step's 140 forward launches "
+             "at the CIFAR shapes (32 groups, GELU fused or none; library_ms "
+             "F.group_norm then F.gelu) and its 140 backward launches (70 dx "
+             "only, 70 with dscale and dbias; library_ms aten's GN backward "
+             "after gelu_backward); by_path's metanode10 GN train bf16 "
+             "counts phase 18's timed steps, its cifar family runner bf16 "
+             "phase 19's first cifar_runner run and its kernel-path eval "
+             "batches")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

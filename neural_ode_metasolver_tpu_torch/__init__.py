@@ -7,7 +7,9 @@ Module names mirror the JAX package's.  Public functions keep its layouts:
 NHWC activations, HWIO conv kernels.
 
 It serves the flagship ``premetanode10`` forward and the MNIST MetaNODE,
-trains both families adversarially, measures clean, FGSM and PGD accuracy
+builds every CIFAR net of the JAX registry (BN/GN/LN/IN norms, SN/WN, the
+inits) with its model state (BN running statistics, SN vectors), trains
+both families adversarially, measures clean, FGSM and PGD accuracy
 and runs the four meta-solver regimes (standalone, switching, smoothing,
 solver and model ensembling) with the reference's regime table and
 step-count sweep, and has the reference's CLIs (``runners``: training with

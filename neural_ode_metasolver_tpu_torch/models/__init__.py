@@ -2,6 +2,7 @@
 from .api import Model, build_model
 from .convert import (
     cifar_params_from_jax,
+    cifar_state_from_jax,
     mnist_params_from_jax,
     rmsprop_state_from_jax,
 )
@@ -10,6 +11,11 @@ from .odenet_cifar10 import (
     CifarConfig,
     apply_cifar,
     init_cifar,
+    metanode4,
+    metanode6,
+    metanode10,
+    metanode18,
+    metanode34,
     premetanode4,
     premetanode6,
     premetanode10,
@@ -27,8 +33,14 @@ __all__ = [
     "apply_mnist",
     "build_model",
     "cifar_params_from_jax",
+    "cifar_state_from_jax",
     "init_cifar",
     "init_mnist",
+    "metanode4",
+    "metanode6",
+    "metanode10",
+    "metanode18",
+    "metanode34",
     "mnist_params_from_jax",
     "premetanode4",
     "premetanode6",

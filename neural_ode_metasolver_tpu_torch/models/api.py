@@ -1,53 +1,80 @@
 """Model interface of the port (port of models/api.py).
 
-``build_model(name, device=None, *, generator=None, **overrides)`` builds
-``"mnist"`` or a ``premetanode*`` registry config, draws its parameters from
-a seeded ``torch.Generator`` and returns a :class:`Model`: an ``nn.Module``
-that holds the family's parameter tree (nested ``ModuleDict``/``ModuleList``/
-``ParameterDict``, so ``state_dict`` names are the JAX tree's paths under
-``params.``) and whose forward is the family's apply function
+``build_model(name, device=None, *, generator=None, init_scheme=None,
+**overrides)`` builds ``"mnist"`` or any name of the CIFAR registry
+(``metanode*``, ``premetanode*``), draws its parameters and model state
+from a seeded ``torch.Generator`` and returns a :class:`Model`: an
+``nn.Module`` that holds the family's parameter tree (nested
+``ModuleDict``/``ModuleList``/``ParameterDict``, so ``state_dict`` names
+are the JAX tree's paths under ``params.``), its model state as buffers
+(BN running statistics, SN vectors, named by the JAX state tree's paths
+under ``state.``), and whose forward is the family's apply function
 (``apply_mnist`` or ``apply_cifar``).  It runs on the CUDA card unless the
 caller passes ``device="cpu"``; without a card it raises.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..backend import full_f32, resolve_device
 from ..ops.regimes import SolverOptions
+from .nn import apply_init_scheme
 from .odenet_cifar10 import MODEL_REGISTRY, apply_cifar, init_cifar
 from .odenet_mnist import MnistConfig, apply_mnist, init_mnist
 
 __all__ = ["Model", "build_model"]
 
-# registry names of the JAX package that later slices port
-_NOT_PORTED = {f"metanode{d}": "A11" for d in (4, 6, 10, 18, 34)}
+
+class _Buffers(nn.Module):
+    """A dict of tensors held as buffers."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for k, v in tensors.items():
+            self.register_buffer(k, v)
 
 
-def _as_module(tree: Any) -> nn.Module:
-    """Nested dicts/lists of tensors -> nested ModuleDict/ModuleList with a
-    ParameterDict at each dict of tensors."""
+def _as_module(tree: Any, leaf: Callable) -> nn.Module:
+    """Nested dicts/lists of tensors -> nested ModuleDict/ModuleList with
+    ``leaf(dict)`` at each dict of tensors."""
     if isinstance(tree, dict):
         if all(isinstance(v, torch.Tensor) for v in tree.values()):
-            return nn.ParameterDict({k: nn.Parameter(v)
-                                     for k, v in tree.items()})
-        return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+            return leaf(tree)
+        return nn.ModuleDict({k: _as_module(v, leaf) for k, v in tree.items()})
     if isinstance(tree, (list, tuple)):
-        return nn.ModuleList([_as_module(v) for v in tree])
+        return nn.ModuleList([_as_module(v, leaf) for v in tree])
     raise TypeError(f"unexpected parameter-tree node {type(tree).__name__}")
 
 
-def _detached(node: Any) -> Any:
-    """A ModuleDict/ModuleList/ParameterDict tree as nested dicts and lists
-    of detached views of its tensors."""
+def _params_leaf(tree: Dict[str, torch.Tensor]) -> nn.Module:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+
+
+def _tree(node: Any) -> Any:
+    """A module tree as nested dicts and lists of its tensors: detached
+    views of the parameters, the buffers themselves."""
     if isinstance(node, nn.ParameterDict):
         return {k: v.detach() for k, v in node.items()}
+    if isinstance(node, _Buffers):
+        return dict(node.named_buffers(recurse=False))
     if isinstance(node, nn.ModuleDict):
-        return {k: _detached(v) for k, v in node.items()}
-    return [_detached(v) for v in node]
+        return {k: _tree(v) for k, v in node.items()}
+    return [_tree(v) for v in node]
+
+
+def _flatten(tree: Any, prefix: str, out: dict) -> dict:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}.{k}", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}.{i}", out)
+    else:
+        out[prefix] = tree
+    return out
 
 
 class Model(nn.Module):
@@ -59,15 +86,20 @@ class Model(nn.Module):
     runs under ``backend.full_f32()``, so cuDNN never takes TF32 for its
     convs whatever the process flags say.  ``params`` runs the forward on
     another tree of the same structure, such as ``detached_params()`` (the
-    attack's forward, which must not reach the weights).  ``generator``, a
+    attack's forward, which must not reach the weights).  The forward reads
+    the model state from the buffers and never writes them: in train mode
+    ``return_aux=True`` gives the new state as ``aux["model_state"]``, and
+    ``commit_state`` copies it in (the train step does, once a step's
+    update is accepted).  ``generator``, a
     CPU ``torch.Generator``, serves the switch and ensemble regimes one
     draw per ODE block; standalone draws nothing."""
 
-    def __init__(self, cfg: Any, params: dict, apply_fn: Callable,
-                 input_shape: Tuple[int, int, int]):
+    def __init__(self, cfg: Any, params: dict, state: dict,
+                 apply_fn: Callable, input_shape: Tuple[int, int, int]):
         super().__init__()
         self.cfg = cfg
-        self.params = _as_module(params)
+        self.params = _as_module(params, _params_leaf)
+        self.state = _as_module(state, _Buffers)
         self.apply_fn = apply_fn
         self.input_shape = tuple(input_shape)
 
@@ -78,7 +110,20 @@ class Model(nn.Module):
     def detached_params(self) -> Any:
         """The parameters as the family's nested dicts and lists of
         detached views (same storage, no gradient)."""
-        return _detached(self.params)
+        return _tree(self.params)
+
+    def model_state(self) -> Any:
+        """The model state as the family's nested dicts and lists of the
+        buffers themselves."""
+        return _tree(self.state)
+
+    def commit_state(self, new_state: Any) -> None:
+        """Copy a state tree (``aux["model_state"]`` of a train-mode
+        forward) into the buffers, in place."""
+        flat = _flatten(new_state, "state", {})
+        with torch.no_grad():
+            for name, buf in self.named_buffers():
+                buf.copy_(flat[name])
 
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
                 use_kernels: bool = True, train: bool = False,
@@ -89,32 +134,38 @@ class Model(nn.Module):
         with full_f32():
             return self.apply_fn(
                 self.params if params is None else params, x, solvers,
-                solver_options, cfg=self.cfg, use_kernels=use_kernels,
-                train=train, generator=generator, **options)
+                solver_options, cfg=self.cfg,
+                state=self.model_state(),
+                use_kernels=use_kernels, train=train, generator=generator,
+                **options)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
                 *, generator: Optional[torch.Generator] = None,
-                **overrides) -> Model:
+                init_scheme: Optional[str] = None, **overrides) -> Model:
     """Registry entry point: ``"mnist"`` (``MnistConfig`` overrides) or a
-    ``premetanode*`` name (``CifarConfig`` overrides).
+    CIFAR registry name (``CifarConfig`` overrides: ``norms``,
+    ``num_gn_groups``, ``param_norms``, ``acts``, ``is_odenet``,
+    ``faithful_preact_bug``, ``in_planes``, ``num_blocks``, ...).
 
-    Parameters are drawn on the CPU from ``generator`` (default: seed 0),
-    so a seed gives the same weights on every device, then moved to
-    ``device``."""
+    Parameters and state are drawn on the CPU from ``generator`` (default:
+    seed 0), so a seed gives the same weights on every device, then moved
+    to ``device``.  ``init_scheme`` (``"orthogonal"`` or ``"xavier"``, the
+    CIFAR runner's ``--init``) then re-initializes the kernels from the
+    same generator (``nn.apply_init_scheme``)."""
     dev = resolve_device(device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
-    if name == "mnist":
-        cfg = MnistConfig(**overrides)
-        init, apply_fn, shape = init_mnist, apply_mnist, (28, 28,
-                                                          cfg.in_channels)
-    elif name in MODEL_REGISTRY:
-        cfg = MODEL_REGISTRY[name](**overrides)
-        init, apply_fn, shape = init_cifar, apply_cifar, (32, 32, 3)
-    else:
-        raise ValueError(f"unknown model {name!r}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return Model(cfg, init(cfg, generator), apply_fn, shape).to(dev)
+    if name == "mnist":
+        cfg = MnistConfig(**overrides)
+        params, state = init_mnist(cfg, generator), {}
+        apply_fn, shape = apply_mnist, (28, 28, cfg.in_channels)
+    elif name in MODEL_REGISTRY:
+        cfg = MODEL_REGISTRY[name](**overrides)
+        params, state = init_cifar(cfg, generator)
+        apply_fn, shape = apply_cifar, (32, 32, 3)
+    else:
+        raise ValueError(f"unknown model {name!r}")
+    if init_scheme is not None:
+        params = apply_init_scheme(generator, params, init_scheme)
+    return Model(cfg, params, state, apply_fn, shape).to(dev)

@@ -10,9 +10,14 @@ JAX parameter tree as nested dicts and lists of numpy arrays
     model.load_state_dict(cifar_params_from_jax(np_params))   # init_cifar
     model.load_state_dict(mnist_params_from_jax(np_params))   # init_mnist
 
-For CIFAR only the norm-free NF/PNF family converts: its norm leaves are
-``None`` and are dropped; a tree that carries norm parameters raises.  The
-MNIST tree's GroupNorm scales and biases convert like any other leaf.
+Norm parameters (``scale``/``bias``) and WN's ``wn_g`` convert like any
+other leaf; the tree's None leaves (the NF norms, PNF's missing state) are
+left out, as the port's trees leave them out.  ``cifar_state_from_jax``
+carries a JAX model state (BN's ``mean``/``var``, SN's ``sn_u``) onto the
+model's buffers, so both packages compute the same thing:
+
+    model.load_state_dict({**cifar_params_from_jax(np_params),
+                           **cifar_state_from_jax(np_state)})
 
 ``rmsprop_state_from_jax`` carries an RMSprop optimizer state across, so a
 JAX checkpoint's training resumes in the port:
@@ -28,50 +33,46 @@ and ``step = int(ts.step)``.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["cifar_params_from_jax", "mnist_params_from_jax",
-           "rmsprop_state_from_jax"]
-
-_CIFAR_NORM_KEYS = ("bn1", "bn2", "sc_bn")
+__all__ = ["cifar_params_from_jax", "cifar_state_from_jax",
+           "mnist_params_from_jax", "rmsprop_state_from_jax"]
 
 
-def _walk(node: Any, path: str, out: OrderedDict,
-          refused: Tuple[str, ...]) -> None:
+def _walk(node: Any, path: str, out: OrderedDict) -> OrderedDict:
     if isinstance(node, Mapping):
         for k, v in node.items():
-            name = f"{path}.{k}"
-            if v is None:
-                continue
-            if k in refused:
-                raise ValueError(
-                    f"norm-bearing parameter tree ({name[len('params.'):]} is "
-                    "not None): only the norm-free NF/PNF family is ported")
-            _walk(v, name, out, refused)
+            if v is not None:
+                _walk(v, f"{path}.{k}", out)
     elif isinstance(node, (list, tuple)):
         for i, v in enumerate(node):
-            _walk(v, f"{path}.{i}", out, refused)
+            _walk(v, f"{path}.{i}", out)
     else:
         out[path] = torch.tensor(np.asarray(node, dtype=np.float32))
+    return out
 
 
 def cifar_params_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX CIFAR parameter tree (numpy leaves) -> the port Model's
-    ``state_dict`` (f32 CPU tensors, names ``params.<tree path>``)."""
-    out: OrderedDict = OrderedDict()
-    _walk(params, "params", out, _CIFAR_NORM_KEYS)
-    return out
+    ``state_dict`` entries of its parameters (f32 CPU tensors, names
+    ``params.<tree path>``)."""
+    return _walk(params, "params", OrderedDict())
+
+
+def cifar_state_from_jax(state: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """JAX CIFAR model state (numpy leaves: BN ``mean``/``var``, SN
+    ``sn_u``) -> the port Model's ``state_dict`` entries of its buffers
+    (f32 CPU tensors, names ``state.<tree path>``)."""
+    return _walk(state, "state", OrderedDict())
 
 
 def mnist_params_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``init_mnist`` parameter tree (numpy leaves) -> the port Model's
     ``state_dict`` (f32 CPU tensors, names ``params.<tree path>``)."""
-    out: OrderedDict = OrderedDict()
-    _walk(params, "params", out, ())
-    return out
+    return _walk(params, "params", OrderedDict())
 
 
 def _state_fields(node: Any, found: dict) -> None:

@@ -8,10 +8,16 @@ package; ``F.conv2d`` gets permuted NCHW / OIHW views (channels_last
 strides) and its result is permuted back.  Under mixed precision the
 kernel is cast to the activation dtype at each call (JAX ``nn.py:113``).
 
-Norms: ``group_norm`` (the MNIST MetaNODE's GN, kernel B3 underneath) and,
-as ``NormDef`` kinds, NF (identity) and param-norm PNF (none) are ported;
-the CIFAR ``NormDef`` kinds BN, GN, LN, IN and SN/WN land with ROADMAP A11
-and raise ``NotImplementedError`` here.
+Norms (JAX ``nn.py:253-343``): ``group_norm`` is kernel B3 (the MNIST
+MetaNODE's GN, and the CIFAR ``NormDef`` kinds GN, LN and IN, each with
+the activation after it fused where B3 computes it); ``batch_norm`` is
+plain arithmetic, as JAX computes it outside any Pallas kernel.  Stateful
+layers (BN's running statistics, SN's power-iteration vector) take their
+state as an argument and return the new one; nothing here mutates a
+tensor.  Param norms SN and WN (``ParamNormDef``, JAX ``nn.py:435-511``)
+and the ``--init`` schemes (``apply_init_scheme``, ``nn.py:144-225``)
+follow JAX's walk and formulas; their random draws come from a
+``torch.Generator``, so they match JAX in distribution, not in value.
 """
 from __future__ import annotations
 
@@ -35,10 +41,16 @@ __all__ = [
     "get_activation",
     "group_norm_init",
     "group_norm",
+    "batch_norm_init",
+    "batch_norm",
     "NormDef",
     "make_norm_def",
     "ParamNormDef",
     "make_param_norm_def",
+    "orthogonal_conv_init",
+    "xavier_conv_init",
+    "orthogonal_fc_init",
+    "apply_init_scheme",
     "global_avg_pool",
 ]
 
@@ -178,43 +190,264 @@ def group_norm(params: Params, x: torch.Tensor, num_groups: int,
     return f(x, params["scale"], params["bias"], num_groups, eps, act)
 
 
+def batch_norm_init(ch: int):
+    """BatchNorm's (params, state): unit scale, zero bias, running mean 0
+    and variance 1, all f32."""
+    params = group_norm_init(ch)
+    state = {"mean": torch.zeros(ch, dtype=torch.float32),
+             "var": torch.ones(ch, dtype=torch.float32)}
+    return params, state
+
+
+def batch_norm(params: Params, state: Optional[Params], x: torch.Tensor,
+               train: bool, momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm2d over NHWC (torch parity: momentum 0.1, unbiased running
+    variance), plain arithmetic in f32, the result in x's dtype.  Returns
+    ``(y, new_state)``: train mode normalizes with the batch's statistics
+    and, given a ``state``, returns the updated running statistics (new
+    tensors, detached; ``state`` is not touched); eval mode uses the
+    running statistics and returns ``state``."""
+    xf = x.float()
+    if train:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = ((xf - mean) ** 2).mean(dim=(0, 1, 2))
+        new_state = None
+        if state is not None:
+            n = x.shape[0] * x.shape[1] * x.shape[2]
+            unbiased = var.detach() * (n / max(n - 1, 1))
+            new_state = {
+                "mean": (1 - momentum) * state["mean"]
+                + momentum * mean.detach(),
+                "var": (1 - momentum) * state["var"] + momentum * unbiased,
+            }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype), new_state
+
+
+# the registry's activations that kernel B3 fuses, by its names
+_B3_ACTS = {"ReLU": "relu", "GeLU": "gelu", "Tanh": "tanh",
+            "Softsign": "softsign", "AF": None}
+
+
+def _unit_affine(x: torch.Tensor):
+    c = x.shape[-1]
+    return {"scale": torch.ones(c, dtype=torch.float32, device=x.device),
+            "bias": torch.zeros(c, dtype=torch.float32, device=x.device)}
+
+
 class NormDef:
-    """A norm layer kind; only NF (identity) is ported."""
+    """A norm layer kind (reference get_normalization, utils.py:15-38):
+    BN, GN, LN, IN or NF.
+
+    ``init(ch) -> (params, state)`` (None where the kind has none);
+    ``apply(params, state, x, train, act=None, use_kernels=True) -> (y,
+    new_state)`` normalizes and then applies the activation ``act`` (a
+    registry name, or None).  GN (``min(num_groups, C)`` groups), LN (one
+    group) and IN (C groups, no affine) are kernel B3, with ``act`` fused
+    where B3 computes it (ReLU, GeLU, Tanh, Softsign; AF is the identity)
+    and applied after it otherwise; ``use_kernels=False`` takes B3's plain
+    version.  BN is plain arithmetic (``batch_norm``), ``act`` after it;
+    its train mode returns the new running statistics without touching
+    ``state``.  NF is the identity."""
 
     def __init__(self, kind: str, num_groups: int = 32):
         if kind not in ("BN", "LN", "GN", "IN", "NF"):
             raise NameError("Unknown layer normalization type")
-        if kind != "NF":
-            raise NotImplementedError(
-                f"norm {kind!r} is not ported yet (ROADMAP A11)")
         self.kind = kind
         self.num_groups = num_groups
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def init(self, ch: int):
+        if self.kind == "BN":
+            return batch_norm_init(ch)
+        if self.kind in ("GN", "LN"):
+            if self.kind == "GN" and ch % min(self.num_groups, ch) != 0:
+                raise ValueError(
+                    f"num_channels {ch} must be divisible by num_groups "
+                    f"{min(self.num_groups, ch)}")
+            return group_norm_init(ch), None
+        return None, None  # IN, NF
+
+    def apply(self, params: Optional[Params], state: Optional[Params],
+              x: torch.Tensor, train: bool, act: Optional[str] = None,
+              use_kernels: bool = True):
+        if self.kind in ("GN", "LN", "IN"):
+            c = x.shape[-1]
+            groups = {"GN": min(self.num_groups, c), "LN": 1, "IN": c}[
+                self.kind]
+            y = group_norm(params if self.kind != "IN" else _unit_affine(x),
+                           x, groups, act=_B3_ACTS.get(act),
+                           use_kernels=use_kernels)
+            if act is not None and act not in _B3_ACTS:
+                y = get_activation(act)(y)
+            return y, None
+        new_state = None
+        if self.kind == "BN":
+            x, new_state = batch_norm(params, state, x, train)
+        return (x if act is None else get_activation(act)(x)), new_state
 
 
 def make_norm_def(key: str, num_groups: int = 32) -> NormDef:
     return NormDef(key, num_groups)
 
 
+# ---------------------------------------------- parameter normalization --
+
+
+def _kernel_as_matrix(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO conv kernel (or (I, O) linear kernel) -> the (O, rest) matrix
+    of torch's dim-0-first reshape of the OIHW weight."""
+    if kernel.dim() == 4:
+        kh, kw, ci, co = kernel.shape
+        return kernel.permute(3, 2, 0, 1).reshape(co, ci * kh * kw)
+    return kernel.T
+
+
+def _l2(v: torch.Tensor, dim=None) -> torch.Tensor:
+    return torch.linalg.vector_norm(v, dim=dim)
+
+
 class ParamNormDef:
-    """A weight-normalization kind; only PNF (none) is ported."""
+    """A weight-normalization kind: SN (spectral), WN (weight) or PNF
+    (none).
+
+    ``wrap_init(generator, params) -> (params, state)`` adds the
+    reparametrization: WN a per-output-channel ``wn_g`` (the norms of the
+    kernel's rows), SN a unit power-iteration vector ``sn_u`` of the
+    state.  ``materialize(params, state, train) -> (params, new_state)``
+    gives the effective kernel: WN ``wn_g * v / ||v||`` row by row; SN the
+    kernel over its estimated spectral norm, after one power iteration in
+    train mode (``u``, ``v`` carry no gradient; the new ``sn_u`` is
+    returned, ``state`` is not touched) and none in eval mode."""
 
     def __init__(self, kind: str):
         if kind not in ("SN", "WN", "PNF"):
             raise NameError("Unknown param normalization type")
-        if kind != "PNF":
-            raise NotImplementedError(
-                f"param norm {kind!r} is not ported yet (ROADMAP A11)")
         self.kind = kind
 
-    def materialize(self, params: Params) -> Params:
-        return params
+    def wrap_init(self, generator: torch.Generator, params: Params):
+        if self.kind == "PNF":
+            return params, None
+        mat = _kernel_as_matrix(params["kernel"])
+        if self.kind == "WN":
+            return {**params, "wn_g": _l2(mat, 1).to(mat.dtype)}, None
+        u = torch.randn(mat.shape[0], generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        return params, {"sn_u": u / (_l2(u) + 1e-12)}
+
+    def materialize(self, params: Params, state: Optional[Params],
+                    train: bool):
+        if self.kind == "PNF":
+            return params, state
+        kernel = params["kernel"]
+        mat = _kernel_as_matrix(kernel).float()
+        if self.kind == "WN":
+            scale = params["wn_g"].float() / (_l2(mat, 1) + 1e-12)
+            out = {k: v for k, v in params.items() if k != "wn_g"}
+            out["kernel"] = kernel * scale.to(kernel.dtype)
+            return out, state
+        u = state["sn_u"]
+        if train:
+            with torch.no_grad():
+                m = mat.detach()
+                v = m.T @ u
+                v = v / (_l2(v) + 1e-12)
+                u = m @ v
+                u = u / (_l2(u) + 1e-12)
+            new_state = {"sn_u": u}
+        else:
+            v = mat.T @ u
+            v = v / (_l2(v) + 1e-12)
+            new_state = state
+        sigma = u @ (mat @ v)
+        return {**params, "kernel": kernel / sigma.to(kernel.dtype)}, \
+            new_state
 
 
 def make_param_norm_def(key: str) -> ParamNormDef:
     return ParamNormDef(key)
+
+
+# ---------------------------------------------------------- init schemes --
+
+
+def _orthogonal(generator: torch.Generator, rows: int, cols: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """A (rows, cols) matrix with orthonormal rows (rows <= cols) or
+    columns: QR of a normal draw, signs fixed by R's diagonal (torch's
+    ``orthogonal_``, JAX's ``initializers.orthogonal``)."""
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator,
+                    dtype=torch.float32, device=generator.device)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q.T if rows < cols else q).to(dtype)
+
+
+def orthogonal_conv_init(generator: torch.Generator, params: Params
+                         ) -> Params:
+    """Re-init a conv kernel orthogonally on its (O, I*H*W) matrix
+    (odenet_cifar10/utils.py:87-89), bias untouched."""
+    kernel = params["kernel"]
+    kh, kw, ci, co = kernel.shape
+    flat = _orthogonal(generator, co, kh * kw * ci, kernel.dtype)
+    new = flat.reshape(co, kh, kw, ci).permute(1, 2, 3, 0).contiguous()
+    return {**params, "kernel": new}
+
+
+def xavier_conv_init(generator: torch.Generator, params: Params) -> Params:
+    """Xavier-uniform (gain sqrt 2) conv re-init with zero bias, the
+    reference's ``conv_init`` intent (odenet_cifar10/utils.py:78-85)."""
+    kernel = params["kernel"]
+    kh, kw, ci, co = kernel.shape
+    bound = math.sqrt(2.0) * math.sqrt(6.0 / (ci * kh * kw + co * kh * kw))
+    out = {**params, "kernel": _uniform(generator, tuple(kernel.shape),
+                                        bound, kernel.dtype)}
+    if "bias" in out:
+        out["bias"] = torch.zeros_like(out["bias"])
+    return out
+
+
+def orthogonal_fc_init(generator: torch.Generator, params: Params) -> Params:
+    """Orthogonal linear kernel, bias 1e-3 (odenet_cifar10/utils.py:91-94)."""
+    inf, outf = params["kernel"].shape
+    out = {**params, "kernel": _orthogonal(generator, outf, inf,
+                                           params["kernel"].dtype).T
+           .contiguous()}
+    if "bias" in out:
+        out["bias"] = torch.full_like(out["bias"], 1e-3)
+    return out
+
+
+def apply_init_scheme(generator: torch.Generator, params: Any,
+                      scheme: Optional[str]) -> Any:
+    """Walk a parameter tree in its order, re-initializing every conv
+    kernel (``orthogonal`` or ``xavier``) and, under ``orthogonal``, the
+    linear kernel (the runner's ``--init``, train_and_attack.py:439-443).
+    Other leaves stay, ``wn_g`` too: it keeps the norms of the first
+    init, as in the JAX package."""
+    if scheme is None:
+        return params
+    if scheme not in ("orthogonal", "xavier"):
+        raise NameError(f"Unknown init scheme {scheme!r}")
+
+    def walk(node):
+        if isinstance(node, dict) and "kernel" in node:
+            if node["kernel"].dim() == 4:
+                return (orthogonal_conv_init if scheme == "orthogonal"
+                        else xavier_conv_init)(generator, node)
+            if scheme == "orthogonal":
+                return orthogonal_fc_init(generator, node)
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,38 +1,55 @@
-"""CIFAR-10 pre-activation MetaNODEs (port of models/odenet_cifar10.py).
+"""CIFAR-10 MetaNODE family: metanode4..34 / premetanode4..34 (port of
+models/odenet_cifar10.py).
 
 Architecture (reference odenet_cifar10/layers.py:317-426):
 
-  conv1 (3 -> in_planes, k3 s1 p1, no bias) -> act(bn1) -> up to 4
-  MetaLayers (strides 1,2,2,2; widths x1,2,4,8; each = PreBasicBlocks then
+  conv1 (3 -> in_planes, k3 s1 p1, no bias, param-normed) -> act(bn1) -> up
+  to 4 MetaLayers (strides 1,2,2,2; widths x1,2,4,8; each = res blocks then
   meta-ODE blocks) -> global average pool -> Linear
 
-This port covers the forward of the ``prebasic`` ODE-net family
-(premetanode4..34) with NF norms and PNF param-norms, in every regime
-(a ``generator`` serves switch and ensemble one draw per ODE block), in
-eval and train mode (the same function for these norms, as in JAX), with
-the ss-loss (JAX ``odenet_cifar10.py:372-385``: each ODE block's output
-re-integrated over t in [1, 2], replaying the forward's regime draws, the
-batch mean of the L2 norm of the difference reduced in f32), and
-differentiable end to end.  It runs act(bn1(conv1(x))) up front, as the
-JAX package's default ``faithful_preact_bug=True`` and every published
-checkpoint do.  The ``basic`` family, the ResNet block counts
-(``is_odenet=False``), the ``faithful_preact_bug=False`` order and other
-norms land with ROADMAP A11.
+  BasicBlock     conv-norm-act, conv-norm, + shortcut (conv-norm), act
+  PreBasicBlock  norm-act-conv x2 + conv shortcut
+  BasicBlock2    (ODE RHS) conv-norm-act x2; ignores t
+  PreBasicBlock2 (ODE RHS) norm-act-conv x2; ignores t
+
+Norms BN/GN/LN/IN/NF, param norms SN/WN/PNF and activations are set per
+slot (resblock, odeblock, bn1), as in JAX.  ``is_odenet=False`` takes the
+registry's ResNet block counts.  ``faithful_preact_bug=True`` (the default,
+every published checkpoint) runs act(bn1(conv1(x))) up front; False gives
+the prebasic family the intended pre-activation order: bn1, sized for the
+final width, and its act after the last layer (JAX ``:405-410``,
+``:458-491``).
+
+The model state (BN running statistics, SN power-iteration vectors) is a
+tree beside the parameters, with the JAX state tree's names and its None
+leaves left out.  ``apply_cifar`` reads it and, in train mode, returns the
+new one (``aux["model_state"]``) and mutates nothing: the train step
+commits it.  Eval mode reads the running statistics and iterates no SN
+vector.  BN inside the ODE RHS normalizes with the batch's statistics and
+updates no state; SN materializes once per block forward, not once per
+RHS call (JAX ``:196-219``).
 
 Dispatch (``use_kernels=True``):
   * every stride-1 3x3 conv, inside the ODE RHS and out, goes to kernel B1
     (``ops.conv3x3.conv3x3_same``, whose backward is B1's dgrad and the
     wgrad kernel); other convs use ``F.conv2d``;
+  * every GN, LN and IN goes to kernel B3 (``ops.group_norm``), with the
+    activation after it fused where B3 has it, its backward B3's backward
+    kernel; BN is plain arithmetic;
   * an ODE block goes to kernel B2 (``ops.ode_block.ode_block_rk2_forward``)
-    when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2, the solver list is
-    one rk2 solver with n_steps set, in standalone mode, no ss-loss is
-    asked for, and no gradient can flow (grad mode off, or neither the
-    block's input nor its weights require grad): B2, like the Pallas
-    kernel, has no backward.  Otherwise it takes the generic
-    ``meta_integrate`` over the torch RHS, the port's counterpart of the
-    JAX package's XLA path.
-``use_kernels=False`` takes the generic path with ``F.conv2d`` everywhere:
-the plain path the kernels are checked against on the card.
+    when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2 (B2 computes the
+    pre-activation RHS; the basic family's RHS activates after its convs),
+    the solver list is one rk2 solver with n_steps set, in standalone
+    mode, no ss-loss is asked for, and no gradient can flow: B2, like the
+    Pallas kernel, has no backward.  Otherwise it takes the generic
+    ``meta_integrate`` over the torch RHS.
+``use_kernels=False`` takes the generic path with the plain versions
+everywhere: the plain path the kernels are checked against on the card.
+
+The ss-loss (JAX ``:372-385``): each ODE block's output re-integrated over
+t in [1, 2], replaying the forward's regime draws, the batch mean of the L2
+norm of the difference reduced in f32.  GPipe over a mesh (``pipeline``)
+is ROADMAP A21.
 """
 from __future__ import annotations
 
@@ -45,9 +62,11 @@ from ..ops.conv3x3 import conv3x3_same
 from ..ops.ode_block import ode_block_rk2_forward
 from ..ops.regimes import SolverOptions, meta_integrate
 from . import nn as fnn
-from .nn import NormDef, ParamNormDef, make_norm_def, make_param_norm_def
+from .nn import (NormDef, ParamNormDef, batch_norm, make_norm_def,
+                 make_param_norm_def)
 
 Params = Dict[str, Any]
+State = Dict[str, Any]
 
 __all__ = ["CifarConfig", "init_cifar", "apply_cifar", "MODEL_REGISTRY"]
 
@@ -57,13 +76,15 @@ class CifarConfig:
     """Architecture configuration (slot order: resblock, odeblock, bn1)."""
 
     num_blocks: Tuple[Tuple[int, int], ...] = ((1, 1), (1, 1))
-    block_type: str = "prebasic"
+    block_type: str = "prebasic"  # 'basic' | 'prebasic'
     num_classes: int = 10
     in_planes: int = 64
     norms: Tuple[str, str, str] = ("NF", "NF", "NF")
     num_gn_groups: int = 32
     param_norms: Tuple[str, str, str] = ("PNF", "PNF", "PNF")
     acts: Tuple[str, str, str] = ("GeLU", "GeLU", "GeLU")
+    faithful_preact_bug: bool = True
+    is_odenet: bool = True
 
     def norm_def(self, slot: int) -> NormDef:
         return make_norm_def(self.norms[slot], self.num_gn_groups)
@@ -71,26 +92,43 @@ class CifarConfig:
     def pn_def(self, slot: int) -> ParamNormDef:
         return make_param_norm_def(self.param_norms[slot])
 
-    def act(self, slot: int):
-        return fnn.get_activation(self.acts[slot])
 
-
-def _check_ported(cfg: CifarConfig) -> None:
-    if cfg.block_type != "prebasic":
-        raise NotImplementedError(
-            f"block_type {cfg.block_type!r} is not ported yet (ROADMAP A11)")
-    for slot in range(3):  # raise early on a norm kind not ported yet
+def _check_cfg(cfg: CifarConfig) -> None:
+    """Raise early on an unknown block type or registry name."""
+    if cfg.block_type not in ("basic", "prebasic"):
+        raise ValueError(f"unknown block_type {cfg.block_type!r}")
+    for slot in range(3):
         cfg.norm_def(slot)
         cfg.pn_def(slot)
-        cfg.act(slot)
+        fnn.get_activation(cfg.acts[slot])
+
+
+def _put(p: Params, s: State, name: str, pair) -> None:
+    """Store a layer's (params, state) under ``name``, leaving out None."""
+    if pair[0] is not None:
+        p[name] = pair[0]
+    if pair[1] is not None:
+        s[name] = pair[1]
+
+
+def _get(p, name: str):
+    """A layer's params, or None where the layer has none (``p`` a dict or
+    the model's ``ModuleDict``)."""
+    return p[name] if name in p else None
+
+
+def _set(s: State, name: str, value) -> None:
+    if value is not None:
+        s[name] = value
 
 
 # ------------------------------------------------------- param-norm convs --
 
 
-def _pn_conv_init(gen: torch.Generator, in_ch: int, out_ch: int, k: int
-                  ) -> Params:
-    return fnn.conv2d_init(gen, in_ch, out_ch, k, use_bias=False)
+def _pn_conv_init(gen: torch.Generator, pn: ParamNormDef, in_ch: int,
+                  out_ch: int, k: int):
+    return pn.wrap_init(gen, fnn.conv2d_init(gen, in_ch, out_ch, k,
+                                             use_bias=False))
 
 
 def _conv(p_eff: Params, x: torch.Tensor, stride: int, padding: int,
@@ -104,70 +142,167 @@ def _conv(p_eff: Params, x: torch.Tensor, stride: int, padding: int,
     return fnn.conv2d(p_eff, x, stride=stride, padding=padding)
 
 
-def _pn_conv(pn: ParamNormDef, params: Params, x: torch.Tensor, stride: int,
-             padding: int, use_kernels: bool) -> torch.Tensor:
-    return _conv(pn.materialize(params), x, stride, padding, use_kernels)
+def _pn_conv(pn: ParamNormDef, params: Params, st, x: torch.Tensor,
+             stride: int, padding: int, train: bool, use_kernels: bool):
+    p_eff, st = pn.materialize(params, st, train)
+    return _conv(p_eff, x, stride, padding, use_kernels), st
 
 
 # ------------------------------------------------------------- res blocks --
 
 
-def _pre_block_init(gen, in_planes, planes, stride) -> Params:
-    p: Params = {
-        "conv1": _pn_conv_init(gen, in_planes, planes, 3),
-        "conv2": _pn_conv_init(gen, planes, planes, 3),
-    }
+def _basic_block_init(gen, cfg, in_planes, planes, stride):
+    nd, pnd = cfg.norm_def(0), cfg.pn_def(0)
+    p: Params = {}
+    s: State = {}
+    _put(p, s, "conv1", _pn_conv_init(gen, pnd, in_planes, planes, 3))
+    _put(p, s, "bn1", nd.init(planes))
+    _put(p, s, "conv2", _pn_conv_init(gen, pnd, planes, planes, 3))
+    _put(p, s, "bn2", nd.init(planes))
     if stride != 1 or in_planes != planes:
-        p["sc_conv"] = _pn_conv_init(gen, in_planes, planes, 1)
-    return p
+        _put(p, s, "sc_conv", _pn_conv_init(gen, pnd, in_planes, planes, 1))
+        _put(p, s, "sc_bn", nd.init(planes))
+    return p, s
 
 
-def _pre_block_apply(cfg, p, x, stride, use_kernels):
-    """PreBasicBlock (layers.py:77-81): pre-activation residual block."""
-    nd, pnd, act = cfg.norm_def(0), cfg.pn_def(0), cfg.act(0)
-    out = act(nd.apply(x))
-    out = _pn_conv(pnd, p["conv1"], out, stride, 1, use_kernels)
-    out = act(nd.apply(out))
-    out = _pn_conv(pnd, p["conv2"], out, 1, 1, use_kernels)
+def _basic_block_apply(cfg, p, s, x, stride, train, use_kernels):
+    """BasicBlock (layers.py:46-51): post-activation residual block; the
+    shortcut conv has its own norm."""
+    nd, pnd, act = cfg.norm_def(0), cfg.pn_def(0), cfg.acts[0]
+    s = dict(s)
+    out, st = _pn_conv(pnd, p["conv1"], s.get("conv1"), x, stride, 1, train,
+                       use_kernels)
+    _set(s, "conv1", st)
+    out, st = nd.apply(_get(p, "bn1"), s.get("bn1"), out, train, act,
+                       use_kernels)
+    _set(s, "bn1", st)
+    out, st = _pn_conv(pnd, p["conv2"], s.get("conv2"), out, 1, 1, train,
+                       use_kernels)
+    _set(s, "conv2", st)
+    out, st = nd.apply(_get(p, "bn2"), s.get("bn2"), out, train, None,
+                       use_kernels)
+    _set(s, "bn2", st)
     shortcut = x
     if "sc_conv" in p:
-        shortcut = _pn_conv(pnd, p["sc_conv"], x, stride, 0, use_kernels)
-    return out + shortcut
+        shortcut, st = _pn_conv(pnd, p["sc_conv"], s.get("sc_conv"), x,
+                                stride, 0, train, use_kernels)
+        _set(s, "sc_conv", st)
+        shortcut, st = nd.apply(_get(p, "sc_bn"), s.get("sc_bn"), shortcut,
+                                train, None, use_kernels)
+        _set(s, "sc_bn", st)
+    return fnn.get_activation(act)(out + shortcut), s
+
+
+def _pre_block_init(gen, cfg, in_planes, planes, stride):
+    nd, pnd = cfg.norm_def(0), cfg.pn_def(0)
+    p: Params = {}
+    s: State = {}
+    _put(p, s, "bn1", nd.init(in_planes))
+    _put(p, s, "conv1", _pn_conv_init(gen, pnd, in_planes, planes, 3))
+    _put(p, s, "bn2", nd.init(planes))
+    _put(p, s, "conv2", _pn_conv_init(gen, pnd, planes, planes, 3))
+    if stride != 1 or in_planes != planes:
+        _put(p, s, "sc_conv", _pn_conv_init(gen, pnd, in_planes, planes, 1))
+    return p, s
+
+
+def _pre_block_apply(cfg, p, s, x, stride, train, use_kernels):
+    """PreBasicBlock (layers.py:77-81): pre-activation residual block."""
+    nd, pnd, act = cfg.norm_def(0), cfg.pn_def(0), cfg.acts[0]
+    s = dict(s)
+    out, st = nd.apply(_get(p, "bn1"), s.get("bn1"), x, train, act,
+                       use_kernels)
+    _set(s, "bn1", st)
+    out, st = _pn_conv(pnd, p["conv1"], s.get("conv1"), out, stride, 1,
+                       train, use_kernels)
+    _set(s, "conv1", st)
+    out, st = nd.apply(_get(p, "bn2"), s.get("bn2"), out, train, act,
+                       use_kernels)
+    _set(s, "bn2", st)
+    out, st = _pn_conv(pnd, p["conv2"], s.get("conv2"), out, 1, 1, train,
+                       use_kernels)
+    _set(s, "conv2", st)
+    shortcut = x
+    if "sc_conv" in p:
+        shortcut, st = _pn_conv(pnd, p["sc_conv"], s.get("sc_conv"), x,
+                                stride, 0, train, use_kernels)
+        _set(s, "sc_conv", st)
+    return out + shortcut, s
+
+
+def _resblock_init(gen, cfg, in_planes, planes, stride):
+    if cfg.block_type == "basic":
+        return _basic_block_init(gen, cfg, in_planes, planes, stride)
+    return _pre_block_init(gen, cfg, in_planes, planes, stride)
+
+
+def _resblock_apply(cfg, p, s, x, stride, train, use_kernels):
+    if cfg.block_type == "basic":
+        return _basic_block_apply(cfg, p, s, x, stride, train, use_kernels)
+    return _pre_block_apply(cfg, p, s, x, stride, train, use_kernels)
 
 
 # --------------------------------------------------------------- ODE RHS --
 
 
-def _odefunc_init(gen, dim) -> Params:
-    return {"conv1": _pn_conv_init(gen, dim, dim, 3),
-            "conv2": _pn_conv_init(gen, dim, dim, 3)}
+def _odefunc_init(gen, cfg, dim):
+    nd, pnd = cfg.norm_def(1), cfg.pn_def(1)
+    p: Params = {}
+    s: State = {}
+    _put(p, s, "conv1", _pn_conv_init(gen, pnd, dim, dim, 3))
+    _put(p, s, "bn1", nd.init(dim))
+    _put(p, s, "conv2", _pn_conv_init(gen, pnd, dim, dim, 3))
+    _put(p, s, "bn2", nd.init(dim))
+    return p, s
 
 
-def _materialize_odefunc(cfg, p):
-    """Apply the param-norm once per solve."""
+def _rhs_norm(nd: NormDef, params, x, act, use_kernels):
+    """A norm (then ``act``) inside the RHS, stateless: BN normalizes with
+    the batch's statistics."""
+    if nd.kind == "BN":
+        return fnn.get_activation(act)(batch_norm(params, None, x, True)[0])
+    return nd.apply(params, None, x, False, act, use_kernels)[0]
+
+
+def _materialize_odefunc(cfg, p, s, train):
+    """Apply the param-norm once per solve: the effective RHS params and
+    the block's new state."""
     pnd = cfg.pn_def(1)
-    return {"conv1": pnd.materialize(p["conv1"]),
-            "conv2": pnd.materialize(p["conv2"])}
+    s = dict(s)
+    c1, st = pnd.materialize(p["conv1"], s.get("conv1"), train)
+    _set(s, "conv1", st)
+    c2, st = pnd.materialize(p["conv2"], s.get("conv2"), train)
+    _set(s, "conv2", st)
+    return {**p, "conv1": c1, "conv2": c2}, s
 
 
 def _odefunc_apply(cfg, p_eff, t, x, use_kernels=False, ss_abs=False):
-    """PreBasicBlock2 RHS (layers.py:148-161); t is unused (autonomous).
-    Its two convs go to kernel B1 when ``use_kernels``; ``ss_abs`` returns
-    |RHS| (the ss-loss's ``ss_loss_abs``)."""
+    """The RHS (t is unused: BasicBlock2 and PreBasicBlock2 are
+    autonomous); ``ss_abs`` returns |RHS| (the ss-loss's
+    ``ss_loss_abs``)."""
     del t
-    nd, act = cfg.norm_def(1), cfg.act(1)
-    out = act(nd.apply(x))
-    out = _conv(p_eff["conv1"], out, 1, 1, use_kernels)
-    out = act(nd.apply(out))
-    out = _conv(p_eff["conv2"], out, 1, 1, use_kernels)
+    nd, act = cfg.norm_def(1), cfg.acts[1]
+    if cfg.block_type == "basic":  # BasicBlock2 (layers.py:108-121)
+        out = _conv(p_eff["conv1"], x, 1, 1, use_kernels)
+        out = _rhs_norm(nd, _get(p_eff, "bn1"), out, act, use_kernels)
+        out = _conv(p_eff["conv2"], out, 1, 1, use_kernels)
+        out = _rhs_norm(nd, _get(p_eff, "bn2"), out, act, use_kernels)
+    else:  # PreBasicBlock2 (layers.py:148-161)
+        out = _rhs_norm(nd, _get(p_eff, "bn1"), x, act, use_kernels)
+        out = _conv(p_eff["conv1"], out, 1, 1, use_kernels)
+        out = _rhs_norm(nd, _get(p_eff, "bn2"), out, act, use_kernels)
+        out = _conv(p_eff["conv2"], out, 1, 1, use_kernels)
     return out.abs() if ss_abs else out
 
 
 def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
                   ) -> Optional[float]:
     """The clamped u~ when an ODE block of this config goes to kernel B2,
-    else None."""
-    if (cfg.norms[1], cfg.param_norms[1], cfg.acts[1]) != ("NF", "PNF", "GeLU"):
+    else None.  B2 computes conv2(gelu(conv1(gelu(y)))): the prebasic RHS
+    with NF, PNF and the exact GeLU, and no other."""
+    if cfg.block_type != "prebasic" or (
+            cfg.norms[1], cfg.param_norms[1], cfg.acts[1]) != (
+                "NF", "PNF", "GeLU"):
         return None
     if options.solver_mode != "standalone" or len(solvers) != 1:
         return None
@@ -184,36 +319,45 @@ def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
 # -------------------------------------------------------------- MetaLayer --
 
 
-def _meta_layer_init(gen, planes, num_blocks, stride, in_planes):
+def _meta_layer_init(gen, cfg, planes, num_blocks, stride, in_planes):
     num_res, num_ode = num_blocks
     strides = [stride] + [1] * (num_res + num_ode - 1)
     p: Params = {"res": [], "ode": []}
+    s: State = {"res": [], "ode": []}
     cur = in_planes
     for st in strides[:num_res]:
-        p["res"].append(_pre_block_init(gen, cur, planes, st))
+        bp, bs = _resblock_init(gen, cfg, cur, planes, st)
+        p["res"].append(bp)
+        s["res"].append(bs)
         cur = planes
     for _ in range(num_ode):
-        p["ode"].append(_odefunc_init(gen, cur))
-    return p, cur
+        bp, bs = _odefunc_init(gen, cfg, cur)
+        p["ode"].append(bp)
+        s["ode"].append(bs)
+    return p, s, cur
 
 
 def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
     return torch.is_grad_enabled() and (
-        x.requires_grad
-        or any(p["kernel"].requires_grad for p in p_eff.values()))
+        x.requires_grad or any(t.requires_grad for p in p_eff.values()
+                               for t in p.values()))
 
 
-def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
-                      remat=False, generator=None, ss_loss=False,
-                      ss_loss_abs=False):
-    """The layer's output and its ss-loss (0 without ``ss_loss``)."""
+def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
+                      use_kernels, remat=False, generator=None,
+                      ss_loss=False, ss_loss_abs=False):
+    """The layer's output, new state and ss-loss (0 without
+    ``ss_loss``)."""
+    s = {k: list(s.get(k) or [{}] * len(p[k])) for k in ("res", "ode")}
     for i, bp in enumerate(p["res"]):
-        x = _pre_block_apply(cfg, bp, x, strides[i], use_kernels)
+        x, s["res"][i] = _resblock_apply(cfg, bp, s["res"][i], x,
+                                         strides[i], train, use_kernels)
     ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
     u_k = (_ode_kernel_u(cfg, solvers, options)
            if use_kernels and not ss_loss else None)
-    for bp in p["ode"]:
-        p_eff = _materialize_odefunc(cfg, bp)
+    for i, bp in enumerate(p["ode"]):
+        p_eff, s["ode"][i] = _materialize_odefunc(cfg, bp, s["ode"][i],
+                                                  train)
         if u_k is not None and not _grad_can_flow(x, p_eff):  # kernel B2
             x = ode_block_rk2_forward(
                 x, p_eff["conv1"]["kernel"].to(x.dtype),
@@ -234,28 +378,41 @@ def _meta_layer_apply(cfg, p, x, strides, solvers, options, use_kernels,
             diff = (z - x).reshape(x.shape[0], -1).float()
             ss_total = ss_total + torch.linalg.vector_norm(
                 diff, dim=1).mean().to(ss_total.dtype)
-    return x, ss_total
+    return x, s, ss_total
 
 
 # ----------------------------------------------------------------- model --
 
 
-def init_cifar(cfg: CifarConfig, generator: torch.Generator) -> Params:
-    """Parameters as nested dicts/lists of tensors, with the JAX tree's
-    names and layouts (its None norm leaves left out)."""
-    _check_ported(cfg)
-    p: Params = {"conv1": _pn_conv_init(generator, 3, cfg.in_planes, 3)}
+def _preact(cfg: CifarConfig) -> bool:
+    return cfg.block_type == "prebasic" and not cfg.faithful_preact_bug
+
+
+def init_cifar(cfg: CifarConfig, generator: torch.Generator
+               ) -> Tuple[Params, State]:
+    """``(params, state)``: nested dicts/lists of tensors with the JAX
+    trees' names and layouts, their None leaves left out."""
+    _check_cfg(cfg)
+    p: Params = {}
+    s: State = {}
+    _put(p, s, "conv1", _pn_conv_init(generator, cfg.pn_def(2), 3,
+                                      cfg.in_planes, 3))
+    # the pre-activation order runs bn1 on the final feature map
+    bn1_ch = (cfg.in_planes * 2 ** max(len(cfg.num_blocks) - 1, 0)
+              if _preact(cfg) else cfg.in_planes)
+    _put(p, s, "bn1", cfg.norm_def(2).init(bn1_ch))
     in_planes = cfg.in_planes
     n_features = cfg.in_planes
     for li in range(len(cfg.num_blocks)):
         planes = cfg.in_planes * (2 ** li)
         stride = 1 if li == 0 else 2
-        p[f"layer{li + 1}"], in_planes = _meta_layer_init(
-            generator, planes, cfg.num_blocks[li], stride, in_planes)
+        lp, ls, in_planes = _meta_layer_init(
+            generator, cfg, planes, cfg.num_blocks[li], stride, in_planes)
+        p[f"layer{li + 1}"], s[f"layer{li + 1}"] = lp, ls
         if li >= 1:
             n_features *= 2
     p["fc"] = fnn.linear_init(generator, n_features, cfg.num_classes)
-    return p
+    return p, s
 
 
 def _layer_strides(cfg: CifarConfig, li: int) -> List[int]:
@@ -271,6 +428,7 @@ def apply_cifar(
     solver_options: SolverOptions = SolverOptions(),
     *,
     cfg: CifarConfig = CifarConfig(),
+    state: Optional[State] = None,
     use_kernels: bool = True,
     train: bool = False,
     remat: bool = False,
@@ -278,56 +436,86 @@ def apply_cifar(
     ss_loss: bool = False,
     ss_loss_abs: bool = False,
     return_aux: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
     """Forward of NHWC ``x``; returns the logits in x's dtype, and with
-    ``return_aux`` also ``{"ss_loss": ...}`` (a 0-dim tensor in x's dtype,
-    0 unless ``ss_loss``).  ``train`` selects train mode, the same function
-    for the ported NF/PNF norms (as in JAX, where train mode only changes
-    BN/SN, ROADMAP A11); ``remat`` checkpoints each RK step of the generic
-    ODE-block path; ``generator`` (a CPU generator) serves the switch and
-    ensemble draws."""
-    del train
-    _check_ported(cfg)
+    ``return_aux`` also ``{"ss_loss": ..., "model_state": ...}`` (the
+    ss-loss a 0-dim tensor in x's dtype, 0 unless ``ss_loss``; the new
+    state, ``state`` itself in eval mode).  ``state`` is the model state
+    tree (None: the config has none).  ``train`` selects train mode (BN's
+    batch statistics, SN's power iteration); ``remat`` checkpoints each RK
+    step of the generic ODE-block path; ``generator`` (a CPU generator)
+    serves the switch and ensemble draws."""
+    _check_cfg(cfg)
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
         raise ValueError("this config integrates ODE blocks: pass "
                          "solvers=[create_solver('rk2', 'u', n_steps=8)]")
-    nd_bn1, pnd_bn1, act_bn1 = cfg.norm_def(2), cfg.pn_def(2), cfg.act(2)
+    state = {} if state is None else state
+    new_state: State = dict(state)
+    nd_bn1, pnd_bn1, act_bn1 = cfg.norm_def(2), cfg.pn_def(2), cfg.acts[2]
+    preact = _preact(cfg)
 
-    out = _pn_conv(pnd_bn1, params["conv1"], x, 1, 1, use_kernels)
-    out = act_bn1(nd_bn1.apply(out))
+    out, st = _pn_conv(pnd_bn1, params["conv1"], state.get("conv1"), x, 1,
+                       1, train, use_kernels)
+    _set(new_state, "conv1", st)
+    if not preact:
+        out, st = nd_bn1.apply(_get(params, "bn1"), state.get("bn1"), out,
+                               train, act_bn1, use_kernels)
+        _set(new_state, "bn1", st)
     ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
     for li in range(len(cfg.num_blocks)):
-        out, ss = _meta_layer_apply(
-            cfg, params[f"layer{li + 1}"], out, _layer_strides(cfg, li),
-            solvers, solver_options, use_kernels, remat, generator,
+        name = f"layer{li + 1}"
+        out, new_state[name], ss = _meta_layer_apply(
+            cfg, params[name], state.get(name, {}), out,
+            _layer_strides(cfg, li),
+            solvers, solver_options, train, use_kernels, remat, generator,
             ss_loss, ss_loss_abs,
         )
         ss_total = ss_total + ss
+    if preact:
+        out, st = nd_bn1.apply(_get(params, "bn1"), state.get("bn1"), out,
+                               train, act_bn1, use_kernels)
+        _set(new_state, "bn1", st)
     logits = fnn.linear(params["fc"], fnn.global_avg_pool(out))
-    return (logits, {"ss_loss": ss_total}) if return_aux else logits
+    if return_aux:
+        return logits, {"ss_loss": ss_total, "model_state": new_state}
+    return logits
 
 
 # ------------------------------------------------------------- registry --
 
 
-def _make_ctor(ode_blocks):
-    def ctor(**kw) -> CifarConfig:
+def _make_ctor(block_type, ode_blocks, res_blocks):
+    def ctor(is_odenet: bool = True, **kw) -> CifarConfig:
         # an explicit num_blocks override replaces the registry counts
-        nb = kw.pop("num_blocks", ode_blocks)
+        nb = kw.pop("num_blocks", None)
+        if nb is None:
+            nb = ode_blocks if is_odenet else res_blocks
         return CifarConfig(num_blocks=tuple(tuple(b) for b in nb),
-                           block_type="prebasic", **kw)
+                           block_type=block_type, is_odenet=is_odenet, **kw)
 
     return ctor
 
 
-# (res, ode) per stage of the ODE nets — odenet_cifar10/layers.py:429-556
-premetanode4 = _make_ctor([(0, 1)])
-premetanode6 = _make_ctor([(1, 1)])
-premetanode10 = _make_ctor([(1, 1), (1, 1)])
-premetanode18 = _make_ctor([(1, 1)] * 4)
-premetanode34 = _make_ctor([(1, 2), (1, 3), (1, 5), (1, 2)])
+# (res, ode) per stage — odenet_cifar10/layers.py:429-556
+_ODE34 = [(1, 2), (1, 3), (1, 5), (1, 2)]
+_RES34 = [(3, 0), (4, 0), (6, 0), (3, 0)]
+metanode4 = _make_ctor("basic", [(0, 1)], [(1, 0)])
+metanode6 = _make_ctor("basic", [(1, 1)], [(2, 0)])
+metanode10 = _make_ctor("basic", [(1, 1)] * 2, [(2, 0)] * 2)
+metanode18 = _make_ctor("basic", [(1, 1)] * 4, [(2, 0)] * 4)
+metanode34 = _make_ctor("basic", _ODE34, _RES34)
+premetanode4 = _make_ctor("prebasic", [(0, 1)], [(1, 0)])
+premetanode6 = _make_ctor("prebasic", [(1, 1)], [(2, 0)])
+premetanode10 = _make_ctor("prebasic", [(1, 1)] * 2, [(2, 0)] * 2)
+premetanode18 = _make_ctor("prebasic", [(1, 1)] * 4, [(2, 0)] * 4)
+premetanode34 = _make_ctor("prebasic", _ODE34, _RES34)
 
 MODEL_REGISTRY = {
+    "metanode4": metanode4,
+    "metanode6": metanode6,
+    "metanode10": metanode10,
+    "metanode18": metanode18,
+    "metanode34": metanode34,
     "premetanode4": premetanode4,
     "premetanode6": premetanode6,
     "premetanode10": premetanode10,

@@ -229,12 +229,15 @@ def apply_mnist(
     integration_method: str = "backprop",
     return_aux: bool = False,
     generator: Optional[torch.Generator] = None,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    state: Optional[Dict[str, Any]] = None,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
     """Forward of NHWC ``x``; returns the logits in x's dtype, and with
-    ``return_aux`` also ``{"ss_loss": ...}`` (a 0-dim tensor in x's
-    dtype).  ``generator`` (a CPU generator) serves the switch and
-    ensemble regimes one draw per ODE block."""
-    del train, unroll
+    ``return_aux`` also ``{"ss_loss": ..., "model_state": {}}`` (the
+    ss-loss a 0-dim tensor in x's dtype; the net keeps no model state, so
+    ``state`` is ignored, as JAX's adapter threads an empty one).
+    ``generator`` (a CPU generator) serves the switch and ensemble regimes
+    one draw per ODE block."""
+    del train, unroll, state
     _check_cfg(cfg)
     if integration_method == "adjoint":
         raise NotImplementedError(
@@ -269,4 +272,6 @@ def apply_mnist(
     h = params["head"]
     x = _gn_act(h["norm"], x, "relu", use_kernels)
     logits = fnn.linear(h["fc"], fnn.global_avg_pool(x))
-    return (logits, {"ss_loss": ss_total}) if return_aux else logits
+    if return_aux:
+        return logits, {"ss_loss": ss_total, "model_state": {}}
+    return logits

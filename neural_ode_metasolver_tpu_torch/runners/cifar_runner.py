@@ -8,11 +8,18 @@ Flagship reproduction, on the card:
       --noise_sigma 0.0125 --noise_prob 1.0 --nepochs 36 \
       --precision bf16 --data_root /path/to/cifar  # or omit: synthetic
 
+A GroupNorm net, and a BatchNorm + spectral-norm net with the
+orthogonal init (the model state, BN's running statistics and SN's
+vectors, is checkpointed with the step and restored by ``--resume``):
+  ... --network metanode10 --normalization_resblock GN \
+      --normalization_odeblock GN --normalization_bn1 GN --num_gn_groups 32
+  ... --network premetanode10 --normalization_resblock BN \
+      --normalization_bn1 BN --param_normalization_resblock SN \
+      --param_normalization_odeblock SN --init orthogonal
+
 ``--device cpu`` runs the plain PyTorch versions on the CPU; without a card
 and without it the run raises.  The flags are the JAX runner's; those the
-port does not run raise: the ``metanode*`` networks, BN/GN/LN/IN norms,
-SN/WN param norms, ``--is_odenet False`` and ``--init`` (ROADMAP A11), and
-those of ``runners/common.py``.
+port does not run raise (``runners/common.py::check_unported_flags``).
 """
 from __future__ import annotations
 
@@ -81,8 +88,8 @@ def build_parser():
     p.add_argument("--activation_bn1", type=str, default="GeLU",
                    choices=ACTIVATIONS)
     p.add_argument("--init", type=str, default=None,
-                   help="None or 'orthogonal' (ROADMAP A11: a scheme "
-                        "raises)")
+                   help="None, 'orthogonal' or 'xavier': re-initialize the "
+                        "conv (and, orthogonal, the linear) kernels")
     # solver / regime (train_and_attack.py:48-79)
     p.add_argument("--solvers", type=str, default="rk2,u,8,-1,0.5,-1")
     p.add_argument("--solver_mode", type=str, default="standalone",
@@ -207,35 +214,17 @@ def parse_args(argv=None):
     return build_parser().parse_args(argv)
 
 
-def check_ported_model(margs: dict) -> None:
-    """Raise (ROADMAP A11) on a CIFAR architecture the port does not
-    build, from the runner args or a checkpoint's saved args."""
-    def a11(what):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP A11)")
-
-    if not margs.get("network", "premetanode10").startswith("premetanode"):
-        a11(f"--network {margs['network']} (the basic-block family)")
-    if not margs.get("is_odenet", True):
-        a11("--is_odenet False (the ResNet block counts)")
-    for slot in ("resblock", "odeblock", "bn1"):
-        if margs.get(f"normalization_{slot}", "NF") != "NF":
-            a11(f"--normalization_{slot} {margs[f'normalization_{slot}']}")
-        if margs.get(f"param_normalization_{slot}", "PNF") != "PNF":
-            a11(f"--param_normalization_{slot} "
-                f"{margs[f'param_normalization_{slot}']}")
-    if margs.get("init"):
-        a11(f"--init {margs['init']}")
-
-
 def build_cifar_model(margs: dict, device, seed: int = 0):
-    """The CIFAR model of the runner args (or a sidecar's saved args)."""
-    check_ported_model(margs)
+    """The CIFAR model of the runner args (or a sidecar's saved args),
+    its weights drawn from ``seed`` and re-initialized by ``--init``."""
     nb_override = {}
     if margs.get("num_blocks"):
         nb_override["num_blocks"] = parse_num_blocks(margs["num_blocks"])
     return build_model(
         margs.get("network", "premetanode10"), device=device,
         generator=torch.Generator().manual_seed(seed),
+        init_scheme=margs.get("init"),
+        is_odenet=margs.get("is_odenet", True),
         in_planes=margs.get("in_planes", 64),
         **nb_override,
         norms=(margs.get("normalization_resblock", "NF"),
@@ -256,7 +245,6 @@ def main(argv=None):
     TrainState."""
     args = parse_args(argv)
     check_unported_flags(args)
-    check_ported_model(vars(args))
     dev = resolve_device(args.device)
     fix_seeds(args.seed)
     logger = get_logger(os.path.join(args.save_dir, "logs"),

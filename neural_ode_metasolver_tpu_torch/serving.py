@@ -3,7 +3,8 @@
 ``ServedModel(model, solvers, solver_options, compute_dtype=None)`` is a
 callable that answers one request: a batch of NHWC images of any size in,
 f32 logits out, under ``torch.inference_mode()``, for either family (MNIST
-or CIFAR).  The default computes in f32, the dtype of the shipped MNIST
+or CIFAR), in eval mode: a CIFAR net with BN or SN reads its running
+statistics and SN vectors from the model's buffers and never writes them.  The default computes in f32, the dtype of the shipped MNIST
 artifact (``examples/checkpoints/mnist_digits_smoothing_served``), and in
 full f32: no TF32, whatever the process flags (``Model.forward``).  With
 ``compute_dtype=torch.bfloat16`` it is the port of the JAX

@@ -1,7 +1,8 @@
 """Checkpoint / resume (port of training/checkpoint.py).
 
 One checkpoint is ``base/step_%08d/{state, config.json}``: ``state`` holds
-the whole TrainState (step, params by name, optimizer state), written with
+the whole TrainState (step, params by name, optimizer state, the model
+state's buffers by name: BN running statistics, SN vectors), written with
 ``torch.save`` to a temporary name and then renamed, and that rename is the
 commit, as orbax's is, so ``latest_step`` counts only steps whose ``state``
 exists.  The sidecar is ``json.dump(config, indent=2, default=str)`` with
@@ -14,7 +15,8 @@ it returns (so the train step may update them in place right after) and
 writes on one background thread, in the order of the calls;
 ``wait_for_checkpoints()`` waits for every write.  ``restore_checkpoint``
 copies the saved values into a target state's tensors in place, on the
-target's devices (the model's own parameters, so the model sees them).
+target's devices (the model's own parameters and buffers, so the model
+sees them), bit for bit.
 """
 from __future__ import annotations
 
@@ -75,7 +77,8 @@ def save_checkpoint(
     step = int(ts.step)
     path = _ckpt_dir(base_dir, step)
     payload = {"step": step, "params": _to_host(ts.params),
-               "opt_state": _to_host(ts.opt_state)}
+               "opt_state": _to_host(ts.opt_state),
+               "model_state": _to_host(ts.model_state)}
     if config is not None:
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "config.json"), "w") as f:
@@ -144,23 +147,34 @@ def restore_checkpoint(base_dir: str, target: TrainState,
                        step: Optional[int] = None
                        ) -> Tuple[TrainState, Optional[dict]]:
     """Restore into ``target`` (a state of the same structure, e.g. a
-    fresh ``create_train_state``): its params and optimizer tensors get the
-    saved values in place.  Returns (state, config|None)."""
+    fresh ``create_train_state``): its params, model state and optimizer
+    tensors get the saved values in place.  Returns (state,
+    config|None)."""
     step = _step_or_latest(base_dir, step)
     path = _ckpt_dir(base_dir, step)
     saved = torch.load(os.path.join(path, "state"), map_location="cpu",
                        weights_only=True)
-    if set(saved["params"]) != set(target.params):
-        raise ValueError(f"checkpoint {path} holds parameters "
-                         f"{sorted(set(saved['params']) ^ set(target.params))}"
-                         " that the target does not, or the reverse")
-    with torch.no_grad():
-        for name, p in target.params.items():
-            if saved["params"][name].shape != p.shape:
-                raise ValueError(f"{name}: checkpoint shape "
-                                 f"{tuple(saved['params'][name].shape)}, "
-                                 f"target {tuple(p.shape)}")
-            p.copy_(saved["params"][name])
+    _copy_by_name(path, "parameters", saved["params"], target.params)
+    _copy_by_name(path, "model-state buffers", saved.get("model_state", {}),
+                  target.model_state)
     load_opt_state(target.opt_state, saved["opt_state"])
-    return (TrainState(int(saved["step"]), target.params, target.opt_state),
+    return (TrainState(int(saved["step"]), target.params, target.opt_state,
+                       target.model_state),
             load_checkpoint_config(base_dir, step))
+
+
+def _copy_by_name(path: str, what: str, saved: Dict[str, torch.Tensor],
+                  target: Dict[str, torch.Tensor]) -> None:
+    """Copy ``saved`` into ``target``'s tensors in place, by name; raise
+    where the names or shapes differ."""
+    if set(saved) != set(target):
+        raise ValueError(f"checkpoint {path} holds {what} "
+                         f"{sorted(set(saved) ^ set(target))} that the "
+                         "target does not, or the reverse")
+    with torch.no_grad():
+        for name, t in target.items():
+            if saved[name].shape != t.shape:
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(saved[name].shape)}, target "
+                                 f"{tuple(t.shape)}")
+            t.copy_(saved[name])

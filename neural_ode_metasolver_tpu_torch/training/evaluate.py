@@ -25,8 +25,10 @@ forward's regime draws come from a CPU generator seeded with its seed, so
 an attacked batch is evaluated under the draw its FGSM attacked, as in JAX.
 
 A member of an ensemble is ``(model, solvers, options)``: the port's models
-carry their own parameters.  Sharding the members over a mesh is ROADMAP
-A21.
+carry their own parameters and model state.  Every forward here runs in
+eval mode and reads the model's state (BN running statistics, SN vectors)
+from its buffers; nothing here writes it.  Sharding the members over a
+mesh is ROADMAP A21.
 """
 from __future__ import annotations
 

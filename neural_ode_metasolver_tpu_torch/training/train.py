@@ -50,7 +50,7 @@ compiler options have no counterpart.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -104,21 +104,27 @@ class LossConfig:
 @dataclass(frozen=True)
 class TrainState:
     """``params`` are the model's own f32 parameters by ``named_parameters``
-    name; the step updates them and the optimizer state in place and
-    returns the state with ``step`` advanced."""
+    name, ``model_state`` its buffers by ``named_buffers`` name (BN running
+    statistics, SN vectors; empty for a stateless net); the step updates
+    them and the optimizer state in place and returns the state with
+    ``step`` advanced."""
 
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: Any
+    model_state: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def create_train_state(model, optimizer: AnyOptimizer,
                        state_dict: Optional[Dict[str, torch.Tensor]] = None,
                        opt_state: Optional[dict] = None,
                        step: int = 0) -> TrainState:
-    """A state at ``step`` (default 0).  ``state_dict`` loads weights first,
-    e.g. ``mnist_params_from_jax(np_params)`` to start from a JAX
-    TrainState's params; ``opt_state`` resumes the optimizer, e.g.
+    """A state at ``step`` (default 0).  ``state_dict`` loads weights (and
+    the model state's buffers) first, e.g.
+    ``mnist_params_from_jax(np_params)`` to start from a JAX TrainState's
+    params, or ``{**cifar_params_from_jax(p), **cifar_state_from_jax(s)}``
+    for a CIFAR net with a model state; ``opt_state`` resumes the
+    optimizer, e.g.
     ``rmsprop_state_from_jax(np_opt_state, step)`` (its tensors are copied
     to the parameters' devices), else it starts fresh."""
     if state_dict is not None:
@@ -127,7 +133,8 @@ def create_train_state(model, optimizer: AnyOptimizer,
     fresh = optimizer.init(params)
     if opt_state is not None:
         load_opt_state(fresh, opt_state)
-    return TrainState(step=step, params=params, opt_state=fresh)
+    return TrainState(step=step, params=params, opt_state=fresh,
+                      model_state=dict(model.named_buffers()))
 
 
 def load_opt_state(target: dict, saved: dict) -> None:
@@ -193,22 +200,24 @@ def _run_attack(forward, attack_cfg: AttackConfig, x, y,
 def _model_forward(model, solver_options, use_kernels: bool,
                    compute_dtype: Optional[torch.dtype], remat: bool):
     """``forward(x, solvers, train, params=None, ss=None, generator=None)
-    -> (logits, ss)`` in f32: the input cast to ``compute_dtype`` at the
-    model's door; ``ss`` a LossConfig whose ss-loss the MNIST forward adds
-    (else 0); ``generator`` serves the regime draws."""
+    -> (logits, ss, new_state)`` in f32: the input cast to
+    ``compute_dtype`` at the model's door; ``ss`` a LossConfig whose
+    ss-loss the forward adds (else 0); ``generator`` serves the regime
+    draws; ``new_state`` the model state a train-mode forward returns (the
+    current one in eval mode), which the forward does not commit."""
 
     def forward(x, solvers_t, train, params=None, ss=None, generator=None):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
-        kw = dict(use_kernels=use_kernels, train=train, params=params,
-                  remat=remat, generator=generator)
-        if ss is not None and ss.ss_loss:
-            logits, aux = model(x, solvers_t, solver_options, ss_loss=True,
-                                ss_loss_abs=ss.ss_loss_abs, return_aux=True,
-                                **kw)
-            return logits.float(), aux["ss_loss"].float()
-        logits = model(x, solvers_t, solver_options, **kw)
-        return logits.float(), torch.zeros((), device=logits.device)
+        want_ss = ss is not None and ss.ss_loss
+        logits, aux = model(
+            x, solvers_t, solver_options, use_kernels=use_kernels,
+            train=train, params=params, remat=remat, generator=generator,
+            ss_loss=want_ss, ss_loss_abs=want_ss and ss.ss_loss_abs,
+            return_aux=True)
+        ss_val = (aux["ss_loss"].float() if want_ss
+                  else torch.zeros((), device=logits.device))
+        return logits.float(), ss_val, aux["model_state"]
 
     return forward
 
@@ -237,6 +246,10 @@ def make_train_step(model, optimizer: AnyOptimizer,
                     skip_nonfinite: bool = False,
                     use_kernels: bool = True):
     """Returns ``step(state, x, y, generator) -> (state, metrics)``.
+    The attack reads the model state in eval mode; the training pass runs
+    in train mode, and the model state it returns (BN running statistics,
+    SN vectors) is copied into the model's buffers with the update, after
+    the gradients, so remat's re-forwards and the attack never step it.
 
     x (B, H, W, C) f32 normalized images and y (B,) int64 labels on the
     model's device; metrics are 0-dim tensors there: loss, xentropy,
@@ -274,8 +287,9 @@ def make_train_step(model, optimizer: AnyOptimizer,
                     x_adv.shape, generator=g, dtype=x_adv.dtype,
                     device=x_adv.device)
             with record_function("nodems.train_pass"), torch.enable_grad():
-                logits, ss = forward(x_adv, solvers_t, True, ss=loss_cfg,
-                                     generator=_regime_generator(s_fwd))
+                logits, ss, new_state = forward(
+                    x_adv, solvers_t, True, ss=loss_cfg,
+                    generator=_regime_generator(s_fwd))
                 xent = attacks.cross_entropy(logits, y)
                 loss = xent
                 if loss_cfg.ss_loss:
@@ -289,14 +303,18 @@ def make_train_step(model, optimizer: AnyOptimizer,
                        "grad_norm": gnorm}
             ok = True
             if skip_nonfinite:
+                # a skipped step leaves params, optimizer and model state
                 ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
                 metrics["skipped_nonfinite"] = torch.tensor(
                     float(not ok), device=x.device)
             if ok:
                 with record_function("nodems.update"):
                     optimizer.update(state.params, grads, state.opt_state)
-        return TrainState(state.step + 1, state.params, state.opt_state), \
-            metrics
+                    # a skipped step keeps its BN/SN state too (JAX
+                    # train.py:307-316)
+                    model.commit_state(new_state)
+        return TrainState(state.step + 1, state.params, state.opt_state,
+                          state.model_state), metrics
 
     return step
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a train step's time goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_training.py [--model {flagship,mnist}]
-        [--trace-dir DIR] [batch ...]
+    python3 scripts/profile_torch_training.py
+        [--model {flagship,mnist,metanode10-gn}] [--trace-dir DIR]
+        [batch ...]
 
 ``flagship`` (the default) runs the train step of ``bench.py:94-113``
 (premetanode10, in_planes 64, GeLUpoly, RK2 u=0.5 8 steps with
@@ -13,6 +14,9 @@ normal images.  ``mnist`` runs the digits recipe of
 dim 64, RK2 u=0.5 8 steps with Normal(0.0125) smoothing, PGD eps 0.3, lr
 2/255, 7 iterations with a random start, RMSprop lr 1e-3, weight decay
 5e-4) in f32, batch 128 by default, on seeded uniform images in [0, 1].
+``metanode10-gn`` runs the flagship recipe on metanode10 (the basic-block
+family) with GroupNorm of 32 groups in every slot and the exact GELU,
+which kernel B3 fuses (``chip_smoke.py`` phase 18).
 Random weights from seed 0, seeded labels.  For each batch size, after a
 warm-up
 step, it times 5 steps without the profiler (host clock, median), then
@@ -96,9 +100,12 @@ def main(model_name, batches, trace_dir=None):
         batches = batches or [128]
     else:
         dtype, image = torch.bfloat16, (32, 32, 3)
-        model = build_model("premetanode10", in_planes=64,
-                            acts=("GeLUpoly",) * 3,
-                            generator=torch.Generator().manual_seed(0))
+        net = (dict(name="metanode10", norms=("GN",) * 3, num_gn_groups=32)
+               if model_name == "metanode10-gn" else
+               dict(name="premetanode10", acts=("GeLUpoly",) * 3))
+        model = build_model(net.pop("name"), in_planes=64,
+                            generator=torch.Generator().manual_seed(0),
+                            **net)
         opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186),
                              momentum=0.9, weight_decay=5e-4)
         step = make_train_step(
@@ -201,7 +208,8 @@ def main(model_name, batches, trace_dir=None):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "mnist"),
+    ap.add_argument("--model", choices=("flagship", "mnist",
+                                        "metanode10-gn"),
                     default="flagship")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("batches", nargs="*", type=int)

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from neural_ode_metasolver_tpu.models.api import build_model as j_build_model
+from neural_ode_metasolver_tpu.ops import SolverOptions as JSolverOptions
+from neural_ode_metasolver_tpu.ops import create_solver as j_create_solver
 from neural_ode_metasolver_tpu.training import (
     create_train_state as j_create_train_state,
     make_optimizer as j_make_optimizer,
+    restore_checkpoint as j_restore_checkpoint,
     save_checkpoint as j_save_checkpoint,
 )
 from neural_ode_metasolver_tpu.training import accuracy_tables as j_tables
@@ -24,10 +27,17 @@ from neural_ode_metasolver_tpu.training.logging import (
     MetricsLogger as JMetricsLogger,
 )
 from neural_ode_metasolver_tpu.utils import count_parameters as j_count
-from neural_ode_metasolver_tpu_torch.models import build_model
+from neural_ode_metasolver_tpu_torch.models import (
+    build_model,
+    cifar_params_from_jax,
+    cifar_state_from_jax,
+)
+from neural_ode_metasolver_tpu_torch.ops import create_solver
 from neural_ode_metasolver_tpu_torch.training import (
+    AttackConfig,
     MetricsLogger,
     create_train_state,
+    make_train_step,
     latest_step,
     load_accuracy_table,
     load_checkpoint_config,
@@ -107,6 +117,105 @@ def test_save_and_restore_bit_for_bit(tmp_path, block, opt):
     assert all(restored.params[k] is fresh.params[k] for k in fresh.params)
     assert cfg == json.loads(json.dumps(CONFIG, default=str))
     assert load_checkpoint_config(base) == cfg
+
+
+# a CIFAR net with a model state: BN running statistics and SN vectors
+STATEFUL = dict(in_planes=8, norms=("BN", "BN", "BN"),
+                param_norms=("SN", "SN", "PNF"))
+
+
+@pytest.mark.parametrize("block", [True, False])
+def test_model_state_round_trips_bit_for_bit(tmp_path, block):
+    """Two FGSM steps move BN's statistics and SN's vectors; the
+    checkpoint restores them into another model's buffers bit for bit, in
+    place, and the restored model's eval logits equal the trained one's."""
+    model = build_model("premetanode6", device="cpu", **STATEFUL)
+    opt = make_optimizer("sgd", 0.05, momentum=0.9)
+    state = create_train_state(model, opt)
+    start = {k: b.clone() for k, b in state.model_state.items()}
+    step = make_train_step(model, opt,
+                           [create_solver("rk2", "u", n_steps=1, u0=0.5)],
+                           attack_cfg=AttackConfig(mode="fgsm"))
+    g = torch.Generator().manual_seed(0)
+    for i in range(2):
+        state, _ = step(state, torch.rand(4, 32, 32, 3, generator=g),
+                        torch.tensor([0, 1, 2, 3]),
+                        torch.Generator().manual_seed(i))
+    assert {k for k in state.model_state} == {
+        k for k, _ in model.named_buffers()}
+    assert any(k.endswith("sn_u") for k in start)
+    for k, b in state.model_state.items():
+        # BN inside the ODE RHS normalizes with the batch's statistics and
+        # keeps its running ones at the init, as in JAX
+        rhs_bn = ".ode." in k and not k.endswith("sn_u")
+        assert torch.equal(b, start[k]) == rhs_bn, k
+    saved = {k: b.clone() for k, b in state.model_state.items()}
+    save_checkpoint(str(tmp_path / "last"), state, block=block)
+    with torch.no_grad():  # the async save copied before it returned
+        for b in state.model_state.values():
+            b.add_(1.0)
+    wait_for_checkpoints()
+    fresh = build_model("premetanode6", device="cpu",
+                        generator=torch.Generator().manual_seed(7),
+                        **STATEFUL)
+    target = create_train_state(fresh, opt)
+    restored, _ = restore_checkpoint(str(tmp_path / "last"), target)
+    assert restored.step == 2
+    for k, b in fresh.named_buffers():
+        assert restored.model_state[k] is b
+        assert torch.equal(b, saved[k]), k
+    with torch.no_grad():
+        for b, v in zip(state.model_state.values(), saved.values()):
+            b.copy_(v)
+    x = torch.rand(2, 32, 32, 3, generator=g)
+    solvers = [create_solver("rk2", "u", n_steps=1, u0=0.5)]
+    with torch.inference_mode():
+        assert torch.equal(fresh(x, solvers), model(x, solvers))
+
+
+def test_jax_checkpoint_with_model_state_resumes_in_port(tmp_path):
+    """A JAX checkpoint of a BN + SN net (its BN statistics moved off the
+    init) restored by JAX, carried across with ``cifar_params_from_jax``
+    and ``cifar_state_from_jax``: the port's eval logits match JAX's with
+    that state, and the port trains on from it."""
+    jmodel = j_build_model("metanode6", **STATEFUL)
+    tx = j_make_optimizer("sgd", 0.05, momentum=0.9)
+    jts = j_create_train_state(jmodel, tx, jax.random.key(3))
+    rs = np.random.RandomState(4)
+    moved = jax.tree_util.tree_map_with_path(
+        lambda p, a: (np.float32(rs.rand(*a.shape) + 0.5)
+                      if jax.tree_util.keystr(p).endswith("['var']")
+                      else np.float32(rs.randn(*a.shape) * 0.1)
+                      if jax.tree_util.keystr(p).endswith("['mean']")
+                      else a), jts.model_state)
+    jts = jts.replace(model_state=moved, step=jts.step + 5)
+    j_save_checkpoint(str(tmp_path / "jax"), jts)
+    jr, _ = j_restore_checkpoint(
+        str(tmp_path / "jax"), j_create_train_state(jmodel, tx,
+                                                    jax.random.key(0)))
+    to_np = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: np.asarray(a, np.float32), t)
+    x = np.random.RandomState(5).rand(2, 32, 32, 3).astype(np.float32)
+    jl, _, _ = jmodel.apply(jr.params, jr.model_state, x,
+                            [j_create_solver("rk2", "u", n_steps=1,
+                                             u0=np.float32(0.5))],
+                            JSolverOptions())
+    model = build_model("metanode6", device="cpu", **STATEFUL)
+    opt = make_optimizer("sgd", 0.05, momentum=0.9)
+    state = create_train_state(
+        model, opt, {**cifar_params_from_jax(to_np(jr.params)),
+                     **cifar_state_from_jax(to_np(jr.model_state))},
+        step=int(jr.step))
+    assert state.step == 5 and any(
+        k.endswith("sn_u") for k in state.model_state)
+    solvers = [create_solver("rk2", "u", n_steps=1, u0=0.5)]
+    with torch.inference_mode():
+        pl = model(torch.tensor(x), solvers)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=3e-4)
+    state, m = make_train_step(model, opt, solvers)(
+        state, torch.tensor(x), torch.tensor([1, 2]),
+        torch.Generator().manual_seed(0))
+    assert state.step == 6 and torch.isfinite(m["loss"])
 
 
 def test_latest_step_skips_an_uncommitted_step(tmp_path):

@@ -131,6 +131,15 @@ def _gn_bar(ref, dtype):
     ((1, 2, 2, 1056), 32, "relu"),   # C > 1024
     ((1, 2, 2, 1040), 8, None),      # cg 130
     ((1, 1, 2, 4096), 4096, None),   # 80 KB of group statistics: opt-in
+    # the CIFAR GN nets (metanode10, 32 groups): exact GELU fused, and the
+    # basic block's bn2 and shortcut norm without one; LN (one group) and
+    # IN (a group a channel)
+    ((8, 32, 32, 64), 32, "gelu"),
+    ((8, 32, 32, 64), 32, None),
+    ((8, 16, 16, 128), 32, "gelu"),  # cg 4: four bf16 channels, 8 bytes
+    ((8, 16, 16, 128), 32, None),
+    ((8, 32, 32, 64), 1, "gelu"),
+    ((8, 16, 16, 128), 128, None),
 ])
 def test_group_norm_kernel_matches_plain(dev, dtype, shape, groups, act):
     from neural_ode_metasolver_tpu_torch import (
@@ -479,6 +488,13 @@ GN_BWD_CASES = [
     ((2, 5, 5, 6), 3, "gelu"),         # one-element access
     ((1, 29, 31, 64), 32, "relu"),     # a ragged last slice of the cluster
     ((1, 48, 48, 128), 32, "relu"),    # too large for 8 blocks: re-read
+    # the CIFAR GN nets' shapes (see the forward's cases)
+    ((8, 32, 32, 64), 32, "gelu"),
+    ((8, 32, 32, 64), 32, None),
+    ((8, 16, 16, 128), 32, "gelu"),
+    ((8, 16, 16, 128), 32, None),
+    ((8, 32, 32, 64), 1, "gelu"),
+    ((8, 16, 16, 128), 128, None),
 ]
 
 
@@ -658,6 +674,68 @@ def test_train_step_kernel_path_matches_plain_path(dev, dtype):
              for uk in (True, False)]
     gmax = max(g.abs().max() for g in grads[1])
     assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-4 * gmax
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cifar_gn_train_step_kernel_path_matches_plain_path(dev, dtype):
+    """One metanode10-GN step (in_planes 64, 32 groups, exact GELU fused
+    into B3; FGSM-random; batch 4) and one BN+SN step, kernel path against
+    plain path from one state and model state: loss within 2e-2 and grad
+    norm within 5e-2 relative (f32: 1e-4 and 1e-3), the exact launches (a
+    pass: B1 68, B3 70; the attack's backward dx only), and the model
+    state the two paths commit within the same bars."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    attack = AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255)
+    x = _randn((4, 32, 32, 3), 1.0, 9, dev, torch.float32)
+    y = torch.arange(4, device=dev)
+    loss_bar, norm_bar = ((1e-4, 1e-3) if dtype == torch.float32
+                          else (2e-2, 5e-2))
+    for kw, gn in ((dict(norms=("GN",) * 3), True),
+                   (dict(norms=("BN", "NF", "BN"),
+                         param_norms=("SN", "SN", "PNF")), False)):
+        model = build_model("metanode10", in_planes=64,
+                            generator=torch.Generator().manual_seed(0), **kw)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        out = {}
+        for use_kernels in (True, False):
+            model.load_state_dict(sd)
+            opt = make_optimizer("sgd", 0.05, momentum=0.9)
+            state = create_train_state(model, opt)
+            step = make_train_step(model, opt, solvers, attack_cfg=attack,
+                                   compute_dtype=dtype,
+                                   use_kernels=use_kernels)
+            reset_launch_counts()
+            _, m = step(state, x, y, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            out[use_kernels] = (m["loss"].item(), m["grad_norm"].item(),
+                                launch_counts(),
+                                {k: v.clone() for k, v in
+                                 state.model_state.items()})
+        (lk, nk, ck, sk), (lp, np_, cp, sp) = out[True], out[False]
+        b3 = ({"group_norm_act": 140, "group_norm_act_bwd": 140,
+               "group_norm_act_bwd_params": 70} if gn else {})
+        assert ck == {"conv3x3_same": 136, "conv3x3_dgrad": 135,
+                      "conv3x3_wgrad": 68, **b3}
+        assert cp == {}
+        assert abs(lk - lp) <= loss_bar * max(1.0, abs(lp))
+        assert abs(nk - np_) <= norm_bar * np_
+        assert set(sk) == set(sp) and (gn or sk)
+        for k in sk:
+            assert (sk[k] - sp[k]).abs().max() <= norm_bar * max(
+                1.0, sp[k].abs().max()), k
 
 
 def test_mnist_train_step_kernel_path_matches_plain_path(dev):

@@ -153,11 +153,17 @@ def test_build_model_params_match_jax_tree_and_init_bounds():
 
 
 def test_convert_rejects_norm_trees_and_wrong_widths():
+    """A norm tree converts (its scale and bias by name), and a model of
+    another architecture rejects it: a norm-free one, or another width."""
     _, params, _ = _jax_model(j_premetanode10, 8)
     np_params = jax.tree_util.tree_map(np.asarray, params)
-    bad = dict(np_params, bn1={"scale": np.ones(8, np.float32)})
-    with pytest.raises(ValueError, match="bn1"):
-        cifar_params_from_jax(bad)
+    normed = dict(np_params, bn1={"scale": np.ones(8, np.float32),
+                                  "bias": np.zeros(8, np.float32)})
+    sd = cifar_params_from_jax(normed)
+    assert torch.equal(sd["params.bn1.scale"], torch.ones(8))
+    with pytest.raises(RuntimeError, match="bn1"):
+        build_model("premetanode10", device="cpu",
+                    in_planes=8).load_state_dict(sd)
     model = build_model("premetanode10", device="cpu", in_planes=16)
     with pytest.raises(RuntimeError):
         model.load_state_dict(cifar_params_from_jax(np_params))
@@ -166,9 +172,11 @@ def test_convert_rejects_norm_trees_and_wrong_widths():
 def test_build_model_names():
     with pytest.raises(ValueError, match="unknown model"):
         build_model("bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model("metanode10", device="cpu")
     assert build_model("mnist", device="cpu", dim=8).input_shape == (
         28, 28, 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model("premetanode10", device="cpu", norms=("GN",) * 3)
+    for name in ("metanode10", "premetanode10"):
+        model = build_model(name, device="cpu", in_planes=8,
+                            norms=("GN",) * 3, num_gn_groups=4)
+        assert model.cfg.block_type == (
+            "basic" if name == "metanode10" else "prebasic")
+        assert "params.bn1.scale" in model.state_dict()

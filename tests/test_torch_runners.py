@@ -36,6 +36,7 @@ from neural_ode_metasolver_tpu.training import (
 from neural_ode_metasolver_tpu_torch.models import (
     build_model,
     cifar_params_from_jax,
+    cifar_state_from_jax,
     mnist_params_from_jax,
 )
 from neural_ode_metasolver_tpu_torch.runners import attacks_runner
@@ -78,13 +79,18 @@ def jax_initial_params(name, seed, **overrides):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def seed_port_run(save_dir, name, np_params, tx, **overrides):
-    """Write ``np_params`` (a JAX tree) as the port's ``last`` checkpoint at
+def seed_port_run(save_dir, name, np_params, tx, np_state=None,
+                  **overrides):
+    """Write ``np_params`` (a JAX tree), and ``np_state`` (a JAX CIFAR model
+    state, where the config has one), as the port's ``last`` checkpoint at
     step 0, with the optimizer state ``tx`` makes, for ``--resume``."""
     convert = mnist_params_from_jax if name == "mnist" else \
         cifar_params_from_jax
     model = build_model(name, device="cpu", **overrides)
-    model.load_state_dict(convert(np_params))
+    sd = convert(np_params)
+    if np_state is not None:
+        sd.update(cifar_state_from_jax(np_state))
+    model.load_state_dict(sd)
     save_checkpoint(os.path.join(save_dir, "last"),
                     create_train_state(model, tx))
 
@@ -236,15 +242,6 @@ _REFUSED = [
     (mnist_runner, ["--compiler_option", "a=b"], ValueError,
      "--compiler_option"),
     (mnist_runner, ["--download"], ValueError, "--data_root"),
-    (cifar_runner, ["--network", "metanode10"], NotImplementedError, "A11"),
-    (cifar_runner, ["--normalization_odeblock", "BN"], NotImplementedError,
-     "A11"),
-    (cifar_runner, ["--normalization_resblock", "GN"], NotImplementedError,
-     "A11"),
-    (cifar_runner, ["--param_normalization_bn1", "SN"], NotImplementedError,
-     "A11"),
-    (cifar_runner, ["--is_odenet", "False"], NotImplementedError, "A11"),
-    (cifar_runner, ["--init", "orthogonal"], NotImplementedError, "A11"),
     (cifar_runner, ["--pp_microbatches", "2"], NotImplementedError, "A21"),
     (cifar_runner, ["--mesh", "data=2,pp=2"], NotImplementedError, "A21"),
     (cifar_runner, ["--integration_method", "adjoint"], NotImplementedError,

@@ -20,12 +20,16 @@ import pytest
 import torch
 
 from neural_ode_metasolver_tpu.models.api import build_model as j_build_model
+from neural_ode_metasolver_tpu.models.nn import (
+    apply_init_scheme as j_apply_init_scheme,
+)
 from neural_ode_metasolver_tpu.ops import SolverOptions as JSolverOptions
 from neural_ode_metasolver_tpu.ops import create_solver as j_create_solver
 from neural_ode_metasolver_tpu.runners import cifar_runner as j_cifar
 from neural_ode_metasolver_tpu_torch.models import (
     build_model,
     cifar_params_from_jax,
+    cifar_state_from_jax,
 )
 from neural_ode_metasolver_tpu_torch.ops import create_solver
 from neural_ode_metasolver_tpu_torch.runners import attacks_runner
@@ -33,8 +37,13 @@ from neural_ode_metasolver_tpu_torch.runners import cifar_runner
 from neural_ode_metasolver_tpu_torch.runners.common import (
     optimizer_from_saved_args,
 )
+from neural_ode_metasolver_tpu_torch.training import (
+    create_train_state,
+    restore_checkpoint,
+)
 from test_torch_runners import (  # noqa: F401 (an autouse fixture)
     assert_runs_agree,
+    jax_final_params,
     jax_initial_params,
     one_torch_thread,
     seed_port_run,
@@ -145,3 +154,96 @@ def test_cifar_runner_flagship_options_write_checkpoints(tmp_path):
         "--batch_size", "8", "--max_batches", "1", "--device", "cpu",
         "--output_csv", str(tmp_path / "a.csv")])
     assert [r["mode"] for r in rows] == ["clean", "at"]
+
+
+# the architecture flags of the JAX runner (cifar_runner.py:48-73): one
+# step an epoch (18 training images at batch 16, 2 validate)
+ARCH_ARGV = ["--in_planes", "8", "--solvers", "rk2,u,1,-1,0.5,-1",
+             "--nepochs", "2", "--batch_size", "16", "--test_batch_size",
+             "8", "--synthetic_train_size", "20", "--synthetic_test_size",
+             "8"]
+ARCH_CASES = {
+    "GN": ["--network", "metanode10", "--normalization_resblock", "GN",
+           "--normalization_odeblock", "GN", "--normalization_bn1", "GN",
+           "--num_gn_groups", "4"],
+    "BN+SN+orthogonal": [
+        "--network", "premetanode10", "--normalization_resblock", "BN",
+        "--normalization_bn1", "BN", "--param_normalization_resblock", "SN",
+        "--param_normalization_odeblock", "SN", "--init", "orthogonal"],
+    "ResNet-IN-WN-xavier": [
+        "--network", "metanode6", "--is_odenet", "False",
+        "--normalization_resblock", "IN", "--normalization_bn1", "LN",
+        "--param_normalization_resblock", "WN",
+        "--param_normalization_bn1", "WN", "--activation_resblock", "ReLU",
+        "--init", "xavier"],
+}
+
+
+def _jax_runner_init(margs):
+    """The params and state the JAX runner's ``fit`` starts from: its
+    model's init at the first split of ``key(seed)``, re-initialized by
+    ``--init`` at ``fold_in(k_init, 1)`` (JAX cifar_runner.py:235-247)."""
+    jmodel = j_cifar_model(margs)
+    _, k_init = jax.random.split(jax.random.key(margs["seed"]))
+    params, state = jmodel.init(k_init)
+    if margs["init"]:
+        params = j_apply_init_scheme(jax.random.fold_in(k_init, 1), params,
+                                     margs["init"])
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    return to_np(params), to_np(state)
+
+
+def _arch_overrides(margs):
+    return dict(
+        is_odenet=margs["is_odenet"], in_planes=margs["in_planes"],
+        norms=(margs["normalization_resblock"],
+               margs["normalization_odeblock"], margs["normalization_bn1"]),
+        num_gn_groups=margs["num_gn_groups"],
+        param_norms=(margs["param_normalization_resblock"],
+                     margs["param_normalization_odeblock"],
+                     margs["param_normalization_bn1"]),
+        acts=(margs["activation_resblock"], margs["activation_odeblock"],
+              margs["activation_bn1"]))
+
+
+def j_cifar_model(margs):
+    return j_build_model(margs["network"], **_arch_overrides(margs))
+
+
+@pytest.mark.parametrize("case", list(ARCH_CASES))
+def test_cifar_runner_architecture_flags_match_jax(case, tmp_path):
+    """Each flag set parses and builds in both runners and trains two
+    epochs of one step: per-epoch train loss within 1e-4 relative,
+    validation counts equal, final params within 1e-4 of max|p| and the
+    model state within 3e-4 of JAX's; then the ``last`` checkpoint
+    restores the run's model state bit for bit (what ``--resume`` loads)
+    and it differs from where the run started wherever BN or SN keep
+    one."""
+    argv = ARCH_ARGV + ARCH_CASES[case]
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    j_cifar.main(argv + ["--save_dir", jdir])
+    margs = vars(cifar_runner.parse_args(argv))
+    np_params, np_state = _jax_runner_init(margs)
+    overrides = _arch_overrides(margs)
+    seed_port_run(pdir, margs["network"], np_params,
+                  optimizer_from_saved_args(margs), np_state, **overrides)
+    pts = cifar_runner.main(argv + ["--save_dir", pdir, "--resume",
+                                    "--device", "cpu"])
+    assert pts.step == 2
+    assert_runs_agree(jdir, pdir, pts, margs["network"], 2, **overrides)
+    _, jts = jax_final_params(jdir, margs["network"], **overrides)
+    js = cifar_state_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                     jts.model_state))
+    assert set(js) == set(pts.model_state)
+    for k, v in js.items():
+        np.testing.assert_allclose(pts.model_state[k].numpy(), v.numpy(),
+                                   atol=3e-4, err_msg=k)
+    fresh = build_model(margs["network"], device="cpu", **overrides)
+    template = create_train_state(fresh, optimizer_from_saved_args(margs))
+    restored, _ = restore_checkpoint(os.path.join(pdir, "last"), template)
+    assert restored.step == 2
+    start = cifar_state_from_jax(np_state)
+    for k, v in pts.model_state.items():
+        assert torch.equal(restored.model_state[k], v), k
+        assert not torch.equal(v, start[k]), k
+    assert "BN" not in case or any("mean" in k for k in start)
