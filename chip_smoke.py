@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
      csrc`` with nvcc for sm_90a, one process per source, all at once;
      print ptxas's registers, spills and warnings, and the tensor-core
      instructions (HMMA, HGMMA) in each library's SASS; fail if B1's or
-     B2's has none, or the wgrad's has no HGMMA;
+     B2's has none, the wgrad's has no HGMMA, or any instance of B3's
+     backward spills;
   3. kernel B1 (``conv3x3_same``) against its plain version at both served
      paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-6, the
      process defaults in 7-8; the train step pins full f32 itself), with
@@ -27,15 +28,16 @@ Phases, in order; any failure exits non-zero:
      solve: one GELU of y0, four convs a step), with TFLOP/s and share;
   6. kernel B3 (``fused_group_norm_act``) against its plain version at the
      MNIST path's shapes and off the path at (256, 32, 32, 64), batch 256,
-     f32 and bf16, and at phase 18's CIFAR shapes ((256, 32, 32, 64) and
-     (256, 16, 16, 128), 32 groups, GELU and none) in bf16, with each
+     f32 and bf16, and at phase 18's and 20's CIFAR shapes ((256, 32, 32,
+     64), (256, 16, 16, 128), (256, 8, 8, 256), (256, 4, 4, 512), 32
+     groups, GELU and none) in bf16, with each
      shape's launch plan and timings of the kernel, the plain version and
      ``F.group_norm`` (+ ``F.gelu``; yardstick), beside the launch floor: a
      one-element ``add_`` timed the same way;
  6b. B3's backward (``group_norm_backward``) against its plain version at
      the MNIST train step's shapes, batch 128, relu and none, and off the
-     path at (256, 32, 32, 64), f32 and bf16, and at phase 18's shapes in
-     bf16: dx, dscale and dbias of the
+     path at (256, 32, 32, 64), f32 and bf16, and at phase 18's and 20's
+     shapes in bf16: dx, dscale and dbias of the
      full launch, the dx-only launch's dx and a second full launch bit for
      bit, each shape's launch plan, and timings of both launches, the plain
      version and aten's GroupNorm backward (yardstick);
@@ -110,12 +112,14 @@ Phases, in order; any failure exits non-zero:
  16. ``cifar_runner.main`` at full width in bf16: the flagship recipe (as
      in 9) on 2816 synthetic images (2535 train in 9 steps of 256, 281
      validate), two epochs, each with the PGD-7 test over 512 images at
-     batch 256: finite losses, exact launches (9 x phase 9's step, plus
+     batch 256 (in f32, as the JAX runner evaluates, timed through the
+     runner): finite losses, exact launches (9 x phase 9's step, plus
      validation and PGD, an epoch), the runner's step time beside phase
      9's bare one (the first epoch's carries the run's first step); then
-     the PGD-7 test batches again from the ``last`` checkpoint, kernel
-     path and plain path from the same seeds, ms per batch, correct
-     counts within 2 a batch, and the attacked predictions that differ;
+     the PGD-7 test batches again from the ``last`` checkpoint in bf16
+     through ``make_adversarial_predict``, kernel path and plain path from
+     the same seeds, ms per batch, correct counts within 2 a batch, and
+     the attacked predictions that differ;
  17. ``attacks_runner.main`` over the ``last`` checkpoints of 15 and 16
      (clean, FGSM and PGD-7 at one epsilon each): the CSV's columns and
      rows, and its seconds;
@@ -139,7 +143,13 @@ Phases, in order; any failure exits non-zero:
      logits of the restored model, kernel path against plain path; then
      one clean batch of ResNet-10 (``metanode10 --is_odenet False``) with
      GN: its launches (B1 8, B3 10) and its logits against the plain
-     path.
+     path;
+ 20. train metanode18 at full width with phase 18's GroupNorms (256
+     channels at 8x8, 512 at 4x4) under phase 9's recipe at batch 256 in
+     bf16: one warm-up and one counted step (its ms and peak memory),
+     finite losses and the launches a step (B1 268, dgrad 267, wgrad 134,
+     B3 280 forward and 280 backward, 140 of them with dscale and dbias);
+     then kernel path against plain path with phase 18's bars.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -152,6 +162,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -450,6 +461,27 @@ B3_CIFAR_CALLS = [
     ("layer2 res bn2, shortcut norm", BATCH, 16, 16, 128, None, 2),
 ]
 GN_PASS_B3 = sum(c[-1] for c in B3_CIFAR_CALLS)  # 70
+# Phase 20: metanode18 with the same GroupNorms: metanode10's two stages
+# and two more like its second at 256 channels 8x8 and 512 at 4x4, each
+# adding B1 33 a pass (the res block's stride-1 conv2, the ODE block's 32)
+# and B3 35 (rows as above); the wide rows also run in phases 6 and 6b
+B3_WIDE_CALLS = [
+    ("layer3 res bn1, layer3 RHS norms + gelu", BATCH, 8, 8, 256, "gelu",
+     1 + 4 * N_STEPS),
+    ("layer3 res bn2, shortcut norm", BATCH, 8, 8, 256, None, 2),
+    ("layer4 res bn1, layer4 RHS norms + gelu", BATCH, 4, 4, 512, "gelu",
+     1 + 4 * N_STEPS),
+    ("layer4 res bn2, shortcut norm", BATCH, 4, 4, 512, None, 2),
+]
+M18_PASS_B1 = sum(TRAIN_FWD.values()) // 2 + 2 * 33  # 134
+M18_PASS_B3 = GN_PASS_B3 + sum(c[-1] for c in B3_WIDE_CALLS)  # 140
+M18_TRAIN_PER_STEP = {"conv3x3_same": 2 * M18_PASS_B1,
+                      "conv3x3_dgrad": 2 * M18_PASS_B1 - 1,  # no stem dgrad
+                      "conv3x3_wgrad": M18_PASS_B1,           # in training
+                      "group_norm_act": 2 * M18_PASS_B3,
+                      "group_norm_act_bwd": 2 * M18_PASS_B3,
+                      "group_norm_act_bwd_params": M18_PASS_B3}
+M18_TRAIN_STEPS = 1  # counted steps after the warm-up
 # a step: the attack pass's backward is dx only, the training pass's also
 # gives dscale and dbias
 GN_TRAIN_PER_STEP = {**TRAIN_PER_STEP, "group_norm_act": 2 * GN_PASS_B3,
@@ -681,10 +713,27 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
             scaled(TRAIN_PER_STEP, RUNNER_CIFAR_STEPS)
             + Counter({"conv3x3_same": CIFAR_PASS_B1 * n_val})
             + scaled(CIFAR_PGD_PER_BATCH, n_test), RUNNER_CIFAR_EPOCHS))
+        # the runner's PGD-7 test (f32, as the JAX runner evaluates),
+        # timed through the runner
+        pgd_s = []
+        real_adv = common.adversarial_accuracy
+
+        def timed_adv(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_adv(*a, **kw)
+            torch.cuda.synchronize()
+            pgd_s.append(time.perf_counter() - t)
+            return out
+
+        common.adversarial_accuracy = timed_adv
         port.reset_launch_counts()
         t0 = time.perf_counter()
-        ts = cifar_runner.main(cargv)
-        torch.cuda.synchronize()
+        try:
+            ts = cifar_runner.main(cargv)
+            torch.cuda.synchronize()
+        finally:
+            common.adversarial_accuracy = real_adv
         wall = time.perf_counter() - t0
         got = port.launch_counts()
         totals += Counter(got)
@@ -701,6 +750,11 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
               f"({n_test} batches) and checkpoints; adversarial test "
               f"{[r['adv_test_acc'] for r in recs if 'adv_test_acc' in r]}",
               flush=True)
+        print(f"  PGD-{PGD_ITERS} test through the runner in f32: "
+              f"{[round(v * 1e3 / n_test, 3) for v in pgd_s]} ms a batch of "
+              f"{BATCH} by epoch", flush=True)
+        if len(pgd_s) != RUNNER_CIFAR_EPOCHS:
+            fail(f"cifar_runner: {len(pgd_s)} PGD tests timed")
         print(f"  launches {got} (expected {want}: per epoch "
               f"{RUNNER_CIFAR_STEPS} x phase 9's step, B1 {CIFAR_PASS_B1} a "
               f"validation batch, {CIFAR_PGD_PER_BATCH} a PGD batch)",
@@ -801,10 +855,11 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
 
 
 def train_step_phase(port, torch, dev, model, label, per_step, solvers,
-                     x_train, y_train, compare_attacks=False):
+                     x_train, y_train, compare_attacks=False,
+                     steps=TRAIN_STEPS):
     """The flagship recipe's train step on ``model`` (Normal(0.0125)
     smoothing, FGSM-random at 8/255 and 10/255, SGD momentum 0.9 wd 5e-4 on
-    cyclic_lr(1e-7, 0.1, 3186)) in bf16: one warm-up step, then TRAIN_STEPS
+    cyclic_lr(1e-7, 0.1, 3186)) in bf16: one warm-up step, then ``steps``
     counted and timed, with finite losses and exactly ``per_step`` launches
     a step.  Then the kernel path against the plain path from the initial
     weights with the draws pinned: the f32 param grads at batch 32 at the
@@ -852,7 +907,7 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
           f"{metrics['loss'].item():.6f}", flush=True)
     port.reset_launch_counts()
     step_ms, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, x_train, y_train, step_gen)
         torch.cuda.synchronize()
@@ -863,15 +918,15 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
     med = sorted(step_ms)[len(step_ms) // 2]
     print(f"  losses: {[round(l, 6) for l in losses]}", flush=True)
     print(f"  ms per step: {[round(m, 3) for m in step_ms]}", flush=True)
-    print(f"  median {med:.3f} ms per step over {TRAIN_STEPS} steps (min "
+    print(f"  median {med:.3f} ms per step over {steps} steps (min "
           f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
           f"{x_train.shape[0] / med * 1e3:.1f} img/s (bf16, batch "
           f"{x_train.shape[0]}); peak memory {peak_gb:.2f} GiB", flush=True)
     if not all(math.isfinite(l) for l in losses):
         fail(f"{label}: non-finite training loss: {losses}")
-    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    expected = {k: v * steps for k, v in per_step.items()}
     print(f"  launch counts: {counts} (expected {per_step} per step, "
-          f"{TRAIN_STEPS} steps)", flush=True)
+          f"{steps} steps)", flush=True)
     if counts != expected:
         fail(f"{label}: launch counts {counts} != expected {expected}")
     del state, metrics
@@ -958,10 +1013,11 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
 
 
 def cifar_family_phases(port, torch, dev, flagship_ms):
-    """Phases 18-19: the GN train step of the basic-block family, and the
-    model state (BN, SN) through cifar_runner.  Returns (the launches of
-    phase 18's counted steps, its median ms a step, the launches of phase
-    19's runs)."""
+    """Phases 18-20: the GN train step of the basic-block family, the
+    model state (BN, SN) through cifar_runner, and metanode18's GN train
+    step at full width.  Returns (the launches of phase 18's counted steps,
+    its median ms a step, the launches of phase 19's runs, and phase 20's
+    launches, ms a step and peak GiB)."""
     import tempfile
 
     from neural_ode_metasolver_tpu_torch.models import build_model
@@ -1100,7 +1156,20 @@ def cifar_family_phases(port, torch, dev, flagship_ms):
     family_counts += Counter(port.launch_counts()) + Counter(got)
     del resnet
     torch.cuda.empty_cache()
-    return gn_counts, gn_med, family_counts
+
+    # ---------------------------------------- 20 metanode18-GN, full width
+    phase(f"train: metanode18 with GroupNorm ({GN_GROUPS} groups, exact "
+          f"GELU; 256 channels at 8x8 and 512 at 4x4), the flagship recipe, "
+          f"bf16, batch {BATCH}: one warm-up and {M18_TRAIN_STEPS} counted "
+          f"step, kernel path against plain path")
+    model = build_model("metanode18", dev, generator=torch.Generator(
+        ).manual_seed(0), **GN_NET)
+    m18 = train_step_phase(port, torch, dev, model, "metanode18-GN",
+                           M18_TRAIN_PER_STEP, solvers, x_train, y_train,
+                           steps=M18_TRAIN_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    return gn_counts, gn_med, family_counts, m18
 
 
 def main():
@@ -1209,6 +1278,13 @@ def main():
         print(f"  ptxas[{name}]: {len(regs)} kernels, {min(regs)}-"
               f"{max(regs)} registers, {sum(1 for v in spills if v)} with "
               f"spill stores (at most {max(spills)} bytes)")
+    # B3's backward spills nowhere (its staged instances run two blocks an
+    # SM within 128 registers a thread)
+    spilled = [c.split("'")[1] for c in _build.build_log(
+        "group_norm_act_bwd").split("Compiling entry function")[1:]
+        if re.search(r"[1-9][0-9]* bytes spill stores", c)]
+    if spilled:
+        fail(f"group_norm_act_bwd: ptxas spills in {spilled}")
     for name in per_lib:
         mma = _build.sass_opcode_counts(name, ("HMMA", "HGMMA"))
         print(f"  SASS[{name}]: {mma['HMMA']} HMMA, {mma['HGMMA']} HGMMA "
@@ -1451,9 +1527,10 @@ def main():
           f"ms", flush=True)
     b3_rows = []
     for dtype in dtypes:
-        # phase 18's shapes run in bf16 only
+        # phase 18's and 20's shapes run in bf16 only
         for _, n, h, w, c, act, _ in B3_CALLS + B3_OFF_PATH + (
-                B3_CIFAR_CALLS if dtype == torch.bfloat16 else []):
+                B3_CIFAR_CALLS + B3_WIDE_CALLS
+                if dtype == torch.bfloat16 else []):
             plan = launch_plan(n, h, w, c, GN_GROUPS, dtype)
             x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
             scale = randn((c,), 0.3, 7, torch.float32) + 1.0
@@ -1517,7 +1594,8 @@ def main():
     b3b_rows = []
     for dtype in dtypes:
         for _, n, h, w, c, act, _ in B3_BWD_CALLS + B3_BWD_OFF_PATH + (
-                B3_CIFAR_CALLS if dtype == torch.bfloat16 else []):
+                B3_CIFAR_CALLS + B3_WIDE_CALLS
+                if dtype == torch.bfloat16 else []):
             plan = launch_plan(n, h, w, c, GN_GROUPS, dtype, backward=True)
             x = (randn((n, h, w, c), 2.0, 6, torch.float32) + 0.5).to(dtype)
             scale = randn((c,), 0.3, 7, torch.float32) + 1.0
@@ -1594,7 +1672,8 @@ def main():
                   f"act={act}: plan {plan.path} ({plan.vec}-element access, "
                   f"{plan.warps} warps a block, cluster {plan.cluster}, "
                   f"{plan.regs} vectors a thread, {plan.smem_bytes} B "
-                  f"shared); bits repeat", flush=True)
+                  f"shared{', dxhat kept there' if plan.stash else ''}); "
+                  f"bits repeat", flush=True)
             print(f"     max|diff| dx {errs[0]:.3e} (bar {bars[0]:.3e}), "
                   f"dscale {errs[1]:.3e} (bar {bars[1]:.3e}), dbias "
                   f"{errs[2]:.3e} (bar {bars[2]:.3e}); kernel {ms_full:.4f} "
@@ -2220,8 +2299,8 @@ def main():
           flush=True)
 
     # ------------------------------------------- 18-19 the CIFAR family
-    gn_counts, gn_med, family_counts = cifar_family_phases(port, torch, dev,
-                                                           med)
+    gn_counts, gn_med, family_counts, (m18_counts, m18_ms, m18_peak) = \
+        cifar_family_phases(port, torch, dev, med)
     print(f"  launches over phase 19's runs: {dict(family_counts)}",
           flush=True)
 
@@ -2267,6 +2346,9 @@ def main():
                 "launches": cifar_regime_counts.get(name, 0)},
             "metanode10 GN train bf16": {"steps": TRAIN_STEPS,
                                          "launches": gn_counts.get(name, 0)},
+            "metanode18 GN train bf16": {
+                "steps": M18_TRAIN_STEPS,
+                "launches": m18_counts.get(name, 0)},
             "cifar family runner bf16": {
                 "launches": family_counts.get(name, 0)},
         }
@@ -2290,10 +2372,14 @@ def main():
     # phase 18's step: two forward passes; the backward of the attack pass
     # is dx only, the training pass's gives dscale and dbias too
     b3_gn_step = {c[1:6]: 2 * c[6] for c in B3_CIFAR_CALLS}
-    b3b_gn_step = {}
-    for _, n, h, w, c, act, k in B3_CIFAR_CALLS:
-        b3b_gn_step[(n, h, w, c, act, "dx")] = k
-        b3b_gn_step[(n, h, w, c, act, "full")] = k
+    b3_m18_step = {c[1:6]: 2 * c[6] for c in B3_CIFAR_CALLS + B3_WIDE_CALLS}
+
+    def bwd_step(calls):
+        return {(n, h, w, c, act, kind_): k
+                for _, n, h, w, c, act, k in calls for kind_ in ("dx", "full")}
+
+    b3b_gn_step = bwd_step(B3_CIFAR_CALLS)
+    b3b_m18_step = bwd_step(B3_CIFAR_CALLS + B3_WIDE_CALLS)
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -2333,6 +2419,10 @@ def main():
                   **per_request_sums(b3_rows, b3_gn_step, "bfloat16"),
                   "launches_per_step":
                       gn_counts.get("group_norm_act", 0) // TRAIN_STEPS},
+              metanode18_gn_train_bf16={
+                  **per_request_sums(b3_rows, b3_m18_step, "bfloat16"),
+                  "launches_per_step": m18_counts.get(
+                      "group_norm_act", 0) // M18_TRAIN_STEPS},
               launch_floor_ms=floor_ms),
         entry("group_norm_act_bwd",
               "neural_ode_metasolver_tpu_torch/csrc/group_norm_act_bwd.cu",
@@ -2347,14 +2437,24 @@ def main():
                       gn_counts.get("group_norm_act_bwd", 0) // TRAIN_STEPS,
                   "full_launches_per_step": gn_counts.get(
                       "group_norm_act_bwd_params", 0) // TRAIN_STEPS},
+              metanode18_gn_train_bf16={
+                  **per_request_sums(b3b_rows, b3b_m18_step, "bfloat16"),
+                  "launches_per_step": m18_counts.get(
+                      "group_norm_act_bwd", 0) // M18_TRAIN_STEPS,
+                  "full_launches_per_step": m18_counts.get(
+                      "group_norm_act_bwd_params", 0) // M18_TRAIN_STEPS,
+                  "step_ms": m18_ms, "peak_gib": m18_peak},
               full_launches=(
                   mnist_train_counts.get("group_norm_act_bwd_params", 0)
-                  + gn_counts.get("group_norm_act_bwd_params", 0)),
+                  + gn_counts.get("group_norm_act_bwd_params", 0)
+                  + m18_counts.get("group_norm_act_bwd_params", 0)),
               dx_only_launches=(
                   mnist_train_counts.get("group_norm_act_bwd", 0)
                   - mnist_train_counts.get("group_norm_act_bwd_params", 0)
                   + gn_counts.get("group_norm_act_bwd", 0)
                   - gn_counts.get("group_norm_act_bwd_params", 0)
+                  + m18_counts.get("group_norm_act_bwd", 0)
+                  - m18_counts.get("group_norm_act_bwd_params", 0)
                   + eval_counts.get("group_norm_act_bwd", 0)
                   + mnist_regime_counts.get("group_norm_act_bwd", 0)),
               plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
@@ -2398,7 +2498,11 @@ def main():
              "after gelu_backward); by_path's metanode10 GN train bf16 "
              "counts phase 18's timed steps, its cifar family runner bf16 "
              "phase 19's first cifar_runner run and its kernel-path eval "
-             "batches")
+             "batches.  metanode18_gn_train_bf16: the same for phase 20's "
+             "metanode18-GN step (280 forward and 280 backward launches a "
+             "step, the wide rows included; step_ms its counted step, "
+             "peak_gib its peak memory), by_path's metanode18 GN train bf16 "
+             "its counted step")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -81,11 +81,11 @@ _SIGNATURES = {
     },
     "group_norm_act_bwd": {
         # dtype, act, x, dout, scale, bias, dx, part, dscale, dbias, N, HW,
-        # C, G, eps, then the plan (path, vec, warps, cluster, regs),
+        # C, G, eps, then the plan (path, vec, warps, cluster, regs, stash),
         # device, stream
         "group_norm_act_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                                      _I, _P],
+                                      _I, _I, _P],
     },
 }
 

@@ -90,10 +90,6 @@ __device__ __forceinline__ int swz(int row, int chunk, int row_bytes) {
   return row * row_bytes + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),

@@ -37,7 +37,8 @@
 //   a warp (C / V a power of two up to 32) and groups align with vectors, so
 //   each thread adds its own channels of a group and `__shfl_xor_sync`
 //   finishes the warp with no branch; W > 1 warps or k > 1 CTAs then add
-//   the warps' sums through shared memory.
+//   the warps' sums through shared memory, one thread a group, into the
+//   group totals every thread reads from its own CTA.
 // - Re-reading path: every other layout (group sums that shuffles cannot
 //   finish, one-element access) and slices too large even for 8 CTAs.  The
 //   same CTA or cluster layout, but each pass reads its slice again (mostly
@@ -88,12 +89,13 @@ gn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const size_t row_step = static_cast<size_t>(a.R) * a.C;
   const int col_step = a.P * V;
 
-  // shared memory: SHUFFLE [2][warps][G] then the cluster's [2][G]; else
-  // [R][C] then [4][G]
+  // shared memory: SHUFFLE [2][warps][G], the cluster's [2][G] and the
+  // totals [G]; else [R][C] then [4][G]
   float* s_w1 = smem;
   float* s_w2 = s_w1 + a.warps * a.G;
   float* s_cta1 = s_w2 + a.warps * a.G;
   float* s_cta2 = s_cta1 + a.G;
+  float* s_tot = s_cta2 + a.G;
   float* s_ch = smem;
   float* s_part1 = s_ch + a.R * a.C;
   float* s_part2 = s_part1 + a.G;
@@ -154,7 +156,7 @@ gn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     if (!SHUFFLE && r == nrows - 1) flush(j, acc);
   });
   if constexpr (SHUFFLE) {
-    shuffle_group_total<V>(acc, a, t, col0, s_w1, s_cta1);
+    shuffle_group_total<V>(acc, a, t, col0, s_w1, s_cta1, s_tot);
 #pragma unroll
     for (int v = 0; v < V; ++v) mch[v] = acc[v] * a.inv_count;
   } else {
@@ -179,7 +181,7 @@ gn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     if (!SHUFFLE && r == nrows - 1) flush(j, acc);
   });
   if constexpr (SHUFFLE) {
-    shuffle_group_total<V>(acc, a, t, col0, s_w2, s_cta2);
+    shuffle_group_total<V>(acc, a, t, col0, s_w2, s_cta2, s_tot);
 #pragma unroll
     for (int v = 0; v < V; ++v)
       sc[v] *= rsqrtf(fmaf(acc[v], a.inv_count, a.eps));

@@ -25,8 +25,9 @@ enum Act {
   kActSoftsign = 4
 };
 
-// codes shared with ops/group_norm.py (_PATH_CODES)
-enum GnPath { kGnRegister = 0, kGnCluster = 1, kGnReread = 2 };
+// codes shared with ops/group_norm.py (_PATH_CODES); kGnStaged is the
+// backward's only
+enum GnPath { kGnRegister = 0, kGnCluster = 1, kGnReread = 2, kGnStaged = 3 };
 
 constexpr int kGnMaxThreads = 256;
 constexpr int kGnMaxCluster = 8;  // the portable cluster size
@@ -38,6 +39,7 @@ struct GnPlan {
   int warps;    // warps of a CTA (one sample's slice)
   int cluster;  // CTAs per sample
   int regs;     // vectors a thread holds in registers; 0: re-read
+  int stash;    // the backward keeps dxhat in shared memory (f32)
 };
 
 // How a CTA of `threads` threads covers one pixel's C / vec vector columns:
@@ -206,21 +208,20 @@ struct GnArgs {
   int vpp, P, R;      // gn_layout
   int per;            // pixels of a CTA's slice
   int lg_P, lg_R, lg_cg;  // log2 of powers of two, else -1
+  int stash;          // the backward's dxhat in shared memory
   float inv_count, eps;
 };
 
-// Shuffled group sums.  acc[v] is thread t's partial sum of channel v of its
-// one column col0; on return acc[v] is the sample's total over channel v's
-// group.  Every thread of the CTA calls it (it may hold barriers).  Groups
-// and vector columns here are powers of two.  It has no branch: every lane
-// runs every butterfly step and keeps the sum only where the step stays
-// within its group (a shuffle under a branch costs a divergence check and
-// more time than the extra shuffles).
+// Within a thread and across its warp: acc[v], thread t's partial sum of
+// channel v of its one column col0, becomes the warp's total over channel
+// v's group (shuffle_group_total's first step).  Groups and vector columns
+// here are powers of two.  It has no branch: every lane runs every
+// butterfly step and keeps the sum only where the step stays within its
+// group (a shuffle under a branch costs a divergence check and more time
+// than the extra shuffles).
 template <int V>
-__device__ __forceinline__ void shuffle_group_total(float (&acc)[V],
-                                                    const GnArgs& a, int t,
-                                                    int col0, float* s_w,
-                                                    float* s_cta) {
+__device__ __forceinline__ void warp_group_sums(float (&acc)[V],
+                                                const GnArgs& a) {
   const int cg = 1 << a.lg_cg;
   // within the thread: each channel takes the sum of its group's channels
 #pragma unroll
@@ -242,6 +243,24 @@ __device__ __forceinline__ void shuffle_group_total(float (&acc)[V],
       acc[v] = use ? acc[v] + o : acc[v];
     }
   }
+}
+
+// Shuffled group sums: on return acc[v] is the sample's total over channel
+// v's group.  Every thread of the CTA calls it (it may hold barriers).  One
+// thread a group adds the warps' sums (and then the cluster's CTAs' in rank
+// order, from distributed shared memory) into s_tot, which every thread
+// then reads from its own CTA: G * (warps + k) loads a CTA, where each
+// thread reading its V groups' partials itself took V * warps (or V * k
+// remote ones) and left passes 1 and 2 of the backward's 8-warp clusters
+// waiting on distributed shared memory.  A fixed order of adds, so the
+// same bits on every launch.
+template <int V>
+__device__ __forceinline__ void shuffle_group_total(float (&acc)[V],
+                                                    const GnArgs& a, int t,
+                                                    int col0, float* s_w,
+                                                    float* s_cta,
+                                                    float* s_tot) {
+  warp_group_sums<V>(acc, a);
   if (a.warps * a.k == 1) return;
   // the warps' sums meet in shared memory, [warp][group], written by each
   // warp's first row (lanes of one group write the same value)
@@ -252,37 +271,23 @@ __device__ __forceinline__ void shuffle_group_total(float (&acc)[V],
       s_w[(t >> 5) * a.G + ((col0 * V + v) >> a.lg_cg)] = acc[v];
   }
   __syncthreads();
-  if (a.k == 1) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float* p = s_w + ((col0 * V + v) >> a.lg_cg);
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kGnMaxThreads / 32; ++w)
-        if (w < W) s += p[w * a.G];
-      acc[v] = s;
-    }
-    return;
-  }
-  // this CTA's sums, then every CTA adds the cluster's in rank order
   for (int g = t; g < a.G; g += W * 32) {
     float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kGnMaxThreads / 32; ++w)
-      if (w < W) s += s_w[w * a.G + g];
-    s_cta[g] = s;
+    for (int w = 0; w < W; ++w) s += s_w[w * a.G + g];
+    (a.k == 1 ? s_tot : s_cta)[g] = s;
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const int g = (col0 * V + v) >> a.lg_cg;
-    float s = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kGnMaxCluster; ++r)
-      if (r < a.k) s += cluster.map_shared_rank(s_cta, r)[g];
-    acc[v] = s;
+  if (a.k > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int g = t; g < a.G; g += W * 32) {
+      float s = 0.0f;
+      for (int r = 0; r < a.k; ++r) s += cluster.map_shared_rank(s_cta, r)[g];
+      s_tot[g] = s;
+    }
   }
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = s_tot[(col0 * V + v) >> a.lg_cg];
 }
 
 // Group sums through shared memory.  s_ch holds every row slot's
@@ -325,23 +330,34 @@ inline long long gn_smem_bytes(const GnPlan& p, const GnLayout& L, int C,
   if (p.path == kGnReread)
     return 4LL * (static_cast<long long>(L.R) * C + 4LL * G);
   if (p.warps * p.cluster == 1) return 0;
-  return 4LL * (2LL * p.warps * G + (p.cluster > 1 ? 2LL * G : 0));
+  return 4LL * (2LL * p.warps * G + 3LL * G);
 }
 
-// The backward's: the statistics' area (the forward's, always allocated on
-// the shuffle paths), then the sums of pass 3: [2][R][C] by row slot and
-// channel, [2][C] by channel, [4][G] by group (gn_act_bwd_kernel).
-inline long long gn_bwd_stats_floats(const GnPlan& p, const GnLayout& L,
-                                     int C, int G) {
-  if (p.path == kGnReread)
-    return static_cast<long long>(L.R) * C + 4LL * G;
-  return 2LL * p.warps * G + 2LL * G;
+// Whether warp shuffles can finish the group sums of this layout: 16-byte
+// access, a pixel's vector columns divide a warp, groups align with vectors
+// (ops/group_norm.py::access).
+inline bool gn_shuffles(const GnLayout& L, int vec, int cg) {
+  return vec > 1 && L.vpp <= 32 && 32 % L.vpp == 0 &&
+         (vec % cg == 0 || (cg % vec == 0 && L.vpp % (cg / vec) == 0));
 }
 
+// The backward's (gn_act_bwd_kernel): on the staged path two mbarriers (16
+// bytes) and x's slice of a block (per pixels), with `stash` dxhat's slice
+// in f32 (the staged path copies dout into its last plane); then the
+// statistics' area (the forward's, always allocated where shuffles sum the
+// groups, and there a group's totals [G]) and the sums of pass 3: [2][slots][C]
+// (slots: the warps where shuffles add a warp's rows, else the row slots),
+// [2][C] by channel and [4][G].
 inline long long gn_bwd_smem_bytes(const GnPlan& p, const GnLayout& L, int C,
-                                   int G) {
-  return 4LL * (gn_bwd_stats_floats(p, L, C, G) +
-                2LL * L.R * C + 2LL * C + 4LL * G);
+                                   int G, int per, int elem_bytes,
+                                   bool shuffle) {
+  const long long slice = static_cast<long long>(per) * C;
+  const long long stats = shuffle ? 2LL * p.warps * G + 3LL * G
+                                  : static_cast<long long>(L.R) * C + 4LL * G;
+  const long long slots = shuffle ? p.warps : L.R;
+  return (p.path == kGnStaged ? 16 + slice * elem_bytes : 0) +
+         (p.stash ? 4 * slice : 0) +
+         4 * (stats + 2 * slots * C + 2LL * C + 4LL * G);
 }
 
 inline int log2_exact(int v) {  // -1 unless v is a power of two
@@ -372,7 +388,15 @@ inline cudaError_t plan_args(const GnPlan& p, int elem_bytes, int N, int HW,
   const bool resident = p.regs > 0;
   if ((p.path == kGnRegister && !(p.cluster == 1 && resident)) ||
       (p.path == kGnCluster && !(p.cluster > 1 && resident)) ||
-      (p.path == kGnReread && resident) || p.path < 0 || p.path > 2)
+      (p.path == kGnReread && resident) ||
+      (p.path == kGnStaged && (resident || p.vec == 1 || !bwd)) ||
+      p.path < 0 || p.path > 3)
+    return cudaErrorInvalidValue;
+  // the backward stages or re-reads, and keeps dxhat on chip but where it
+  // re-reads a sample too large; the forward has none to keep
+  if (bwd ? (p.path == kGnRegister || p.path == kGnCluster ||
+             (p.stash == 0 && p.path != kGnReread))
+          : p.stash != 0)
     return cudaErrorInvalidValue;
   const GnLayout L = gn_layout(C, p.vec, p.warps * 32);
   const int per = (HW + p.cluster - 1) / p.cluster;
@@ -380,12 +404,12 @@ inline cudaError_t plan_args(const GnPlan& p, int elem_bytes, int N, int HW,
       static_cast<long long>((per + L.R - 1) / L.R) * L.ncols > p.regs)
     return cudaErrorInvalidValue;
   const int cg_ = C / G;
+  const bool shuffle = gn_shuffles(L, p.vec, cg_);
   // the register and cluster paths finish group sums by shuffles
-  if (resident && !(L.vpp <= 32 && 32 % L.vpp == 0 &&
-                    (p.vec % cg_ == 0 ||
-                     (cg_ % p.vec == 0 && L.vpp % (cg_ / p.vec) == 0))))
-    return cudaErrorInvalidValue;
-  *smem = bwd ? gn_bwd_smem_bytes(p, L, C, G) : gn_smem_bytes(p, L, C, G);
+  if (resident && !shuffle) return cudaErrorInvalidValue;
+  *smem = bwd ? gn_bwd_smem_bytes(p, L, C, G, per, elem_bytes,
+                                  p.path == kGnStaged && shuffle)
+              : gn_smem_bytes(p, L, C, G);
   *a = GnArgs{N,
               HW,
               C,
@@ -399,6 +423,7 @@ inline cudaError_t plan_args(const GnPlan& p, int elem_bytes, int N, int HW,
               log2_exact(L.P),
               log2_exact(L.R),
               log2_exact(cg_),
+              p.stash,
               1.0f / (static_cast<float>(HW) * static_cast<float>(cg_)),
               eps};
   return cudaSuccess;

@@ -34,14 +34,20 @@ for CPU tensors.
 Where a gradient can flow, ``fused_group_norm_act`` is the apply of an
 ``autograd.Function`` whose backward is the JAX custom VJP (``_bwd``, jnp
 there): ``group_norm_backward``, a hand-written kernel
-(``csrc/group_norm_act_bwd.cu``, counted as ``group_norm_act_bwd``) on the
-same kind of plan (``launch_plan(..., backward=True)``: at most 8 vectors
-of x and 8 of dout a thread, since it holds both), and its plain version
-``group_norm_backward_reference`` for CPU tensors.  It writes dx, and
-dscale and dbias only where autograd asks for them: their per-block
-partial sums are then added in a fixed order by a second kernel of the
-same library (those launches are also counted as
-``group_norm_act_bwd_params``), so two launches repeat their bits.
+(``csrc/group_norm_act_bwd.cu``, counted as ``group_norm_act_bwd``) on its
+own plan (``launch_plan(..., backward=True)``), and its plain version
+``group_norm_backward_reference`` for CPU tensors.  The backward evaluates
+the activation's derivative once an element and keeps dxhat in shared
+memory for its last pass.  Its **staged path** copies a block's slice of x
+and dout into shared memory with one bulk copy each (TMA), so its threads
+hold nothing in registers across passes and two or more blocks run on an
+SM; it takes every layout with 16-byte access whose slice fits in half an
+SM's shared memory over at most 8 blocks of a cluster, and the re-reading
+path the rest.  It writes dx, and dscale and dbias only where autograd
+asks for them: their per-block partial sums are then added in a fixed
+order by a second kernel of the same library (those launches are also
+counted as ``group_norm_act_bwd_params``), so two launches repeat their
+bits.
 """
 from __future__ import annotations
 
@@ -72,28 +78,35 @@ _ACTS = {
 }
 # codes of csrc/group_norm_act.cu
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "tanh": 3, "softsign": 4}
-_PATH_CODES = {"register": 0, "cluster": 1, "reread": 2}
+_PATH_CODES = {"register": 0, "cluster": 1, "reread": 2, "staged": 3}
 
 MAX_THREADS = 256  # per block (kGnMaxThreads)
 MAX_CLUSTER = 8  # the portable cluster size
 SMEM_OPTIN = 232448  # the H100's opt-in shared memory per block
+SM_SMEM = 233472  # shared memory of an H100 SM
+BLOCK_RESERVED = 1024  # shared memory the card keeps for each resident block
+# a block of at most this much dynamic shared memory runs two to an SM
+TWO_A_SM = SM_SMEM // 2 - BLOCK_RESERVED
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 # vectors a thread of the register and cluster paths holds: the kernel
 # instances of csrc/group_norm_act.cu
 _REGS = (4, 8, 16)
-# the backward's (csrc/group_norm_act_bwd.cu): it holds x and dout
-_BWD_REGS = (4, 8)
+# the most vectors a thread of the backward's re-reading path takes
+# before a sample goes to more blocks of a cluster
+_BWD_REREAD_VECS = 8
 _ELEMS = 32  # elements a thread of the register path aims to hold
 
 
 class GnPlan(NamedTuple):
-    """How one launch covers the batch (see ``csrc/group_norm_act.cu``)."""
-    path: str  # "register", "cluster" or "reread"
+    """How one launch covers the batch (see ``csrc/group_norm_act.cu`` and
+    ``csrc/group_norm_act_bwd.cu``)."""
+    path: str  # "register", "cluster", "reread", or the backward's "staged"
     vec: int  # elements a thread reads at once: 16 bytes' worth, or 1
     warps: int  # warps per block
     cluster: int  # blocks per sample
-    regs: int  # vectors a thread holds in registers; 0 on "reread"
+    regs: int  # vectors a thread holds in registers; 0 on "reread", "staged"
     smem_bytes: int  # dynamic shared memory per block
+    stash: bool = False  # the backward keeps dxhat in shared memory
 
 
 def _layout(c: int, vec: int, threads: int):
@@ -111,43 +124,110 @@ def _per_thread(hw: int, c: int, vec: int, threads: int, cluster: int) -> int:
     return -(-(-(-hw // cluster)) // rows) * ncols
 
 
+def _shuffles(c: int, groups: int, vec: int) -> bool:
+    """Whether warp shuffles can finish the group sums (``gn_shuffles``):
+    16-byte access, a pixel's vector columns divide a warp, and groups
+    align with vectors."""
+    vpp, cg = c // vec, c // groups
+    return (vec > 1 and vpp <= 32 and 32 % vpp == 0 and
+            (vec % cg == 0 or (cg % vec == 0 and vpp % (cg // vec) == 0)))
+
+
 def access(c: int, groups: int, dtype: torch.dtype, aligned: bool = True):
     """(vec, shuffle): the elements a thread reads at once (16 bytes' worth
     where x's pointer and C allow, else 1), and whether warp shuffles can
-    finish the group sums (16-byte access, a pixel's vector columns divide
-    a warp, and groups align with vectors), which the register and cluster
-    paths need."""
+    finish the group sums, which the register and cluster paths need."""
     size = _ITEMSIZE[dtype]
     vec = 16 // size if aligned and (c * size) % 16 == 0 else 1
-    vpp, cg = c // vec, c // groups
-    shuffle = (vec > 1 and vpp <= 32 and 32 % vpp == 0 and
-               (vec % cg == 0 or (cg % vec == 0 and vpp % (cg // vec) == 0)))
-    return vec, shuffle
+    return vec, _shuffles(c, groups, vec)
 
 
 def _smem_bytes(path: str, c: int, groups: int, vec: int, warps: int,
-                cluster: int, backward: bool = False) -> int:
-    """``gn_smem_bytes`` of the CUDA source (``gn_bwd_smem_bytes`` with
-    ``backward``)."""
-    if backward:
-        rows = _layout(c, vec, 32 * warps)[2]
-        stats = (rows * c + 4 * groups if path == "reread" else
-                 2 * warps * groups + 2 * groups)
-        return 4 * (stats + 2 * rows * c + 2 * c + 4 * groups)
+                cluster: int) -> int:
+    """The forward's ``gn_smem_bytes`` of the CUDA source."""
     if path == "reread":
         rows = _layout(c, vec, 32 * warps)[2]
         return 4 * (rows * c + 4 * groups)
     if warps * cluster == 1:
         return 0
-    return 4 * (2 * warps * groups + (2 * groups if cluster > 1 else 0))
+    return 4 * (2 * warps * groups + 3 * groups)
+
+
+def _bwd_smem_bytes(path: str, c: int, groups: int, vec: int, warps: int,
+                    cluster: int, hw: int, itemsize: int,
+                    stash: bool) -> int:
+    """``gn_bwd_smem_bytes`` of the CUDA source: on the staged path two
+    mbarriers and x's slice of a block, with ``stash`` dxhat's slice in f32
+    (the staged path copies dout into it), then the statistics' and pass
+    3's sums (by warp where shuffles add a warp's rows, else by row slot)."""
+    rows = _layout(c, vec, 32 * warps)[2]
+    shuffle = path == "staged" and _shuffles(c, groups, vec)
+    stats = (2 * warps * groups + 3 * groups if shuffle else
+             rows * c + 4 * groups)
+    slots = warps if shuffle else rows
+    slice_ = -(-hw // cluster) * c
+    return ((16 + slice_ * itemsize if path == "staged" else 0)
+            + (4 * slice_ if stash else 0)
+            + 4 * (stats + 2 * slots * c + 2 * c + 4 * groups))
 
 
 def make_plan(path: str, vec: int, warps: int, cluster: int, regs: int,
-              c: int, groups: int, backward: bool = False) -> GnPlan:
-    """A plan with its shared-memory bytes for (c, groups)."""
+              c: int, groups: int) -> GnPlan:
+    """A forward plan with its shared-memory bytes for (c, groups)."""
     return GnPlan(path, vec, warps, cluster, regs,
-                  _smem_bytes(path, c, groups, vec, warps, cluster,
-                              backward))
+                  _smem_bytes(path, c, groups, vec, warps, cluster))
+
+
+def make_bwd_plan(path: str, vec: int, warps: int, cluster: int, regs: int,
+                  c: int, groups: int, hw: int, dtype: torch.dtype,
+                  stash: bool = True) -> GnPlan:
+    """A backward plan (path "staged" or "reread", regs 0) with its
+    shared-memory bytes for a sample of hw pixels of (c, groups) in
+    ``dtype``; re-reading keeps the stash where it fits."""
+    return GnPlan(path, vec, warps, cluster, regs,
+                  _bwd_smem_bytes(path, c, groups, vec, warps, cluster, hw,
+                                  _ITEMSIZE[dtype], stash), stash)
+
+
+def _sample_warps(hw: int, c: int, vec: int, cap: int) -> Optional[int]:
+    """The fewest warps of one block that hold a whole sample in at most
+    ``cap`` vectors a thread and at most ``_ELEMS`` elements (a block's
+    time is mostly its threads' serial work), else 8 if they hold it in
+    ``cap``; None if 8 do not."""
+    for warps in (1, 2, 4, 8):
+        most = _per_thread(hw, c, vec, 32 * warps, 1)
+        if most <= cap and (most * vec <= _ELEMS or warps == 8):
+            return warps
+    return None
+
+
+def _bwd_plan(h: int, w: int, c: int, groups: int, dtype: torch.dtype,
+              aligned: bool) -> GnPlan:
+    """``launch_plan(..., backward=True)``."""
+    vec, _ = access(c, groups, dtype, aligned)
+    hw = h * w
+    if vec > 1:
+        # staged: the fewest blocks a sample that leave two blocks an SM,
+        # of 4 warps where one block holds a sample, else 8 (the timings of
+        # scripts/bench_group_norm_plans.py --backward, PERF.md)
+        for k in range(1, MAX_CLUSTER + 1):
+            plan = make_bwd_plan("staged", vec, 4 if k == 1 else 8, k, 0,
+                                 c, groups, hw, dtype)
+            if plan.smem_bytes <= TWO_A_SM:
+                return plan
+    # re-reading: the forward's blocks with at most 8 vectors a thread,
+    # dxhat in shared memory where it fits a block
+    warps = _sample_warps(hw, c, vec, _BWD_REREAD_VECS)
+    k = 1 if warps else next(
+        (k for k in range(2, MAX_CLUSTER + 1)
+         if _per_thread(hw, c, vec, MAX_THREADS, k) <= _BWD_REREAD_VECS),
+        MAX_CLUSTER)
+    plan = make_bwd_plan("reread", vec, warps or 8, k, 0, c, groups, hw,
+                         dtype)
+    if plan.smem_bytes > SMEM_OPTIN:
+        plan = make_bwd_plan("reread", vec, warps or 8, k, 0, c, groups, hw,
+                             dtype, stash=False)
+    return plan
 
 
 @functools.lru_cache(maxsize=256)
@@ -162,46 +242,45 @@ def launch_plan(n: int, h: int, w: int, c: int, groups: int,
     ``SMEM_OPTIN`` bytes of shared memory).  The rules below follow the
     timings of ``scripts/bench_group_norm_plans.py`` (PERF.md).
 
-    ``backward=True`` plans ``group_norm_backward``'s launch by the same
-    rules, with at most 8 vectors a thread (it holds x and dout) and its
-    own shared memory."""
-    menu = _BWD_REGS if backward else _REGS
+    ``backward=True`` plans ``group_norm_backward``'s launch: the staged
+    path where a block's slice fits ``TWO_A_SM`` bytes over at most 8
+    blocks, else re-reading."""
     if c % groups:
         raise ValueError(f"channels ({c}) must be divisible by num_groups "
                          f"({groups})")
-    vec, shuffle = access(c, groups, dtype, aligned)
-    hw = h * w
-    # a whole sample in one block: the fewest warps that leave a thread at
-    # most 32 elements (a block's time is mostly its threads' serial work),
-    # else 8 warps if they hold it in 16 vectors (the backward: 8)
-    for warps in (1, 2, 4, 8):
-        most = _per_thread(hw, c, vec, 32 * warps, 1)
-        if most <= menu[-1] and (most * vec <= _ELEMS or warps == 8):
-            regs = next(r for r in menu if r >= most)
-            plan = (make_plan("register", vec, warps, 1, regs, c, groups,
-                              backward)
-                    if shuffle else
-                    make_plan("reread", vec, warps, 1, 0, c, groups,
-                              backward))
-            break
+    if backward:
+        plan = _bwd_plan(h, w, c, groups, dtype, aligned)
     else:
-        # slices of 8-warp blocks over a cluster: as few blocks as hold it
-        # in 16 vectors a thread (the backward: 8; a cluster waits at each of its two
-        # exchanges for its slowest block), else 8 blocks re-reading
-        k = next((k for k in range(2, MAX_CLUSTER + 1)
-                  if _per_thread(hw, c, vec, MAX_THREADS, k) <= menu[-1]),
-                 None)
-        plan = (make_plan("cluster", vec, 8, k, menu[-1], c, groups,
-                          backward)
-                if shuffle and k is not None else
-                make_plan("reread", vec, 8, k or MAX_CLUSTER, 0, c, groups,
-                          backward))
+        plan = _fwd_plan(h, w, c, groups, dtype, aligned)
     if plan.smem_bytes > SMEM_OPTIN:
         raise ValueError(
             f"group norm: the statistics of {groups} groups of "
             f"{c // groups} channels need {plan.smem_bytes} bytes of shared "
             f"memory, more than the {SMEM_OPTIN} a block has")
     return plan
+
+
+def _fwd_plan(h: int, w: int, c: int, groups: int, dtype: torch.dtype,
+              aligned: bool) -> GnPlan:
+    """``launch_plan`` of the forward."""
+    vec, shuffle = access(c, groups, dtype, aligned)
+    hw = h * w
+    # a whole sample in one block, else slices of 8-warp blocks over a
+    # cluster: as few blocks as hold it in 16 vectors a thread (a cluster
+    # waits at each of its two exchanges for its slowest block), else 8
+    # blocks re-reading
+    warps = _sample_warps(hw, c, vec, _REGS[-1])
+    if warps:
+        most = _per_thread(hw, c, vec, 32 * warps, 1)
+        regs = next(r for r in _REGS if r >= most)
+        return (make_plan("register", vec, warps, 1, regs, c, groups)
+                if shuffle else
+                make_plan("reread", vec, warps, 1, 0, c, groups))
+    k = next((k for k in range(2, MAX_CLUSTER + 1)
+              if _per_thread(hw, c, vec, MAX_THREADS, k) <= _REGS[-1]), None)
+    return (make_plan("cluster", vec, 8, k, _REGS[-1], c, groups)
+            if shuffle and k is not None else
+            make_plan("reread", vec, 8, k or MAX_CLUSTER, 0, c, groups))
 
 
 def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -323,7 +402,8 @@ def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         dout.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
         ptr(part), ptr(dscale), ptr(dbias), n, h * w, c, num_groups,
         float(eps), _PATH_CODES[plan.path], plan.vec, plan.warps,
-        plan.cluster, plan.regs, x.device.index, _build.stream_handle(x),
+        plan.cluster, plan.regs, int(plan.stash), x.device.index,
+        _build.stream_handle(x),
     )
     _build.check(lib, err, f"group_norm_act_bwd launch ({plan})")
     backend.count_launch(BWD_KERNEL_NAME)

@@ -12,9 +12,10 @@ accuracies (``checkpoint, mode, eps, accuracy``, as the JAX runner's):
       --modes clean,fgsm,at --epsilons 0.01,0.03,0.1 --output_csv accs.csv
 
 ``--ensemble`` also evaluates all matched checkpoints as one
-softmax-averaged model ensemble, attacked by FGSM2Ensemble.  Each
-checkpoint is evaluated in the precision it was trained in
-(``--precision``).  The log goes to ``attacks_runner.log`` beside the CSV.
+softmax-averaged model ensemble, attacked by FGSM2Ensemble.  Every
+checkpoint is evaluated in f32, as the JAX runner does, whatever
+``--precision`` it was trained in.  The log goes to ``attacks_runner.log``
+beside the CSV.
 ``--device cpu`` runs on the CPU; without a card and without it the run
 raises.
 """
@@ -55,7 +56,6 @@ from ..utils import fix_seeds, get_logger
 from .cifar_runner import build_cifar_model
 from .common import (
     add_device_flag,
-    compute_dtype_of,
     optimizer_from_saved_args,
 )
 
@@ -130,7 +130,7 @@ def main(argv=None):
         return it
 
     rows = []
-    members_info = []  # (arch key, member, ds, mean, std, compute dtype)
+    members_info = []  # (arch key, member, ds, mean, std)
     for base in sorted(glob.glob(args.checkpoints_glob)):
         # each checkpoint base dir holds step_XXXXXXXX subdirs
         step_dirs = sorted(glob.glob(os.path.join(base, "step_*")))
@@ -144,7 +144,6 @@ def main(argv=None):
         # the saved flags decide the optimizer state's layout
         template = create_train_state(model, optimizer_from_saved_args(margs))
         restore_checkpoint(base, template)
-        dtype = compute_dtype_of(margs.get("precision", "f32"))
 
         if args.data_root:
             if cfg["model"] == "mnist":
@@ -167,8 +166,7 @@ def main(argv=None):
                 if mode == "clean":
                     acc = accuracy(
                         model, solvers, opts, batches(ds, mean, std),
-                        predict=make_eval_step(model, solvers, opts,
-                                               compute_dtype=dtype),
+                        predict=make_eval_step(model, solvers, opts),
                         generator=gen)
                 else:
                     atk = AttackConfig(
@@ -179,7 +177,7 @@ def main(argv=None):
                     acc = adversarial_accuracy(
                         model, solvers, opts, batches(ds, mean, std), atk,
                         gen, predict=make_adversarial_predict(
-                            model, solvers, opts, atk, compute_dtype=dtype))
+                            model, solvers, opts, atk))
                 logger.info(f"{base} | {mode} eps={eps:.4f} acc={acc:.4f}")
                 rows.append({
                     "checkpoint": base, "mode": mode,
@@ -191,8 +189,7 @@ def main(argv=None):
                     break  # eps is irrelevant for clean
         arch = (cfg["model"], tuple(sorted(
             (k, str(v)) for k, v in margs.items() if k in _ARCH_ARGS)))
-        members_info.append((arch, (model, solvers, opts), ds, mean, std,
-                             dtype))
+        members_info.append((arch, (model, solvers, opts), ds, mean, std))
 
     if args.ensemble:
         if len(members_info) < 2:
@@ -201,12 +198,11 @@ def main(argv=None):
             logger.warning("--ensemble skipped: checkpoints mix "
                            "architectures")
         else:
-            _, _, ds, mean, std, dtype = members_info[-1]
+            _, _, ds, mean, std = members_info[-1]
             members = [mi[1] for mi in members_info]
             tag = f"ENSEMBLE({len(members)})"
             gen = row_generator(99991)
-            acc = accuracy_ensemble(members, batches(ds, mean, std), gen,
-                                    compute_dtype=dtype)
+            acc = accuracy_ensemble(members, batches(ds, mean, std), gen)
             logger.info(f"{tag} | clean acc={acc:.4f}")
             rows.append({"checkpoint": tag, "mode": "ensemble_clean",
                          "eps": 0.0, "accuracy": acc})
@@ -216,7 +212,7 @@ def main(argv=None):
                         members, batches(ds, mean, std),
                         AttackConfig(mode="fgsm", eps=eps, mean=mean,
                                      std=std),
-                        gen, compute_dtype=dtype,
+                        gen,
                     )
                     logger.info(f"{tag} | fgsm2ensemble eps={eps:.4f} "
                                 f"acc={adv:.4f}")

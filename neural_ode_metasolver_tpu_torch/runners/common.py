@@ -13,8 +13,9 @@
     a readback; ``metrics.jsonl`` gets the config line and the per-epoch
     records of the JAX runner.
 
-Evaluation runs in the run's ``--precision`` (bf16 under ``--precision
-bf16``), where the JAX runner evaluates in f32 whatever the flag.
+Train steps run in the run's ``--precision``; validation and the
+adversarial test evaluate in f32 whatever the flag, as the JAX runner
+does.
 
 Randomness: one CPU ``torch.Generator`` seeded with ``--seed`` serves the
 steps, the regime draws of validation and the adversarial test's starts;
@@ -230,12 +231,10 @@ def validate(
     ``predict_cache`` (owned by the caller) keeps the predictors across
     epochs."""
     cache = predict_cache if predict_cache is not None else {}
-    dtype = compute_dtype_of(getattr(args, "precision", "f32"))
 
-    def get_predict(tag, solvers_, opts_):
+    def get_predict(tag, solvers_, opts_):  # f32, as the JAX runner
         if tag not in cache:
-            cache[tag] = make_eval_step(model, solvers_, opts_,
-                                        compute_dtype=dtype)
+            cache[tag] = make_eval_step(model, solvers_, opts_)
         return cache[tag]
 
     for mode in getattr(args, "val_solver_modes", ["standalone"]):
@@ -443,11 +442,9 @@ def fit(
                     mean=getattr(args, "data_mean", None),
                     std=getattr(args, "data_std", None),
                 )
-                if "adv_predict" not in predict_cache:
+                if "adv_predict" not in predict_cache:  # f32, as JAX
                     predict_cache["adv_predict"] = make_adversarial_predict(
-                        model, solvers, solver_options, test_attack,
-                        compute_dtype=compute_dtype,
-                    )
+                        model, solvers, solver_options, test_attack)
                 adv_acc = adversarial_accuracy(
                     model, solvers, solver_options, test_data_factory(),
                     test_attack, generator,

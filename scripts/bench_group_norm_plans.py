@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time kernel B3 under every launch plan it can run, on the card.
+"""Time kernel B3, or its backward, under every launch plan it can run, on
+the card.
 
-    python3 scripts/bench_group_norm_plans.py [--out FILE.jsonl]
-    python3 scripts/bench_group_norm_plans.py --wrapper-only
+    python3 scripts/bench_group_norm_plans.py [--backward] [--out FILE.jsonl]
+    python3 scripts/bench_group_norm_plans.py [--backward] --wrapper-only
                                               [--package-root DIR]
 
 For each shape of ``chip_smoke.py``'s phase 5 (the MNIST MetaNODE's
@@ -18,6 +19,11 @@ writes every row as JSON to ``--out`` if given.  With ``--wrapper-only``
 it times just ``fused_group_norm_act`` (the plan it picks) at those shapes,
 from the package under ``--package-root`` if given (an unpacked checkout
 of another commit, so that two versions can be timed in turns in one run).
+With ``--backward`` it does the same for ``group_norm_backward`` (the full
+launch, with dscale and dbias) at phase 6b's shapes and the wide CIFAR
+shapes, beside aten's GroupNorm backward after the activation's: its plans
+are the staged path (4 or 8 warps, every cluster that fits a block) and
+re-reading (1, 4 or 8 blocks), and its bars phase 6b's.
 Imports no JAX; needs a CUDA device.
 """
 import argparse
@@ -33,6 +39,17 @@ SHAPES = [
     (256, 26, 26, 64, "relu"), (256, 13, 13, 64, "relu"),
     (256, 6, 6, 64, "relu"), (256, 6, 6, 64, None),
     (256, 32, 32, 64, "relu"),
+]
+# (N, H, W, C, act): phase 6b's shapes, then the wide CIFAR shapes of
+# metanode18/34 (bf16 and f32 both)
+BWD_SHAPES = [
+    (128, 26, 26, 64, "relu"), (128, 13, 13, 64, "relu"),
+    (128, 6, 6, 64, "relu"), (128, 6, 6, 64, None),
+    (256, 32, 32, 64, "relu"), (256, 32, 32, 64, "gelu"),
+    (256, 32, 32, 64, None), (256, 16, 16, 128, "gelu"),
+    (256, 16, 16, 128, None), (256, 8, 8, 256, "gelu"),
+    (256, 8, 8, 256, None), (256, 4, 4, 512, "gelu"),
+    (256, 4, 4, 512, None),
 ]
 REPS = 20
 
@@ -86,6 +103,152 @@ def candidates(n, h, w, c, dtype):
     return out
 
 
+def bwd_candidates(n, h, w, c, dtype):
+    """Every backward plan of the kernel's instances that holds (n, h, w,
+    c) in a block's shared memory."""
+    from neural_ode_metasolver_tpu_torch.ops import group_norm as gn
+
+    vec, _ = gn.access(c, GROUPS, dtype)
+    hw = h * w
+    out = []
+
+    def add(path, warps, k, regs):
+        plan = gn.make_bwd_plan(path, vec, warps, k, regs, c, GROUPS, hw,
+                                dtype)
+        if plan.smem_bytes <= gn.SMEM_OPTIN:
+            out.append(plan)
+
+    for warps in (4, 8):
+        for k in range(1, gn.MAX_CLUSTER + 1):
+            add("staged", warps, k, 0)
+    for k in (1, 4, 8):
+        add("reread", 8, k, 0)
+    return out
+
+
+def aten_bwd(x, scale, bias, g, act):
+    """aten's GroupNorm backward after the activation's, as chip_smoke.py's
+    phase 6b times it (NCHW copies, the forward's statistics)."""
+    import torch
+
+    n, h, w, c = x.shape
+    x_cl = x.permute(0, 3, 1, 2).contiguous()
+    g_cl = g.permute(0, 3, 1, 2).contiguous()
+    s_l = scale.to(x.dtype)
+    y_l, mean_l, rstd_l = torch.ops.aten.native_group_norm(
+        x_cl, s_l, bias.to(x.dtype), n, c, h * w, GROUPS, 1e-5)
+
+    def library():
+        gy = (torch.ops.aten.threshold_backward(g_cl, y_l, 0.0)
+              if act == "relu" else
+              torch.ops.aten.gelu_backward(g_cl, y_l)
+              if act == "gelu" else g_cl)
+        return torch.ops.aten.native_group_norm_backward(
+            gy, x_cl, mean_l, rstd_l, s_l, n, c, h * w, GROUPS,
+            [True, True, True])
+    return library
+
+
+def bwd_inputs(dev, n, h, w, c, dtype):
+    """phase 6b's inputs: x, scale, bias, dout."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+
+    def randn(shape, scale, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = (randn((n, h, w, c), 2.0, 6) + 0.5).to(dtype)
+    return (x, randn((c,), 0.3, 7) + 1.0, randn((c,), 0.5, 8),
+            randn((n, h, w, c), 1.0, 9).to(dtype))
+
+
+def bwd_bars(x, g, ref):
+    """phase 6b's bars on (dx, dscale, dbias)."""
+    import torch
+
+    n, h, w, c = x.shape
+    dxmax = ref[0].float().abs().max().item()
+    xf = x.float().reshape(n, h * w, GROUPS, c // GROUPS)
+    xhat = ((xf - xf.mean((1, 3), keepdim=True)) * torch.rsqrt(
+        xf.var((1, 3), unbiased=False, keepdim=True) + 1e-5)
+            ).reshape(n, h, w, c)
+    l1 = 2.0 * g.float().abs()
+    return [1e-4 * max(1.0, dxmax) if x.dtype == torch.float32
+            else 2.0 ** -6 * dxmax,
+            1e-5 * max(1.0, (l1 * xhat.abs()).sum().item()),
+            1e-5 * max(1.0, l1.sum().item())]
+
+
+def bwd_main(dev, floor, out_path, wrapper_only):
+    """The backward's plans (or, ``wrapper_only``, its wrapper) at
+    BWD_SHAPES, beside aten's."""
+    import torch
+    from neural_ode_metasolver_tpu_torch.ops import group_norm as gn
+
+    rows = [{"launch_floor_ms": floor}]
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, h, w, c, act in BWD_SHAPES:
+            x, scale, bias, g = bwd_inputs(dev, n, h, w, c, dtype)
+            args = (x, scale, bias, g, GROUPS)
+            lib_ms = time_ms(aten_bwd(x, scale, bias, g, act))
+            if wrapper_only:
+                ms = time_ms(lambda: gn.group_norm_backward(*args, act=act))
+                rows.append({"shape": [n, h, w, c], "act": act,
+                             "dtype": str(dtype).split(".")[-1], "ms": ms,
+                             "library_ms": lib_ms})
+                print(f"  bwd {(n, h, w, c)} act={act} {rows[-1]['dtype']}: "
+                      f"{ms:.5f} ms (aten {lib_ms:.5f})", flush=True)
+                continue
+            ref = gn.group_norm_backward_reference(*args, act=act)
+            bars = bwd_bars(x, g, ref)
+            picked = gn.launch_plan(n, h, w, c, GROUPS, dtype,
+                                    backward=True)
+            results = []
+            for plan in bwd_candidates(n, h, w, c, dtype):
+                def run():
+                    return gn._launch_bwd(x, scale, bias, g, GROUPS, 1e-5,
+                                          act, plan, True)
+                try:
+                    got = run()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:  # a refused plan: say why
+                    print(f"  refused {plan}: {e}", flush=True)
+                    continue
+                errs = [(a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref)]
+                row = {"shape": [n, h, w, c], "act": act,
+                       "dtype": str(dtype).split(".")[-1],
+                       "plan": plan._asdict(), "ms": time_ms(run),
+                       "library_ms": lib_ms, "max_abs_err": errs,
+                       "ok": all(e <= b for e, b in zip(errs, bars)),
+                       "picked": plan == picked}
+                results.append(row)
+                rows.append(row)
+            results.sort(key=lambda r: r["ms"])
+            print(f"== bwd {(n, h, w, c)} act={act} {dtype}: {len(results)} "
+                  f"plans; aten {lib_ms:.5f} ms", flush=True)
+            for r in results[:10] + [r for r in results[10:] if r["picked"]]:
+                p = r["plan"]
+                print(f"  {r['ms']:.5f} ms  {p['path']:8s} w{p['warps']} "
+                      f"k{p['cluster']} r{p['regs']} s{p['smem_bytes']}  err "
+                      f"{max(r['max_abs_err']):.2e}"
+                      f"{'' if r['ok'] else ' FAIL'}"
+                      f"{'  <- launch_plan' if r['picked'] else ''}",
+                      flush=True)
+            bad = [r for r in results if not r["ok"]]
+            if bad:
+                print(f"  {len(bad)} plans over the bars {bars}", flush=True)
+            del x, g, ref
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as fh:
+            for r in rows:
+                fh.write(json.dumps(r) + "\n")
+    return 0
+
+
 def time_wrapper(dev):
     """Device ms of ``fused_group_norm_act`` at each shape, f32 and bf16."""
     import torch
@@ -111,7 +274,8 @@ def time_wrapper(dev):
     return rows
 
 
-def main(out_path=None, package_root=None, wrapper_only=False):
+def main(out_path=None, package_root=None, wrapper_only=False,
+         backward=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -125,6 +289,8 @@ def main(out_path=None, package_root=None, wrapper_only=False):
     one = torch.zeros(1, device=dev)
     floor = time_ms(lambda: one.add_(1.0))
     print(f"launch floor (one-element add_): {floor:.5f} ms", flush=True)
+    if backward:
+        return bwd_main(dev, floor, out_path, wrapper_only)
     if wrapper_only:
         rows = [{"launch_floor_ms": floor}] + time_wrapper(dev)
         if out_path:
@@ -196,5 +362,8 @@ if __name__ == "__main__":
                     help="time only fused_group_norm_act at each shape")
     ap.add_argument("--package-root",
                     help="import the port from this checkout instead")
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward's plans (or wrapper) instead")
     args = ap.parse_args()
-    sys.exit(main(args.out, args.package_root, args.wrapper_only))
+    sys.exit(main(args.out, args.package_root, args.wrapper_only,
+                  args.backward))

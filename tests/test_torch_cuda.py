@@ -475,11 +475,11 @@ def test_forward_only_kernels_refuse_a_gradient(dev):
 # (shape, groups, act) of B3's backward: the MNIST train step's shapes at
 # batch 128, the off-path (256, 32, 32, 64), ragged C, every activation
 GN_BWD_CASES = [
-    ((128, 26, 26, 64), 32, "relu"),   # cluster of 6 (f32), 3 (bf16)
-    ((128, 13, 13, 64), 32, "relu"),   # cluster of 2 (f32), one block bf16
+    ((128, 26, 26, 64), 32, "relu"),   # staged, cluster of 4 (f32), 3 (bf16)
+    ((128, 13, 13, 64), 32, "relu"),   # staged, one 4-warp block
     ((128, 6, 6, 64), 32, "relu"),
     ((128, 6, 6, 64), 32, None),
-    ((256, 32, 32, 64), 32, "relu"),   # cluster of 8 (f32)
+    ((256, 32, 32, 64), 32, "relu"),   # staged, cluster of 5 (f32), 4 (bf16)
     ((2, 6, 6, 48), 16, "relu"),       # cg 3: re-read
     ((1, 2, 2, 1056), 32, "relu"),     # C > 1024: re-read, 4 columns a thread
     ((3, 6, 6, 64), 32, "gelu"),
@@ -488,6 +488,8 @@ GN_BWD_CASES = [
     ((2, 5, 5, 6), 3, "gelu"),         # one-element access
     ((1, 29, 31, 64), 32, "relu"),     # a ragged last slice of the cluster
     ((1, 48, 48, 128), 32, "relu"),    # too large for 8 blocks: re-read
+    ((1, 112, 112, 64), 32, "gelu"),   # re-read, dxhat beyond shared memory:
+                                       # pass 4 evaluates act' again
     # the CIFAR GN nets' shapes (see the forward's cases)
     ((8, 32, 32, 64), 32, "gelu"),
     ((8, 32, 32, 64), 32, None),
@@ -552,6 +554,44 @@ def test_group_norm_backward_kernel_matches_plain(dev, dtype, shape, groups,
     assert (dx.float() - rdx.float()).abs().max() <= dx_bar
     assert (dscale - rds).abs().max() <= ds_bar
     assert (dbias - rdb).abs().max() <= db_bar
+
+
+# metanode18/34's wide CIFAR shapes: 256 channels at 8x8 and 512 at 4x4
+# (B1's wgrad: bf16 TMA at W 8, split-K at W 4 and in f32), 32 groups
+WIDE_CONVS = [(8, 8, 8, 256, 256), (8, 4, 4, 512, 512)]
+WIDE_GN = [((8, 8, 8, 256), 32, "gelu"), ((8, 8, 8, 256), 32, None),
+           ((8, 4, 4, 512), 32, "gelu"), ((8, 4, 4, 512), 32, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIDE_CONVS)
+def test_wide_conv3x3_kernels_match_plain(dev, dtype, shape):
+    """B1's forward, dgrad and wgrad at the wide shapes, under the bars of
+    the cases above; the wgrad at W 4 plans split-K."""
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import wgrad_plan
+
+    n, h, w, cin, cout = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wgrad_plan(n, h, w, cin, cout, dtype, sms)
+    assert plan.path == ("tma" if dtype == torch.bfloat16 and w == 8
+                         else "split_k")
+    test_conv3x3_kernel_matches_plain(dev, dtype, shape)
+    test_conv3x3_dgrad_kernel_matches_plain(dev, dtype, shape)
+    test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,act", WIDE_GN)
+def test_wide_group_norm_kernels_match_plain(dev, dtype, shape, groups, act):
+    """B3's forward and backward at the wide shapes, under the bars of the
+    cases above (the backward's on the staged path, its bits repeating and
+    the dx-only launch's dx equal to the full launch's)."""
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import launch_plan
+
+    assert launch_plan(*shape, groups, dtype, backward=True).path == "staged"
+    test_group_norm_kernel_matches_plain(dev, dtype, shape, groups, act)
+    test_group_norm_backward_kernel_matches_plain(dev, dtype, shape, groups,
+                                                  act)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

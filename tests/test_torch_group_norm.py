@@ -28,10 +28,11 @@ from neural_ode_metasolver_tpu.ops.pallas_kernels import (
 from neural_ode_metasolver_tpu_torch import launch_counts, reset_launch_counts
 from neural_ode_metasolver_tpu_torch.models import nn as fnn
 from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+    TWO_A_SM,
+    _bwd_smem_bytes,
     _layout,
     _per_thread,
     access,
-    _smem_bytes,
     fused_group_norm_act,
     group_norm_backward,
     group_norm_backward_reference,
@@ -292,25 +293,30 @@ def test_b3_backward_reference_matches_autograd(dtype, act):
     ((1, 2, 2, 1056), 32), ((2, 5, 5, 6), 3), ((1, 48, 48, 128), 32),
 ])
 def test_b3_backward_plan_touches_every_element_once(dtype, shape, groups):
-    """The backward's plan: the forward's layout rules with at most 8
-    vectors a thread (it holds x and dout), so MNIST's 13x13 (f32) and
-    26x26 go to more blocks of a cluster than the forward's; every element
-    is read by one thread."""
+    """The backward's plan: the staged path (x and dout in shared memory)
+    with 16-byte access, as few blocks a sample as leave two blocks an SM,
+    so MNIST's 26x26 goes to more blocks of a cluster than the forward's;
+    re-reading otherwise; every element is read by one thread."""
     n, h, w, c = shape
     fwd = launch_plan(n, h, w, c, groups, dtype)
     plan = launch_plan(n, h, w, c, groups, dtype, backward=True)
-    assert plan.regs <= 8 and plan.path in ("register", "cluster", "reread")
-    assert (plan.regs > 0) == (fwd.regs > 0)  # the same access and sums
-    assert plan.cluster >= fwd.cluster
+    assert plan.regs == 0 and plan.path in ("staged", "reread")
+    # 48x48x128 is too large for 8 staged blocks
+    assert (plan.path == "staged") == (plan.vec > 1 and h < 48)
+    assert plan.stash and plan.cluster >= fwd.cluster
     assert (_covered(plan, n, h * w, c) == 1).all()
-    if plan.regs:
-        assert _per_thread(h * w, c, plan.vec, 32 * plan.warps,
-                           plan.cluster) <= plan.regs
-    assert plan.smem_bytes == _smem_bytes(plan.path, c, groups, plan.vec,
-                                          plan.warps, plan.cluster, True)
+    assert plan.smem_bytes == _bwd_smem_bytes(
+        plan.path, c, groups, plan.vec, plan.warps, plan.cluster, h * w,
+        dtype.itemsize, True)
+    if plan.path == "staged":  # the fewest blocks that fit two an SM
+        assert plan.smem_bytes <= TWO_A_SM
+        assert plan.warps == (4 if plan.cluster == 1 else 8)
+        assert plan.cluster == 1 or _bwd_smem_bytes(
+            "staged", c, groups, plan.vec, 4 if plan.cluster == 2 else 8,
+            plan.cluster - 1, h * w, dtype.itemsize, True) > TWO_A_SM
     if (h, w, c) == (26, 26, 64):
-        assert plan.path == "cluster" and plan.cluster == (
-            6 if dtype == torch.float32 else 3)
+        assert plan.path == "staged" and plan.cluster == (
+            4 if dtype == torch.float32 else 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -328,6 +334,11 @@ def test_b3_backward_plans_stay_within_a_block_and_a_cluster(dtype):
                 plan = launch_plan(n, h, w, c, groups, dtype,
                                    aligned=aligned, backward=True)
                 assert plan.smem_bytes <= 232448
-                assert 1 <= plan.cluster <= 8 and plan.regs in (0, 4, 8)
+                assert 1 <= plan.cluster <= 8 and plan.regs == 0
                 assert 32 * plan.warps <= 256
-                assert (plan.regs > 0) == (plan.path != "reread")
+                # staged needs 16-byte access (bulk copies) and two blocks
+                # an SM; re-reading keeps the stash where it fits
+                assert plan.path in ("staged", "reread")
+                if plan.path == "staged":
+                    assert plan.vec > 1 and plan.stash
+                    assert plan.smem_bytes <= TWO_A_SM
