@@ -149,14 +149,30 @@ Phases, in order; any failure exits non-zero:
      bf16: one warm-up and one counted step (its ms and peak memory),
      finite losses and the launches a step (B1 268, dgrad 267, wgrad 134,
      B3 280 forward and 280 backward, 140 of them with dscale and dbias);
-     then kernel path against plain path with phase 18's bars.
+     then kernel path against plain path with phase 18's bars;
+ 21. phase 9's flagship step under the continuous adjoint
+     (``integration_method="adjoint"``) on phase 9's images: one warm-up
+     and five counted and timed steps, finite losses, the launches a step
+     (B1 264: each pass's 68 and the backward's 64 recomputed RHS convs;
+     dgrad 135, wgrad 68, B2 0, B3 0), its ms and peak memory beside phase
+     9's, the peak below phase 9's; then phase 10's kernel-against-plain
+     bars but for the comparison of the adversarial images;
+ 22. ``mnist_runner.main --train_solver_params --lr_uv 0.01`` with phase
+     15's digits flags, 2 epochs: finite losses, the logged u moved off
+     0.5 and inside [1e-3, 1], exact launches (per epoch 10 x phase 11's
+     step and one clean validation batch), ``solver_trained`` restoring
+     params, u and both optimizer states bit for bit, the ms a step beside
+     phase 11's; then from one state one ``make_solver_train_step`` step,
+     kernel path against plain path (loss within 2e-2), and at phase 11's
+     images u's gradient within 1e-3 relative and the param grads within
+     1e-3 of max|g|.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under temporary directories that phases 15-17 and 19 delete at
-their end.
+files only under temporary directories that phases 15-17, 19 and 22
+delete at their end.
 """
 import copy
 import json
@@ -503,6 +519,21 @@ FAMILY_EPOCHS = 2
 # times (the stem, layer 1's four convs, layer 2's three stride-1 convs) and
 # B3 10 times (the stem's bn1, two norms a block, the shortcut's norm)
 RESNET10_PER_BATCH = {"conv3x3_same": 8, "group_norm_act": 10}
+# Phase 21: the flagship step under the continuous adjoint.  Each pass runs
+# its 68 forward convs, and its backward recomputes every RK stage's RHS of
+# the two ODE blocks (2 blocks x 8 steps x 2 stages x 2 convs = 64) before
+# differentiating it; dgrad and wgrad run as under backprop
+ADJ_ODE_RECOMPUTE = 2 * N_STEPS * 2 * 2
+ADJ_TRAIN_PER_STEP = {**TRAIN_PER_STEP, "conv3x3_same": TRAIN_PER_STEP[
+    "conv3x3_same"] + 2 * ADJ_ODE_RECOMPUTE}  # 264
+# Phase 22: mnist_runner --train_solver_params, the digits recipe's flags
+# (the joint loop, as JAX's, takes neither smoothing nor a PGD test): an
+# epoch is 10 steps of phase 11's launches and one clean validation batch
+SOLVER_LR_UV = 0.01
+SOLVER_EPOCHS = 2
+# u's gradient in f32, either path, against the plain path's in f64: f32
+# rounding alone reads 2.49e-3 on the plain path (H100, phase 22)
+SOLVER_DU_BAR = 1e-2
 
 
 def scaled(counts, k):
@@ -523,6 +554,23 @@ def check_checkpoint_dir(path):
             for d in steps for f in ("state", "config.json")):
         fail(f"{path}: no committed step with its sidecar ({steps})")
     return steps
+
+
+def digits_runner_argv(save_dir):
+    """mnist_runner's flags for the digits recipe of phase 15."""
+    return ["--solvers", f"rk2,u,{N_STEPS},-1,{U},-1",
+            "--adv_training_mode", "at", "--eps_adv_training",
+            str(PGD_EPS), "--pgd_lr_training", str(PGD_LR),
+            "--pgd_niter_training", str(PGD_ITERS),
+            "--noise_type", "normal", "--noise_sigma", "0.0125",
+            "--noise_prob", "1.0", "--optim", "rmsprop", "--lr",
+            "1e-3", "--weight_decay", "5e-4", "--batch_size",
+            str(MNIST_TRAIN_BATCH), "--adv_testing_mode", "at",
+            "--eps_adv_testing", str(PGD_EPS), "--pgd_lr_testing",
+            str(PGD_LR), "--pgd_niter_testing", str(PGD_ITERS),
+            "--synthetic_train_size", str(RUNNER_MNIST_TRAIN),
+            "--synthetic_test_size", str(RUNNER_MNIST_TEST),
+            "--save_dir", save_dir]
 
 
 def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
@@ -558,19 +606,7 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
               f"{MNIST_TRAIN_BATCH}, {RUNNER_MNIST_EPOCHS} epochs of "
               f"{RUNNER_MNIST_STEPS} steps, then --resume")
         msave = os.path.join(tmp, "mnist")
-        margv = ["--solvers", f"rk2,u,{N_STEPS},-1,{U},-1",
-                 "--adv_training_mode", "at", "--eps_adv_training",
-                 str(PGD_EPS), "--pgd_lr_training", str(PGD_LR),
-                 "--pgd_niter_training", str(PGD_ITERS),
-                 "--noise_type", "normal", "--noise_sigma", "0.0125",
-                 "--noise_prob", "1.0", "--optim", "rmsprop", "--lr",
-                 "1e-3", "--weight_decay", "5e-4", "--batch_size",
-                 str(MNIST_TRAIN_BATCH), "--adv_testing_mode", "at",
-                 "--eps_adv_testing", str(PGD_EPS), "--pgd_lr_testing",
-                 str(PGD_LR), "--pgd_niter_testing", str(PGD_ITERS),
-                 "--synthetic_train_size", str(RUNNER_MNIST_TRAIN),
-                 "--synthetic_test_size", str(RUNNER_MNIST_TEST),
-                 "--save_dir", msave]
+        margv = digits_runner_argv(msave)
         per_epoch = (scaled(MNIST_TRAIN_PER_STEP, RUNNER_MNIST_STEPS)
                      + Counter(EVAL_CLEAN_PER_BATCH)
                      + Counter(EVAL_PGD_PER_BATCH))
@@ -856,7 +892,7 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
 
 def train_step_phase(port, torch, dev, model, label, per_step, solvers,
                      x_train, y_train, compare_attacks=False,
-                     steps=TRAIN_STEPS):
+                     steps=TRAIN_STEPS, integration_method="backprop"):
     """The flagship recipe's train step on ``model`` (Normal(0.0125)
     smoothing, FGSM-random at 8/255 and 10/255, SGD momentum 0.9 wd 5e-4 on
     cyclic_lr(1e-7, 0.1, 3186)) in bf16: one warm-up step, then ``steps``
@@ -865,8 +901,9 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
     weights with the draws pinned: the f32 param grads at batch 32 at the
     plain path's x_adv (1e-4 of max|g|; with ``compare_attacks`` also where
     the two paths' x_adv differ), and one bf16 step's loss (2e-2) and grad
-    norm (5e-2 relative).  Returns (the counted steps' launches, their
-    median ms, the peak GiB allocated)."""
+    norm (5e-2 relative).  ``integration_method`` differentiates the ODE
+    blocks (the step and the f32 gradients alike).  Returns (the counted
+    steps' launches, their median ms, the peak GiB allocated)."""
     from neural_ode_metasolver_tpu_torch.attacks import (
         cross_entropy,
         fgsm_random,
@@ -893,7 +930,8 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
     def train_step(use_kernels, dtype):
         return make_train_step(model, opt, solvers, SolverOptions(),
                                attack_cfg, noise_cfg, compute_dtype=dtype,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels,
+                               integration_method=integration_method)
 
     snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
     state = create_train_state(model, opt)
@@ -942,7 +980,8 @@ def train_step_phase(port, torch, dev, model, label, per_step, solvers,
 
     def forward(use_kernels, train, tree=None):
         return lambda xi: model(xi, solvers_t, use_kernels=use_kernels,
-                                train=train, params=tree)
+                                train=train, params=tree,
+                                integration_method=integration_method)
 
     def attack(use_kernels):
         return fgsm_random(forward(use_kernels, False, frozen),
@@ -1170,6 +1209,214 @@ def cifar_family_phases(port, torch, dev, flagship_ms):
     del model
     torch.cuda.empty_cache()
     return gn_counts, gn_med, family_counts, m18
+
+
+def a18_phases(port, torch, dev, flagship_ms, flagship_peak, mnist_ms):
+    """Phases 21-22: the flagship step under the continuous adjoint, and
+    trainable solver coefficients through mnist_runner.  Returns (phase
+    21's counted launches, median ms a step, peak GiB; phase 22's
+    launches in the runner, launches of one solver step, the runner's
+    steady ms a step, peak GiB)."""
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.runners import common, mnist_runner
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        create_solver_train_state,
+        make_optimizer,
+        make_solver_train_step,
+        restore_checkpoint,
+        solvers_from_state,
+    )
+
+    solvers = parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1")
+    # ------------------------------------------------ 21 adjoint, flagship
+    phase(f"train: the flagship step under the continuous adjoint "
+          f"(premetanode10, in_planes 64, GeLUpoly), bf16, batch {BATCH} "
+          f"(phase 9's backprop step: {flagship_ms:.3f} ms, peak "
+          f"{flagship_peak:.2f} GiB)")
+    model = build_model("premetanode10", in_planes=64,
+                        acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)  # phase 9's images and labels
+    x_train = torch.randn(BATCH, 32, 32, 3, generator=gen).to(dev)
+    y_train = torch.randint(0, 10, (BATCH,), generator=gen).to(dev)
+    adj_counts, adj_ms, adj_peak = train_step_phase(
+        port, torch, dev, model, "train (adjoint)", ADJ_TRAIN_PER_STEP,
+        solvers, x_train, y_train, integration_method="adjoint")
+    print(f"  adjoint step {adj_ms:.3f} ms against backprop's "
+          f"{flagship_ms:.3f} ms ({adj_ms / flagship_ms:.3f}x); peak memory "
+          f"{adj_peak:.2f} GiB against backprop's {flagship_peak:.2f} GiB",
+          flush=True)
+    if not adj_peak < flagship_peak:
+        fail(f"the adjoint step's peak memory {adj_peak:.2f} GiB is not "
+             f"below backprop's {flagship_peak:.2f} GiB")
+    del model, x_train, y_train
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 22 trainable u via mnist_runner
+    phase(f"mnist_runner --train_solver_params --lr_uv {SOLVER_LR_UV}: the "
+          f"digits recipe (dim {MNIST_DIM}, PGD-{PGD_ITERS}, RMSprop), f32, "
+          f"batch {MNIST_TRAIN_BATCH}, {SOLVER_EPOCHS} epochs of "
+          f"{RUNNER_MNIST_STEPS} steps")
+    per_epoch = (scaled(MNIST_TRAIN_PER_STEP, RUNNER_MNIST_STEPS)
+                 + Counter(EVAL_CLEAN_PER_BATCH))
+    want = dict(scaled(per_epoch, SOLVER_EPOCHS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_solver_") as tmp:
+        save = os.path.join(tmp, "solver")
+        torch.cuda.reset_peak_memory_stats()
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts = mnist_runner.main(digits_runner_argv(save) + [
+            "--train_solver_params", "--lr_uv", str(SOLVER_LR_UV),
+            "--nepochs", str(SOLVER_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solver_counts = port.launch_counts()
+        solver_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [r for r in read_metrics(save) if "train_loss" in r]
+        for r in recs:
+            print(f"  epoch {int(r['epoch'])}: train loss "
+                  f"{r['train_loss']:.6f}, accuracy {r['accuracy']:.4f}, u "
+                  f"{r['solver0_u']:.7f}, batch_time "
+                  f"{r['batch_time'] * 1e3:.3f} ms = "
+                  f"{MNIST_TRAIN_BATCH / r['batch_time']:.1f} img/s (phase "
+                  f"11's bare frozen-u step: {mnist_ms:.3f} ms)", flush=True)
+        solver_ms = recs[-1]["batch_time"] * 1e3 if recs else float("nan")
+        print(f"  {wall:.3f} s for {SOLVER_EPOCHS} epochs; peak memory "
+              f"{solver_peak:.2f} GiB; launches {solver_counts} (expected "
+              f"{want}: per epoch {RUNNER_MNIST_STEPS} x phase 11's step and "
+              f"one clean validation batch)", flush=True)
+        us = [r["solver0_u"] for r in recs]
+        if len(recs) != SOLVER_EPOCHS or not all(
+                math.isfinite(r["train_loss"]) for r in recs):
+            fail(f"mnist_runner --train_solver_params: records {recs}")
+        if not all(1e-3 <= u <= 1.0 for u in us) or us[-1] == U:
+            fail(f"mnist_runner --train_solver_params: u {us} did not move "
+                 f"off {U} or left [1e-3, 1]")
+        if solver_counts != want:
+            fail(f"mnist_runner --train_solver_params: launches "
+                 f"{solver_counts} != expected {want}")
+        # solver_trained restores bit for bit: params, u, both optimizers
+        base = os.path.join(save, "solver_trained")
+        check_checkpoint_dir(base)
+        with open(os.path.join(base, check_checkpoint_dir(base)[-1],
+                               "config.json")) as f:
+            cfg = json.load(f)
+        fresh_model = build_model("mnist", dim=MNIST_DIM)
+        fresh = create_solver_train_state(
+            fresh_model, common.optimizer_from_saved_args(cfg["args"]),
+            make_optimizer("sgd", SOLVER_LR_UV), solvers)
+        got, _ = restore_checkpoint(base, fresh)
+
+        def same_opt(a, b):
+            return a.keys() == b.keys() and all(
+                (v.keys() == a[k].keys() and all(torch.equal(a[k][n], t)
+                                                 for n, t in v.items()))
+                if isinstance(v, dict) else a[k] == v for k, v in b.items())
+
+        same = (got.step == ts.step
+                and all(torch.equal(got.params[k], v)
+                        for k, v in ts.params.items())
+                and torch.equal(got.solver_params[0]["u"],
+                                ts.solver_params[0]["u"])
+                and same_opt(got.opt_state, ts.opt_state)
+                and same_opt(got.solver_opt_state, ts.solver_opt_state))
+        print(f"  solver_trained at step {got.step}: params, u "
+              f"{got.solver_params[0]['u'].item():.7f} and both optimizer "
+              f"states restore bit for bit: {same}", flush=True)
+        if not same:
+            fail("solver_trained does not restore bit for bit")
+        del ts, got, fresh, fresh_model
+
+    # kernel path against plain path from one state
+    mnist = build_model("mnist", dim=MNIST_DIM,
+                        generator=torch.Generator().manual_seed(0))
+    snap = {k: p.detach().clone() for k, p in mnist.named_parameters()}
+    gen = torch.Generator().manual_seed(2)  # phase 11's images and labels
+    xm = torch.rand(MNIST_TRAIN_BATCH, 28, 28, 1, generator=gen).to(dev)
+    ym = torch.randint(0, 10, (MNIST_TRAIN_BATCH,), generator=gen).to(dev)
+    atk = AttackConfig(mode="at", eps=PGD_EPS, pgd_lr=PGD_LR,
+                       pgd_niter=PGD_ITERS)
+    results = {}
+    for use_kernels in (True, False):
+        mnist.load_state_dict(snap)
+        opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+        sopt = make_optimizer("sgd", SOLVER_LR_UV)
+        st = create_solver_train_state(mnist, opt, sopt, solvers)
+        step = make_solver_train_step(mnist, opt, sopt, solvers,
+                                      SolverOptions(), atk,
+                                      use_kernels=use_kernels)
+        port.reset_launch_counts()
+        _, mt = step(st, xm, ym, torch.Generator().manual_seed(22))
+        torch.cuda.synchronize()
+        results[use_kernels] = (mt["loss"].item(),
+                                mt["solver_grad_norm"].item(),
+                                port.launch_counts())
+    (lk, sk, step_counts), (lp, sp, plain_counts) = (results[True],
+                                                     results[False])
+    print(f"  one solver step, f32 batch {MNIST_TRAIN_BATCH}: loss {lk:.6f} "
+          f"vs plain {lp:.6f} (bar 2e-2); |du| {sk:.6e} vs {sp:.6e} (bar "
+          f"5e-2 relative: PGD's sign steps carry rounding on); launches "
+          f"{step_counts} (expected {MNIST_TRAIN_PER_STEP}; plain path "
+          f"{plain_counts})", flush=True)
+    if not abs(lk - lp) <= 2e-2 * max(1.0, abs(lp)):
+        fail("solver train step: kernel and plain losses disagree")
+    if not abs(sk - sp) <= 5e-2 * sp:
+        fail(f"solver train step: solver_grad_norm {sk} against the plain "
+             f"path's {sp}")
+    if step_counts != MNIST_TRAIN_PER_STEP or plain_counts:
+        fail(f"solver train step: launches {step_counts} != expected "
+             f"{MNIST_TRAIN_PER_STEP}, or the plain path launched "
+             f"{plain_counts}")
+    mnist.load_state_dict(snap)
+    params = list(mnist.parameters())
+    grads = []
+    for use_kernels in (True, False):
+        u = torch.tensor(U, device=dev, requires_grad=True)
+        with torch.enable_grad():
+            loss = cross_entropy(mnist(
+                xm, solvers_from_state(solvers, [{"u": u, "v": None}]),
+                use_kernels=use_kernels, train=True), ym)
+            grads.append(torch.autograd.grad(loss, params + [u]))
+    gmax = max(g.abs().max().item() for g in grads[1][:-1])
+    gerr = max((a - b).abs().max().item()
+               for a, b in zip(grads[0][:-1], grads[1][:-1]))
+    # du is a sum that cancels, so f32 rounding alone moves it by some 1e-3
+    # of itself: both paths' du in f32 are held against the plain path's in
+    # f64, at a bar above that floor
+    mnist.double()
+    u64 = torch.tensor(U, device=dev, dtype=torch.float64,
+                       requires_grad=True)
+    solvers64 = [s.replace(u=s.u.double()) for s in solvers]
+    with torch.enable_grad():
+        (du64,) = torch.autograd.grad(cross_entropy(mnist(
+            xm.double(), solvers_from_state(solvers64,
+                                            [{"u": u64, "v": None}]),
+            use_kernels=False, train=True), ym), u64)
+    du_k, du_p, du64 = grads[0][-1].item(), grads[1][-1].item(), du64.item()
+    rel_k, rel_p = (abs(d - du64) / abs(du64) for d in (du_k, du_p))
+    print(f"  f32 batch {MNIST_TRAIN_BATCH} at the clean images: du "
+          f"{du_k:.6e} kernel path, {du_p:.6e} plain path (apart "
+          f"{abs(du_k - du_p) / abs(du_p):.3e} relative), against the "
+          f"plain path in f64 {du64:.6e}: kernel {rel_k:.3e}, plain "
+          f"{rel_p:.3e} (bar {SOLVER_DU_BAR:g} relative); param grads "
+          f"max|diff| {gerr:.3e} (bar 1e-3 x max|g| = {1e-3 * gmax:.3e})",
+          flush=True)
+    if not (rel_k <= SOLVER_DU_BAR and rel_p <= SOLVER_DU_BAR
+            and gerr <= 1e-3 * gmax):
+        fail(f"solver train: gradients off (u: kernel {rel_k}, plain "
+             f"{rel_p} from f64; params {gerr})")
+    del mnist, grads
+    torch.cuda.empty_cache()
+    return (adj_counts, adj_ms, adj_peak, solver_counts, step_counts,
+            solver_ms, solver_peak)
 
 
 def main():
@@ -1831,7 +2078,7 @@ def main():
     x_train = torch.randn(BATCH, 32, 32, 3, generator=gen_cpu).to(dev)
     y_train = torch.randint(0, 10, (BATCH,), generator=gen_cpu).to(dev)
     # ------------------------------------------------ 10 train vs plain
-    train_counts, med, _ = train_step_phase(
+    train_counts, med, train_peak = train_step_phase(
         port, torch, dev, model, "train", TRAIN_PER_STEP, solvers, x_train,
         y_train, compare_attacks=True)
     del model
@@ -2304,6 +2551,10 @@ def main():
     print(f"  launches over phase 19's runs: {dict(family_counts)}",
           flush=True)
 
+    # ----------------------------------- 21-22 adjoint and trainable u
+    (adj_counts, adj_ms, adj_peak, solver_counts, solver_step_counts,
+     solver_ms, solver_peak) = a18_phases(port, torch, dev, med, train_peak, mnist_med)
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -2351,11 +2602,27 @@ def main():
                 "launches": m18_counts.get(name, 0)},
             "cifar family runner bf16": {
                 "launches": family_counts.get(name, 0)},
+            "adjoint train bf16": {"steps": TRAIN_STEPS,
+                                   "launches": adj_counts.get(name, 0)},
+            "solver train runner f32": {
+                "steps": SOLVER_EPOCHS * RUNNER_MNIST_STEPS,
+                "launches": solver_counts.get(name, 0)},
+        }
+        paths = {
+            "adjoint_train_bf16": {
+                "launches_per_step": {k: v // TRAIN_STEPS
+                                      for k, v in adj_counts.items()},
+                "step_ms": adj_ms, "peak_gib": adj_peak,
+                "backprop_step_ms": med, "backprop_peak_gib": train_peak},
+            "solver_train_f32": {
+                "launches_per_step": solver_step_counts,
+                "step_ms": solver_ms, "peak_gib": solver_peak,
+                "frozen_u_step_ms": mnist_med},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(p["launches"] for p in by_path.values()),
-                "by_path": by_path, **sums, **extra}
+                "by_path": by_path, **sums, **paths, **extra}
 
     b1_cifar = Counter(c[1:6] for c in B1_CALLS)
     b3_mnist = {c[1:6]: c[6] for c in B3_CALLS}
@@ -2502,7 +2769,15 @@ def main():
              "metanode18-GN step (280 forward and 280 backward launches a "
              "step, the wide rows included; step_ms its counted step, "
              "peak_gib its peak memory), by_path's metanode18 GN train bf16 "
-             "its counted step")
+             "its counted step.  adjoint_train_bf16 (every kernel): phase "
+             "21's flagship step under the continuous adjoint (launches a "
+             "step of every kernel, median step_ms and peak_gib beside "
+             "phase 9's backprop step's), by_path's adjoint train bf16 its "
+             "timed steps; solver_train_f32: phase 22's mnist_runner "
+             "--train_solver_params (launches a step, the second epoch's "
+             "batch_time as step_ms, the run's peak_gib, phase 11's "
+             "frozen-u step beside), by_path's solver train runner f32 the "
+             "whole run, validation included")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -42,7 +42,11 @@ Dispatch (``use_kernels=True``):
     the solver list is one rk2 solver with n_steps set, in standalone
     mode, no ss-loss is asked for, and no gradient can flow: B2, like the
     Pallas kernel, has no backward.  Otherwise it takes the generic
-    ``meta_integrate`` over the torch RHS.
+    ``meta_integrate`` over the torch RHS; with ``integration_method=
+    "adjoint"`` its gradient is the continuous adjoint's over the block's
+    materialized params ``p_eff`` (SN/WN's take it back to the raw params
+    through autograd), whose forward stores the grid states and so does not
+    run on B2.
 ``use_kernels=False`` takes the generic path with the plain versions
 everywhere: the plain path the kernels are checked against on the card.
 
@@ -313,7 +317,7 @@ def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
         return None
     if s.u is None or s.u.numel() != 1:
         return None
-    return float(s.tableau().c[..., 1])
+    return float(s.tableau().c[..., 1].detach())
 
 
 # -------------------------------------------------------------- MetaLayer --
@@ -337,15 +341,20 @@ def _meta_layer_init(gen, cfg, planes, num_blocks, stride, in_planes):
     return p, s, cur
 
 
-def _grad_can_flow(x: torch.Tensor, p_eff: Params) -> bool:
+def _grad_can_flow(x: torch.Tensor, p_eff: Params, solvers) -> bool:
+    """Whether a gradient can reach x, the block's params or a solver's
+    (unfrozen) u/v."""
     return torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for p in p_eff.values()
-                               for t in p.values()))
+        x.requires_grad
+        or any(t.requires_grad for p in p_eff.values() for t in p.values())
+        or any(not s.frozen and t is not None and t.requires_grad
+               for s in solvers for t in (s.u, s.v)))
 
 
 def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
                       use_kernels, remat=False, generator=None,
-                      ss_loss=False, ss_loss_abs=False):
+                      ss_loss=False, ss_loss_abs=False,
+                      integration_method="backprop"):
     """The layer's output, new state and ss-loss (0 without
     ``ss_loss``)."""
     s = {k: list(s.get(k) or [{}] * len(p[k])) for k in ("res", "ode")}
@@ -358,16 +367,19 @@ def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
     for i, bp in enumerate(p["ode"]):
         p_eff, s["ode"][i] = _materialize_odefunc(cfg, bp, s["ode"][i],
                                                   train)
-        if u_k is not None and not _grad_can_flow(x, p_eff):  # kernel B2
-            x = ode_block_rk2_forward(
+        if u_k is not None and not _grad_can_flow(x, p_eff, solvers):
+            x = ode_block_rk2_forward(  # kernel B2
                 x, p_eff["conv1"]["kernel"].to(x.dtype),
                 p_eff["conv2"]["kernel"].to(x.dtype), u_k, solvers[0].n_steps,
             )
             continue
         rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
                                                     use_kernels)
-        x, aux = meta_integrate(solvers, rhs, x, options, generator,
-                                remat=remat)
+        x, aux = meta_integrate(
+            solvers, rhs, x, options, generator, remat=remat,
+            adjoint=integration_method == "adjoint", rhs_params=p_eff,
+            rhs_with_params=lambda pp, t, y: _odefunc_apply(cfg, pp, t, y,
+                                                            use_kernels))
         if ss_loss:
             rhs_ss = lambda t, y, _p=p_eff: _odefunc_apply(
                 cfg, _p, t, y, use_kernels, ss_abs=ss_loss_abs)
@@ -435,6 +447,7 @@ def apply_cifar(
     generator: Optional[torch.Generator] = None,
     ss_loss: bool = False,
     ss_loss_abs: bool = False,
+    integration_method: str = "backprop",
     return_aux: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
     """Forward of NHWC ``x``; returns the logits in x's dtype, and with
@@ -444,8 +457,13 @@ def apply_cifar(
     tree (None: the config has none).  ``train`` selects train mode (BN's
     batch statistics, SN's power iteration); ``remat`` checkpoints each RK
     step of the generic ODE-block path; ``generator`` (a CPU generator)
-    serves the switch and ensemble draws."""
+    serves the switch and ensemble draws; ``integration_method``
+    ("backprop" or "adjoint") picks how the ODE blocks are
+    differentiated."""
     _check_cfg(cfg)
+    if integration_method not in ("backprop", "adjoint"):
+        raise ValueError(f"unknown integration_method "
+                         f"{integration_method!r}")
     if solvers is None and any(n_ode for _, n_ode in cfg.num_blocks):
         raise ValueError("this config integrates ODE blocks: pass "
                          "solvers=[create_solver('rk2', 'u', n_steps=8)]")
@@ -468,7 +486,7 @@ def apply_cifar(
             cfg, params[name], state.get(name, {}), out,
             _layer_strides(cfg, li),
             solvers, solver_options, train, use_kernels, remat, generator,
-            ss_loss, ss_loss_abs,
+            ss_loss, ss_loss_abs, integration_method,
         )
         ss_total = ss_total + ss
     if preact:

@@ -35,8 +35,9 @@ Training options (JAX ``apply_mnist``, ``odenet_mnist.py:192-252``):
 of z - x; ``remat`` checkpoints each RK step; ``unroll`` is accepted and
 ignored, as the step loop is a Python loop.  With ``return_aux=True`` the
 result is ``(logits, {"ss_loss": ...})``, the JAX function's aux (0 when
-``ss_loss`` is off).  The adjoint raises ``NotImplementedError`` (ROADMAP
-A18).
+``ss_loss`` is off).  ``integration_method="adjoint"`` differentiates each
+ODE block by the continuous adjoint (``ops/adjoint.py``) over the block's
+params; the ss-loss pass backpropagates, as in JAX.
 """
 from __future__ import annotations
 
@@ -122,10 +123,16 @@ def _odefunc_init(gen: torch.Generator, dim: int) -> Params:
 def _concat_conv(params: Params, t, x: torch.Tensor,
                  use_kernels: bool) -> torch.Tensor:
     """ConcatConv2d (layers.py:240-253): a constant-t channel first, then
-    x, then a 3x3 SAME conv.  ``t`` is a Python float or a host tensor, so
-    the channel is a fill on x's device, with no copy of a tensor."""
-    tt = torch.full(x.shape[:-1] + (1,), float(t), dtype=x.dtype,
-                    device=x.device)
+    x, then a 3x3 SAME conv.  A Python float or a host tensor ``t`` is a
+    fill on x's device, with no copy of a tensor; a ``t`` that carries a
+    gradient (a trainable solver's stage time, u's path through c) or lives
+    on the card is broadcast, so neither the gradient nor the host waits."""
+    shape = x.shape[:-1] + (1,)
+    if isinstance(t, torch.Tensor) and (t.requires_grad
+                                        or t.device.type != "cpu"):
+        tt = x.new_zeros(shape) + t.to(x.dtype)
+    else:
+        tt = torch.full(shape, float(t), dtype=x.dtype, device=x.device)
     return _conv(params, torch.cat([tt, x], dim=-1), 1, 1, use_kernels)
 
 
@@ -239,10 +246,7 @@ def apply_mnist(
     one draw per ODE block."""
     del train, unroll, state
     _check_cfg(cfg)
-    if integration_method == "adjoint":
-        raise NotImplementedError(
-            "integration_method='adjoint' is not ported yet (ROADMAP A18)")
-    if integration_method != "backprop":
+    if integration_method not in ("backprop", "adjoint"):
         raise ValueError(f"unknown integration_method "
                          f"{integration_method!r}")
     if cfg.is_odenet and solvers is None:
@@ -257,8 +261,11 @@ def apply_mnist(
             continue
         rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
                                                     use_kernels)
-        x, aux = meta_integrate(solvers, rhs, x, solver_options, generator,
-                                remat=remat)
+        x, aux = meta_integrate(
+            solvers, rhs, x, solver_options, generator, remat=remat,
+            adjoint=integration_method == "adjoint", rhs_params=block,
+            rhs_with_params=lambda p, t, y: _odefunc_apply(p, t, y, act,
+                                                           use_kernels))
         if ss_loss:
             # re-integrate t in [1, 2] from the block output, replaying the
             # forward's regime draws (layers.py:53-93)

@@ -13,7 +13,11 @@ Grid construction follows the reference exactly:
 Carry-dtype rule (JAX ``integrate.py:140-142`` and ``:164-172``): the stage
 input is cast to the carry dtype before each RHS call, and the step combines
 in at least float32 before the new carry is cast back, so bf16 activations
-keep a bf16 carry while the tableau arithmetic stays in f32.
+keep a bf16 carry while the tableau arithmetic stays in f32.  The carry
+may be a tree (nested tuples, lists and dicts of tensors, JAX
+``integrate.py:122-176``), as the continuous adjoint's augmented state
+``(y, a, g)`` is: the rule then holds leaf by leaf, each stage input cast to
+its own leaf's dtype.
 
 ``remat=True`` runs each step under ``torch.utils.checkpoint`` (the JAX
 ``jax.checkpoint`` of the scan body, ``integrate.py:175``): a backward keeps
@@ -30,6 +34,7 @@ import math
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from .tableau import ButcherTableau
@@ -73,31 +78,43 @@ def make_time_grid(
     return grid
 
 
-def rk_step(tableau: ButcherTableau, rhs: RHS, y: torch.Tensor,
-            t: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+def rk_step(tableau: ButcherTableau, rhs: RHS, y, t: torch.Tensor,
+            dt: torch.Tensor):
     """One explicit RK step; returns ``dy = dt * sum_i b_i k_i`` in the
-    promoted (>= f32) dtype."""
+    promoted (>= f32) dtype.  ``y`` is a tensor or a tree of them (a tensor
+    is the tree of one leaf), and ``rhs`` returns the same structure."""
+    leaves, spec = pytree.tree_flatten(y)
     ks = []
     for i in range(tableau.stages):
-        yi = y
+        yi = leaves
         for j in range(i):
-            yi = _wide(yi) + (tableau.w[..., i, j] * dt) * _wide(ks[j])
+            coeff = tableau.w[..., i, j] * dt
+            yi = [_wide(a) + coeff * _wide(k) for a, k in zip(yi, ks[j])]
         ti = t + tableau.c[..., i] * dt
         # RHS inputs stay in the carry dtype (bf16 under mixed precision)
-        ks.append(rhs(ti, yi.to(y.dtype)))
-    dy = _wide(ks[0]) * (tableau.b[..., 0] * dt)
+        stage = rhs(ti, pytree.tree_unflatten(
+            [a.to(leaf.dtype) for a, leaf in zip(yi, leaves)], spec))
+        ks.append(pytree.tree_leaves(stage))
+    coeff = tableau.b[..., 0] * dt
+    dy = [_wide(k) * coeff for k in ks[0]]
     for i in range(1, tableau.stages):
-        dy = dy + (tableau.b[..., i] * dt) * _wide(ks[i])
-    return dy
+        coeff = tableau.b[..., i] * dt
+        dy = [d + coeff * _wide(k) for d, k in zip(dy, ks[i])]
+    return pytree.tree_unflatten(dy, spec)
 
 
-def _steps(tableau: ButcherTableau, rhs: RHS, y0: torch.Tensor,
-           time_grid: torch.Tensor, remat: bool, trajectory: bool):
+def _add_step(y, dy):
+    """The carry after a step, ``(y + dy)`` in y's dtype, leaf by leaf."""
+    return pytree.tree_map(lambda a, d: (_wide(a) + d).to(a.dtype), y, dy)
+
+
+def _steps(tableau: ButcherTableau, rhs: RHS, y0, time_grid: torch.Tensor,
+           remat: bool, trajectory: bool):
     """Step over the grid; returns y(grid[-1]) and, with ``trajectory``,
     the carry after every step."""
 
     def step(y, t, dt):
-        return (_wide(y) + rk_step(tableau, rhs, y, t, dt)).to(y.dtype)
+        return _add_step(y, rk_step(tableau, rhs, y, t, dt))
 
     y, ys = y0, []
     for k in range(time_grid.shape[0] - 1):

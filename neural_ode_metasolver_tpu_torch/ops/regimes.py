@@ -21,6 +21,10 @@ stream differs from JAX's threefry: parity tests pin the draws through
 
 Solver smoothing is not a mode: it perturbs u/v before the forward
 (``ops/noise.py``) and composes with all three.
+
+``adjoint=True`` integrates every branch with the continuous adjoint
+(``ops/adjoint.py``), over the explicit-params RHS ``rhs_with_params(params,
+t, y)`` and its ``rhs_params`` (JAX ``regimes.py:49-66``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .adjoint import odeint_final_adjoint
 from .solver import ParametricSolver
 
 __all__ = ["SolverOptions", "meta_integrate", "switch_probs"]
@@ -90,17 +95,29 @@ def meta_integrate(
     t1: float = 1.0,
     aux_in: Optional[Dict[str, Any]] = None,
     remat: bool = False,
+    adjoint: bool = False,
+    rhs_params: Any = None,
+    rhs_with_params=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Integrate ``y0`` over [t0, t1] under the configured regime; returns
     ``(y(t1), aux)``.  ``generator`` (a CPU generator) serves the switch
     and ensemble draws, one per call; without it, and without ``aux_in`` to
-    replay, those modes raise.  ``remat`` checkpoints each RK step."""
+    replay, those modes raise.  ``remat`` checkpoints each RK step of the
+    backprop path; ``adjoint`` takes the continuous adjoint instead, which
+    needs ``rhs_with_params`` and ``rhs_params`` (``rhs`` is then unused)."""
     n = len(solvers)
     mode = options.solver_mode
     if mode not in ("standalone", "switch", "ensemble"):
         raise ValueError(f"unknown solver_mode {mode!r}")
+    if adjoint and rhs_with_params is None:
+        raise ValueError("adjoint integration needs an explicit-params RHS "
+                         "(rhs_with_params / rhs_params)")
 
     def integrate(s):
+        if adjoint:
+            return odeint_final_adjoint(s.tableau(), rhs_with_params,
+                                        rhs_params, y0,
+                                        s.final_grid(y0, t0, t1))
         return s.integrate_final(rhs, y0, t0, t1, remat=remat)
 
     if mode == "standalone":

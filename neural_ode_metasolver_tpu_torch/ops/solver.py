@@ -10,7 +10,11 @@ and the ``--solvers`` mini-DSL keep CLI parity with the reference
 A grid comes from ``custom_grid`` (explicit time points, the reference's
 custom ``grid_constructor``, rk_parametric.py:17-18) before ``n_steps``
 before ``step_size``; ``replace`` regrids a solver, as ``sn_test`` does.
-Not in this slice (ROADMAP A18): freezing for trainable solver parameters.
+
+``frozen`` (the default) builds the tableau from ``u.detach()`` /
+``v.detach()``, JAX's ``stop_gradient``: no gradient reaches u or v.
+``unfreeze()`` lets one flow through the tableau into u and v, which is how
+``training/solver_training.py`` trains them; ``freeze()`` stops it again.
 """
 from __future__ import annotations
 
@@ -47,10 +51,17 @@ class ParametricSolver:
     n_steps: Optional[int] = None
     step_size: Optional[float] = None
     custom_grid: Optional[tuple] = None  # explicit time points, if any
+    frozen: bool = True
 
     @property
     def order(self) -> int:
         return _ORDERS[self.method]
+
+    def freeze(self) -> "ParametricSolver":
+        return replace(self, frozen=True)
+
+    def unfreeze(self) -> "ParametricSolver":
+        return replace(self, frozen=False)
 
     def replace(self, **changes) -> "ParametricSolver":
         """A copy with ``changes`` to its fields (the JAX pytree's
@@ -87,14 +98,18 @@ class ParametricSolver:
         return replace(self, u=u, v=v)
 
     def tableau(self) -> ButcherTableau:
+        u, v = self.u, self.v
+        if self.frozen:
+            u = None if u is None else u.detach()
+            v = None if v is None else v.detach()
         if self.method == "euler":
             return euler_tableau()
         if self.method == "rk2":
-            return rk2_tableau(self.u)
+            return rk2_tableau(u)
         if self.method == "rk3":
-            return rk3_tableau(self.u, self.v)
+            return rk3_tableau(u, v)
         if self.method == "rk4":
-            return rk4_tableau(self.u, self.v, self.parameterization)
+            return rk4_tableau(u, v, self.parameterization)
         raise ValueError(f"unknown method {self.method!r}")
 
     def time_grid(self, t0: float = 0.0, t1: float = 1.0
@@ -116,22 +131,28 @@ class ParametricSolver:
         return odeint(self.tableau(), rhs, y0, t, n_steps=self.n_steps,
                       step_size=self.step_size, remat=remat)
 
+    def final_grid(self, y0: torch.Tensor, t0: float = 0.0,
+                   t1: float = 1.0) -> torch.Tensor:
+        """The grid ``integrate_final`` steps over: the custom grid, else
+        the ``n_steps`` / ``step_size`` grid in y0's promotion with f32,
+        else the single step [t0, t1]."""
+        if self.custom_grid is not None:
+            return self.time_grid()
+        if self.n_steps is None and self.step_size is None:
+            return torch.tensor([t0, t1], dtype=torch.float32)
+        return make_time_grid(
+            t0, t1, n_steps=self.n_steps, step_size=self.step_size,
+            dtype=torch.promote_types(y0.dtype, torch.float32))
+
     def integrate_final(self, rhs, y0: torch.Tensor, t0: float = 0.0,
                         t1: float = 1.0, remat: bool = False
                         ) -> torch.Tensor:
         """Only y(t1): what the ODE blocks consume.  With no grid source
         the grid is the single step [t0, t1]; ``remat`` checkpoints each
         step."""
-        grid = None
-        if self.custom_grid is not None:
-            grid = self.time_grid()
-        elif self.n_steps is None and self.step_size is None:
-            grid = torch.tensor([t0, t1], dtype=torch.float32)
-        return odeint_final(
-            self.tableau(), rhs, y0, t0, t1,
-            n_steps=self.n_steps, step_size=self.step_size, time_grid=grid,
-            remat=remat,
-        )
+        return odeint_final(self.tableau(), rhs, y0, t0, t1,
+                            time_grid=self.final_grid(y0, t0, t1),
+                            remat=remat)
 
 
 def create_solver(

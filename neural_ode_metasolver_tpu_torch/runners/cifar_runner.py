@@ -167,8 +167,7 @@ def build_parser():
     p.add_argument("--integration_method", type=str, default="backprop",
                    choices=["backprop", "adjoint"],
                    help="gradient path through the ODE solve: backprop "
-                   "through the RK steps, or the continuous adjoint "
-                   "(ROADMAP A18: raises)")
+                   "through the RK steps, or the continuous adjoint")
     p.add_argument("--nan_backoff", type=float, default=None,
                    help="on non-finite grads: drop the update and dip the "
                    "effective step size by this factor (recovers over "

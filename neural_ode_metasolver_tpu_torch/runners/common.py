@@ -25,10 +25,10 @@ from its key; the two frameworks draw differently, so a run that must
 start from given weights resumes from a checkpoint holding them).
 
 Flags that raise: ``--mesh``, ``--pp_microbatches`` and the multi-host
-flags (ROADMAP A21), ``--integration_method adjoint`` and
-``--train_solver_params`` (A18), ``--compiler_option`` (no counterpart:
-the port has no XLA compiler) and ``--download`` (the port downloads
-nothing).  ``--unroll`` is a compile-time hint of the JAX scan; the port's
+flags (ROADMAP A21), ``--compiler_option`` (no counterpart: the port has
+no XLA compiler) and ``--download`` (the port downloads nothing).
+``--integration_method adjoint`` reaches the train step, which
+differentiates the ODE blocks by the continuous adjoint.  ``--unroll`` is a compile-time hint of the JAX scan; the port's
 step loop is a Python loop, so it changes nothing, and the runner says so
 in its log.
 """
@@ -72,6 +72,7 @@ from ..training.train import (
 )
 
 __all__ = [
+    "device_batches",
     "fit",
     "validate",
     "bool_flag",
@@ -120,10 +121,6 @@ def check_unported_flags(args) -> None:
     for flag in ("coordinator", "num_hosts", "process_id"):
         if getattr(args, flag, None) is not None:
             label(f"--{flag} (multi-host training)", "A21")
-    if getattr(args, "integration_method", "backprop") != "backprop":
-        label(f"--integration_method {args.integration_method}", "A18")
-    if getattr(args, "train_solver_params", False):
-        label("--train_solver_params (trainable solver u/v)", "A18")
     if getattr(args, "compiler_option", None):
         raise ValueError(
             "--compiler_option has no counterpart in the PyTorch port (it "
@@ -281,7 +278,7 @@ def validate(
     return best
 
 
-def _device_batches(batches, device: torch.device, prefetch: int):
+def device_batches(batches, device: torch.device, prefetch: int):
     """(x, y) tensors on ``device``: through the prefetch (pinned memory,
     side stream, producer thread) when ``prefetch`` > 0."""
     if prefetch:
@@ -346,6 +343,7 @@ def fit(
         model, tx, solvers, solver_options, attack_cfg, noise_cfg, loss_cfg,
         compute_dtype=compute_dtype,
         skip_nonfinite=getattr(args, "skip_nonfinite", False),
+        integration_method=getattr(args, "integration_method", "backprop"),
     )
     config = dict(config or {})
     logger.info(
@@ -363,7 +361,7 @@ def fit(
         else (lambda: None)
     try:
         for epoch in range(getattr(args, "nepochs", 1)):
-            batches = _device_batches(train_data_factory(epoch), dev,
+            batches = device_batches(train_data_factory(epoch), dev,
                                       prefetch)
             losses = []
             skipped = []

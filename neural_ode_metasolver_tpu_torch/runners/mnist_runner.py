@@ -9,12 +9,20 @@ Example, on the card:
 ``--device cpu`` runs the plain PyTorch versions on the CPU; without a card
 and without it the run raises.  The flags are the JAX runner's; those the
 port does not run raise (``runners/common.py``).
+
+``--train_solver_params`` trains the solvers' (u, v) with the network
+(``training/solver_training.py``; SGD at ``--lr_uv``), logs u each epoch
+and writes ``save_dir/solver_trained``, as the JAX runner's joint loop
+does; like it, it refuses ``--integration_method adjoint`` (the adjoint
+gives u no gradient) and ``--profile_dir``.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
+import numpy as np
 import torch
 
 from ..backend import resolve_device
@@ -26,13 +34,25 @@ from ..data import (
 )
 from ..models.api import build_model
 from ..ops import parse_solver_dsl
-from ..training import learning_rate_with_decay, make_optimizer
+from ..training import (
+    AttackConfig,
+    MetricsLogger,
+    accuracy,
+    create_solver_train_state,
+    learning_rate_with_decay,
+    make_optimizer,
+    make_solver_train_step,
+    save_checkpoint,
+    solvers_from_state,
+)
 from ..utils import count_parameters, fix_seeds, get_logger
 from .common import (
     add_device_flag,
     add_multihost_flags,
     bool_flag,
+    build_solver_options,
     check_unported_flags,
+    device_batches,
     fit,
 )
 
@@ -111,15 +131,13 @@ def build_parser():
     # trainable solver coefficients (reference legacy lr_uv param group,
     # runner_old.py:184-185)
     p.add_argument("--train_solver_params", action="store_true",
-                   help="optimize solver u/v jointly with the network "
-                        "(ROADMAP A18: raises)")
+                   help="optimize solver u/v jointly with the network")
     p.add_argument("--lr_uv", type=float, default=0.01,
                    help="learning rate for the solver-parameter group")
     p.add_argument("--integration_method", type=str, default="backprop",
                    choices=["backprop", "adjoint"],
                    help="gradient path through the ODE solve: backprop "
-                   "through the RK steps, or the continuous adjoint "
-                   "(ROADMAP A18: raises)")
+                   "through the RK steps, or the continuous adjoint")
     p.add_argument("--nan_backoff", type=float, default=None,
                    help="on non-finite grads: drop the update and dip the "
                    "effective step size by this factor (recovers over "
@@ -162,6 +180,8 @@ def main(argv=None):
     """Train, validate and checkpoint; returns the final TrainState."""
     args = parse_args(argv)
     check_unported_flags(args)
+    if args.train_solver_params:
+        _check_solver_training_flags(args)
     dev = resolve_device(args.device)
     fix_seeds(args.seed)
     logger = get_logger(os.path.join(args.save_dir, "logs"),
@@ -236,8 +256,78 @@ def main(argv=None):
                         nonfinite_backoff=args.nan_backoff)
 
     config = {"args": vars(args), "solvers": args.solvers, "model": "mnist"}
+    if args.train_solver_params:
+        return _fit_with_trainable_solvers(model, solvers, tx, args, logger,
+                                           train_data, eval_data, config)
     return fit(model, solvers, tx, args, logger, train_data, eval_data,
                test_data_factory=eval_data, config=config)
+
+
+def _check_solver_training_flags(args) -> None:
+    """The JAX runner's refusals of ``--train_solver_params``
+    (``--mesh`` raises before, as ROADMAP A21)."""
+    if args.integration_method != "backprop":
+        raise ValueError(
+            "--train_solver_params needs discretize-then-optimize "
+            "gradients (the continuous adjoint treats the tableau as the "
+            "integration method: u/v get no gradient; ops/adjoint.py)")
+    if args.profile_dir:
+        raise ValueError(
+            "--profile_dir is not supported with --train_solver_params "
+            "(the joint solver-parameter loop has no trace window); "
+            "profile the frozen-solver step instead")
+
+
+def _fit_with_trainable_solvers(model, solvers, tx, args, logger,
+                                train_data, eval_data, config):
+    """The joint (network, solver u/v) loop of the JAX runner: SGD at
+    ``--lr_uv`` on u/v, per-epoch loss, accuracy and u in the log and in
+    ``metrics.jsonl``, and the final state in ``save_dir/solver_trained``.
+    Returns the final ``SolverTrainState``."""
+    dev = model.device
+    solver_tx = make_optimizer("sgd", args.lr_uv)
+    opts = build_solver_options(args)
+    attack_cfg = AttackConfig(
+        mode=args.adv_training_mode, eps=args.eps_adv_training,
+        pgd_lr=args.pgd_lr_training, pgd_niter=args.pgd_niter_training,
+    )
+    step = make_solver_train_step(model, tx, solver_tx, solvers, opts,
+                                  attack_cfg=attack_cfg)
+    generator = torch.Generator().manual_seed(args.seed)
+    ts = create_solver_train_state(model, tx, solver_tx, solvers)
+    mlog = MetricsLogger(args.save_dir, config=config) if args.save_dir \
+        else None
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    for epoch in range(args.nepochs):
+        losses = []
+        sync()
+        t_epoch = time.perf_counter()
+        for x, y in device_batches(train_data(epoch), dev, args.prefetch):
+            ts, m = step(ts, x, y.long(), generator)
+            losses.append(m["loss"])  # read back once, at the epoch's end
+        losses = torch.stack(losses).tolist() if losses else []
+        batch_time = (time.perf_counter() - t_epoch) / max(len(losses), 1)
+        cur = solvers_from_state(solvers, ts.solver_params)
+        acc = accuracy(model, cur, opts, eval_data(), generator=generator)
+        us = [f"{float(s.u):.4f}" if s.u is not None else "-" for s in cur]
+        logger.info(f"epoch {epoch} | loss {np.mean(losses):.4f} | acc "
+                    f"{acc:.4f} | u = {us}")
+        if mlog:
+            rec = {"epoch": epoch, "train_loss": float(np.mean(losses)),
+                   "accuracy": float(acc), "batch_time": batch_time}
+            for i, s in enumerate(cur):
+                if s.u is not None:
+                    rec[f"solver{i}_u"] = float(s.u)
+                if s.v is not None:
+                    rec[f"solver{i}_v"] = float(s.v)
+            mlog.log(rec, step=ts.step)
+    if mlog:
+        mlog.close()
+    if args.save_dir:
+        save_checkpoint(os.path.join(args.save_dir, "solver_trained"), ts,
+                        config)
+    return ts
 
 
 if __name__ == "__main__":

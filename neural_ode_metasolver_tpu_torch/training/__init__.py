@@ -29,6 +29,12 @@ from .schedules import (
     cyclic_momentum,
     learning_rate_with_decay,
 )
+from .solver_training import (
+    SolverTrainState,
+    create_solver_train_state,
+    make_solver_train_step,
+    solvers_from_state,
+)
 from .train import (
     AttackConfig,
     LossConfig,
@@ -50,12 +56,14 @@ __all__ = [
     "RegimeSpec",
     "RunningAverageMeter",
     "SGD",
+    "SolverTrainState",
     "TrainState",
     "accuracy",
     "accuracy_ensemble",
     "adversarial_accuracy",
     "adversarial_accuracy_ensemble",
     "constant_lr",
+    "create_solver_train_state",
     "create_train_state",
     "cyclic_lr",
     "cyclic_momentum",
@@ -68,6 +76,7 @@ __all__ = [
     "make_ensemble_probs",
     "make_eval_step",
     "make_optimizer",
+    "make_solver_train_step",
     "make_train_step",
     "nfe_per_forward",
     "nfe_per_solve",
@@ -76,5 +85,6 @@ __all__ = [
     "save_accuracy_table",
     "save_checkpoint",
     "sn_test",
+    "solvers_from_state",
     "wait_for_checkpoints",
 ]

@@ -16,7 +16,10 @@ writes on one background thread, in the order of the calls;
 ``wait_for_checkpoints()`` waits for every write.  ``restore_checkpoint``
 copies the saved values into a target state's tensors in place, on the
 target's devices (the model's own parameters and buffers, so the model
-sees them), bit for bit.
+sees them), bit for bit.  A state that extends ``TrainState`` with more
+fields (a trainable solver's u and v and their optimizer's state, which JAX
+writes under ``save_dir/solver_trained``) saves and restores each of them
+the same way, as a tree of tensors and numbers.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import json
 import os
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import fields, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -48,13 +52,21 @@ def _ckpt_dir(base: str, step: int) -> str:
 
 
 def _to_host(tree: Any) -> Any:
-    """Nested dicts of tensors and numbers with every tensor copied to the
-    host."""
+    """Nested dicts and lists of tensors and numbers with every tensor
+    copied to the host."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_host(v) for v in tree]
     return tree
+
+
+def _extra_fields(ts: TrainState) -> List[str]:
+    """The fields a subclass of ``TrainState`` adds to it."""
+    base = {f.name for f in fields(TrainState)}
+    return [f.name for f in fields(ts) if f.name not in base]
 
 
 def _write_state(path: str, payload: dict) -> None:
@@ -79,6 +91,8 @@ def save_checkpoint(
     payload = {"step": step, "params": _to_host(ts.params),
                "opt_state": _to_host(ts.opt_state),
                "model_state": _to_host(ts.model_state)}
+    payload.update({name: _to_host(getattr(ts, name))
+                    for name in _extra_fields(ts)})
     if config is not None:
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "config.json"), "w") as f:
@@ -158,9 +172,45 @@ def restore_checkpoint(base_dir: str, target: TrainState,
     _copy_by_name(path, "model-state buffers", saved.get("model_state", {}),
                   target.model_state)
     load_opt_state(target.opt_state, saved["opt_state"])
-    return (TrainState(int(saved["step"]), target.params, target.opt_state,
-                       target.model_state),
+    extra = {}
+    for name in _extra_fields(target):
+        if name not in saved:
+            raise ValueError(f"checkpoint {path} holds no {name}")
+        extra[name] = _copy_tree(f"{path}: {name}", saved[name],
+                                 getattr(target, name))
+    return (replace(target, step=int(saved["step"]), **extra),
             load_checkpoint_config(base_dir, step))
+
+
+def _copy_tree(where: str, saved: Any, target: Any) -> Any:
+    """``target`` with ``saved``'s values: tensors copied in place, numbers
+    and None taken from ``saved``; raise where the structures differ."""
+    def differ():
+        return ValueError(f"{where}: the checkpoint holds {saved!r:.80}, "
+                          f"which differs in structure from the target")
+
+    if isinstance(target, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != target.shape:
+            raise differ()
+        with torch.no_grad():
+            target.copy_(saved)
+        return target
+    if isinstance(target, dict):
+        if not isinstance(saved, dict) or set(saved) != set(target):
+            raise differ()
+        for k, v in target.items():
+            target[k] = _copy_tree(f"{where}[{k!r}]", saved[k], v)
+        return target
+    if isinstance(target, list):
+        if not isinstance(saved, list) or len(saved) != len(target):
+            raise differ()
+        target[:] = [_copy_tree(f"{where}[{i}]", s, t)
+                     for i, (s, t) in enumerate(zip(saved, target))]
+        return target
+    if (saved is None) != (target is None) or isinstance(
+            saved, (torch.Tensor, dict, list)):
+        raise differ()
+    return saved
 
 
 def _copy_by_name(path: str, what: str, saved: Dict[str, torch.Tensor],

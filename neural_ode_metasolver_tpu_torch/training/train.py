@@ -45,8 +45,13 @@ trace reads for device time by phase (``scripts/profile_torch_training.py``).
 ``make_eval_step`` returns the clean predictor the eval harness
 (``training/evaluate.py``) runs under ``torch.inference_mode()``.
 
-Not ported yet: the adjoint and ``dynamic_solvers`` (ROADMAP A18).  JAX
-compiler options have no counterpart.
+``integration_method="adjoint"`` differentiates the ODE blocks of the
+attack's forwards and of the training pass by the continuous adjoint
+(``ops/adjoint.py``).  ``step(..., dynamic_solvers=S)`` and ``predict(...,
+dynamic_solvers=S)`` run with the solvers S in place of the ones the step
+was built with (a u-sweep's, or trained ones), as JAX's traced argument
+does; the port has no compilation to reuse, so this is exactly a step built
+with S.  JAX compiler options have no counterpart.
 """
 from __future__ import annotations
 
@@ -198,7 +203,8 @@ def _run_attack(forward, attack_cfg: AttackConfig, x, y,
 
 
 def _model_forward(model, solver_options, use_kernels: bool,
-                   compute_dtype: Optional[torch.dtype], remat: bool):
+                   compute_dtype: Optional[torch.dtype], remat: bool,
+                   integration_method: str = "backprop"):
     """``forward(x, solvers, train, params=None, ss=None, generator=None)
     -> (logits, ss, new_state)`` in f32: the input cast to
     ``compute_dtype`` at the model's door; ``ss`` a LossConfig whose
@@ -214,7 +220,7 @@ def _model_forward(model, solver_options, use_kernels: bool,
             x, solvers_t, solver_options, use_kernels=use_kernels,
             train=train, params=params, remat=remat, generator=generator,
             ss_loss=want_ss, ss_loss_abs=want_ss and ss.ss_loss_abs,
-            return_aux=True)
+            integration_method=integration_method, return_aux=True)
         ss_val = (aux["ss_loss"].float() if want_ss
                   else torch.zeros((), device=logits.device))
         return logits.float(), ss_val, aux["model_state"]
@@ -244,8 +250,11 @@ def make_train_step(model, optimizer: AnyOptimizer,
                     remat: bool = False, unroll: int = 1,
                     compute_dtype: Optional[torch.dtype] = None,
                     skip_nonfinite: bool = False,
-                    use_kernels: bool = True):
-    """Returns ``step(state, x, y, generator) -> (state, metrics)``.
+                    use_kernels: bool = True,
+                    integration_method: str = "backprop"):
+    """Returns ``step(state, x, y, generator, dynamic_solvers=None) ->
+    (state, metrics)``; ``dynamic_solvers`` replaces ``solvers`` for that
+    step.
     The attack reads the model state in eval mode; the training pass runs
     in train mode, and the model state it returns (BN running statistics,
     SN vectors) is copied into the model's buffers with the update, after
@@ -264,14 +273,15 @@ def make_train_step(model, optimizer: AnyOptimizer,
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype} not supported")
     forward = _model_forward(model, solver_options, use_kernels,
-                             compute_dtype, remat)
+                             compute_dtype, remat, integration_method)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-             generator: torch.Generator):
+             generator: torch.Generator, dynamic_solvers=None):
         s_noise, s_attack, s_data = _seeds(generator, 3)
         s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
+        base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         solvers_t = _noise_solvers(
-            solvers, torch.Generator().manual_seed(s_noise), noise_cfg)
+            base, torch.Generator().manual_seed(s_noise), noise_cfg)
         with full_f32():
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
@@ -324,7 +334,8 @@ def make_eval_step(model, solvers: Sequence,
                    remat: bool = False, unroll: int = 1,
                    compute_dtype: Optional[torch.dtype] = None,
                    use_kernels: bool = True):
-    """Returns ``predict(x, generator=None) -> logits``: the eval-mode
+    """Returns ``predict(x, generator=None, dynamic_solvers=None) ->
+    logits`` (``dynamic_solvers`` replacing ``solvers``): the eval-mode
     forward of x (B, H, W, C) on the model's device, f32 logits, under
     ``torch.inference_mode()`` (JAX ``train.py:336-360``); ``generator``, a
     CPU generator, serves the switch and ensemble draws.  ``remat`` and
@@ -337,8 +348,10 @@ def make_eval_step(model, solvers: Sequence,
                              compute_dtype, False)
 
     def predict(x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dynamic_solvers=None) -> torch.Tensor:
+        base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         with torch.inference_mode():
-            return forward(x, solvers, False, generator=generator)[0]
+            return forward(x, base, False, generator=generator)[0]
 
     return predict

@@ -2,8 +2,8 @@
 """Where a train step's time goes in the PyTorch port, on the card.
 
     python3 scripts/profile_torch_training.py
-        [--model {flagship,mnist,metanode10-gn}] [--trace-dir DIR]
-        [batch ...]
+        [--model {flagship,flagship-adjoint,mnist,mnist-solver,
+                  metanode10-gn}] [--trace-dir DIR] [batch ...]
 
 ``flagship`` (the default) runs the train step of ``bench.py:94-113``
 (premetanode10, in_planes 64, GeLUpoly, RK2 u=0.5 8 steps with
@@ -16,7 +16,11 @@ dim 64, RK2 u=0.5 8 steps with Normal(0.0125) smoothing, PGD eps 0.3, lr
 5e-4) in f32, batch 128 by default, on seeded uniform images in [0, 1].
 ``metanode10-gn`` runs the flagship recipe on metanode10 (the basic-block
 family) with GroupNorm of 32 groups in every slot and the exact GELU,
-which kernel B3 fuses (``chip_smoke.py`` phase 18).
+which kernel B3 fuses (``chip_smoke.py`` phase 18).  ``flagship-adjoint``
+is the flagship step with ``integration_method="adjoint"`` (phase 21);
+``mnist-solver`` the digits step's net, attack and optimizer with the
+solver's u trained at lr_uv 0.01 by ``make_solver_train_step`` and no
+smoothing (``mnist_runner --train_solver_params``, phase 22).
 Random weights from seed 0, seeded labels.  For each batch size, after a
 warm-up
 step, it times 5 steps without the profiler (host clock, median), then
@@ -79,30 +83,42 @@ def main(model_name, batches, trace_dir=None):
     from neural_ode_metasolver_tpu_torch.training import (
         AttackConfig,
         NoiseConfig,
+        create_solver_train_state,
         create_train_state,
         cyclic_lr,
         make_optimizer,
+        make_solver_train_step,
         make_train_step,
     )
 
     dev = torch.device("cuda")
     solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
     noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
-    if model_name == "mnist":
+    state = None
+    if model_name in ("mnist", "mnist-solver"):
         dtype, image = torch.float32, (28, 28, 1)
         model = build_model("mnist", dim=64,
                             generator=torch.Generator().manual_seed(0))
         opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
-        step = make_train_step(
-            model, opt, solvers, SolverOptions(),
-            AttackConfig(mode="at", eps=0.3, pgd_lr=2 / 255, pgd_niter=7),
-            noise)
+        attack = AttackConfig(mode="at", eps=0.3, pgd_lr=2 / 255,
+                              pgd_niter=7)
+        if model_name == "mnist":
+            step = make_train_step(model, opt, solvers, SolverOptions(),
+                                   attack, noise)
+        else:
+            solver_opt = make_optimizer("sgd", 0.01)
+            step = make_solver_train_step(model, opt, solver_opt, solvers,
+                                          SolverOptions(), attack)
+            state = create_solver_train_state(model, opt, solver_opt,
+                                              solvers)
         batches = batches or [128]
     else:
         dtype, image = torch.bfloat16, (32, 32, 3)
         net = (dict(name="metanode10", norms=("GN",) * 3, num_gn_groups=32)
                if model_name == "metanode10-gn" else
                dict(name="premetanode10", acts=("GeLUpoly",) * 3))
+        method = ("adjoint" if model_name == "flagship-adjoint"
+                  else "backprop")
         model = build_model(net.pop("name"), in_planes=64,
                             generator=torch.Generator().manual_seed(0),
                             **net)
@@ -112,15 +128,16 @@ def main(model_name, batches, trace_dir=None):
             model, opt, solvers, SolverOptions(),
             AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
                          mean=CIFAR10_MEAN, std=CIFAR10_STD),
-            noise, compute_dtype=dtype)
+            noise, compute_dtype=dtype, integration_method=method)
         batches = batches or [256]
     label = str(dtype).split(".")[-1]
-    state = create_train_state(model, opt)
+    if state is None:
+        state = create_train_state(model, opt)
     gen = torch.Generator().manual_seed(10)
     rows = []
     for batch in batches:
         g = torch.Generator().manual_seed(1)
-        x = (torch.rand if model_name == "mnist" else torch.randn)(
+        x = (torch.rand if image[-1] == 1 else torch.randn)(
             batch, *image, generator=g).to(dev)
         y = torch.randint(0, 10, (batch,), generator=g).to(dev)
         state, _ = step(state, x, y, gen)  # warm-up
@@ -208,7 +225,8 @@ def main(model_name, batches, trace_dir=None):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "mnist",
+    ap.add_argument("--model", choices=("flagship", "flagship-adjoint",
+                                        "mnist", "mnist-solver",
                                         "metanode10-gn"),
                     default="flagship")
     ap.add_argument("--trace-dir", default=None)

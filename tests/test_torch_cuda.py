@@ -1053,3 +1053,194 @@ def test_mnist_runner_two_steps_on_the_card(tmp_path):
         assert "data backend: native" in f.read()
     ts2 = mnist_runner.main(argv + ["--resume"])
     assert ts2.step == 4
+
+
+def test_mnist_adjoint_kernel_path_matches_plain_path(dev):
+    """The MNIST MetaNODE (dim 64, RK2 u=0.5 8 steps) at batch 128 in f32
+    under the continuous adjoint: the training pass's parameter gradients,
+    kernel path against plain path, within 1e-3 of max|g| (the MNIST bar:
+    ReLU masks flip on rounding), with B3's backward inside the adjoint's
+    VJP.  Launches: the forward's 51 GroupNorms and 32 ConcatConv2ds; the
+    backward recomputes each of the 16 RHS calls (48 GroupNorms, 32 convs)
+    and differentiates it (48 + 3 B3 backwards with dscale and dbias, 32
+    dgrads, 32 wgrads)."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+
+    model = build_model("mnist", dim=64,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    x = torch.tensor(np.random.RandomState(9).rand(128, 28, 28, 1)
+                     .astype(np.float32), device=dev)
+    y = torch.arange(128, device=dev) % 10
+    params = list(model.parameters())
+    grads, counts = [], []
+    for use_kernels in (True, False):
+        reset_launch_counts()
+        loss = cross_entropy(model(x, solvers, use_kernels=use_kernels,
+                                   train=True, integration_method="adjoint"),
+                             y)
+        grads.append(torch.autograd.grad(loss, params))
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+    assert counts[0] == {"group_norm_act": 99, "conv3x3_same": 64,
+                         "group_norm_act_bwd": 51,
+                         "group_norm_act_bwd_params": 51,
+                         "conv3x3_dgrad": 32, "conv3x3_wgrad": 32}
+    assert counts[1] == {}
+    gmax = max(g.abs().max() for g in grads[1])
+    assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-3 * gmax
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adjoint_train_step_kernel_path_matches_plain_path(dev, dtype):
+    """The flagship step (premetanode10 at in_planes 16, batch 8) under
+    ``integration_method="adjoint"``, kernel path against plain path from
+    one state: the launches of a step (B1 264: each pass's 68 forward
+    convs and the backward's 64 recomputed ones; dgrad 135, wgrad 68; no
+    B2), one step's loss within 2e-2 and grad norm within 5e-2 relative;
+    in f32 also the param grads at one input within 1e-4 of max|g|."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    mean, std = (0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)
+    model = build_model("premetanode10", in_planes=16, acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    attack = AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
+                          mean=mean, std=std)
+    noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    x = _randn((8, 32, 32, 3), 1.0, 9, dev, torch.float32)
+    y = torch.arange(8, device=dev) % 10
+    snapshot = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = {}
+    for use_kernels in (True, False):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(snapshot[k])
+        opt = make_optimizer("sgd", 0.05, momentum=0.9, weight_decay=5e-4)
+        step = make_train_step(model, opt, solvers, SolverOptions(), attack,
+                               noise, compute_dtype=dtype,
+                               use_kernels=use_kernels,
+                               integration_method="adjoint")
+        reset_launch_counts()
+        _, m = step(create_train_state(model, opt), x, y,
+                    torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        out[use_kernels] = (m["loss"].item(), m["grad_norm"].item(),
+                            launch_counts())
+    (lk, nk, counts_k), (lp, np_, counts_p) = out[True], out[False]
+    assert counts_k == {"conv3x3_same": 264, "conv3x3_dgrad": 135,
+                        "conv3x3_wgrad": 68}
+    assert counts_p == {}
+    assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
+    assert abs(nk - np_) <= 5e-2 * np_
+    if dtype == torch.bfloat16:
+        return
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(snapshot[k])
+    params = list(model.parameters())
+    grads = [torch.autograd.grad(cross_entropy(model(
+        x, solvers, use_kernels=uk, train=True,
+        integration_method="adjoint"), y), params) for uk in (True, False)]
+    gmax = max(g.abs().max() for g in grads[1])
+    assert max((a - b).abs().max() for a, b in zip(*grads)) <= 1e-4 * gmax
+
+
+def test_solver_train_step_kernel_path_matches_plain_path(dev):
+    """One ``make_solver_train_step`` step of the digits recipe's net and
+    attack (MNIST dim 64, RK2 u=0.5 8 steps, PGD-7 at eps 0.3, RMSprop; u
+    at lr_uv 0.01) at batch 8 in f32, kernel path against plain path from
+    one state: the launches (the digits step's), loss within 2e-2 and
+    solver_grad_norm within 5e-2 (PGD's sign steps carry rounding on);
+    then at one input the gradients of u within 1e-3 relative and of the
+    params within 1e-3 of max|g|.  u and its tableau live on the card."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.attacks import cross_entropy
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        create_solver_train_state,
+        make_optimizer,
+        make_solver_train_step,
+        solvers_from_state,
+    )
+
+    model = build_model("mnist", dim=64,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    attack = AttackConfig(mode="at", eps=0.3, pgd_lr=2 / 255, pgd_niter=7)
+    x = torch.tensor(np.random.RandomState(9).rand(8, 28, 28, 1)
+                     .astype(np.float32), device=dev)
+    y = torch.arange(8, device=dev) % 10
+    snapshot = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = {}
+    for use_kernels in (True, False):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(snapshot[k])
+        opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+        sopt = make_optimizer("sgd", 0.01)
+        state = create_solver_train_state(model, opt, sopt, solvers)
+        assert state.solver_params[0]["u"].is_cuda
+        step = make_solver_train_step(model, opt, sopt, solvers,
+                                      SolverOptions(), attack,
+                                      use_kernels=use_kernels)
+        reset_launch_counts()
+        _, m = step(state, x, y, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        out[use_kernels] = (m["loss"].item(), m["solver_grad_norm"].item(),
+                            launch_counts())
+    (lk, sk, counts_k), (lp, sp, counts_p) = out[True], out[False]
+    assert counts_k == {"group_norm_act": 408, "conv3x3_same": 256,
+                        "group_norm_act_bwd": 408,
+                        "group_norm_act_bwd_params": 51,
+                        "conv3x3_dgrad": 256, "conv3x3_wgrad": 32}
+    assert counts_p == {}
+    assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
+    assert abs(sk - sp) <= 5e-2 * sp
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(snapshot[k])
+    params = list(model.parameters())
+    grads = []
+    for use_kernels in (True, False):
+        u = torch.tensor(0.5, device=dev, requires_grad=True)
+        s = solvers_from_state(solvers, [{"u": u, "v": None}])
+        loss = cross_entropy(model(x, s, use_kernels=use_kernels,
+                                   train=True), y)
+        grads.append(torch.autograd.grad(loss, params + [u]))
+    gu = [g[-1] for g in grads]
+    assert (gu[0] - gu[1]).abs() <= 1e-3 * gu[1].abs()
+    gmax = max(g.abs().max() for g in grads[1][:-1])
+    assert max((a - b).abs().max() for a, b in zip(grads[0][:-1],
+                                                   grads[1][:-1])) \
+        <= 1e-3 * gmax

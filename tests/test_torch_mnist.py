@@ -225,7 +225,7 @@ def test_mnist_entry_point_needs_a_card_or_an_explicit_cpu():
 def test_mnist_training_options_and_bad_configs_raise():
     """The training options run (their parity with JAX is in
     tests/test_torch_mnist_training.py) and leave the logits as they are;
-    the adjoint, not ported, raises; bad configs raise."""
+    the adjoint's logits equal backprop's; bad configs raise."""
     model = build_model("mnist", device="cpu", dim=16)
     x = torch.tensor(_images(1))
     solvers = parse_solver_dsl("rk2,u,2,-1,0.5,-1")
@@ -238,9 +238,12 @@ def test_mnist_training_options_and_bad_configs_raise():
         _, aux = apply_mnist(model.params, x, solvers, cfg=model.cfg,
                              ss_loss=True, return_aux=True)
         assert float(aux["ss_loss"]) > 0
-    with pytest.raises(NotImplementedError, match="A18"):
+        got = apply_mnist(model.params, x, solvers, cfg=model.cfg,
+                          integration_method="adjoint")
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="integration_method"):
         apply_mnist(model.params, x, solvers, cfg=model.cfg,
-                    integration_method="adjoint")
+                    integration_method="seminorm")
     with pytest.raises(ValueError, match="solvers"):
         model(x, None)
     with pytest.raises(ValueError, match="downsampling"):

@@ -236,16 +236,17 @@ _REFUSED = [
      "A21"),
     (mnist_runner, ["--num_hosts", "2"], NotImplementedError, "A21"),
     (mnist_runner, ["--process_id", "0"], NotImplementedError, "A21"),
-    (mnist_runner, ["--integration_method", "adjoint"], NotImplementedError,
-     "A18"),
-    (mnist_runner, ["--train_solver_params"], NotImplementedError, "A18"),
+    (mnist_runner, ["--train_solver_params", "--integration_method",
+                    "adjoint"], ValueError, "discretize-then-optimize"),
+    (mnist_runner, ["--train_solver_params", "--profile_dir", "p"],
+     ValueError, "--profile_dir"),
     (mnist_runner, ["--compiler_option", "a=b"], ValueError,
      "--compiler_option"),
     (mnist_runner, ["--download"], ValueError, "--data_root"),
     (cifar_runner, ["--pp_microbatches", "2"], NotImplementedError, "A21"),
     (cifar_runner, ["--mesh", "data=2,pp=2"], NotImplementedError, "A21"),
-    (cifar_runner, ["--integration_method", "adjoint"], NotImplementedError,
-     "A18"),
+    (mnist_runner, ["--train_solver_params", "--mesh", "data=2"],
+     NotImplementedError, "A21"),
 ]
 
 
