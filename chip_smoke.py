@@ -165,14 +165,38 @@ Phases, in order; any failure exits non-zero:
      phase 11's; then from one state one ``make_solver_train_step`` step,
      kernel path against plain path (loss within 2e-2), and at phase 11's
      images u's gradient within 1e-3 relative and the param grads within
-     1e-3 of max|g|.
+     1e-3 of max|g|;
+ 23. the member-batched launches of a fleet (``training/fleet.py``) at 16
+     members of 128 images, at the MNIST u-sweep step's shapes in f32: B1
+     at (6, 6, 65 -> 64), its dgrad and the split-K wgrad, B3 forward and
+     backward (dx only and full) at 26x26, 13x13 and 6x6 with 64 channels,
+     relu and none; each bit-equal to 16 single launches and within
+     phases 4 and 6b's bars of its plain version, its path or plan the
+     single run's, with device ms of the launch, of 16 single launches,
+     of the plain version, of the library call and the bound;
+ 24. the u-sweep step (MNIST dim 64, batch 128 a member, f32, RK2 8 steps,
+     RMSprop 1e-3, clean) as one fleet of 16 members (4 u x 4 seeds): one
+     warm-up and five timed steps beside a single run's, finite losses,
+     the launches of a fleet step equal to a single step's, img/s, peak
+     memory; step ms and peak memory at 1, 4, 8, 16 and 32 members; each
+     member against its single run over two steps from one state (with
+     an f32 against f64 witness of what rounding alone moves); the fleet's
+     kernel path against its plain path (phase 11's bars); one step under
+     PGD-7, launching what a single PGD-7 step launches;
+ 25. ``u_sweep.main`` (4 u x 2 seeds, 1280 train and 512 test synthetic
+     images, 1 epoch) sequentially and with ``--fleet``: 8 rows each, clean
+     accuracies within 0.2 of each other, robust ones in [0, 1], the wall
+     seconds of both; ``sweep.main`` over two grid points of phase 15's
+     ``mnist_runner``, 1 epoch: two committed run directories and two
+     summary rows.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under temporary directories that phases 15-17, 19 and 22
-delete at their end.
+files only under temporary directories that phases 15-17, 19, 22 and 25
+delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
+working directory).
 """
 import copy
 import json
@@ -1419,6 +1443,623 @@ def a18_phases(port, torch, dev, flagship_ms, flagship_peak, mnist_ms):
             solver_ms, solver_peak)
 
 
+# Phases 23-25: the fleet (training/fleet.py), S runs in one step.  The
+# u-sweep recipe (runners/u_sweep.py, configs/mnist_u_sweep.sh): the MNIST
+# MetaNODE at dim 64, batch 128 a member, f32, RK2 over 8 steps, RMSprop
+# 1e-3 with weight decay 5e-4, clean training; 4 values of u x 4 seeds.
+FLEET_US = (0.25, 0.5, 0.75, 1.0)
+FLEET_SEEDS = (1, 2, 3, 4)
+FLEET_S = len(FLEET_US) * len(FLEET_SEEDS)  # 16
+FLEET_N = MNIST_TRAIN_BATCH
+FLEET_LR = 1e-3
+# members of the fleets whose step time and peak memory phase 24 measures
+# (runners/u_sweep.py::FLEET_SAFE_CHUNK is set from them)
+FLEET_SIZES = (1, 4, 8, 16, 32)
+# the MNIST step's GroupNorms (H, W, C) at dim 64 and their activations
+FLEET_GN_SHAPES = ((26, 26, MNIST_DIM), (13, 13, MNIST_DIM),
+                   (6, 6, MNIST_DIM))
+# fleet against each member's single run, two steps from one state: the
+# first step's losses within JAX's fleet bar (tests/test_fleet.py, 2e-5
+# relative) and grad norms within 1e-4; after the second step (RMSprop
+# turns a gradient element at rounding level into a +-10 lr move, so
+# rounding alone moves some elements far: the f64 witness shows how many)
+# the losses within 1e-3 relative and at most 1e-2 of the param elements
+# more than 1e-4 x max|p| apart
+FLEET_LOSS1_BAR, FLEET_GNORM1_BAR = 2e-5, 1e-4
+FLEET_LOSS2_BAR, FLEET_FAR_SHARE_BAR = 1e-3, 1e-2
+# phase 25: u_sweep at full width on synthetic data, sequential and
+# --fleet.  The issue-size runs (RUNNER_MNIST_TRAIN images, 1 epoch of 10
+# steps) are timed and their CSVs checked; their clean accuracies are
+# printed, not held: by the tenth RMSprop step from a random init the
+# members' accuracies turn on rounding (the sequential sweep alone, the same
+# inputs in two runs on an H100 80GB HBM3, read 0.0879 and 0.1660 for one
+# member: cuDNN's backward-weight sums are ordered by atomics, and RMSprop
+# turns a rounding-level gradient into a +-10 lr move).  The per-member
+# comparison is held on runs of USWEEP_HELD_TRAIN images (two steps a
+# member), sequential against --fleet --fleet_chunk USWEEP_HELD_CHUNK
+# (three fleets, the last padded): two steps from one init keep each member
+# within rounding of its single run (phase 24), so each member's clean and
+# PGD counts agree within USWEEP_HELD_BAR image of the test set (they read
+# equal on the card), while members of another seed or u read 1 to 7
+# images apart
+USWEEP_U, USWEEP_SEEDS = "0.25,0.5,0.75,1.0", "1,2"
+USWEEP_HELD_TRAIN, USWEEP_HELD_CHUNK, USWEEP_HELD_BAR = 2 * FLEET_N, 3, 1
+
+
+def member_launch_phase(port, torch, dev, time_ms, bound, randn):
+    """Phase 23: each member-batched launch of the u-sweep's step at S =
+    FLEET_S, N = FLEET_N against S single launches (bit-equal) and against
+    its plain version (phases 4 and 6b's bars), with device ms of the
+    member-batched launch, of S single launches, of the library call and
+    the bound.  Returns the rows."""
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_dgrad, conv3x3_path, conv3x3_same, conv3x3_wgrad,
+        flip_weights, reference_conv3x3, reference_conv3x3_wgrad,
+        wgrad_plan)
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act, group_norm_backward,
+        group_norm_backward_reference, group_norm_reference, launch_plan)
+
+    F = torch.nn.functional
+    aten = torch.ops.aten
+    s, n = FLEET_S, FLEET_N
+    f32 = torch.float32
+    phase(f"the member-batched launches: {s} members of {n} images at the "
+          f"MNIST u-sweep's shapes (f32), against {s} single launches and "
+          f"the plain versions")
+    rows = []
+
+    def record(name, key, plan, batched, single, plain, library, bar,
+               nbytes, flops, ms_reps=10, compare=None):
+        """``compare``: what the outputs are held against (default the
+        plain version's)."""
+        got = batched()
+        singles = [single(m) for m in range(s)]
+        torch.cuda.synchronize()
+        outs = got if isinstance(got, tuple) else (got,)
+        for i, o in enumerate(outs):
+            want = torch.stack([sg[i] if isinstance(sg, tuple) else sg
+                                for sg in singles])
+            if not torch.equal(o, want):
+                fail(f"{name} {key}: the member-batched launch is not "
+                     f"bit-equal to {s} single launches (output {i}, "
+                     f"max|diff| {(o - want).abs().max().item():.3e})")
+        ref = (compare or plain)()
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(outs, refs)]
+        bars = bar if isinstance(bar, (list, tuple)) else [bar]
+        ms = time_ms(batched, ms_reps)
+        singles_ms = time_ms(lambda: [single(m) for m in range(s)], 2)
+        plain_ms = time_ms(plain, 2)
+        lib_ms = time_ms(library, ms_reps)
+        b_ms, b_bytes, b_ops = bound(nbytes, flops, f32)
+        row = {"kernel": name, "key": key, "plan": plan, "members": s,
+               "dtype": "float32", "bit_equal": True,
+               "max_abs_err": max(errs), "ms": ms,
+               "singles_ms": singles_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bytes_ms": b_bytes,
+               "ops_ms": b_ops,
+               "bound_by": "operations" if b_ops >= b_bytes else "bytes"}
+        rows.append(row)
+        print(f"  {name} {key}: {plan}; bit-equal to {s} single launches; "
+              f"max|diff| vs plain {[f'{e:.3e}' for e in errs]} (bars "
+              f"{[f'{b:.3e}' for b in bars]}); one launch {ms:.4f} ms, "
+              f"{s} single launches {singles_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({row['bound_by']})", flush=True)
+        if not all(e <= b for e, b in zip(errs, bars)):
+            fail(f"{name} {key}: max|diff| {errs} > {bars}")
+
+    # B1 at the ConcatConv2d (N, 6, 6, 65 -> 64), its dgrad (64 -> 65) and
+    # the split-K wgrad
+    _, h, w, cin, cout = TRAIN_MNIST
+    x = randn((s, n, h, w, cin), 1.0, 31, f32)
+    k = randn((s, 3, 3, cin, cout), (9 * cin) ** -0.5, 32, f32)
+    dy = randn((s, n, h, w, cout), 1.0, 33, f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def grouped(t):  # (S, N, H, W, C) -> (N, S*C, H, W), contiguous
+        return t.permute(1, 0, 4, 2, 3).reshape(n, -1, h, w).contiguous()
+
+    xg, dyg = grouped(x), grouped(dy)
+    kg = k.permute(0, 4, 3, 1, 2).reshape(s * cout, cin, 3, 3).contiguous()
+    flops = 2 * s * n * h * w * cin * cout * 9
+    fwd_path = conv3x3_path(n, h, w, cin, cout, f32, dev)
+    dgrad_path = conv3x3_path(n, h, w, cout, cin, f32, dev)
+    plan = wgrad_plan(n, h, w, cin, cout, f32, sms)
+    if plan.path != "split_k":
+        fail(f"the member-batched wgrad's plan {plan} is not the split-K "
+             f"plan")
+    if (fwd_path, dgrad_path) != ("gather_elements", "gather_elements"):
+        fail(f"B1 at the ConcatConv2d took {fwd_path} / {dgrad_path}, not "
+             f"the f32 element gather")
+    with torch.no_grad():
+        y_ref = reference_conv3x3(x, k)
+        record("conv3x3_same", (n, h, w, cin, cout), f"path {fwd_path}",
+               lambda: conv3x3_same(x, k),
+               lambda m: conv3x3_same(x[m], k[m]),
+               lambda: reference_conv3x3(x, k),
+               lambda: F.conv2d(xg, kg, padding=1, groups=s),
+               1e-4 * max(1.0, y_ref.abs().max().item()),
+               (x.numel() + k.numel() + dy.numel()) * 4, flops)
+        dx_ref = reference_conv3x3(dy, flip_weights(k))
+        record("conv3x3_dgrad", (n, h, w, cout, cin), f"path {dgrad_path}",
+               lambda: conv3x3_dgrad(dy, k),
+               lambda m: conv3x3_dgrad(dy[m], k[m]),
+               lambda: reference_conv3x3(dy, flip_weights(k)),
+               lambda: torch.nn.grad.conv2d_input(
+                   (n, s * cin, h, w), kg, dyg, padding=1, groups=s),
+               1e-4 * max(1.0, dx_ref.abs().max().item()),
+               (dy.numel() + k.numel() + x.numel()) * 4, flops)
+        dw_ref = reference_conv3x3_wgrad(x, dy)
+        record("conv3x3_wgrad", (n, h, w, cin, cout),
+               f"plan {plan.path}, {plan.splits} K ranges a member",
+               lambda: conv3x3_wgrad(x, dy),
+               lambda m: conv3x3_wgrad(x[m], dy[m]),
+               lambda: reference_conv3x3_wgrad(x, dy),
+               lambda: torch.nn.grad.conv2d_weight(
+                   xg, (s * cout, cin, 3, 3), dyg, padding=1, groups=s),
+               1e-5 * max(1.0, dw_ref.abs().max().item()),
+               (x.numel() + dy.numel() + k.numel()) * 4, flops)
+    del x, k, dy, xg, dyg, kg, dx_ref, dw_ref, y_ref
+    torch.cuda.empty_cache()
+
+    # B3 forward and backward at the MNIST GroupNorms, relu and none
+    for h, w, c in FLEET_GN_SHAPES:
+        for act in ("relu", None):
+            fplan = launch_plan(n, h, w, c, GN_GROUPS, f32)
+            bplan = launch_plan(n, h, w, c, GN_GROUPS, f32, backward=True)
+            if (fplan, bplan) != (
+                    launch_plan(s * n, h, w, c, GN_GROUPS, f32),
+                    launch_plan(s * n, h, w, c, GN_GROUPS, f32,
+                                backward=True)):
+                fail(f"B3 plans at {(h, w, c)} depend on the member count")
+            x = randn((s, n, h, w, c), 2.0, 34, f32) + 0.5
+            sc = randn((s, c), 0.3, 35, f32) + 1.0
+            bi = randn((s, c), 0.5, 36, f32)
+            g = randn((s, n, h, w, c), 1.0, 37, f32)
+            lib_act = {None: lambda t: t, "relu": torch.relu}[act]
+            x_cl = x.reshape(s * n, h, w, c).permute(0, 3, 1, 2)
+            sc5, bi5 = sc.reshape(s, 1, c, 1, 1), bi.reshape(s, 1, c, 1, 1)
+
+            def gn_library():
+                y = F.group_norm(x_cl, GN_GROUPS, eps=1e-5)
+                return lib_act(y.view(s, n, c, h, w) * sc5 + bi5)
+
+            ref = group_norm_reference(x, sc, bi, GN_GROUPS, act=act)
+            key = (n, h, w, c, act)
+            record("group_norm_act", key,
+                   f"plan {fplan.path}, cluster {fplan.cluster}",
+                   lambda: fused_group_norm_act(x, sc, bi, GN_GROUPS,
+                                                act=act),
+                   lambda m: fused_group_norm_act(x[m], sc[m], bi[m],
+                                                  GN_GROUPS, act=act),
+                   lambda: group_norm_reference(x, sc, bi, GN_GROUPS,
+                                                act=act),
+                   gn_library, 2e-4 * max(1.0, ref.abs().max().item()),
+                   2 * x.numel() * 4 + 2 * s * c * 4,
+                   GN_OPS_PER_ELEMENT * x.numel())
+            # backward: dx only (the attack's) and full (the training
+            # pass's); the library composes aten's GN backward without
+            # affine on S*N samples with the members' affine and relu mask
+            xc = x_cl.contiguous()
+            gc = g.reshape(s * n, h, w, c).permute(0, 3, 1, 2).contiguous()
+            xhat, mean_l, rstd_l = aten.native_group_norm(
+                xc, None, None, s * n, c, h * w, GN_GROUPS, 1e-5)
+            y_aff = (xhat.view(s, n, c, h, w) * sc5 + bi5).view_as(xc)
+
+            def bwd_library(full):
+                gy = (aten.threshold_backward(gc, y_aff, 0.0)
+                      if act == "relu" else gc)
+                gx = (gy.view(s, n, c, h, w) * sc5).view_as(xc)
+                dx = aten.native_group_norm_backward(
+                    gx, xc, mean_l, rstd_l, None, s * n, c, h * w,
+                    GN_GROUPS, [True, False, False])[0]
+                if not full:
+                    return dx
+                g5 = gy.view(s, n, c, h * w)
+                return (dx, (g5 * xhat.view(s, n, c, h * w)).sum((1, 3)),
+                        g5.sum((1, 3)))
+
+            # ReLU's mask at a pre-activation within rounding of 0 may
+            # differ between B3 and its plain version (their forwards are
+            # 2e-6 apart here), and a flip moves its group's dx by up to
+            # |dout| x rstd x scale.  So the plain backward held against
+            # the kernel's takes the mask of the kernel's own forward
+            # output: dpre = dout x [y > 0], then the backward without an
+            # activation, the same function at every element
+            with torch.no_grad():
+                mask = (None if act is None else
+                        fused_group_norm_act(x, sc, bi, GN_GROUPS,
+                                             act=act) > 0)
+
+            def bwd_compare():
+                if mask is None:
+                    return group_norm_backward_reference(x, sc, bi, g,
+                                                         GN_GROUPS)
+                return group_norm_backward_reference(x, sc, bi, g * mask,
+                                                     GN_GROUPS)
+
+            bref = bwd_compare()
+            xf = x.reshape(s, n, h * w, GN_GROUPS, c // GN_GROUPS)
+            xh = ((xf - xf.mean((2, 4), keepdim=True)) * torch.rsqrt(
+                xf.var((2, 4), unbiased=False, keepdim=True) + 1e-5))
+            l1 = 2.0 * g.abs().reshape(xh.shape)
+            bars = [1e-4 * max(1.0, bref[0].abs().max().item()),
+                    1e-5 * max(1.0, (l1 * xh.abs()).sum((1, 2, 3, 4))
+                               .max().item()),
+                    1e-5 * max(1.0, l1.sum((1, 2, 3, 4)).max().item())]
+            del xf, xh, l1
+            for full in (False, True):
+                record("group_norm_act_bwd", key + ("full" if full
+                                                    else "dx",),
+                       f"plan {bplan.path}, cluster {bplan.cluster}",
+                       (lambda f=full: group_norm_backward(
+                           x, sc, bi, g, GN_GROUPS, act=act, params=f)[
+                           :3 if f else 1]),
+                       (lambda m, f=full: group_norm_backward(
+                           x[m], sc[m], bi[m], g[m], GN_GROUPS, act=act,
+                           params=f)[:3 if f else 1]),
+                       (lambda f=full: group_norm_backward_reference(
+                           x, sc, bi, g, GN_GROUPS, act=act)[:3 if f
+                                                             else 1]),
+                       (lambda f=full: bwd_library(f)),
+                       bars if full else bars[:1],
+                       3 * x.numel() * 4 + (2 * s * c * 4 if full else 0),
+                       GN_BWD_OPS_PER_ELEMENT * x.numel(),
+                       compare=(lambda f=full: bwd_compare()[:3 if f
+                                                             else 1]))
+            del x, g, ref, bref, xc, gc, xhat, y_aff, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fleet_train_phases(port, torch, dev):
+    """Phase 24: the u-sweep step as one fleet of FLEET_S members against
+    its single-run step (launches, ms, img/s, peak memory, at FLEET_SIZES
+    members too), each member against its own single run, the kernel path
+    against the plain path, and one step under PGD-7.  Returns the report's
+    numbers."""
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import SolverOptions, create_solver
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig, create_fleet_state, create_train_state,
+        fleet_generators, make_fleet_train_step, make_optimizer,
+        make_train_step, stack_fleet_solvers)
+
+    s, n = FLEET_S, FLEET_N
+    opts = SolverOptions()
+    phase(f"train: the u-sweep recipe as one fleet of {s} members "
+          f"({len(FLEET_US)} u x {len(FLEET_SEEDS)} seeds; MNIST MetaNODE "
+          f"dim {MNIST_DIM}, f32, batch {n} a member, RK2 {N_STEPS} steps, "
+          f"RMSprop {FLEET_LR}, clean)")
+    ref_solver = create_solver("rk2", "u", n_steps=N_STEPS, u0=U)
+    members = [(u, seed) for u in FLEET_US for seed in FLEET_SEEDS]
+    u_solver = lambda u: [ref_solver.replace(  # noqa: E731
+        u=torch.tensor(u, dtype=torch.float32))]
+    opt = make_optimizer("rmsprop", FLEET_LR, weight_decay=5e-4)
+    model = build_model("mnist", dim=MNIST_DIM)
+    gcpu = torch.Generator().manual_seed(23)
+    xs = torch.rand(2 * s, n, 28, 28, 1, generator=gcpu).to(dev)
+    ys = torch.randint(0, 10, (2 * s, n), generator=gcpu).to(dev)
+
+    def fleet_of(count, use_kernels=True, attack=AttackConfig()):
+        part = [members[i % s] for i in range(count)]
+        gens = fleet_generators([seed for _, seed in part])
+        fts = create_fleet_state(model, opt, gens)
+        dyn = stack_fleet_solvers([u_solver(u) for u, _ in part])
+        step = make_fleet_train_step(model, opt, [ref_solver], opts,
+                                     attack, use_kernels=use_kernels)
+        return fts, gens, dyn, step
+
+    def timed(fn, steps):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)[len(ms) // 2], port.launch_counts(), out
+
+    # the single run: member 0's step
+    u0, seed0 = members[0]
+    single = build_model("mnist", dim=MNIST_DIM,
+                         generator=torch.Generator().manual_seed(seed0))
+    sstate = create_train_state(single, opt)
+    sstep = make_train_step(single, opt, [ref_solver], opts)
+    sgen = torch.Generator().manual_seed(seed0)
+    single_ms, scounts, _ = timed(lambda: sstep(
+        sstate, xs[0], ys[0], sgen, u_solver(u0)), TRAIN_STEPS)
+    single_per_step = {k: v // TRAIN_STEPS for k, v in scounts.items()}
+    print(f"  single run: median {single_ms:.3f} ms a step; launches a "
+          f"step {single_per_step}", flush=True)
+    del single, sstate
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fts, gens, dyn, fstep = fleet_of(s)
+    box = {}
+
+    def one_fleet_step():
+        box["state"], box["m"] = fstep(fts, xs[:s], ys[:s], gens, dyn)
+        return box["m"]
+
+    fleet_ms, fcounts, _ = timed(one_fleet_step, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fleet_per_step = {k: v // TRAIN_STEPS for k, v in fcounts.items()}
+    losses = box["m"]["loss"]
+    print(f"  fleet of {s}: median {fleet_ms:.3f} ms a step against "
+          f"{s} x {single_ms:.3f} = {s * single_ms:.3f} ms for {s} single "
+          f"steps ({s * single_ms / fleet_ms:.2f}x); "
+          f"{s * n / fleet_ms * 1e3:.1f} img/s over all members "
+          f"({n / single_ms * 1e3:.1f} single); peak {peak:.2f} GiB",
+          flush=True)
+    print(f"  launches a fleet step {fleet_per_step} (a single step "
+          f"{single_per_step}); last losses "
+          f"{[round(v, 5) for v in losses.tolist()]}", flush=True)
+    if not torch.isfinite(losses).all():
+        fail(f"non-finite fleet losses {losses.tolist()}")
+    if fleet_per_step != single_per_step or set(fleet_per_step) != {
+            "conv3x3_same", "conv3x3_dgrad", "conv3x3_wgrad",
+            "group_norm_act", "group_norm_act_bwd",
+            "group_norm_act_bwd_params"}:
+        fail(f"a fleet step launches {fleet_per_step}, a single step "
+             f"{single_per_step}")
+    del fts, box["state"]
+    torch.cuda.empty_cache()
+
+    # the chunk measurement: step time and peak memory by fleet size
+    sizes = []
+    for count in FLEET_SIZES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fts_c, gens_c, dyn_c, step_c = fleet_of(count)
+        xc, yc = xs[:count], ys[:count]
+        ms_c, _, _ = timed(lambda: step_c(fts_c, xc, yc, gens_c, dyn_c), 2)
+        peak_c = torch.cuda.max_memory_allocated() / 2 ** 30
+        sizes.append({"members": count, "step_ms": ms_c,
+                      "img_s": count * n / ms_c * 1e3,
+                      "img_s_per_member": n / ms_c * 1e3,
+                      "peak_gib": peak_c})
+        print(f"  chunk {count:2d} members: {ms_c:.3f} ms a step, "
+              f"{count * n / ms_c * 1e3:.1f} img/s "
+              f"({n / ms_c * 1e3:.1f} a member), peak {peak_c:.2f} GiB",
+              flush=True)
+        del fts_c
+    torch.cuda.empty_cache()
+
+    # each member against its own single run: two steps from one state
+    fts, gens, dyn, fstep = fleet_of(s)
+    f1, m1 = fstep(fts, xs[:s], ys[:s], gens, dyn)
+    loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
+    f2, m2 = fstep(f1, xs[s:], ys[s:], gens, dyn)
+    worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0}
+
+    def two_single_steps(seed, u, plain=False, f64=False):
+        mm = build_model("mnist", dim=MNIST_DIM,
+                         generator=torch.Generator().manual_seed(seed))
+        if f64:
+            mm.double()
+        st = create_train_state(mm, opt)
+        step = make_train_step(mm, opt, [ref_solver], opts,
+                               use_kernels=not plain)
+        g = torch.Generator().manual_seed(seed)
+        sv = u_solver(u)
+        if f64:
+            sv = [sv[0].replace(u=sv[0].u.double())]
+        cast = (lambda t: t.double()) if f64 else (lambda t: t)
+        i = members.index((u, seed))
+        st, a = step(st, cast(xs[i]), ys[i], g, sv)
+        st, b = step(st, cast(xs[s + i]), ys[s + i], g, sv)
+        return a, b, st
+
+    def far_share(pa, pb):
+        big = max(v.abs().max().item() for v in pb.values())
+        far = sum(((pa[k].double() - pb[k].double()).abs()
+                   > 1e-4 * big).sum().item() for k in pb)
+        return far / sum(v.numel() for v in pb.values())
+
+    for i, (u, seed) in enumerate(members):
+        a, b, st = two_single_steps(seed, u)
+        rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
+        worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
+                                                 a["loss"].item()))
+        worst["gnorm1"] = max(worst["gnorm1"], rel(gn1[i].item(),
+                                                   a["grad_norm"].item()))
+        worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
+                                                 b["loss"].item()))
+        worst["far"] = max(worst["far"], far_share(
+            {k: v[i] for k, v in f2.params.items()}, st.params))
+    # the witness: member 0's single run, plain path, f32 against f64
+    a32, b32, st32 = two_single_steps(seed0, u0, plain=True)
+    a64, b64, st64 = two_single_steps(seed0, u0, plain=True, f64=True)
+    witness = {"loss1": abs(a32["loss"].item() - a64["loss"].item())
+               / abs(a64["loss"].item()),
+               "loss2": abs(b32["loss"].item() - b64["loss"].item())
+               / abs(b64["loss"].item()),
+               "far": far_share(st32.params, {
+                   k: v.float() for k, v in st64.params.items()})}
+    print(f"  each member against its single run (kernel paths, two steps "
+          f"from one state; the fleet's stem and strided convs are one "
+          f"grouped cuDNN conv and its head a bmm): step 1 loss relative "
+          f"{worst['loss1']:.3e} (bar {FLEET_LOSS1_BAR}), grad norm "
+          f"{worst['gnorm1']:.3e} (bar {FLEET_GNORM1_BAR}); step 2 loss "
+          f"{worst['loss2']:.3e} (bar {FLEET_LOSS2_BAR}), params more than "
+          f"1e-4 max|p| apart {worst['far']:.3e} of them (bar "
+          f"{FLEET_FAR_SHARE_BAR})", flush=True)
+    print(f"  witness, rounding alone (member 0's single run, plain path "
+          f"f32 against f64): step 1 loss {witness['loss1']:.3e}, step 2 "
+          f"loss {witness['loss2']:.3e}, params apart "
+          f"{witness['far']:.3e}", flush=True)
+    if not (worst["loss1"] <= FLEET_LOSS1_BAR
+            and worst["gnorm1"] <= FLEET_GNORM1_BAR
+            and worst["loss2"] <= FLEET_LOSS2_BAR
+            and worst["far"] <= FLEET_FAR_SHARE_BAR):
+        fail(f"fleet members differ from their single runs: {worst}")
+    del fts, f1, f2, st, st32, st64
+    torch.cuda.empty_cache()
+
+    # fleet kernel path against fleet plain path, phase 11's bars
+    res = {}
+    for use_kernels in (True, False):
+        fts_k, gens_k, dyn_k, step_k = fleet_of(s, use_kernels)
+        _, mk = step_k(fts_k, xs[:s], ys[:s], gens_k, dyn_k)
+        res[use_kernels] = (mk["loss"], mk["grad_norm"])
+        del fts_k
+    (lk, nk), (lp, np_) = res[True], res[False]
+    loss_gap = ((lk - lp).abs() / lp.abs().clamp(min=1.0)).max().item()
+    norm_gap = ((nk - np_).abs() / np_).max().item()
+    print(f"  fleet kernel path vs fleet plain path: loss |diff| "
+          f"{loss_gap:.3e} of max(1, |loss|) (bar 2e-2), grad norm "
+          f"relative {norm_gap:.3e} (bar 5e-2)", flush=True)
+    if not (loss_gap <= 2e-2 and norm_gap <= 5e-2):
+        fail("the fleet's kernel and plain paths disagree")
+    torch.cuda.empty_cache()
+
+    # one step under PGD-7 (u_sweep --adv_training_mode at): B3's dx-only
+    # backward and the dgrad member-batched in the attack's passes
+    matk = AttackConfig(mode="at", eps=PGD_EPS, pgd_lr=PGD_LR,
+                        pgd_niter=PGD_ITERS)
+    fts_a, gens_a, dyn_a, step_a = fleet_of(s, attack=matk)
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, ma = step_a(fts_a, xs[:s], ys[:s], gens_a, dyn_a)
+    torch.cuda.synchronize()
+    pgd_ms = (time.perf_counter() - t0) * 1e3
+    pgd_counts = dict(port.launch_counts())
+    print(f"  one PGD-{PGD_ITERS} fleet step (the first of its step "
+          f"function, allocations included): {pgd_ms:.1f} ms, launches "
+          f"{pgd_counts} (a single step's {MNIST_TRAIN_PER_STEP})",
+          flush=True)
+    if not torch.isfinite(ma["loss"]).all():
+        fail(f"non-finite PGD fleet losses {ma['loss'].tolist()}")
+    if pgd_counts != MNIST_TRAIN_PER_STEP:
+        fail(f"a PGD fleet step launches {pgd_counts}, a single one "
+             f"{MNIST_TRAIN_PER_STEP}")
+    del fts_a
+    torch.cuda.empty_cache()
+    return {"members": s, "counts": fcounts,
+            "launches_per_step": fleet_per_step,
+            "single_launches_per_step": single_per_step,
+            "step_ms": fleet_ms, "single_step_ms": single_ms,
+            "single_step_ms_x_members": s * single_ms,
+            "img_s": s * n / fleet_ms * 1e3, "peak_gib": peak,
+            "chunk_sizes": sizes, "member_vs_single": worst,
+            "witness_f32_vs_f64": witness,
+            "kernel_vs_plain": {"loss": loss_gap, "grad_norm": norm_gap},
+            "pgd_step_ms": pgd_ms, "pgd_launches": pgd_counts}
+
+
+def fleet_cli_phase(port, torch, dev):
+    """Phase 25: u_sweep at full width, sequential and --fleet, and sweep
+    over two grid points of mnist_runner.  Returns the launches of the
+    runs and the wall seconds."""
+    import csv
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.runners import sweep, u_sweep
+
+    phase(f"u_sweep (u {USWEEP_U} x seeds {USWEEP_SEEDS}, MNIST dim "
+          f"{MNIST_DIM}, {RUNNER_MNIST_TRAIN} train and {RUNNER_MNIST_TEST} "
+          f"test synthetic images, 1 epoch), sequential and --fleet; sweep "
+          f"over 2 grid points of mnist_runner")
+    out = {}
+    port.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--u_grid", USWEEP_U, "--seeds", USWEEP_SEEDS,
+                "--n_steps", str(N_STEPS), "--nepochs", "1",
+                "--batch_size", str(FLEET_N), "--dim", str(MNIST_DIM),
+                "--synthetic_test_size", str(RUNNER_MNIST_TEST)]
+        tables = {}
+        for label, train, extra in (
+                ("sequential", RUNNER_MNIST_TRAIN, []),
+                ("fleet", RUNNER_MNIST_TRAIN, ["--fleet"]),
+                ("held sequential", USWEEP_HELD_TRAIN, []),
+                ("held fleet", USWEEP_HELD_TRAIN,
+                 ["--fleet", "--fleet_chunk", str(USWEEP_HELD_CHUNK)])):
+            path = os.path.join(tmp, f"{label.replace(' ', '_')}.csv")
+            t0 = time.perf_counter()
+            u_sweep.main(argv + ["--synthetic_train_size", str(train),
+                                 "--output_csv", path] + extra)
+            torch.cuda.synchronize()
+            out[f"{label}_s"] = time.perf_counter() - t0
+            with open(path) as f:
+                reader = csv.DictReader(f)
+                rows = list(reader)
+            if reader.fieldnames != u_sweep.CSV_COLUMNS or len(rows) != 8:
+                fail(f"u_sweep {label}: {reader.fieldnames}, {len(rows)} "
+                     f"rows")
+            tables[label] = {(r["u0"], r["seed"]): r for r in rows}
+            print(f"  u_sweep {label} ({train} train images): "
+                  f"{out[label + '_s']:.1f} s wall; "
+                  + "; ".join(f"u {r['u0']} seed {r['seed']}: clean "
+                              f"{float(r['clean_acc']):.4f} PGD "
+                              f"{float(r['robust_acc']):.4f}"
+                              for r in rows), flush=True)
+        if any(set(t) != set(tables["sequential"]) for t in tables.values()):
+            fail(f"u_sweep: the runs' rows differ: "
+                 f"{ {k: sorted(t) for k, t in tables.items()} }")
+        if not all(0.0 <= float(r["robust_acc"]) <= 1.0
+                   for t in tables.values() for r in t.values()):
+            fail("u_sweep: a robust accuracy lies outside [0, 1]")
+
+        def apart(a, b, col):  # the most test images two runs differ by
+            return max(round(abs(float(a[k][col]) - float(b[k][col]))
+                             * RUNNER_MNIST_TEST) for k in a)
+
+        seq, flt = tables["sequential"], tables["fleet"]
+        hseq, hflt = tables["held sequential"], tables["held fleet"]
+        out["clean_gap"] = apart(seq, flt, "clean_acc") / RUNNER_MNIST_TEST
+        held = {col: apart(hseq, hflt, col)
+                for col in ("clean_acc", "robust_acc")}
+        out["held_apart"] = held
+        distinct = len({r["clean_acc"] for r in hseq.values()})
+        print(f"  fleet against sequential, {RUNNER_MNIST_TRAIN} train "
+              f"images: clean accuracy at most {out['clean_gap']:.4f} apart "
+              f"(not held); fleet {out['sequential_s'] / out['fleet_s']:.2f}"
+              f"x faster in wall time", flush=True)
+        print(f"  fleet against sequential, {USWEEP_HELD_TRAIN} train "
+              f"images: clean at most {held['clean_acc']}, PGD at most "
+              f"{held['robust_acc']} of {RUNNER_MNIST_TEST} test images apart "
+              f"(bar {USWEEP_HELD_BAR}); {distinct} distinct clean "
+              f"accuracies among the members", flush=True)
+        if max(held.values()) > USWEEP_HELD_BAR:
+            fail(f"u_sweep: fleet and sequential disagree after two steps "
+                 f"a member: {held} test images apart")
+        if distinct < 2:
+            fail("u_sweep: every member reads one clean accuracy, so the "
+                 "fleet-against-sequential check cannot see a member's "
+                 "rows mixed up")
+        out["usweep_counts"] = dict(port.launch_counts())
+
+        cfg = os.path.join(tmp, "sweep.json")
+        with open(cfg, "w") as f:
+            json.dump({"parameters": {"wnb_u": {"values": [0.5, 1.0]}}}, f)
+        base = digits_runner_argv(os.path.join(tmp, "unused"))
+        base[base.index("--save_dir"):] = []
+        t0 = time.perf_counter()
+        records = sweep.main(["--runner", "mnist", "--config", cfg,
+                              "--sweep_dir", os.path.join(tmp, "sweep"),
+                              "--", "--nepochs", "1"] + base)
+        out["sweep_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "sweep", "sweep_summary.csv")) as f:
+            summary = list(csv.DictReader(f))
+        print(f"  sweep: {len(records)} runs in {out['sweep_s']:.1f} s; "
+              f"summary {[(r['wnb_u'], r['best'], r['error']) for r in summary]}",
+              flush=True)
+        if len(records) != 2 or len(summary) != 2 or any(
+                r["error"] or r["best"] is None for r in records):
+            fail(f"sweep: {records}")
+        for r in records:
+            check_checkpoint_dir(os.path.join(r["run_dir"], "last"))
+    out["counts"] = dict(port.launch_counts())
+    return out
+
+
 def main():
     import torch
 
@@ -2555,6 +3196,15 @@ def main():
     (adj_counts, adj_ms, adj_peak, solver_counts, solver_step_counts,
      solver_ms, solver_peak) = a18_phases(port, torch, dev, med, train_peak, mnist_med)
 
+    # ------------------------------------------------- 23-25 the fleet
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    member_rows = member_launch_phase(port, torch, dev, time_ms, bound,
+                                      randn)
+    fleet = fleet_train_phases(port, torch, dev)
+    fleet_cli = fleet_cli_phase(port, torch, dev)
+    print(f"  launches over phase 25's runs: {fleet_cli['counts']}",
+          flush=True)
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -2607,6 +3257,10 @@ def main():
             "solver train runner f32": {
                 "steps": SOLVER_EPOCHS * RUNNER_MNIST_STEPS,
                 "launches": solver_counts.get(name, 0)},
+            "fleet train f32": {"steps": TRAIN_STEPS,
+                                "members": FLEET_S,
+                                "launches": fleet["counts"].get(name, 0)},
+            "fleet CLIs f32": {"launches": fleet_cli["counts"].get(name, 0)},
         }
         paths = {
             "adjoint_train_bf16": {
@@ -2618,6 +3272,13 @@ def main():
                 "launches_per_step": solver_step_counts,
                 "step_ms": solver_ms, "peak_gib": solver_peak,
                 "frozen_u_step_ms": mnist_med},
+            "fleet_train_f32": {
+                k: fleet[k] for k in (
+                    "members", "launches_per_step",
+                    "single_launches_per_step", "step_ms",
+                    "single_step_ms", "single_step_ms_x_members", "img_s",
+                    "peak_gib", "chunk_sizes", "pgd_step_ms",
+                    "member_vs_single", "witness_f32_vs_f64")},
         }
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -2647,6 +3308,31 @@ def main():
 
     b3b_gn_step = bwd_step(B3_CIFAR_CALLS)
     b3b_m18_step = bwd_step(B3_CIFAR_CALLS + B3_WIDE_CALLS)
+
+    def member_sums(name, calls):
+        """Phase 23's member-batched rows of kernel ``name`` summed over a
+        clean fleet step's launches (calls: row key -> launches a step)."""
+        by_key = {r["key"]: r for r in member_rows if r["kernel"] == name}
+        picked = [(by_key[k], m) for k, m in calls.items()]
+        add = lambda f: sum(r[f] * m for r, m in picked)  # noqa: E731
+        return {"members": FLEET_S,
+                "rows": [r for r in member_rows if r["kernel"] == name],
+                "launches_per_fleet_step": sum(m for _, m in picked),
+                "max_abs_err": max(r["max_abs_err"] for r, _ in picked),
+                "bit_equal_to_single_launches": all(
+                    r["bit_equal"] for r, _ in picked),
+                "ms": add("ms"), "singles_ms": add("singles_ms"),
+                "plain_ms": add("plain_ms"), "library_ms": add("library_ms"),
+                "bound_ms": add("bound_ms"),
+                "bound_by": ("operations" if add("ops_ms") >= add("bytes_ms")
+                             else "bytes")}
+
+    fleet_b1 = {TRAIN_MNIST: fleet["launches_per_step"]["conv3x3_same"]}
+    fleet_dgrad = {TRAIN_MNIST[:3] + (TRAIN_MNIST[4], TRAIN_MNIST[3]):
+                   fleet["launches_per_step"]["conv3x3_dgrad"]}
+    fleet_wgrad = {TRAIN_MNIST: fleet["launches_per_step"]["conv3x3_wgrad"]}
+    fleet_b3 = {(FLEET_N,) + c[2:6]: c[6] for c in B3_CALLS}
+    fleet_b3b = {(FLEET_N,) + c[2:6] + ("full",): c[6] for c in B3_CALLS}
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -2660,7 +3346,10 @@ def main():
                      **per_request_sums(dgrad_rows, TRAIN_DGRAD,
                                         "bfloat16"),
                      "paths": {str(r["key"]): r["path"] for r in dgrad_rows
-                               if r["dtype"] == "bfloat16"}}),
+                               if r["dtype"] == "bfloat16"},
+                     "members_f32": member_sums("conv3x3_dgrad",
+                                                fleet_dgrad)},
+              members_f32=member_sums("conv3x3_same", fleet_b1)),
         entry("conv3x3_wgrad",
               "neural_ode_metasolver_tpu_torch/csrc/conv3x3_wgrad.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -2670,6 +3359,7 @@ def main():
                   wgrad_rows, {TRAIN_MNIST: MNIST_B1_PER_PASS}, "float32"),
               plans={str(r["key"]): r["plan"] for r in wgrad_rows
                      if r["dtype"] == "bfloat16"},
+              members_f32=member_sums("conv3x3_wgrad", fleet_wgrad),
               note="not a TPU kernel: the backward of B1 that slice 3 "
                    "needs (the Pallas B1 has no VJP)"),
         entry("ode_block_rk2",
@@ -2690,6 +3380,7 @@ def main():
                   **per_request_sums(b3_rows, b3_m18_step, "bfloat16"),
                   "launches_per_step": m18_counts.get(
                       "group_norm_act", 0) // M18_TRAIN_STEPS},
+              members_f32=member_sums("group_norm_act", fleet_b3),
               launch_floor_ms=floor_ms),
         entry("group_norm_act_bwd",
               "neural_ode_metasolver_tpu_torch/csrc/group_norm_act_bwd.cu",
@@ -2725,7 +3416,8 @@ def main():
                   + eval_counts.get("group_norm_act_bwd", 0)
                   + mnist_regime_counts.get("group_norm_act_bwd", 0)),
               plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
-                     if r["dtype"] == "float32" and r["key"][5] == "full"}),
+                     if r["dtype"] == "float32" and r["key"][5] == "full"},
+              members_f32=member_sums("group_norm_act_bwd", fleet_b3b)),
     ]
     units = ("launches: total over the counted requests of both served "
              "paths (by_path splits them); ms, plain_ms, bound_ms, "
@@ -2777,7 +3469,25 @@ def main():
              "--train_solver_params (launches a step, the second epoch's "
              "batch_time as step_ms, the run's peak_gib, phase 11's "
              "frozen-u step beside), by_path's solver train runner f32 the "
-             "whole run, validation included")
+             "whole run, validation included.  fleet_train_f32 (every "
+             "kernel): phase 24's u-sweep step as one fleet of 16 members "
+             "(MNIST dim 64, batch 128 a member, f32, clean): launches a "
+             "fleet step and a single-run step, median step_ms against "
+             "single_step_ms x members, img/s over all members, peak_gib, "
+             "chunk_sizes (step ms, img/s and peak at 1, 4, 8, 16, 32 "
+             "members), the members against their single runs and the f32 "
+             "vs f64 witness; by_path's fleet train f32 its timed steps, "
+             "fleet CLIs f32 phase 25's u_sweep and sweep runs.  "
+             "members_f32 (conv3x3_same, its dgrad, conv3x3_wgrad, "
+             "group_norm_act, group_norm_act_bwd): phase 23's member-"
+             "batched launches at 16 members of 128 images, each row bit-"
+             "equal to 16 single launches (rows: one launch's ms, "
+             "singles_ms for 16 single launches, the plain version, the "
+             "library: cuDNN's grouped conv2d / conv2d_input / "
+             "conv2d_weight with groups=16, F.group_norm on the 2048 "
+             "samples then the members' affine and relu, aten's GN "
+             "backward so composed), summed over a clean fleet step's "
+             "launches (launches_per_fleet_step)")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

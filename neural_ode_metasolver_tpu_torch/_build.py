@@ -54,16 +54,17 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "conv3x3": {
-        # dtype, x, w, out, N, H, W, Cin, Cout, device, stream
-        "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, x, w, out, S (members), N, H, W, Cin, Cout, device, stream
+        "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
         # dtype, N, H, W, Cin, Cout, device
         "conv3x3_path": [_I, _I, _I, _I, _I, _I, _I],
     },
     "conv3x3_wgrad": {
-        # dtype, x, dy, workspace, out, N, H, W, Cin, Cout, then the plan
-        # (path, splits, rows, stages, cluster), device, stream
+        # dtype, x, dy, workspace, out, S (members), N, H, W, Cin, Cout,
+        # then the plan (path, splits, rows, stages, cluster), device, stream
         "conv3x3_wgrad_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _P],
     },
     "ode_block_rk2": {
         # dtype, epilogue, x, w, out, y, k1, aux, N, H, W, C, a, b1, b2,
@@ -74,18 +75,18 @@ _SIGNATURES = {
         "ode_block_rk2_gelu_launch": [_I, _P, _P, _LL, _I, _P],
     },
     "group_norm_act": {
-        # dtype, act, x, scale, bias, out, N, HW, C, G, eps, then the plan
-        # (path, vec, warps, cluster, regs), device, stream
+        # dtype, act, x, scale, bias, out, S (members), N, HW, C, G, eps,
+        # then the plan (path, vec, warps, cluster, regs), device, stream
         "group_norm_act_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _F, _I, _I, _I, _I, _I, _I, _P],
     },
     "group_norm_act_bwd": {
-        # dtype, act, x, dout, scale, bias, dx, part, dscale, dbias, N, HW,
-        # C, G, eps, then the plan (path, vec, warps, cluster, regs, stash),
-        # device, stream
+        # dtype, act, x, dout, scale, bias, dx, part, dscale, dbias, S
+        # (members), N, HW, C, G, eps, then the plan (path, vec, warps,
+        # cluster, regs, stash), device, stream
         "group_norm_act_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                                      _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
     },
 }
 

@@ -16,6 +16,12 @@ and the ensemble attacks: ``clean2ensemble`` (base.py:8-10) and
 ``fgsm2ensemble`` (fgsm.py:109-155), one signed step in pixel space on the
 NLL of the log of the members' mean softmax, whose core is
 ``fgsm_mean_prob_attack``.
+
+A fleet (``training/fleet.py``) attacks S members at once: its forward
+returns logits (S, N, classes) for x (S, N, ...), the loss is the sum of
+the members' mean cross-entropies (so each member's input gradient is its
+own run's), and the random start is drawn member by member from a list of
+generators, each exactly as a single run draws it.
 """
 from __future__ import annotations
 
@@ -26,13 +32,24 @@ import torch.nn.functional as F
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 
-__all__ = ["cross_entropy", "normalize", "inv_normalize", "clean",
-           "clean2ensemble", "fgsm", "fgsm_random", "pgd", "fgsm2ensemble",
-           "fgsm_mean_prob_attack", "uniform_like"]
+__all__ = ["cross_entropy", "member_cross_entropy", "normalize",
+           "inv_normalize", "clean", "clean2ensemble", "fgsm", "fgsm_random",
+           "pgd", "fgsm2ensemble", "fgsm_mean_prob_attack", "uniform_like"]
+
+
+def member_cross_entropy(logits: torch.Tensor, y: torch.Tensor
+                         ) -> torch.Tensor:
+    """A fleet's per-member mean CE: logits (S, N, K), y (S, N) -> (S,)."""
+    s, n, k = logits.shape
+    return F.cross_entropy(logits.reshape(s * n, k), y.reshape(s * n),
+                           reduction="none").reshape(s, n).mean(1)
 
 
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean CE over the batch (torch nn.CrossEntropyLoss default)."""
+    """Mean CE over the batch (torch nn.CrossEntropyLoss default); a
+    fleet's (S, N, K) logits give the sum of the members' means."""
+    if logits.dim() == 3:
+        return member_cross_entropy(logits, y).sum()
     return F.cross_entropy(logits, y)
 
 
@@ -61,10 +78,14 @@ def clean(x: torch.Tensor, y: torch.Tensor
     return x, y
 
 
-def uniform_like(x: torch.Tensor, generator: Optional[torch.Generator]
-                 ) -> torch.Tensor:
+def uniform_like(x: torch.Tensor, generator) -> torch.Tensor:
     """U[0, 1) of x's shape, dtype and device (the attack's random start;
-    tests pin it here)."""
+    tests pin it here).  A list of generators draws member m's slice
+    x[m] from generator m."""
+    if isinstance(generator, (list, tuple)):
+        return torch.stack([torch.rand(x.shape[1:], generator=g,
+                                       dtype=x.dtype, device=x.device)
+                            for g in generator])
     return torch.rand(x.shape, generator=generator, dtype=x.dtype,
                       device=x.device)
 

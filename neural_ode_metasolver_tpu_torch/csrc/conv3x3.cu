@@ -9,12 +9,15 @@
 // Bound and design notes: conv3x3.cuh.
 #include "conv3x3.cuh"
 
+// S members of N images each: x (S, N, H, W, Cin), w (S, 3, 3, Cin, Cout),
+// out (S, N, H, W, Cout); S = 1 is a single run.
 extern "C" int conv3x3_same_launch(int dtype, const void* x, const void* w,
-                                   void* out, int N, int H, int W, int Cin,
-                                   int Cout, int device, void* stream) {
+                                   void* out, int S, int N, int H, int W,
+                                   int Cin, int Cout, int device,
+                                   void* stream) {
   using namespace nodems;
   const ConvArgs p{x, w, out, nullptr, nullptr, nullptr, N, H, W, Cin, Cout,
-                   0.f, 0.f, 0.f};
+                   0.f, 0.f, 0.f, S};
   if (dtype == NODEMS_F32) return launch_conv3x3<float, kStore>(p, device, stream);
   if (dtype == NODEMS_BF16)
     return launch_conv3x3<__nv_bfloat16, kStore>(p, device, stream);

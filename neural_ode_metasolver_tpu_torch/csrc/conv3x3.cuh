@@ -9,6 +9,9 @@
 //   M = N*H*W output pixels, flattened across images (a 6x6 image wastes no
 //       tile rows), N = Cout, K = 9*Cin ordered (tap, channel), which is
 //       HWIO reshaped to (9*Cin, Cout): the weights are read as they lie.
+// A fleet of S runs (S members, each N images and its own weights) is one
+// launch: grid dimension z is the member (to_member), M is counted per
+// member, and each member's blocks are a single launch's.
 // The 9x patch matrix is never formed in device memory.  A K step is 64
 // bf16 or 32 f32 channels (one 128-byte row of A per pixel) of one tap.  B
 // tiles (BK x BN) stream through a ring of STAGES slots in dynamic shared
@@ -68,15 +71,35 @@ namespace nodems {
 enum Epilogue { kStore = 0, kGelu = 1, kStage1 = 2, kStage2 = 3 };
 
 struct ConvArgs {
-  const void* x;  // (N, H, W, Cin)
-  const void* w;  // (3, 3, Cin, Cout)
-  void* out;      // (N, H, W, Cout)
+  const void* x;  // (S, N, H, W, Cin)
+  const void* w;  // (S, 3, 3, Cin, Cout)
+  void* out;      // (S, N, H, W, Cout)
   const void* y;  // kStage1/kStage2: the RK state (may alias out)
   float* k1;      // kStage1 writes it, kStage2 reads it
   void* aux;      // kStage2: gelu of the new state, or null
-  int N, H, W, Cin, Cout;
+  int N, H, W, Cin, Cout;  // N images a member
   float a, b1, b2;
+  int S = 1;  // members: a fleet's runs, each its own images and weights
 };
+
+// A member-batched launch: grid dimension z is the member.  Member m's
+// blocks run exactly the blocks of a single launch on member m's images
+// and weights (the same tiles, the same sums in the same order), so its
+// output is bit-equal to that launch's; M = N*H*W is counted per member,
+// and no tile straddles two members.  A single run is member 0.
+template <typename T>
+__device__ __forceinline__ void to_member(ConvArgs& p) {
+  const size_t m = blockIdx.z;
+  const size_t pix = static_cast<size_t>(p.N) * p.H * p.W;
+  const size_t out = m * pix * p.Cout;
+  p.x = static_cast<const T*>(p.x) + m * pix * p.Cin;
+  p.w = static_cast<const T*>(p.w) + m * 9 * static_cast<size_t>(p.Cin) *
+                                         p.Cout;
+  p.out = static_cast<T*>(p.out) + out;
+  if (p.y != nullptr) p.y = static_cast<const T*>(p.y) + out;
+  if (p.k1 != nullptr) p.k1 += out;
+  if (p.aux != nullptr) p.aux = static_cast<T*>(p.aux) + out;
+}
 
 constexpr int kRowBytes = 128;  // one A row of one K step
 
@@ -544,6 +567,7 @@ conv3x3_igemm_kernel(ConvArgs p) {
   int4* s_pix = reinterpret_cast<int4*>(
       smem + STAGES * Tl::kStageBytes);  // (m or -1, oh, ow, -)
 
+  to_member<T>(p);
   const T* x = static_cast<const T*>(p.x);
   const T* w = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
@@ -782,6 +806,7 @@ conv3x3_halo_kernel(ConvArgs p, int halo_rows) {
   char* s_halo = smem + STAGES * kBBytes;     // nbuf halos
   char* s_zero = s_halo + nbuf * R * kRowBytes;  // one row of zeros
 
+  to_member<T>(p);
   const T* x = static_cast<const T*>(p.x);
   const T* w = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
@@ -918,6 +943,7 @@ conv3x3_halo_narrow_kernel(ConvArgs p, int halo_rows) {
   char* s_halo = smem + STAGES * kBBytes;
   char* s_zero = s_halo + nbuf * R * kRowBytes;
 
+  to_member<T>(p);
   const T* x = static_cast<const T*>(p.x);
   const T* w = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
@@ -1074,7 +1100,8 @@ cudaError_t launch_halo(Kernel kernel, const ConvArgs& p, int device,
   }
   const long long M = static_cast<long long>(p.N) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((p.Cout + BN - 1) / BN));
+                  static_cast<unsigned>((p.Cout + BN - 1) / BN),
+                  static_cast<unsigned>(p.S));
   kernel<<<grid, 2 * BM,
            static_cast<size_t>(halo_smem_bytes(p, BM, BN, STAGES)), stream>>>(
       p, static_cast<int>(BM + 2 * p.W + 2));
@@ -1116,7 +1143,8 @@ cudaError_t launch_tile(const ConvArgs& p, int device, cudaStream_t stream) {
   }
   const long long M = static_cast<long long>(p.N) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((p.Cout + BN - 1) / BN));
+                  static_cast<unsigned>((p.Cout + BN - 1) / BN),
+                  static_cast<unsigned>(p.S));
   kernel<<<grid, Tl::kThreads, Tl::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1169,7 +1197,9 @@ ConvPath conv_path(const ConvArgs& p, int optin) {
 // Checks the arguments and reads the device's shared-memory limit.
 inline cudaError_t conv3x3_prepare(const ConvArgs& p, int device,
                                    int* optin) {
+  // members run on grid dimension z, which holds at most 65,535
   if (p.N < 1 || p.H < 1 || p.W < 1 || p.Cin < 1 || p.Cout < 1 ||
+      p.S < 1 || p.S > 65535 ||
       static_cast<long long>(p.N) * p.H * p.W >= (1LL << 31) ||
       9LL * p.Cin >= (1LL << 31))
     return cudaErrorInvalidValue;

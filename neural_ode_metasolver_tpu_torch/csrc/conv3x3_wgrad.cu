@@ -89,11 +89,11 @@ struct WgradBK {
 };
 
 struct WgradArgs {
-  const void* x;   // (N, H, W, Cin)
-  const void* dy;  // (N, H, W, Cout)
-  float* ws;       // (splits, 9, Cin, Cout) partial sums
-  int N, H, W, Cin, Cout;
-  int splits, steps, halo_rows;
+  const void* x;   // (S, N, H, W, Cin)
+  const void* dy;  // (S, N, H, W, Cout)
+  float* ws;       // (S, splits, 9, Cin, Cout) partial sums
+  int N, H, W, Cin, Cout;  // N images a member
+  int splits, steps, halo_rows;  // a member's
 };
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -123,8 +123,11 @@ __host__ __device__ __forceinline__ int slot_bytes(int halo_rows) {
                                             kRowBytes * kRowBytes;
 }
 
-// C (9-tap tile) of one block: blockIdx = (Cin chunk, Cout chunk, split).
-// VX / VDY: 16-byte copies of x / dy (channels a multiple of 16 bytes and
+// C (9-tap tile) of one block: blockIdx = (Cin chunk, Cout chunk, member *
+// splits + split).  A member-batched launch (S members, each N images of
+// its own) runs each member's splits over its own images only, exactly as
+// a single launch on that member runs them, into the member's own
+// workspace rows; a single run is member 0.  VX / VDY: 16-byte copies of x / dy (channels a multiple of 16 bytes and
 // the pointer aligned), else element copies.
 template <typename T, bool VX, bool VDY>
 __global__ void __launch_bounds__(kWThreads, 1)
@@ -143,16 +146,19 @@ wgrad_partial_kernel(WgradArgs p) {
   const int slot = slot_bytes<BK>(R);
   char* s_zero = smem + kStages * slot;  // one row of zeros
 
-  const T* x = static_cast<const T*>(p.x);
-  const T* dy = static_cast<const T*>(p.dy);
+  const int member = static_cast<int>(blockIdx.z) / p.splits;
+  const int split = static_cast<int>(blockIdx.z) - member * p.splits;
+  const int HW = p.H * p.W;
+  const int P = p.N * HW;
+  const T* x = static_cast<const T*>(p.x) +
+               static_cast<size_t>(member) * P * p.Cin;
+  const T* dy = static_cast<const T*>(p.dy) +
+                static_cast<size_t>(member) * P * p.Cout;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int tap = tid >> 5;
-  const int HW = p.H * p.W;
-  const int P = p.N * HW;
   const int c0 = blockIdx.x * CH;
   const int n0 = blockIdx.y * CH;
-  const int split = blockIdx.z;
   const int g0 = static_cast<int>(static_cast<long long>(p.steps) * split /
                                   p.splits);
   const int g1 = static_cast<int>(static_cast<long long>(p.steps) *
@@ -314,7 +320,7 @@ wgrad_partial_kernel(WgradArgs p) {
   }
   cp_async_wait<0>();
 
-  float* ws = p.ws + (static_cast<size_t>(split) * 9 + tap) *
+  float* ws = p.ws + (static_cast<size_t>(blockIdx.z) * 9 + tap) *
                          static_cast<size_t>(p.Cin) * p.Cout;
   if constexpr (kMma) {
     const int g = lane >> 2, t4 = lane & 3;
@@ -343,19 +349,21 @@ wgrad_partial_kernel(WgradArgs p) {
   }
 }
 
-// out[i] = T(sum over k in order of ws[k][i])
+// out[m][i] = T(sum over k in order of ws[m][k][i]), member m = blockIdx.y
 template <typename T>
 __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
                                     T* __restrict__ out, int n, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t m = blockIdx.y;
+  ws += m * splits * static_cast<size_t>(n);
   float s = 0.0f;
   for (int k = 0; k < splits; ++k) s += ws[static_cast<size_t>(k) * n + i];
-  out[i] = from_f32<T>(s);
+  out[m * n + i] = from_f32<T>(s);
 }
 
 template <typename T, bool VX, bool VDY>
-cudaError_t launch_partials(const WgradArgs& p, int device,
+cudaError_t launch_partials(const WgradArgs& p, int S, int device,
                             cudaStream_t st) {
   constexpr int BK = WgradBK<T>::value;
   constexpr int CH = kRowBytes / static_cast<int>(sizeof(T));
@@ -376,7 +384,8 @@ cudaError_t launch_partials(const WgradArgs& p, int device,
     if (err != cudaSuccess) return err;
     opted[device].store(true, std::memory_order_relaxed);
   }
-  const dim3 grid((p.Cin + CH - 1) / CH, (p.Cout + CH - 1) / CH, p.splits);
+  const dim3 grid((p.Cin + CH - 1) / CH, (p.Cout + CH - 1) / CH,
+                  S * p.splits);
   kernel<<<grid, kWThreads, static_cast<size_t>(bytes), st>>>(p);
   return cudaGetLastError();
 }
@@ -787,8 +796,8 @@ cudaError_t launch_tma_partials(const void* x, const void* dy, float* ws,
 enum WgradPath { kPathSplitK = 0, kPathTma = 1 };  // wgrad_plan's paths
 
 template <typename T>
-cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int N,
-                           int H, int W, int Cin, int Cout, int splits,
+cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int S,
+                           int N, int H, int W, int Cin, int Cout, int splits,
                            int device, cudaStream_t st) {
   constexpr int BK = WgradBK<T>::value;
   constexpr int E = 16 / static_cast<int>(sizeof(T));
@@ -796,42 +805,47 @@ cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int N,
   if (P + BK + 2LL * W + 2 >= (1LL << 31)) return cudaErrorInvalidValue;
   const WgradArgs p{x, dy, ws, N, H, W, Cin, Cout, splits,
                     static_cast<int>((P + BK - 1) / BK), BK + 2 * W + 2};
-  if (splits > p.steps) return cudaErrorInvalidValue;
+  // members and their splits share grid dimension z (at most 65,535)
+  if (splits > p.steps || static_cast<long long>(S) * splits > 65535)
+    return cudaErrorInvalidValue;
   const bool vx = Cin % E == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool vdy =
       Cout % E == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  if (vx && vdy) return launch_partials<T, true, true>(p, device, st);
-  if (vx) return launch_partials<T, true, false>(p, device, st);
-  if (vdy) return launch_partials<T, false, true>(p, device, st);
-  return launch_partials<T, false, false>(p, device, st);
+  if (vx && vdy) return launch_partials<T, true, true>(p, S, device, st);
+  if (vx) return launch_partials<T, true, false>(p, S, device, st);
+  if (vdy) return launch_partials<T, false, true>(p, S, device, st);
+  return launch_partials<T, false, false>(p, S, device, st);
 }
 
 template <typename T>
 cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
-                         int N, int H, int W, int Cin, int Cout, int path,
-                         int splits, int rows, int stages, int cluster,
-                         int device, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || splits < 1 ||
-      9LL * Cin * Cout >= (1LL << 31))
+                         int S, int N, int H, int W, int Cin, int Cout,
+                         int path, int splits, int rows, int stages,
+                         int cluster, int device, void* stream) {
+  if (S < 1 || S > 65535 || N < 1 || H < 1 || W < 1 || Cin < 1 ||
+      Cout < 1 || splits < 1 || 9LL * Cin * Cout >= (1LL << 31))
     return cudaErrorInvalidValue;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == kPathTma) {
-    if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
+    // one member a launch: the tensor maps cover one member's images
+    if (!std::is_same<T, __nv_bfloat16>::value || S != 1)
+      return cudaErrorInvalidValue;
     err = launch_tma_partials(x, dy, ws, N, H, W, Cin, Cout, splits, rows,
                               stages, cluster, device, st);
   } else if (path == kPathSplitK && rows == WgradBK<T>::value &&
              cluster == 1) {
-    err = launch_split_k<T>(x, dy, ws, N, H, W, Cin, Cout, splits, device, st);
+    err = launch_split_k<T>(x, dy, ws, S, N, H, W, Cin, Cout, splits, device,
+                            st);
   } else {
     return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
   // the partials, one per cluster, in split order
   const int n = 9 * Cin * Cout;
-  wgrad_reduce_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
+  wgrad_reduce_kernel<T><<<dim3((n + 255) / 256, S), 256, 0, st>>>(
       ws, static_cast<T*>(out), n, splits / cluster);
   return cudaGetLastError();
 }
@@ -839,23 +853,25 @@ cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
 }  // namespace
 }  // namespace nodems
 
-// dW (3, 3, Cin, Cout) of T from x (N, H, W, Cin) and dy (N, H, W, Cout);
-// ws: splits / cluster * 9 * Cin * Cout floats of workspace.  The plan
+// dW (S, 3, 3, Cin, Cout) of T from x (S, N, H, W, Cin) and dy (S, N, H, W,
+// Cout), S members each reduced over its own N images (S = 1: a single
+// run; the TMA path takes one member a launch); ws: S * splits / cluster
+// * 9 * Cin * Cout floats of workspace.  The plan
 // (path, splits, rows, stages, cluster) is ops/conv3x3.py::wgrad_plan's; a
 // plan the shapes, the pointers or the device cannot run is refused.  Two
 // launches on `stream`: the partial sums, then their sum in split order.
 extern "C" int conv3x3_wgrad_launch(int dtype, const void* x, const void* dy,
-                                    void* ws, void* out, int N, int H, int W,
-                                    int Cin, int Cout, int path, int splits,
-                                    int rows, int stages, int cluster,
-                                    int device, void* stream) {
+                                    void* ws, void* out, int S, int N, int H,
+                                    int W, int Cin, int Cout, int path,
+                                    int splits, int rows, int stages,
+                                    int cluster, int device, void* stream) {
   using namespace nodems;
   float* w = static_cast<float*>(ws);
   if (dtype == NODEMS_F32)
-    return launch_wgrad<float>(x, dy, w, out, N, H, W, Cin, Cout, path,
+    return launch_wgrad<float>(x, dy, w, out, S, N, H, W, Cin, Cout, path,
                                splits, rows, stages, cluster, device, stream);
   if (dtype == NODEMS_BF16)
-    return launch_wgrad<__nv_bfloat16>(x, dy, w, out, N, H, W, Cin, Cout,
+    return launch_wgrad<__nv_bfloat16>(x, dy, w, out, S, N, H, W, Cin, Cout,
                                        path, splits, rows, stages, cluster,
                                        device, stream);
   return cudaErrorInvalidValue;

@@ -68,6 +68,8 @@ gn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const int t = static_cast<int>(threadIdx.x);
   const int rank = a.k > 1 ? cluster_rank() : 0;
   const int n = a.k > 1 ? cluster_index() : static_cast<int>(blockIdx.x);
+  scale += member_offset(n, a);
+  bias += member_offset(n, a);
   const int col0 = SHUFFLE ? t & (a.P - 1) : t % a.P;
   const int row0 = SHUFFLE ? t >> a.lg_P : t / a.P;
 
@@ -215,16 +217,22 @@ gn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 template <typename T, int ACT, int V, int REGS>
 cudaError_t launch_gn(const void* x, const float* scale, const float* bias,
-                      void* out, int N, int HW, int C, int G, float eps,
-                      const GnPlan& p, int device, cudaStream_t stream) {
+                      void* out, int S, int N, int HW, int C, int G,
+                      float eps, const GnPlan& p, int device,
+                      cudaStream_t stream) {
   static std::atomic<int> allowed[kMaxDevices];
   auto kernel = gn_act_kernel<T, ACT, V, REGS>;
   GnArgs a;
   long long smem = 0;
+  if (S < 1 || N < 1 ||
+      static_cast<long long>(S) * N * p.cluster >= (1LL << 31))
+    return cudaErrorInvalidValue;
   cudaError_t err =
-      plan_args(p, sizeof(T), N, HW, C, G, eps, x, out, false, &a,
+      plan_args(p, sizeof(T), S * N, HW, C, G, eps, x, out, false, &a,
                 &smem);
   if (err != cudaSuccess) return err;
+  a.nm = N;
+  N *= S;
   err = allow_smem(kernel, device, smem, allowed);
   if (err != cudaSuccess) return err;
   const T* xt = static_cast<const T*>(x);
@@ -258,11 +266,12 @@ cudaError_t launch_gn(const void* x, const float* scale, const float* bias,
 // waiting on instruction fetch.
 template <typename T, int ACT>
 cudaError_t dispatch_regs(const void* x, const float* s, const float* b,
-                          void* out, int N, int HW, int C, int G, float eps,
-                          const GnPlan& p, int device, cudaStream_t st) {
+                          void* out, int S, int N, int HW, int C, int G,
+                          float eps, const GnPlan& p, int device,
+                          cudaStream_t st) {
   constexpr int VW = 16 / sizeof(T);
 #define NODEMS_GN(V, REGS)                                                  \
-  return launch_gn<T, ACT, V, REGS>(x, s, b, out, N, HW, C, G, eps, p,      \
+  return launch_gn<T, ACT, V, REGS>(x, s, b, out, S, N, HW, C, G, eps, p,   \
                                     device, st)
   if (p.vec == VW) {
     if (p.regs == 0) NODEMS_GN(VW, 0);
@@ -278,40 +287,41 @@ cudaError_t dispatch_regs(const void* x, const float* s, const float* b,
 
 template <typename T>
 cudaError_t dispatch_act(int act, const void* x, const float* s,
-                         const float* b, void* out, int N, int HW, int C,
-                         int G, float eps, const GnPlan& p, int device,
+                         const float* b, void* out, int S, int N, int HW,
+                         int C, int G, float eps, const GnPlan& p, int device,
                          cudaStream_t st) {
   switch (act) {
     case kActNone:
-      return dispatch_regs<T, kActNone>(x, s, b, out, N, HW, C, G, eps, p,
-                                        device, st);
+      return dispatch_regs<T, kActNone>(x, s, b, out, S, N, HW, C, G, eps,
+                                        p, device, st);
     case kActRelu:
-      return dispatch_regs<T, kActRelu>(x, s, b, out, N, HW, C, G, eps, p,
-                                        device, st);
+      return dispatch_regs<T, kActRelu>(x, s, b, out, S, N, HW, C, G, eps,
+                                        p, device, st);
     case kActGelu:
-      return dispatch_regs<T, kActGelu>(x, s, b, out, N, HW, C, G, eps, p,
-                                        device, st);
+      return dispatch_regs<T, kActGelu>(x, s, b, out, S, N, HW, C, G, eps,
+                                        p, device, st);
     case kActTanh:
-      return dispatch_regs<T, kActTanh>(x, s, b, out, N, HW, C, G, eps, p,
-                                        device, st);
+      return dispatch_regs<T, kActTanh>(x, s, b, out, S, N, HW, C, G, eps,
+                                        p, device, st);
     case kActSoftsign:
-      return dispatch_regs<T, kActSoftsign>(x, s, b, out, N, HW, C, G, eps, p,
-                                            device, st);
+      return dispatch_regs<T, kActSoftsign>(x, s, b, out, S, N, HW, C, G, eps,
+                                            p, device, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace nodems
 
-// x, out (N, HW, C) contiguous of the dtype; scale, bias (C,) f32; the plan
-// as ops/group_norm.py::launch_plan gives it.  Returns cudaSuccess or why
-// the launch was refused or failed.
+// x, out (S, N, HW, C) contiguous of the dtype; scale, bias (S, C) f32: S
+// members of N samples each, sample n of member m normalized with row m
+// (S = 1: a single run); the plan as ops/group_norm.py::launch_plan gives
+// it.  Returns cudaSuccess or why the launch was refused or failed.
 extern "C" int group_norm_act_launch(int dtype, int act, const void* x,
                                      const void* scale, const void* bias,
-                                     void* out, int N, int HW, int C, int G,
-                                     float eps, int path, int vec, int warps,
-                                     int cluster, int regs, int device,
-                                     void* stream) {
+                                     void* out, int S, int N, int HW, int C,
+                                     int G, float eps, int path, int vec,
+                                     int warps, int cluster, int regs,
+                                     int device, void* stream) {
   using namespace nodems;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
@@ -321,10 +331,10 @@ extern "C" int group_norm_act_launch(int dtype, int act, const void* x,
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == NODEMS_F32)
-    return dispatch_act<float>(act, x, s, b, out, N, HW, C, G, eps, p, device,
-                               st);
+    return dispatch_act<float>(act, x, s, b, out, S, N, HW, C, G, eps, p,
+                               device, st);
   if (dtype == NODEMS_BF16)
-    return dispatch_act<__nv_bfloat16>(act, x, s, b, out, N, HW, C, G, eps, p,
-                                       device, st);
+    return dispatch_act<__nv_bfloat16>(act, x, s, b, out, S, N, HW, C, G,
+                                       eps, p, device, st);
   return cudaErrorInvalidValue;
 }

@@ -203,14 +203,23 @@ __device__ __forceinline__ int cluster_index() {
 // The launch's shape and layout, derived on the host from the plan
 // (plan_args), so that the kernel divides by nothing on the shuffle path.
 struct GnArgs {
-  int N, HW, C, G;
+  int N, HW, C, G;    // N samples in all
   int warps, k;       // warps of a CTA, CTAs of a sample
   int vpp, P, R;      // gn_layout
   int per;            // pixels of a CTA's slice
   int lg_P, lg_R, lg_cg;  // log2 of powers of two, else -1
   int stash;          // the backward's dxhat in shared memory
   float inv_count, eps;
+  int nm = 0;         // samples a member: sample n takes member n / nm's
+                      // scale and bias (a fleet's runs; N for one run)
 };
+
+// A member-batched launch covers S members of nm samples each, one after
+// the other: sample n normalizes with member n / nm's scale and bias, and
+// is otherwise the sample a single launch on that member computes.
+__device__ __forceinline__ size_t member_offset(int n, const GnArgs& a) {
+  return static_cast<size_t>(n / a.nm) * a.C;
+}
 
 // Within a thread and across its warp: acc[v], thread t's partial sum of
 // channel v of its one column col0, becomes the warp's total over channel

@@ -46,6 +46,8 @@
 //      16-byte stores.
 // A second kernel adds the partials' rows (N * cluster of them) in a fixed
 // order: no float atomics anywhere, so two launches give the same bits.
+// A member-batched launch (a fleet's S runs, sample n of member n / N)
+// adds each member's own rows into its own row of dscale and dbias.
 // The attack's backward needs dx only and passes no `part`.
 #include "group_norm_act.cuh"
 
@@ -105,6 +107,8 @@ gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
   const int t = static_cast<int>(threadIdx.x);
   const int rank = a.k > 1 ? cluster_rank() : 0;
   const int n = a.k > 1 ? cluster_index() : static_cast<int>(blockIdx.x);
+  scale += member_offset(n, a);
+  bias += member_offset(n, a);
   const int col0 = SHUFFLE ? t & (a.P - 1) : t % a.P;
   const int row0 = SHUFFLE ? t >> a.lg_P : t / a.P;
   const int W = a.warps;
@@ -420,11 +424,16 @@ gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
 
 // dscale and dbias: the partials' rows (one a block) added in row order.
 // A block takes 32 of the 2C columns ([dscale | dbias]); its 32 warps each
-// add every 32nd row, then one warp adds the 32 sums in order.
+// add every 32nd row, then one warp adds the 32 sums in order.  Member
+// blockIdx.y adds its own `rows` rows into its own row of dscale and dbias.
 __global__ void __launch_bounds__(1024)
 gn_param_grad_reduce(const float* __restrict__ part, int rows, int C,
                      float* __restrict__ dscale, float* __restrict__ dbias) {
   __shared__ float s[32][33];
+  const size_t m = blockIdx.y;
+  part += m * rows * 2 * static_cast<size_t>(C);
+  dscale += m * C;
+  dbias += m * C;
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int slot = static_cast<int>(threadIdx.x) >> 5;
   const int col = static_cast<int>(blockIdx.x) * 32 + lane;
@@ -448,16 +457,22 @@ gn_param_grad_reduce(const float* __restrict__ part, int rows, int C,
 template <typename T, int ACT, int V, bool STAGED, bool SHUFFLE>
 cudaError_t launch_gn_bwd(const void* x, const void* dout, const float* scale,
                           const float* bias, void* dx, float* part,
-                          float* dscale, float* dbias, int N, int HW, int C,
-                          int G, float eps, const GnPlan& p, int device,
-                          cudaStream_t stream) {
+                          float* dscale, float* dbias, int S, int N, int HW,
+                          int C, int G, float eps, const GnPlan& p,
+                          int device, cudaStream_t stream) {
   static std::atomic<int> allowed[kMaxDevices];
   auto kernel = gn_act_bwd_kernel<T, ACT, V, STAGED, SHUFFLE>;
   GnArgs a;
   long long smem = 0;
+  if (S < 1 || S > 65535 || N < 1 ||
+      static_cast<long long>(S) * N * p.cluster >= (1LL << 31))
+    return cudaErrorInvalidValue;
   cudaError_t err =
-      plan_args(p, sizeof(T), N, HW, C, G, eps, x, dx, true, &a, &smem);
+      plan_args(p, sizeof(T), S * N, HW, C, G, eps, x, dx, true, &a, &smem);
   if (err != cudaSuccess) return err;
+  a.nm = N;
+  const int rows = N * p.cluster;  // partial rows a member
+  N *= S;
   if (p.vec > 1 && reinterpret_cast<uintptr_t>(dout) % 16 != 0)
     return cudaErrorMisalignedAddress;
   if ((part == nullptr) != (dscale == nullptr) ||
@@ -489,8 +504,8 @@ cudaError_t launch_gn_bwd(const void* x, const void* dout, const float* scale,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;
-  gn_param_grad_reduce<<<(2 * C + 31) / 32, 1024, 0, stream>>>(
-      part, N * p.cluster, C, dscale, dbias);
+  gn_param_grad_reduce<<<dim3((2 * C + 31) / 32, S), 1024, 0, stream>>>(
+      part, rows, C, dscale, dbias);
   return cudaGetLastError();
 }
 
@@ -499,13 +514,13 @@ cudaError_t launch_gn_bwd(const void* x, const void* dout, const float* scale,
 template <typename T, int ACT>
 cudaError_t dispatch_bwd_path(const void* x, const void* g, const float* s,
                               const float* b, void* dx, float* part,
-                              float* ds, float* db, int N, int HW, int C,
-                              int G, float eps, const GnPlan& p, int device,
-                              cudaStream_t st) {
+                              float* ds, float* db, int S, int N, int HW,
+                              int C, int G, float eps, const GnPlan& p,
+                              int device, cudaStream_t st) {
   constexpr int VW = 16 / sizeof(T);
 #define NODEMS_GN_BWD(V, STAGED, SHUFFLE)                                  \
   return launch_gn_bwd<T, ACT, V, STAGED, SHUFFLE>(                        \
-      x, g, s, b, dx, part, ds, db, N, HW, C, G, eps, p, device, st)
+      x, g, s, b, dx, part, ds, db, S, N, HW, C, G, eps, p, device, st)
   if (p.vec == VW && p.path == kGnStaged) {
     // plan_args refuses what this does not vet
     if (C > 0 && G > 0 && C % G == 0 && C % VW == 0 && p.warps > 0 &&
@@ -524,11 +539,11 @@ cudaError_t dispatch_bwd_path(const void* x, const void* g, const float* s,
 template <typename T>
 cudaError_t dispatch_bwd_act(int act, const void* x, const void* g,
                              const float* s, const float* b, void* dx,
-                             float* part, float* ds, float* db, int N, int HW,
-                             int C, int G, float eps, const GnPlan& p,
+                             float* part, float* ds, float* db, int S, int N,
+                             int HW, int C, int G, float eps, const GnPlan& p,
                              int device, cudaStream_t st) {
-#define NODEMS_GN_BWD_ACT(A)                                             \
-  return dispatch_bwd_path<T, A>(x, g, s, b, dx, part, ds, db, N, HW, C, \
+#define NODEMS_GN_BWD_ACT(A)                                                \
+  return dispatch_bwd_path<T, A>(x, g, s, b, dx, part, ds, db, S, N, HW, C, \
                                  G, eps, p, device, st)
   switch (act) {
     case kActNone:
@@ -548,20 +563,22 @@ cudaError_t dispatch_bwd_act(int act, const void* x, const void* g,
 
 }  // namespace nodems
 
-// x, dout, dx (N, HW, C) contiguous of the dtype; scale, bias (C,) f32; the
-// plan (path, vec, warps, cluster, regs, stash) as ops/group_norm.py::
-// launch_plan(..., backward=True) gives it.  With
-// part (N * cluster, 2, C) f32 scratch, also dscale and dbias (C,) f32;
-// with part, dscale and dbias null, dx only.  Returns cudaSuccess or why
-// the launch was refused or failed.
+// x, dout, dx (S, N, HW, C) contiguous of the dtype; scale, bias (S, C)
+// f32: S members of N samples each, member m's samples normalized with row
+// m (S = 1: a single run); the plan (path, vec, warps, cluster, regs,
+// stash) as ops/group_norm.py::launch_plan(..., backward=True) gives it.
+// With part (S * N * cluster, 2, C) f32 scratch, also dscale and dbias
+// (S, C) f32, each member's row summed over its own samples only, in a
+// single run's order; with part, dscale and dbias null, dx only.  Returns
+// cudaSuccess or why the launch was refused or failed.
 extern "C" int group_norm_act_bwd_launch(int dtype, int act, const void* x,
                                          const void* dout, const void* scale,
                                          const void* bias, void* dx,
                                          void* part, void* dscale,
-                                         void* dbias, int N, int HW, int C,
-                                         int G, float eps, int path, int vec,
-                                         int warps, int cluster, int regs,
-                                         int stash, int device,
+                                         void* dbias, int S, int N, int HW,
+                                         int C, int G, float eps, int path,
+                                         int vec, int warps, int cluster,
+                                         int regs, int stash, int device,
                                          void* stream) {
   using namespace nodems;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
@@ -575,10 +592,11 @@ extern "C" int group_norm_act_bwd_launch(int dtype, int act, const void* x,
   float* db = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == NODEMS_F32)
-    return dispatch_bwd_act<float>(act, x, dout, s, b, dx, pt, ds, db, N, HW,
-                                   C, G, eps, p, device, st);
+    return dispatch_bwd_act<float>(act, x, dout, s, b, dx, pt, ds, db, S, N,
+                                   HW, C, G, eps, p, device, st);
   if (dtype == NODEMS_BF16)
     return dispatch_bwd_act<__nv_bfloat16>(act, x, dout, s, b, dx, pt, ds, db,
-                                           N, HW, C, G, eps, p, device, st);
+                                           S, N, HW, C, G, eps, p, device,
+                                           st);
   return cudaErrorInvalidValue;
 }

@@ -5,6 +5,7 @@ from .convert import (
     cifar_state_from_jax,
     mnist_params_from_jax,
     rmsprop_state_from_jax,
+    stack_members,
 )
 from .odenet_cifar10 import (
     MODEL_REGISTRY,
@@ -48,4 +49,5 @@ __all__ = [
     "premetanode18",
     "premetanode34",
     "rmsprop_state_from_jax",
+    "stack_members",
 ]

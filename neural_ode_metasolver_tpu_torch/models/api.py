@@ -11,6 +11,12 @@ are the JAX tree's paths under ``params.``), its model state as buffers
 under ``state.``), and whose forward is the family's apply function
 (``apply_mnist`` or ``apply_cifar``).  It runs on the CUDA card unless the
 caller passes ``device="cpu"``; without a card it raises.
+
+A fleet (``training/fleet.py``) keeps S members' params and model state
+outside the model, stacked along a leading axis and named as the model's
+own: ``forward(x, ..., params=model.param_tree(flat), model_state=
+model.state_tree(flat))`` runs them, and ``init_state_dict(generator)``
+draws one member's, as ``build_model`` with that generator draws.
 """
 from __future__ import annotations
 
@@ -65,6 +71,20 @@ def _tree(node: Any) -> Any:
     return [_tree(v) for v in node]
 
 
+def _tree_of(node: Any, flat: Dict[str, torch.Tensor], prefix: str) -> Any:
+    """The family's tree of ``node``'s structure, its leaves taken from
+    ``flat`` by name (``prefix`` then the path)."""
+    if isinstance(node, nn.ParameterDict):
+        return {k: flat[f"{prefix}.{k}"] for k in node.keys()}
+    if isinstance(node, _Buffers):
+        return {k: flat[f"{prefix}.{k}"]
+                for k, _ in node.named_buffers(recurse=False)}
+    if isinstance(node, nn.ModuleDict):
+        return {k: _tree_of(v, flat, f"{prefix}.{k}")
+                for k, v in node.items()}
+    return [_tree_of(v, flat, f"{prefix}.{i}") for i, v in enumerate(node)]
+
+
 def _flatten(tree: Any, prefix: str, out: dict) -> dict:
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -86,7 +106,8 @@ class Model(nn.Module):
     runs under ``backend.full_f32()``, so cuDNN never takes TF32 for its
     convs whatever the process flags say.  ``params`` runs the forward on
     another tree of the same structure, such as ``detached_params()`` (the
-    attack's forward, which must not reach the weights).  The forward reads
+    attack's forward, which must not reach the weights), and
+    ``model_state`` on another state tree (a fleet's).  The forward reads
     the model state from the buffers and never writes them: in train mode
     ``return_aux=True`` gives the new state as ``aux["model_state"]``, and
     ``commit_state`` copies it in (the train step does, once a step's
@@ -95,9 +116,11 @@ class Model(nn.Module):
     draw per ODE block; standalone draws nothing."""
 
     def __init__(self, cfg: Any, params: dict, state: dict,
-                 apply_fn: Callable, input_shape: Tuple[int, int, int]):
+                 apply_fn: Callable, input_shape: Tuple[int, int, int],
+                 init_fn: Optional[Callable] = None):
         super().__init__()
         self.cfg = cfg
+        self.init_fn = init_fn
         self.params = _as_module(params, _params_leaf)
         self.state = _as_module(state, _Buffers)
         self.apply_fn = apply_fn
@@ -117,6 +140,29 @@ class Model(nn.Module):
         buffers themselves."""
         return _tree(self.state)
 
+    def param_tree(self, flat: Dict[str, torch.Tensor]) -> Any:
+        """The family's parameter tree with the leaves of ``flat`` (by
+        ``named_parameters`` name, e.g. a fleet's stacked params)."""
+        return _tree_of(self.params, flat, "params")
+
+    def state_tree(self, flat: Dict[str, torch.Tensor]) -> Any:
+        """The model-state tree with the leaves of ``flat`` (by
+        ``named_buffers`` name)."""
+        return _tree_of(self.state, flat, "state")
+
+    def init_state_dict(self, generator: torch.Generator
+                        ) -> Dict[str, torch.Tensor]:
+        """Fresh params and model state drawn from ``generator`` as
+        ``build_model`` draws them (the same init scheme), by
+        ``state_dict`` name, on the model's device."""
+        if self.init_fn is None:
+            raise ValueError("this model was not built by build_model")
+        params, state = self.init_fn(generator)
+        out = _flatten(params, "params", {})
+        _flatten(state, "state", out)
+        dev = self.device
+        return {k: v.to(dev) for k, v in out.items()}
+
     def commit_state(self, new_state: Any) -> None:
         """Copy a state tree (``aux["model_state"]`` of a train-mode
         forward) into the buffers, in place."""
@@ -127,7 +173,7 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor, solvers, solver_options=None, *,
                 use_kernels: bool = True, train: bool = False,
-                params: Any = None,
+                params: Any = None, model_state: Any = None,
                 generator: Optional[torch.Generator] = None, **options: Any):
         if solver_options is None:
             solver_options = SolverOptions()
@@ -135,7 +181,8 @@ class Model(nn.Module):
             return self.apply_fn(
                 self.params if params is None else params, x, solvers,
                 solver_options, cfg=self.cfg,
-                state=self.model_state(),
+                state=(self.model_state() if model_state is None
+                       else model_state),
                 use_kernels=use_kernels, train=train, generator=generator,
                 **options)
 
@@ -158,14 +205,20 @@ def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
         generator = torch.Generator().manual_seed(0)
     if name == "mnist":
         cfg = MnistConfig(**overrides)
-        params, state = init_mnist(cfg, generator), {}
+        init = lambda g: (init_mnist(cfg, g), {})
         apply_fn, shape = apply_mnist, (28, 28, cfg.in_channels)
     elif name in MODEL_REGISTRY:
         cfg = MODEL_REGISTRY[name](**overrides)
-        params, state = init_cifar(cfg, generator)
+        init = lambda g: init_cifar(cfg, g)
         apply_fn, shape = apply_cifar, (32, 32, 3)
     else:
         raise ValueError(f"unknown model {name!r}")
-    if init_scheme is not None:
-        params = apply_init_scheme(generator, params, init_scheme)
-    return Model(cfg, params, state, apply_fn, shape).to(dev)
+
+    def init_fn(g: torch.Generator):
+        params, state = init(g)
+        if init_scheme is not None:
+            params = apply_init_scheme(g, params, init_scheme)
+        return params, state
+
+    params, state = init_fn(generator)
+    return Model(cfg, params, state, apply_fn, shape, init_fn).to(dev)

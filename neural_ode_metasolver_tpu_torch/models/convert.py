@@ -29,6 +29,11 @@ JAX checkpoint's training resumes in the port:
 
 with ``np_opt_state = jax.tree_util.tree_map(np.asarray, ts.opt_state)``
 and ``step = int(ts.step)``.
+
+A fleet's members (``training/fleet.py``) are S such state dicts stacked
+along a leading axis: ``stack_members([mnist_params_from_jax(p) for p in
+trees])``, or ``mnist_params_from_jax`` of a JAX fleet's stacked tree,
+whose leaves already carry the axis.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ import numpy as np
 import torch
 
 __all__ = ["cifar_params_from_jax", "cifar_state_from_jax",
-           "mnist_params_from_jax", "rmsprop_state_from_jax"]
+           "mnist_params_from_jax", "rmsprop_state_from_jax",
+           "stack_members"]
 
 
 def _walk(node: Any, path: str, out: OrderedDict) -> OrderedDict:
@@ -119,3 +125,12 @@ def rmsprop_state_from_jax(opt_state: Any, step: int) -> dict:
     if "trace" in found:
         out["momentum"] = dict(mnist_params_from_jax(found["trace"]))
     return out
+
+
+def stack_members(state_dicts) -> "OrderedDict[str, torch.Tensor]":
+    """S state dicts of one model -> one whose tensors are stacked (S,
+    ...): a fleet's members, for ``create_fleet_state(...,
+    state_dict=...)``."""
+    return OrderedDict((k, torch.stack([torch.as_tensor(d[k])
+                                        for d in state_dicts]))
+                       for k in state_dicts[0])

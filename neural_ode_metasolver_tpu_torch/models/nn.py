@@ -18,6 +18,14 @@ tensor.  Param norms SN and WN (``ParamNormDef``, JAX ``nn.py:435-511``)
 and the ``--init`` schemes (``apply_init_scheme``, ``nn.py:144-225``)
 follow JAX's walk and formulas; their random draws come from a
 ``torch.Generator``, so they match JAX in distribution, not in value.
+
+**Members** (a fleet of S runs, ``training/fleet.py``): a layer whose
+params carry a leading member axis (a conv kernel (S, kh, kw, I, O), a
+linear kernel (S, I, O), a norm's scale (S, C)) takes activations with the
+same leading axis, (S, N, H, W, C) or (S, N, F), and applies member m's
+params to member m's slice: ``F.conv2d`` with ``groups=S``, ``torch.bmm``,
+kernel B3 member-batched, BN's statistics over each member's own batch.
+Params without that axis take the single-run path unchanged.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ __all__ = [
     "orthogonal_fc_init",
     "apply_init_scheme",
     "global_avg_pool",
+    "add_bias",
 ]
 
 
@@ -86,22 +95,54 @@ def conv2d_init(generator: torch.Generator, in_ch: int, out_ch: int,
     return params
 
 
+def add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """y + bias over the last axis; a members' (S, C) bias adds row m to
+    y's member m (y (S, ..., C))."""
+    bias = bias.to(y.dtype)
+    if bias.dim() == 2:
+        bias = bias.reshape(bias.shape[:1] + (1,) * (y.dim() - 2)
+                            + bias.shape[1:])
+    return y + bias
+
+
+def _member_conv2d(kernel: torch.Tensor, x: torch.Tensor, stride: int,
+                   padding: int) -> torch.Tensor:
+    """Members' conv: x (S, N, H, W, I) and kernel (S, kh, kw, I, O) as
+    one ``F.conv2d`` with ``groups=S`` on the image-major copy (N, H, W,
+    S*I), handed to cuDNN as a channels_last NCHW view (so it transposes
+    nothing) -> (S, N, H', W', O), contiguous."""
+    s, n, h, w, ci = x.shape
+    kh, kw, co = kernel.shape[1], kernel.shape[2], kernel.shape[4]
+    xi = x.permute(1, 2, 3, 0, 4).reshape(n, h, w, s * ci).permute(0, 3, 1, 2)
+    wk = kernel.permute(0, 4, 1, 2, 3).reshape(s * co, kh, kw, ci) \
+        .permute(0, 3, 1, 2)
+    if x.device.type == "cpu" and stride != 1:
+        # as ``conv2d``: the CPU build's strided backward on channels_last
+        xi = xi.contiguous()
+    y = F.conv2d(xi, wk, stride=stride, padding=padding, groups=s)
+    ho, wo = y.shape[2], y.shape[3]
+    return y.permute(0, 2, 3, 1).reshape(n, ho, wo, s, co) \
+        .permute(3, 0, 1, 2, 4).contiguous()
+
+
 def conv2d(params: Params, x: torch.Tensor, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC (contiguous), symmetric integer
-    padding; the kernel is cast to x's dtype."""
+    padding; the kernel is cast to x's dtype.  Members (kernel (S, kh, kw,
+    I, O), x (S, N, H, W, I)) run as one grouped conv."""
     kernel = params["kernel"].to(x.dtype)
-    xi = x.permute(0, 3, 1, 2)
-    if x.device.type == "cpu" and stride != 1:
-        # torch 2.13's CPU build (oneDNN 3.12) corrupts its heap in the
-        # backward of a strided 1x1 conv on a channels-last input
-        xi = xi.contiguous()
-    y = F.conv2d(xi, kernel.permute(3, 2, 0, 1), stride=stride,
-                 padding=padding)
-    y = y.permute(0, 2, 3, 1).contiguous()
-    if "bias" in params:
-        y = y + params["bias"].to(y.dtype)
-    return y
+    if kernel.dim() == 5:
+        y = _member_conv2d(kernel, x, stride, padding)
+    else:
+        xi = x.permute(0, 3, 1, 2)
+        if x.device.type == "cpu" and stride != 1:
+            # torch 2.13's CPU build (oneDNN 3.12) corrupts its heap in the
+            # backward of a strided 1x1 conv on a channels-last input
+            xi = xi.contiguous()
+        y = F.conv2d(xi, kernel.permute(3, 2, 0, 1), stride=stride,
+                     padding=padding)
+        y = y.permute(0, 2, 3, 1).contiguous()
+    return add_bias(y, params["bias"]) if "bias" in params else y
 
 
 def linear_init(generator: torch.Generator, in_f: int, out_f: int,
@@ -119,10 +160,11 @@ def linear_init(generator: torch.Generator, in_f: int, out_f: int,
 
 
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["kernel"].to(x.dtype)
-    if "bias" in params:
-        y = y + params["bias"].to(y.dtype)
-    return y
+    """x @ kernel + bias; members (kernel (S, I, O), x (S, N, I)) as one
+    ``torch.bmm``."""
+    kernel = params["kernel"].to(x.dtype)
+    y = torch.bmm(x, kernel) if kernel.dim() == 3 else x @ kernel
+    return add_bias(y, params["bias"]) if "bias" in params else y
 
 
 # erf(x/sqrt2) ~= tanh(x * q(x^2)), q of degree 4 (JAX nn.py:353-368)
@@ -206,14 +248,19 @@ def batch_norm(params: Params, state: Optional[Params], x: torch.Tensor,
     ``(y, new_state)``: train mode normalizes with the batch's statistics
     and, given a ``state``, returns the updated running statistics (new
     tensors, detached; ``state`` is not touched); eval mode uses the
-    running statistics and returns ``state``."""
+    running statistics and returns ``state``.  Members (x (S, N, H, W, C),
+    params and state (S, C)) take each member's statistics over its own N,
+    H, W."""
     xf = x.float()
+    dims = tuple(range(x.dim() - 4, x.dim() - 1))  # N, H, W
+    per = ((lambda t: t.reshape(t.shape[0], 1, 1, 1, t.shape[1]))
+           if x.dim() == 5 else (lambda t: t))
     if train:
-        mean = xf.mean(dim=(0, 1, 2))
-        var = ((xf - mean) ** 2).mean(dim=(0, 1, 2))
+        mean = xf.mean(dim=dims)
+        var = ((xf - per(mean)) ** 2).mean(dim=dims)
         new_state = None
         if state is not None:
-            n = x.shape[0] * x.shape[1] * x.shape[2]
+            n = x.shape[-4] * x.shape[-3] * x.shape[-2]
             unbiased = var.detach() * (n / max(n - 1, 1))
             new_state = {
                 "mean": (1 - momentum) * state["mean"]
@@ -223,8 +270,8 @@ def batch_norm(params: Params, state: Optional[Params], x: torch.Tensor,
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
+    y = (xf - per(mean)) * torch.rsqrt(per(var) + eps)
+    y = y * per(params["scale"].float()) + per(params["bias"].float())
     return y.to(x.dtype), new_state
 
 
@@ -234,9 +281,10 @@ _B3_ACTS = {"ReLU": "relu", "GeLU": "gelu", "Tanh": "tanh",
 
 
 def _unit_affine(x: torch.Tensor):
-    c = x.shape[-1]
-    return {"scale": torch.ones(c, dtype=torch.float32, device=x.device),
-            "bias": torch.zeros(c, dtype=torch.float32, device=x.device)}
+    shape = ((x.shape[0], x.shape[-1]) if x.dim() == 5
+             else (x.shape[-1],))
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=x.device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=x.device)}
 
 
 class NormDef:
@@ -299,7 +347,11 @@ def make_norm_def(key: str, num_groups: int = 32) -> NormDef:
 
 def _kernel_as_matrix(kernel: torch.Tensor) -> torch.Tensor:
     """HWIO conv kernel (or (I, O) linear kernel) -> the (O, rest) matrix
-    of torch's dim-0-first reshape of the OIHW weight."""
+    of torch's dim-0-first reshape of the OIHW weight; members' (S, kh,
+    kw, I, O) -> (S, O, rest)."""
+    if kernel.dim() == 5:
+        s, kh, kw, ci, co = kernel.shape
+        return kernel.permute(0, 4, 3, 1, 2).reshape(s, co, ci * kh * kw)
     if kernel.dim() == 4:
         kh, kw, ci, co = kernel.shape
         return kernel.permute(3, 2, 0, 1).reshape(co, ci * kh * kw)
@@ -342,6 +394,8 @@ class ParamNormDef:
                     train: bool):
         if self.kind == "PNF":
             return params, state
+        if params["kernel"].dim() == 5:
+            return self._materialize_members(params, state, train)
         kernel = params["kernel"]
         mat = _kernel_as_matrix(kernel).float()
         if self.kind == "WN":
@@ -364,6 +418,35 @@ class ParamNormDef:
             new_state = state
         sigma = u @ (mat @ v)
         return {**params, "kernel": kernel / sigma.to(kernel.dtype)}, \
+            new_state
+
+
+    def _materialize_members(self, params: Params, state: Optional[Params],
+                             train: bool):
+        """``materialize`` of members' conv kernels (S, kh, kw, I, O): the
+        same formulas on each member's (O, rest) matrix, batched."""
+        kernel = params["kernel"]
+        mat = _kernel_as_matrix(kernel).float()  # (S, O, K)
+        per = lambda t: t.reshape(t.shape[0], 1, 1, 1, -1)
+        if self.kind == "WN":
+            scale = params["wn_g"].float() / (_l2(mat, -1) + 1e-12)
+            out = {k: v for k, v in params.items() if k != "wn_g"}
+            out["kernel"] = kernel * per(scale).to(kernel.dtype)
+            return out, state
+        mv = lambda m, v: (m @ v.unsqueeze(-1)).squeeze(-1)
+        unit = lambda v: v / (_l2(v, -1).unsqueeze(-1) + 1e-12)
+        u = state["sn_u"]  # (S, O)
+        if train:
+            with torch.no_grad():
+                m = mat.detach()
+                v = unit(mv(m.transpose(1, 2), u))
+                u = unit(mv(m, v))
+            new_state = {"sn_u": u}
+        else:
+            v = unit(mv(mat.transpose(1, 2), u))
+            new_state = state
+        sigma = (u * mv(mat, v)).sum(-1)  # (S,)
+        return {**params, "kernel": kernel / per(sigma).to(kernel.dtype)}, \
             new_state
 
 
@@ -451,5 +534,6 @@ def apply_init_scheme(generator: torch.Generator, params: Any,
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool2d((1, 1)) + Flatten for NHWC."""
-    return x.mean(dim=(1, 2))
+    """AdaptiveAvgPool2d((1, 1)) + Flatten for NHWC (members' (S, N, H,
+    W, C) -> (S, N, C))."""
+    return x.mean(dim=(-3, -2))

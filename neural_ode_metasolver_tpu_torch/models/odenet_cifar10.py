@@ -50,6 +50,13 @@ Dispatch (``use_kernels=True``):
 ``use_kernels=False`` takes the generic path with the plain versions
 everywhere: the plain path the kernels are checked against on the card.
 
+A fleet (``training/fleet.py``) runs S members in one forward: params and
+model state with a leading member axis, x (S, N, 32, 32, 3), stacked
+solvers (u (S,)), logits (S, N, classes).  Every layer takes its members'
+path (``models/nn.py``): B1 and B3 member-batched, other convs grouped,
+BN's statistics per member, SN/WN per member's kernel.  B2 has no member
+axis: a fleet's no-grad forward launches it once per member.
+
 The ss-loss (JAX ``:372-385``): each ODE block's output re-integrated over
 t in [1, 2], replaying the forward's regime draws, the batch mean of the L2
 norm of the difference reduced in f32.  GPipe over a mesh (``pipeline``)
@@ -141,7 +148,8 @@ def _conv(p_eff: Params, x: torch.Tensor, stride: int, padding: int,
     bias when ``use_kernels``, else ``F.conv2d``."""
     kernel = p_eff["kernel"]
     if (use_kernels and stride == 1 and padding == 1
-            and tuple(kernel.shape[:2]) == (3, 3) and "bias" not in p_eff):
+            and tuple(kernel.shape[-4:-2]) == (3, 3)
+            and "bias" not in p_eff):
         return conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
     return fnn.conv2d(p_eff, x, stride=stride, padding=padding)
 
@@ -300,10 +308,11 @@ def _odefunc_apply(cfg, p_eff, t, x, use_kernels=False, ss_abs=False):
 
 
 def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
-                  ) -> Optional[float]:
+                  ) -> Optional[Union[float, List[float]]]:
     """The clamped u~ when an ODE block of this config goes to kernel B2,
-    else None.  B2 computes conv2(gelu(conv1(gelu(y)))): the prebasic RHS
-    with NF, PNF and the exact GeLU, and no other."""
+    else None; a fleet's stacked solver gives one per member.  B2 computes
+    conv2(gelu(conv1(gelu(y)))): the prebasic RHS with NF, PNF and the
+    exact GeLU, and no other."""
     if cfg.block_type != "prebasic" or (
             cfg.norms[1], cfg.param_norms[1], cfg.acts[1]) != (
                 "NF", "PNF", "GeLU"):
@@ -315,7 +324,11 @@ def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
     if (s.method != "rk2" or s.custom_grid is not None or s.n_steps is None
             or s.step_size is not None):
         return None
-    if s.u is None or s.u.numel() != 1:
+    if s.u is None:
+        return None
+    if s.u.dim() == 1:  # a fleet's members
+        return s.tableau().c[..., 1].detach().cpu().tolist()
+    if s.u.numel() != 1:
         return None
     return float(s.tableau().c[..., 1].detach())
 
@@ -368,10 +381,15 @@ def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
         p_eff, s["ode"][i] = _materialize_odefunc(cfg, bp, s["ode"][i],
                                                   train)
         if u_k is not None and not _grad_can_flow(x, p_eff, solvers):
-            x = ode_block_rk2_forward(  # kernel B2
-                x, p_eff["conv1"]["kernel"].to(x.dtype),
-                p_eff["conv2"]["kernel"].to(x.dtype), u_k, solvers[0].n_steps,
-            )
+            w1 = p_eff["conv1"]["kernel"].to(x.dtype)
+            w2 = p_eff["conv2"]["kernel"].to(x.dtype)
+            n = solvers[0].n_steps
+            if isinstance(u_k, list):  # a fleet: B2 once per member
+                x = torch.stack([ode_block_rk2_forward(x[m], w1[m], w2[m],
+                                                       u, n)
+                                 for m, u in enumerate(u_k)])
+            else:
+                x = ode_block_rk2_forward(x, w1, w2, u_k, n)  # kernel B2
             continue
         rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
                                                     use_kernels)
@@ -387,9 +405,10 @@ def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
                                   t1=2.0, aux_in=aux, remat=remat)
             # f32 reduction: the squared sum over HW*C elements loses
             # mantissa in bf16 (the torch reference reduces in f32)
-            diff = (z - x).reshape(x.shape[0], -1).float()
+            # a fleet's x (S, N, ...) gives each member's mean, (S,)
+            diff = (z - x).reshape(x.shape[:x.dim() - 3] + (-1,)).float()
             ss_total = ss_total + torch.linalg.vector_norm(
-                diff, dim=1).mean().to(ss_total.dtype)
+                diff, dim=-1).mean(-1).to(ss_total.dtype)
     return x, s, ss_total
 
 

@@ -38,6 +38,13 @@ result is ``(logits, {"ss_loss": ...})``, the JAX function's aux (0 when
 ``ss_loss`` is off).  ``integration_method="adjoint"`` differentiates each
 ODE block by the continuous adjoint (``ops/adjoint.py``) over the block's
 params; the ss-loss pass backpropagates, as in JAX.
+
+A fleet (``training/fleet.py``) runs S members in one forward: params
+with a leading member axis, x (S, N, 28, 28, C), stacked solvers (u of
+shape (S,)), logits (S, N, classes), the ss-loss (S,).  Every layer then
+takes its members' path (``models/nn.py``): B1 and B3 member-batched, one
+launch for all members; the stem and the strided convs as grouped
+``F.conv2d``; the head as ``torch.bmm``; the time channel t per member.
 """
 from __future__ import annotations
 
@@ -99,10 +106,10 @@ def _conv(params: Params, x: torch.Tensor, stride: int, padding: int,
           use_kernels: bool) -> torch.Tensor:
     kernel = params["kernel"]
     if (use_kernels and stride == 1 and padding == 1
-            and tuple(kernel.shape[:2]) == (3, 3)):
+            and tuple(kernel.shape[-4:-2]) == (3, 3)):
         y = conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
         if "bias" in params:
-            y = y + params["bias"].to(y.dtype)
+            y = fnn.add_bias(y, params["bias"])
         return y
     return fnn.conv2d(params, x, stride=stride, padding=padding)
 
@@ -126,11 +133,14 @@ def _concat_conv(params: Params, t, x: torch.Tensor,
     x, then a 3x3 SAME conv.  A Python float or a host tensor ``t`` is a
     fill on x's device, with no copy of a tensor; a ``t`` that carries a
     gradient (a trainable solver's stage time, u's path through c) or lives
-    on the card is broadcast, so neither the gradient nor the host waits."""
+    on the card is broadcast, so neither the gradient nor the host waits.
+    A fleet's t (S,) fills member m's channel with t[m]."""
     shape = x.shape[:-1] + (1,)
     if isinstance(t, torch.Tensor) and (t.requires_grad
-                                        or t.device.type != "cpu"):
-        tt = x.new_zeros(shape) + t.to(x.dtype)
+                                        or t.device.type != "cpu"
+                                        or t.dim() > 0):
+        t = t.reshape(t.shape + (1,) * (len(shape) - t.dim()))
+        tt = x.new_zeros(shape) + t.to(device=x.device, dtype=x.dtype)
     else:
         tt = torch.full(shape, float(t), dtype=x.dtype, device=x.device)
     return _conv(params, torch.cat([tt, x], dim=-1), 1, 1, use_kernels)
@@ -238,7 +248,8 @@ def apply_mnist(
     generator: Optional[torch.Generator] = None,
     state: Optional[Dict[str, Any]] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
-    """Forward of NHWC ``x``; returns the logits in x's dtype, and with
+    """Forward of NHWC ``x`` (a fleet's (S, N, H, W, C) with members'
+    params and solvers); returns the logits in x's dtype, and with
     ``return_aux`` also ``{"ss_loss": ..., "model_state": {}}`` (the
     ss-loss a 0-dim tensor in x's dtype; the net keeps no model state, so
     ``state`` is ignored, as JAX's adapter threads an empty one).
@@ -273,9 +284,10 @@ def apply_mnist(
                 _p, t, y, act, use_kernels, ss_abs=ss_loss_abs)
             z, _ = meta_integrate(solvers, rhs_ss, x, solver_options,
                                   t0=1.0, t1=2.0, aux_in=aux, remat=remat)
-            diff = (z - x).reshape(x.shape[0], -1).float()
+            # a fleet's x (S, N, ...) gives each member's mean, (S,)
+            diff = (z - x).reshape(x.shape[:x.dim() - 3] + (-1,)).float()
             ss_total = ss_total + torch.linalg.vector_norm(
-                diff, dim=1).mean().to(ss_total.dtype)
+                diff, dim=-1).mean(-1).to(ss_total.dtype)
     h = params["head"]
     x = _gn_act(h["norm"], x, "relu", use_kernels)
     logits = fnn.linear(h["fc"], fnn.global_avg_pool(x))

@@ -31,9 +31,15 @@ from .solver import ParametricSolver, create_solver, parse_solver_dsl
 from .tableau import (
     ButcherTableau,
     euler_tableau,
+    heun_tableau,
+    midpoint_tableau,
+    pad_tableau,
     rk2_tableau,
     rk3_tableau,
+    rk4_standard_tableau,
     rk4_tableau,
+    rk38_tableau,
+    stack_tableaus,
     validity_eps,
 )
 
@@ -50,23 +56,29 @@ __all__ = [
     "group_norm_backward",
     "group_norm_backward_reference",
     "group_norm_reference",
+    "heun_tableau",
     "make_time_grid",
     "meta_integrate",
+    "midpoint_tableau",
     "noise_params",
     "noise_solver",
     "ode_block_rk2_forward",
     "odeint",
     "odeint_final",
     "odeint_grid",
+    "pad_tableau",
     "parse_solver_dsl",
     "reference_conv3x3",
     "reference_conv3x3_wgrad",
     "reference_ode_block_rk2",
     "rk2_tableau",
     "rk3_tableau",
+    "rk38_tableau",
+    "rk4_standard_tableau",
     "rk4_tableau",
     "rk_step",
     "sample_noise",
     "solver_ensemble_by_noising",
+    "stack_tableaus",
     "validity_eps",
 ]

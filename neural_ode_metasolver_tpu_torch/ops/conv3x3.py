@@ -25,6 +25,16 @@ backward the port's training path needs.
 Every wrapper launches its kernel for CUDA tensors and takes the plain
 version (``reference_conv3x3``, ``reference_conv3x3_wgrad``) only for CPU
 tensors; there is no fallback.
+
+**Members** (a fleet of S runs, ``training/fleet.py``): with w (S, 3, 3,
+Cin, Cout) and x (S, N, H, W, Cin), member m's images meet w[m].  The
+forward, the dgrad (flipped w[m]) and the split-K wgrad (output (S, 3, 3,
+Cin, Cout), each member reduced over its own images) are then one launch
+for all S members, grid dimension z the member: each member's blocks are
+a single launch's on its slice, so its output is bit-equal to that
+launch's, and the count is one a launch.  The TMA wgrad takes one member a
+launch (its tensor maps cover one member's images): S launches, counted.
+The plain versions loop over the members.
 """
 from __future__ import annotations
 
@@ -63,6 +73,9 @@ TMA_CLUSTER = 2
 SMEM_OPTIN = 232448
 # B1's kernels, by the code of csrc/conv3x3.cuh's ConvPath
 CONV_PATHS = ("gather", "gather_elements", "halo", "halo_narrow")
+# members a launch holds: they run on grid dimension z (the split-K wgrad
+# shares it with the splits), which CUDA caps at 65,535
+MAX_GRID_Z = 65535
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -80,21 +93,31 @@ def conv3x3_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def reference_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: f32-accumulated conv cast to x's dtype (mirrors the
-    JAX ``reference_conv3x3`` with ``preferred_element_type=f32``)."""
+    JAX ``reference_conv3x3`` with ``preferred_element_type=f32``); with
+    members (w (S, 3, 3, Cin, Cout), x (S, N, H, W, Cin)) a loop over
+    them."""
+    if w.dim() == 5:
+        return torch.stack([reference_conv3x3(xm, wm)
+                            for xm, wm in zip(x, w)])
     return conv3x3_f32(x, w).to(x.dtype).contiguous()
 
 
 def flip_weights(w: torch.Tensor) -> torch.Tensor:
-    """w' of the dgrad: (3, 3, Cin, Cout) -> (3, 3, Cout, Cin), taps
-    reversed, contiguous."""
-    return w.flip(0, 1).transpose(2, 3).contiguous()
+    """w' of the dgrad: ([S,] 3, 3, Cin, Cout) -> ([S,] 3, 3, Cout, Cin),
+    taps reversed, contiguous."""
+    return w.flip(-4, -3).transpose(-2, -1).contiguous()
 
 
 def reference_conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor
                             ) -> torch.Tensor:
     """Plain wgrad: nine (Cin, P) x (P, Cout) products of the zero-padded,
     shifted x and dy, P = N*H*W, in at least f32, rounded once to x's
-    dtype.  x (N, H, W, Cin), dy (N, H, W, Cout) -> (3, 3, Cin, Cout)."""
+    dtype.  x (N, H, W, Cin), dy (N, H, W, Cout) -> (3, 3, Cin, Cout);
+    with members (x (S, N, H, W, Cin), dy (S, N, H, W, Cout)) a loop over
+    them -> (S, 3, 3, Cin, Cout)."""
+    if x.dim() == 5:
+        return torch.stack([reference_conv3x3_wgrad(xm, dm)
+                            for xm, dm in zip(x, dy)])
     n, h, wd, cin = x.shape
     cout = dy.shape[3]
     xp = F.pad(_wide(x), (0, 0, 1, 1, 1, 1))
@@ -105,28 +128,38 @@ def reference_conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor
 
 
 def _check_shapes(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) \
-            or w.shape[2] != x.shape[3]:
+    """x (N, H, W, C) with w (3, 3, C, Co), or members: x (S, N, H, W, C)
+    with w (S, 3, 3, C, Co)."""
+    members = w.dim() == 5
+    if x.dim() != w.dim() or w.dim() not in (4, 5) \
+            or w.shape[-4:-2] != (3, 3) or w.shape[-2] != x.shape[-1] \
+            or (members and w.shape[0] != x.shape[0]):
         raise ValueError(f"{what}: x {tuple(x.shape)} and w "
-                         f"{tuple(w.shape)} are not (N,H,W,C) and (3,3,C,Co)")
+                         f"{tuple(w.shape)} are not (N,H,W,C) and (3,3,C,Co)"
+                         " or (S,N,H,W,C) and (S,3,3,C,Co)")
 
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str
                  ) -> torch.Tensor:
     """Kernel B1 on CUDA tensors (counted under ``name``), the plain version
-    on CPU tensors."""
+    on CPU tensors; one launch for all members."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return reference_conv3x3(x, w)
     _build.check_cuda_tensors(name, x.dtype, x=x, w=w)
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    s = x.shape[0] if x.dim() == 5 else 1
+    if s > MAX_GRID_Z:
+        raise ValueError(f"{name}: {s} members exceed grid dimension z "
+                         f"({MAX_GRID_Z})")
+    n, h, wd, cin = x.shape[-4:]
+    cout = w.shape[-1]
+    out = torch.empty(x.shape[:-1] + (cout,), dtype=x.dtype,
+                      device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.load("conv3x3")
     err = lib.conv3x3_same_launch(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-        out.data_ptr(), n, h, wd, cin, cout, x.device.index,
+        out.data_ptr(), s, n, h, wd, cin, cout, x.device.index,
         _build.stream_handle(x),
     )
     _build.check(lib, err, f"{name} launch")
@@ -136,10 +169,14 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str
 
 def conv3x3_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of y = conv3x3_same(x, w): kernel B1 on (dy, flip_weights(w)).
-    dy (N, H, W, Cout), w (3, 3, Cin, Cout) -> (N, H, W, Cin)."""
-    if w.dim() != 4 or dy.dim() != 4 or w.shape[3] != dy.shape[3]:
+    dy (N, H, W, Cout), w (3, 3, Cin, Cout) -> (N, H, W, Cin); members:
+    dy (S, N, H, W, Cout), w (S, 3, 3, Cin, Cout), one launch."""
+    if w.dim() not in (4, 5) or dy.dim() != w.dim() \
+            or w.shape[-1] != dy.shape[-1] \
+            or (w.dim() == 5 and w.shape[0] != dy.shape[0]):
         raise ValueError(f"conv3x3_dgrad: dy {tuple(dy.shape)} and w "
-                         f"{tuple(w.shape)} are not (N,H,W,Co), (3,3,C,Co)")
+                         f"{tuple(w.shape)} are not ([S,]N,H,W,Co), "
+                         "([S,]3,3,C,Co)")
     return _launch_conv(dy, flip_weights(w), DGRAD_NAME)
 
 
@@ -178,7 +215,8 @@ def wgrad_plan(n: int, h: int, w: int, cin: int, cout: int,
     else (f32, the stem's Cin 3, MNIST's 65, other widths) takes the split-K
     path.  Either way K is cut into about one block per SM over the (Cin,
     Cout) tiles (the TMA path rounds down to whole clusters), at most one
-    range per step."""
+    range per step.  A fleet's members (n images each) are each cut as a
+    single run is, so their sums keep its order."""
     ch = 128 // (torch.finfo(dtype).bits // 8)  # channels per 128-byte row
     if (dtype == torch.bfloat16 and aligned and cin % 8 == 0
             and cout % 8 == 0 and w % 8 == 0 and 0 < w <= 256):
@@ -263,7 +301,9 @@ def conv3x3_path(n: int, h: int, w: int, cin: int, cout: int,
 
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dW of y = conv3x3_same(x, w), in x's dtype: f32 sums rounded once.
-    x (N, H, W, Cin), dy (N, H, W, Cout) -> (3, 3, Cin, Cout).
+    x (N, H, W, Cin), dy (N, H, W, Cout) -> (3, 3, Cin, Cout); members, x
+    (S, N, H, W, Cin) and dy (S, N, H, W, Cout) -> (S, 3, 3, Cin, Cout),
+    each member on a single run's plan.
 
     The CUDA kernel runs ``wgrad_plan``: it splits K = N*H*W over its
     ranges, writes each range's (or each cluster's) f32 partial sums to a
@@ -272,36 +312,52 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     holds three K steps' input halos (BK + 2 W + 2 pixel rows each), so
     images wider than about 170 pixels (bf16; 230 in f32) do not fit its
     shared memory and the launch raises."""
-    if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
+    if x.dim() not in (4, 5) or dy.dim() != x.dim() \
+            or x.shape[:-1] != dy.shape[:-1]:
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and dy "
-                         f"{tuple(dy.shape)} are not (N,H,W,C), (N,H,W,Co)")
+                         f"{tuple(dy.shape)} are not ([S,]N,H,W,C), "
+                         "([S,]N,H,W,Co)")
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return reference_conv3x3_wgrad(x, dy)
     _build.check_cuda_tensors(WGRAD_NAME, x.dtype, x=x, dy=dy)
-    n, h, wd, cin = x.shape
+    n, h, wd, cin = x.shape[-4:]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = wgrad_plan(n, h, wd, cin, dy.shape[3], x.dtype, sms,
+    plan = wgrad_plan(n, h, wd, cin, dy.shape[-1], x.dtype, sms,
                       aligned=x.data_ptr() % 16 == 0
                       and dy.data_ptr() % 16 == 0)
+    if x.dim() == 5 and plan.path == "tma":
+        # one member a launch: the TMA path's maps cover one member
+        return torch.stack([_launch_wgrad(xm, dm, plan)
+                            for xm, dm in zip(x, dy)])
     return _launch_wgrad(x, dy, plan)
 
 
 def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, plan: WgradPlan
                   ) -> torch.Tensor:
-    """The wgrad kernel under ``plan`` on checked CUDA tensors; counted."""
-    n, h, wd, cin = x.shape
-    cout = dy.shape[3]
-    out = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
+    """The wgrad kernel under ``plan`` (a member's) on checked CUDA
+    tensors, one launch for all members (x (S, N, H, W, Cin)); counted.
+    The split-K path runs S x splits blocks along grid dimension z, so a
+    count above ``MAX_GRID_Z`` raises ValueError, as the C entry point
+    refuses it (the TMA path launches once a member)."""
+    s = x.shape[0] if x.dim() == 5 else 1
+    if plan.path == "split_k" and s * plan.splits > MAX_GRID_Z:
+        raise ValueError(f"wgrad: {s} members x {plan.splits} splits "
+                         f"exceed grid dimension z ({MAX_GRID_Z})")
+    n, h, wd, cin = x.shape[-4:]
+    cout = dy.shape[-1]
+    lead = x.shape[:1] if x.dim() == 5 else ()
+    out = torch.empty(lead + (3, 3, cin, cout), dtype=x.dtype,
+                      device=x.device)
     if out.numel() == 0:
         return out
     if n * h * wd == 0:
         return out.zero_()
-    ws = torch.empty((plan.splits // plan.cluster, 9, cin, cout),
+    ws = torch.empty((s, plan.splits // plan.cluster, 9, cin, cout),
                      dtype=torch.float32, device=x.device)
     lib = _build.load("conv3x3_wgrad")
     err = lib.conv3x3_wgrad_launch(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+        ws.data_ptr(), out.data_ptr(), s, n, h, wd, cin, cout,
         WGRAD_PATHS.index(plan.path), plan.splits, plan.rows, plan.stages,
         plan.cluster, x.device.index, _build.stream_handle(x),
     )
@@ -331,7 +387,8 @@ class _Conv3x3(torch.autograd.Function):
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, Cin), w (3, 3, Cin, Cout) of x's dtype -> (N, H, W,
-    Cout); differentiable in x and w."""
+    Cout); or members, x (S, N, H, W, Cin) and w (S, 3, 3, Cin, Cout) ->
+    (S, N, H, W, Cout); differentiable in x and w."""
     _check_shapes("conv3x3_same", x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv3x3.apply(x, w)

@@ -48,6 +48,15 @@ asks for them: their per-block partial sums are then added in a fixed
 order by a second kernel of the same library (those launches are also
 counted as ``group_norm_act_bwd_params``), so two launches repeat their
 bits.
+
+**Members** (a fleet of S runs, ``training/fleet.py``): x (S, N, H, W, C)
+with scale and bias (S, C) is one launch of each kernel for all S·N
+samples, sample i normalized with row i // N; the backward's dscale and
+dbias come back (S, C), each member's partials added in a single run's
+order.  Each sample's block or cluster is the one a single launch on its
+member computes, so each member's output is bit-equal to that launch's.
+The plan is a sample's, so it does not depend on S; the plain versions
+loop over the members.
 """
 from __future__ import annotations
 
@@ -285,15 +294,19 @@ def _fwd_plan(h: int, w: int, c: int, groups: int, dtype: torch.dtype,
 
 def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 num_groups: int, act: Optional[str]) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"group norm: x {tuple(x.shape)} is not (N,H,W,C)")
+    """x (N, H, W, C) with scale and bias (C,), or members: x (S, N, H,
+    W, C) with (S, C)."""
+    if x.dim() not in (4, 5):
+        raise ValueError(f"group norm: x {tuple(x.shape)} is not (N,H,W,C)"
+                         " or (S,N,H,W,C)")
     c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels ({c}) must be divisible by num_groups "
                          f"({num_groups})")
-    if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):
+    want = (x.shape[0], c) if x.dim() == 5 else (c,)
+    if tuple(scale.shape) != want or tuple(bias.shape) != want:
         raise ValueError(f"group norm: scale {tuple(scale.shape)} and bias "
-                         f"{tuple(bias.shape)} are not ({c},)")
+                         f"{tuple(bias.shape)} are not {want}")
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
 
@@ -303,8 +316,13 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                          eps: float = 1e-5, act: Optional[str] = None
                          ) -> torch.Tensor:
     """Plain version: two-pass f32 GroupNorm(+act) on NHWC, cast to x's
-    dtype (the JAX ``group_norm_reference``)."""
+    dtype (the JAX ``group_norm_reference``); with members a loop over
+    them."""
     _check_args(x, scale, bias, num_groups, act)
+    if x.dim() == 5:
+        return torch.stack([
+            group_norm_reference(xm, sm, bm, num_groups, eps, act)
+            for xm, sm, bm in zip(x, scale, bias)])
     n, h, w, c = x.shape
     xf = x.float().reshape(n, h * w, num_groups, c // num_groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
@@ -339,8 +357,14 @@ def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
     xhat and y; dpre = act'(y) * dout; dscale = sum(dpre * xhat), dbias =
     sum(dpre) over N, H, W in f32; dx = rstd * (dxhat - mean_g(dxhat) -
     xhat * mean_g(dxhat * xhat)), dxhat = dpre * scale, in x's dtype.
-    Returns (dx, dscale, dbias)."""
+    Returns (dx, dscale, dbias); with members a loop over them (dscale and
+    dbias (S, C))."""
     _check_args(x, scale, bias, num_groups, act)
+    if x.dim() == 5:
+        parts = [group_norm_backward_reference(xm, sm, bm, dm, num_groups,
+                                               eps, act)
+                 for xm, sm, bm, dm in zip(x, scale, bias, dout)]
+        return tuple(torch.stack(t) for t in zip(*parts))
     n, h, w, c = x.shape
     g, cg = num_groups, c // num_groups
     xf = x.float().reshape(n, h * w, g, cg)
@@ -363,16 +387,17 @@ def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             num_groups: int, eps: float, act: Optional[str],
             plan: GnPlan) -> torch.Tensor:
-    """Launch the kernel on checked CUDA tensors with ``plan``; the C entry
-    point refuses a plan it cannot run."""
-    n, h, w, c = x.shape
+    """Launch the kernel on checked CUDA tensors with ``plan``, one launch
+    for all members; the C entry point refuses a plan it cannot run."""
+    s = x.shape[0] if x.dim() == 5 else 1
+    n, h, w, c = x.shape[-4:]
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     lib = _build.load("group_norm_act")
     err = lib.group_norm_act_launch(
         _build.DTYPE_CODES[x.dtype], _ACT_CODES[act], x.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h * w, c,
+        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), s, n, h * w, c,
         num_groups, float(eps), _PATH_CODES[plan.path], plan.vec,
         plan.warps, plan.cluster, plan.regs, x.device.index,
         _build.stream_handle(x),
@@ -385,22 +410,27 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 dout: torch.Tensor, num_groups: int, eps: float,
                 act: Optional[str], plan: GnPlan, params: bool):
-    """The backward kernel on checked CUDA tensors with ``plan``: dx, and
-    with ``params`` dscale and dbias (else None)."""
-    n, h, w, c = x.shape
+    """The backward kernel on checked CUDA tensors with ``plan``, one
+    launch for all members: dx, and with ``params`` dscale and dbias ((C,),
+    or (S, C) for members; else None)."""
+    s = x.shape[0] if x.dim() == 5 else 1
+    n, h, w, c = x.shape[-4:]
+    lead = x.shape[:1] if x.dim() == 5 else ()
     dx = torch.empty_like(x)
     part = dscale = dbias = None
     if params:
-        part = torch.empty((n * plan.cluster, 2, c), dtype=torch.float32,
+        part = torch.empty((s * n * plan.cluster, 2, c), dtype=torch.float32,
                            device=x.device)
-        dscale = torch.empty(c, dtype=torch.float32, device=x.device)
-        dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+        dscale = torch.empty(lead + (c,), dtype=torch.float32,
+                             device=x.device)
+        dbias = torch.empty(lead + (c,), dtype=torch.float32,
+                            device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.load("group_norm_act_bwd")
     err = lib.group_norm_act_bwd_launch(
         _build.DTYPE_CODES[x.dtype], _ACT_CODES[act], x.data_ptr(),
         dout.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
-        ptr(part), ptr(dscale), ptr(dbias), n, h * w, c, num_groups,
+        ptr(part), ptr(dscale), ptr(dbias), s, n, h * w, c, num_groups,
         float(eps), _PATH_CODES[plan.path], plan.vec, plan.warps,
         plan.cluster, plan.regs, int(plan.stash), x.device.index,
         _build.stream_handle(x),
@@ -428,7 +458,7 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if all(t.device.type == "cpu" for t in (x, scale, bias)):
         return group_norm_reference(x, scale, bias, num_groups, eps, act)
     _check_cuda("fused_group_norm_act", x, scale, bias)
-    n, h, w, c = x.shape
+    n, h, w, c = x.shape[-4:]
     if x.numel() == 0:
         return torch.empty_like(x)
     plan = launch_plan(n, h, w, c, num_groups, x.dtype,
@@ -442,7 +472,8 @@ def group_norm_backward(x: torch.Tensor, scale: torch.Tensor,
                         act: Optional[str] = None, params: bool = True):
     """The VJP of ``fused_group_norm_act`` at (x, scale, bias) for the
     output gradient ``dout`` (x's shape and dtype): (dx, dscale, dbias),
-    the last two f32 (C,), or None without ``params``.  The backward kernel
+    the last two f32 of scale's shape ((C,), or (S, C) for members), or
+    None without ``params``.  The backward kernel
     for CUDA tensors, ``group_norm_backward_reference`` for CPU tensors."""
     _check_args(x, scale, bias, num_groups, act)
     if tuple(dout.shape) != tuple(x.shape):
@@ -453,9 +484,10 @@ def group_norm_backward(x: torch.Tensor, scale: torch.Tensor,
             x, scale, bias, dout, num_groups, eps, act)
         return (dx, dscale, dbias) if params else (dx, None, None)
     _check_cuda("group_norm_backward", x, scale, bias, dout=dout)
-    n, h, w, c = x.shape
+    n, h, w, c = x.shape[-4:]
     if x.numel() == 0:
-        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(scale.shape, dtype=torch.float32,
+                            device=x.device)
         return (torch.empty_like(x),) + ((zeros, zeros.clone()) if params
                                          else (None, None))
     plan = launch_plan(n, h, w, c, num_groups, x.dtype,
@@ -492,8 +524,9 @@ def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
                          eps: float = 1e-5, act: Optional[str] = None
                          ) -> torch.Tensor:
     """GroupNorm + activation (None | 'relu' | 'gelu' | 'tanh' |
-    'softsign').  x (N, H, W, C) f32 or bf16; scale, bias (C,) f32;
-    ``C % num_groups`` must be 0.  Returns x's shape and dtype;
+    'softsign').  x (N, H, W, C) f32 or bf16; scale, bias (C,) f32; or
+    members, x (S, N, H, W, C) with scale, bias (S, C); ``C % num_groups``
+    must be 0.  Returns x's shape and dtype;
     differentiable in x, scale and bias."""
     _check_args(x, scale, bias, num_groups, act)
     if torch.is_grad_enabled() and any(

@@ -19,6 +19,11 @@ may be a tree (nested tuples, lists and dicts of tensors, JAX
 ``(y, a, g)`` is: the rule then holds leaf by leaf, each stage input cast to
 its own leaf's dtype.
 
+A stacked tableau (c (S, s), w (S, s, s), b (S, s): a fleet's S solvers,
+``training/fleet.py``) gives each stage coefficient a leading member axis
+(S,), which scales the leading axis of every carry leaf (S, ...): member m
+steps with its own tableau, element by element as a single run does.
+
 ``remat=True`` runs each step under ``torch.utils.checkpoint`` (the JAX
 ``jax.checkpoint`` of the scan body, ``integrate.py:175``): a backward keeps
 only the steps' input carries and recomputes each step's stages.
@@ -78,28 +83,41 @@ def make_time_grid(
     return grid
 
 
+def _members(coeff: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A stage coefficient shaped to scale ``leaf``: a scalar as it is, a
+    fleet's (S,) along the leaf's leading (member) axis, on the leaf's
+    device (a tableau built on the host is copied there)."""
+    if coeff.dim() == 0:
+        return coeff
+    return coeff.reshape(coeff.shape + (1,) * (leaf.dim() - coeff.dim())
+                         ).to(leaf.device)
+
+
 def rk_step(tableau: ButcherTableau, rhs: RHS, y, t: torch.Tensor,
             dt: torch.Tensor):
     """One explicit RK step; returns ``dy = dt * sum_i b_i k_i`` in the
     promoted (>= f32) dtype.  ``y`` is a tensor or a tree of them (a tensor
-    is the tree of one leaf), and ``rhs`` returns the same structure."""
+    is the tree of one leaf), and ``rhs`` returns the same structure.  A
+    stacked tableau steps each member's slice with its own coefficients;
+    the stage times are then (S,)."""
     leaves, spec = pytree.tree_flatten(y)
     ks = []
     for i in range(tableau.stages):
         yi = leaves
         for j in range(i):
             coeff = tableau.w[..., i, j] * dt
-            yi = [_wide(a) + coeff * _wide(k) for a, k in zip(yi, ks[j])]
+            yi = [_wide(a) + _members(coeff, a) * _wide(k)
+                  for a, k in zip(yi, ks[j])]
         ti = t + tableau.c[..., i] * dt
         # RHS inputs stay in the carry dtype (bf16 under mixed precision)
         stage = rhs(ti, pytree.tree_unflatten(
             [a.to(leaf.dtype) for a, leaf in zip(yi, leaves)], spec))
         ks.append(pytree.tree_leaves(stage))
     coeff = tableau.b[..., 0] * dt
-    dy = [_wide(k) * coeff for k in ks[0]]
+    dy = [_wide(k) * _members(coeff, k) for k in ks[0]]
     for i in range(1, tableau.stages):
         coeff = tableau.b[..., i] * dt
-        dy = [d + coeff * _wide(k) for d, k in zip(dy, ks[i])]
+        dy = [d + _members(coeff, k) * _wide(k) for d, k in zip(dy, ks[i])]
     return pytree.tree_unflatten(dy, spec)
 
 

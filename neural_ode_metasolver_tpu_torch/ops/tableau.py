@@ -11,6 +11,11 @@ region exactly as the JAX package does (and as the reference's
   * RK3, 2 params u,v: sopa/src/solvers/rk_parametric_order3stage3.py:25-68
   * RK4, 'u1'/'u2'/'u3'/'uv': sopa/src/solvers/rk_parametric_order4stage4.py
   * Euler:             sopa/src/solvers/euler.py:23-32
+
+The fixed classical tableaus (midpoint, Heun, RK4, Kutta's 3/8) and the
+padding and stacking of tableaus of different stage counts along a leading
+axis (JAX ``ops/tableau.py:256-328``) are here too: a fleet's solvers
+(``training/fleet.py``) are one stacked (S, s, s) tableau.
 """
 from __future__ import annotations
 
@@ -26,6 +31,12 @@ __all__ = [
     "rk2_tableau",
     "rk3_tableau",
     "rk4_tableau",
+    "midpoint_tableau",
+    "heun_tableau",
+    "rk4_standard_tableau",
+    "rk38_tableau",
+    "pad_tableau",
+    "stack_tableaus",
 ]
 
 
@@ -188,4 +199,75 @@ def rk4_tableau(
         w=_stack_rows([[zero, zero, zero, zero], [w21, zero, zero, zero],
                        [w31, w32, zero, zero], [w41, w42, w43, zero]]),
         b=torch.stack([b1, b2, b3, b4], dim=-1),
+    )
+
+
+def _const_tableau(c, w_rows, b, dtype) -> ButcherTableau:
+    """A fixed tableau from its rows (computed in f64, then cast)."""
+    s = len(b)
+    w = np.zeros((s, s), dtype=np.float64)
+    for i, row in enumerate(w_rows):
+        w[i, :len(row)] = row
+    return ButcherTableau(
+        c=torch.as_tensor(np.asarray(c, dtype=np.float64)).to(dtype),
+        w=torch.as_tensor(w).to(dtype),
+        b=torch.as_tensor(np.asarray(b, dtype=np.float64)).to(dtype),
+    )
+
+
+def midpoint_tableau(dtype: torch.dtype = torch.float32) -> ButcherTableau:
+    """The midpoint method, rk2_tableau(1/2)
+    (rk_parametric_order2stage2.py:6)."""
+    return _const_tableau([0.0, 0.5], [[], [0.5]], [0.0, 1.0], dtype)
+
+
+def heun_tableau(dtype: torch.dtype = torch.float32) -> ButcherTableau:
+    """Heun's method, rk2_tableau(1) (rk_parametric_order2stage2.py:13)."""
+    return _const_tableau([0.0, 1.0], [[], [1.0]], [0.5, 0.5], dtype)
+
+
+def rk4_standard_tableau(dtype: torch.dtype = torch.float32
+                         ) -> ButcherTableau:
+    """Classical RK4, rk4_tableau(1/3, 'u2')
+    (rk_parametric_order4stage4.py:6)."""
+    return _const_tableau(
+        [0.0, 0.5, 0.5, 1.0],
+        [[], [0.5], [0.0, 0.5], [0.0, 0.0, 1.0]],
+        [1 / 6, 1 / 3, 1 / 3, 1 / 6], dtype)
+
+
+def rk38_tableau(dtype: torch.dtype = torch.float32) -> ButcherTableau:
+    """Kutta's 3/8 rule (rk_parametric_order4stage4.py:13)."""
+    return _const_tableau(
+        [0.0, 1 / 3, 2 / 3, 1.0],
+        [[], [1 / 3], [-1 / 3, 1.0], [1.0, -1.0, 1.0]],
+        [1 / 8, 3 / 8, 3 / 8, 1 / 8], dtype)
+
+
+def pad_tableau(tab: ButcherTableau, stages: int) -> ButcherTableau:
+    """Zero-pad a tableau to ``stages`` stages: the padded stages have
+    b_i = 0 and zero rows of w, so they add nothing to a step (their RHS
+    evaluations are at y and are discarded).  Raises for fewer stages."""
+    s = tab.stages
+    if s == stages:
+        return tab
+    if s > stages:
+        raise ValueError(f"cannot pad {s}-stage tableau to {stages}")
+    p = stages - s
+    return ButcherTableau(
+        c=torch.nn.functional.pad(tab.c, (0, p)),
+        w=torch.nn.functional.pad(tab.w, (0, p, 0, p)),
+        b=torch.nn.functional.pad(tab.b, (0, p)),
+    )
+
+
+def stack_tableaus(tabs) -> ButcherTableau:
+    """Stack tableaus, padded to the largest stage count, along a leading
+    axis: c (S, s), w (S, s, s), b (S, s)."""
+    smax = max(t.stages for t in tabs)
+    tabs = [pad_tableau(t, smax) for t in tabs]
+    return ButcherTableau(
+        c=torch.stack([t.c for t in tabs]),
+        w=torch.stack([t.w for t in tabs]),
+        b=torch.stack([t.b for t in tabs]),
     )

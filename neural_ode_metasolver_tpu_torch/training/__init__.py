@@ -13,6 +13,15 @@ from .evaluate import (
     sn_test,
 )
 from .accuracy_tables import load_accuracy_table, save_accuracy_table
+from .fleet import (
+    create_fleet_state,
+    fleet_generators,
+    fleet_member,
+    make_fleet_eval_step,
+    make_fleet_train_step,
+    stack_fleet_solvers,
+    tile_fleet,
+)
 from .checkpoint import (
     latest_step,
     load_checkpoint_config,
@@ -63,10 +72,13 @@ __all__ = [
     "adversarial_accuracy",
     "adversarial_accuracy_ensemble",
     "constant_lr",
+    "create_fleet_state",
     "create_solver_train_state",
     "create_train_state",
     "cyclic_lr",
     "cyclic_momentum",
+    "fleet_generators",
+    "fleet_member",
     "latest_step",
     "learning_rate_with_decay",
     "load_accuracy_table",
@@ -75,6 +87,8 @@ __all__ = [
     "make_ensemble_attacked_probs",
     "make_ensemble_probs",
     "make_eval_step",
+    "make_fleet_eval_step",
+    "make_fleet_train_step",
     "make_optimizer",
     "make_solver_train_step",
     "make_train_step",
@@ -86,5 +100,7 @@ __all__ = [
     "save_checkpoint",
     "sn_test",
     "solvers_from_state",
+    "stack_fleet_solvers",
+    "tile_fleet",
     "wait_for_checkpoints",
 ]

@@ -44,6 +44,12 @@ the scale, which then recovers by ``recovery`` up to 1.  The port reads
 the finiteness back to the host once per iteration (the JAX chain selects
 on the device).
 
+A fleet's stacked parameters (S members along a leading axis,
+``training/fleet.py``) take the same elementwise rules; with ``members=S``
+the wrapper clips each member by its own global norm.  The counts are the
+fleet's, shared by its members, and the non-finite backoff has no member
+form (it raises).
+
 The update is in place, with ``torch._foreach_*`` ops over all parameters.
 The state is a dict of Python numbers and dicts of tensors by parameter
 name, which ``torch.save`` writes as is.
@@ -77,8 +83,14 @@ def _zeros(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros_like(p) for k, p in params.items()}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm of all the tensors together (optax ``global_norm``)."""
+def global_norm(tensors: Sequence[torch.Tensor],
+                members: Optional[int] = None) -> torch.Tensor:
+    """The L2 norm of all the tensors together (optax ``global_norm``);
+    with ``members`` S, each member's over its slices t[m], (S,)."""
+    if members is not None:
+        return torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(t.reshape(members, -1), dim=1)
+            for t in tensors]), dim=0)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
         list(tensors))))
 
@@ -211,9 +223,15 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
-               grads: Sequence[torch.Tensor], state: dict) -> None:
+               grads: Sequence[torch.Tensor], state: dict,
+               members: Optional[int] = None) -> None:
+        """One iteration in place; ``members`` S clips each of a fleet's
+        members by its own norm."""
         gs = list(grads)
         scale = 1.0
+        if self.nonfinite_backoff is not None and members is not None:
+            raise NotImplementedError(
+                "the non-finite backoff has no per-member form in a fleet")
         if self.nonfinite_backoff is not None:
             if not bool(torch.isfinite(global_norm(gs))):
                 dipped = np.float32(state["scale"]) * np.float32(
@@ -240,9 +258,11 @@ class Optimizer:
             gs = [a.clone() for a in acc]
             rule_count = state["emits"]
         if self.grad_clip is not None:
-            gn = global_norm(gs)
-            gs = [torch.where(gn < self.grad_clip, g,
-                              g / gn * self.grad_clip) for g in gs]
+            gn = global_norm(gs, members)
+            per = ((lambda g: gn.reshape((-1,) + (1,) * (g.dim() - 1)))
+                   if members is not None else (lambda g: gn))
+            gs = [torch.where(per(g) < self.grad_clip, g,
+                              g / per(g) * self.grad_clip) for g in gs]
         self.rule.apply(params, gs, state, state["count"], rule_count, scale)
         state["count"] += 1
         if self.every_k > 1:

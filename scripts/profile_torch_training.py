@@ -3,7 +3,8 @@
 
     python3 scripts/profile_torch_training.py
         [--model {flagship,flagship-adjoint,mnist,mnist-solver,
-                  metanode10-gn}] [--trace-dir DIR] [batch ...]
+                  metanode10-gn,mnist-clean,mnist-fleet}]
+        [--members S] [--trace-dir DIR] [batch ...]
 
 ``flagship`` (the default) runs the train step of ``bench.py:94-113``
 (premetanode10, in_planes 64, GeLUpoly, RK2 u=0.5 8 steps with
@@ -21,6 +22,12 @@ is the flagship step with ``integration_method="adjoint"`` (phase 21);
 ``mnist-solver`` the digits step's net, attack and optimizer with the
 solver's u trained at lr_uv 0.01 by ``make_solver_train_step`` and no
 smoothing (``mnist_runner --train_solver_params``, phase 22).
+``mnist-clean`` is the u-sweep's step (``runners/u_sweep.py``: the MNIST
+MetaNODE at dim 64, RK2 8 steps, RMSprop lr 1e-3, weight decay 5e-4,
+clean training, f32, batch 128); ``mnist-fleet`` the same step as one
+fleet of ``--members`` runs (default 16: u in 0.25, 0.5, 0.75, 1.0 by
+seeds 1-4, ``training/fleet.py``, ``chip_smoke.py`` phase 24), batch 128 a
+member, its img/s counted over all members.
 Random weights from seed 0, seeded labels.  For each batch size, after a
 warm-up
 step, it times 5 steps without the profiler (host clock, median), then
@@ -68,7 +75,7 @@ def kind(name):
     return "other PyTorch kernels"
 
 
-def main(model_name, batches, trace_dir=None):
+def main(model_name, batches, trace_dir=None, members=16):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -90,12 +97,35 @@ def main(model_name, batches, trace_dir=None):
         make_solver_train_step,
         make_train_step,
     )
+    from neural_ode_metasolver_tpu_torch.training import fleet
 
     dev = torch.device("cuda")
     solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
     noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
     state = None
-    if model_name in ("mnist", "mnist-solver"):
+    lead = ()  # the fleet's member axis of x and y
+    if model_name in ("mnist-clean", "mnist-fleet"):
+        dtype, image = torch.float32, (28, 28, 1)
+        opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+        if model_name == "mnist-clean":
+            model = build_model("mnist", dim=64,
+                                generator=torch.Generator().manual_seed(0))
+            step = make_train_step(model, opt, solvers, SolverOptions())
+        else:
+            pairs = [(u, seed) for u in (0.25, 0.5, 0.75, 1.0)
+                     for seed in (1, 2, 3, 4)]
+            pairs = [pairs[i % len(pairs)] for i in range(members)]
+            model = build_model("mnist", dim=64)
+            gens = fleet.fleet_generators([sd for _, sd in pairs])
+            state = fleet.create_fleet_state(model, opt, gens)
+            dyn = fleet.stack_fleet_solvers([[solvers[0].replace(
+                u=torch.tensor(u))] for u, _ in pairs])
+            fstep = fleet.make_fleet_train_step(model, opt, solvers,
+                                                SolverOptions())
+            step = lambda st, x, y, g: fstep(st, x, y, gens, dyn)  # noqa
+            lead = (members,)
+        batches = batches or [128]
+    elif model_name in ("mnist", "mnist-solver"):
         dtype, image = torch.float32, (28, 28, 1)
         model = build_model("mnist", dim=64,
                             generator=torch.Generator().manual_seed(0))
@@ -138,8 +168,9 @@ def main(model_name, batches, trace_dir=None):
     for batch in batches:
         g = torch.Generator().manual_seed(1)
         x = (torch.rand if image[-1] == 1 else torch.randn)(
-            batch, *image, generator=g).to(dev)
-        y = torch.randint(0, 10, (batch,), generator=g).to(dev)
+            *lead, batch, *image, generator=g).to(dev)
+        y = torch.randint(0, 10, (*lead, batch), generator=g).to(dev)
+        images = batch * (lead[0] if lead else 1)
         state, _ = step(state, x, y, gen)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -189,7 +220,8 @@ def main(model_name, batches, trace_dir=None):
             by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + v / 1e3 / N_TRACED
         row = {
             "batch": batch, "untraced_median_ms": untraced_ms,
-            "untraced_img_per_s": batch / untraced_ms * 1e3,
+            "members": lead[0] if lead else None,
+            "untraced_img_per_s": images / untraced_ms * 1e3,
             "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
@@ -211,7 +243,9 @@ def main(model_name, batches, trace_dir=None):
               f"{wall_ms:.3f} ms per step (host clock), {device_ms:.3f} ms "
               f"of kernels, busy share {row['device_busy_share']:.3f}, "
               f"{row['device_ops_per_step']:g} device ops, peak memory "
-              f"{peak_gib:.2f} GiB; last loss {m['loss'].item():.6f}",
+              f"{peak_gib:.2f} GiB; last loss "
+              f"{m['loss'].float().mean().item():.6f}"
+              f"{f' (mean of {lead[0]} members)' if lead else ''}",
               flush=True)
         for k, v in sorted(by_phase.items()):
             print(f"  {v:9.3f} ms  (kernels of phase {k})")
@@ -227,9 +261,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("flagship", "flagship-adjoint",
                                         "mnist", "mnist-solver",
-                                        "metanode10-gn"),
+                                        "metanode10-gn", "mnist-clean",
+                                        "mnist-fleet"),
                     default="flagship")
+    ap.add_argument("--members", type=int, default=16,
+                    help="members of the mnist-fleet fleet")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("batches", nargs="*", type=int)
     args = ap.parse_args()
-    main(args.model, args.batches, args.trace_dir)
+    main(args.model, args.batches, args.trace_dir, args.members)

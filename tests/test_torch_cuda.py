@@ -1244,3 +1244,182 @@ def test_solver_train_step_kernel_path_matches_plain_path(dev):
     assert max((a - b).abs().max() for a, b in zip(grads[0][:-1],
                                                    grads[1][:-1])) \
         <= 1e-3 * gmax
+
+
+# ------------------------------------------------------------ the fleet
+MEMBER_CONV = [(3, 4, 6, 6, 65, 64, torch.float32),    # MNIST's ConcatConv2d
+               (2, 3, 8, 8, 3, 64, torch.bfloat16),    # element copies
+               (2, 2, 8, 8, 64, 64, torch.bfloat16),   # the halo kernel
+               (2, 2, 8, 8, 64, 8, torch.bfloat16)]    # the narrow halo
+
+
+@pytest.mark.parametrize("s,n,h,w,cin,cout,dtype", MEMBER_CONV)
+def test_member_conv3x3_launches_equal_single_launches(dev, s, n, h, w, cin,
+                                                       cout, dtype):
+    """One member-batched launch of B1, its dgrad and the wgrad (split-K,
+    or TMA once a member) gives each member a single launch's bits, and
+    counts one launch (the TMA wgrad: one a member)."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_dgrad,
+        conv3x3_same,
+        conv3x3_wgrad,
+        reference_conv3x3,
+        wgrad_plan,
+    )
+
+    x = _randn((s, n, h, w, cin), 1.0, 0, dev, dtype)
+    k = _randn((s, 3, 3, cin, cout), (9 * cin) ** -0.5, 1, dev, dtype)
+    dy = _randn((s, n, h, w, cout), 1.0, 2, dev, dtype)
+    reset_launch_counts()
+    y, dx, dw = (conv3x3_same(x, k), conv3x3_dgrad(dy, k),
+                 conv3x3_wgrad(x, dy))
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tma = wgrad_plan(n, h, w, cin, cout, dtype, sms).path == "tma"
+    assert launch_counts() == {"conv3x3_same": 1, "conv3x3_dgrad": 1,
+                               "conv3x3_wgrad": s if tma else 1}
+    for m in range(s):
+        assert torch.equal(y[m], conv3x3_same(x[m], k[m]))
+        assert torch.equal(dx[m], conv3x3_dgrad(dy[m], k[m]))
+        assert torch.equal(dw[m], conv3x3_wgrad(x[m], dy[m]))
+    ref = reference_conv3x3(x, k)
+    bar = (1e-4 * max(1.0, ref.float().abs().max().item())
+           if dtype == torch.float32 else 2.0 ** -7 * ref.float().abs().max())
+    assert (y.float() - ref.float()).abs().max() <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [26, 13, 6])
+@pytest.mark.parametrize("act", ["relu", None])
+def test_member_group_norm_launches_equal_single_launches(dev, dtype, hw,
+                                                         act):
+    """B3 forward and backward (dx only and full) at the MNIST GroupNorms
+    with 3 members of 4 samples: one launch each (the backward's dscale
+    and dbias: (3, C)), each member a single launch's bits."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+        group_norm_backward,
+    )
+
+    s, n, c = 3, 4, 64
+    x = _randn((s, n, hw, hw, c), 2.0, 3, dev, dtype)
+    g = _randn((s, n, hw, hw, c), 1.0, 4, dev, dtype)
+    sc = _randn((s, c), 0.3, 5, dev, torch.float32) + 1.0
+    bi = _randn((s, c), 0.5, 6, dev, torch.float32)
+    reset_launch_counts()
+    y = fused_group_norm_act(x, sc, bi, 32, act=act)
+    full = group_norm_backward(x, sc, bi, g, 32, act=act)
+    dx_only = group_norm_backward(x, sc, bi, g, 32, act=act, params=False)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"group_norm_act": 1, "group_norm_act_bwd": 2,
+                               "group_norm_act_bwd_params": 1}
+    assert full[1].shape == (s, c) and torch.equal(dx_only[0], full[0])
+    for m in range(s):
+        assert torch.equal(y[m], fused_group_norm_act(x[m], sc[m], bi[m], 32,
+                                                      act=act))
+        single = group_norm_backward(x[m], sc[m], bi[m], g[m], 32, act=act)
+        for got, want in zip(full, single):
+            assert torch.equal(got[m], want)
+
+
+def test_fleet_step_kernel_path_matches_plain_path(dev):
+    """A fleet of 3 (the u-sweep step at dim 16, batch 8 a member, u 0.3 /
+    0.5 / 0.9, RMSprop, clean) on the kernel path against the plain path
+    from one state: losses within 1e-4, grad norms within 1e-3 relative
+    (one step; the phase 11 recipe's bars are for PGD-7), and one fleet
+    step launches what one single-run step launches."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        create_solver,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        create_fleet_state,
+        create_train_state,
+        fleet_generators,
+        make_fleet_train_step,
+        make_optimizer,
+        make_train_step,
+        stack_fleet_solvers,
+    )
+
+    ref_solver = create_solver("rk2", "u", n_steps=2, u0=0.5)
+    us = [0.3, 0.5, 0.9]
+    dyn = stack_fleet_solvers([[ref_solver.replace(u=torch.tensor(u))]
+                               for u in us])
+    opt = make_optimizer("rmsprop", 1e-3, weight_decay=5e-4)
+    model = build_model("mnist", dim=16)
+    x = _randn((3, 8, 28, 28, 1), 1.0, 7, dev, torch.float32).abs()
+    y = torch.tensor(np.random.RandomState(8).randint(0, 10, (3, 8)),
+                     device=dev)
+    out = {}
+    for use_kernels in (True, False):
+        fts = create_fleet_state(model, opt, [1, 2, 3])
+        step = make_fleet_train_step(model, opt, [ref_solver],
+                                     SolverOptions(),
+                                     use_kernels=use_kernels)
+        reset_launch_counts()
+        _, m = step(fts, x, y, fleet_generators([4, 5, 6]), dyn)
+        torch.cuda.synchronize()
+        out[use_kernels] = (m, launch_counts())
+    (mk, counts), (mp, plain_counts) = out[True], out[False]
+    assert plain_counts == {}
+    torch.testing.assert_close(mk["loss"], mp["loss"], rtol=0, atol=1e-4)
+    torch.testing.assert_close(mk["grad_norm"], mp["grad_norm"], rtol=1e-3,
+                               atol=0)
+    single = build_model("mnist", dim=16)
+    sstep = make_train_step(single, opt, [ref_solver], SolverOptions())
+    reset_launch_counts()
+    sstep(create_train_state(single, opt), x[0], y[0],
+          torch.Generator().manual_seed(4), [dyn[0].replace(u=dyn[0].u[0])])
+    torch.cuda.synchronize()
+    assert counts == launch_counts()
+
+
+def test_cifar_fleet_no_grad_forward_launches_b2_per_member(dev):
+    """A CIFAR fleet's no-grad forward runs B2 once per member (4 n + 1
+    launches a solve each), B1's stem once for all members, and matches
+    the fleet's plain path."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        create_solver,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        create_fleet_state,
+        make_optimizer,
+        stack_fleet_solvers,
+    )
+
+    model = build_model("premetanode4", in_planes=16)
+    fts = create_fleet_state(model, make_optimizer("sgd", 0.05), [1, 2])
+    dyn = stack_fleet_solvers([[create_solver("rk2", "u", n_steps=2, u0=u)]
+                               for u in (0.3, 0.9)])
+    x = _randn((2, 4, 32, 32, 3), 1.0, 9, dev, torch.float32)
+    trees = dict(params=model.param_tree(fts.params),
+                 model_state=model.state_tree(fts.model_state))
+    with torch.no_grad():
+        reset_launch_counts()
+        got = model(x, dyn, SolverOptions(), **trees)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = model(x, dyn, SolverOptions(), use_kernels=False, **trees)
+    assert counts == {"conv3x3_same": 1, "ode_block_rk2": 2 * 9}
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * max(1.0, want.abs().max().item()))

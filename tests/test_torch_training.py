@@ -58,6 +58,7 @@ from neural_ode_metasolver_tpu_torch.training import (
     make_train_step,
 )
 from neural_ode_metasolver_tpu_torch.training import train as p_train_mod
+from tests.test_torch_runners import one_torch_thread  # noqa: F401
 
 MEAN = (0.4914, 0.4822, 0.4465)
 STD = (0.2023, 0.1994, 0.2010)
