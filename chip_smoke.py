@@ -10,16 +10,22 @@ Phases, in order; any failure exits non-zero:
      print ptxas's registers, spills and warnings, and the tensor-core
      instructions (HMMA, HGMMA) in each library's SASS; fail if B1's or
      B2's has none, the wgrad's has no HGMMA, or any instance of B3's
-     backward spills;
+     backward spills, or if B1's and B2's libraries lack the f32 core
+     (``conv3x3_f32_kernel``) or still hold a float instance of the bf16
+     gather kernel, or the wgrad's lacks its f32 path;
   3. kernel B1 (``conv3x3_same``) against its plain version at both served
-     paths' shapes, batch 256, in f32 and bf16 (TF32 off in phases 3-6, the
-     process defaults in 7-8; the train step pins full f32 itself), with
-     timings of the kernel, the plain version and cuDNN's ``F.conv2d``
-     (yardstick), and the kernel's TFLOP/s and share of its bound;
+     paths' shapes, batch 256, in f32 and bf16, and at the digits train
+     step's ConcatConv2d (128, 6, 6, 65 -> 64) in f32 (TF32 off in phases
+     3-6, the process defaults in 7-8; the train step pins full f32
+     itself), with timings of the kernel, the plain version and cuDNN's
+     ``F.conv2d`` in full f32 for f32 (yardstick), the kernel's TFLOP/s and
+     share of its bound, and each f32 row's plan (``conv3x3_f32_plan``),
+     which must be the path the launcher takes;
   4. B1's backward against its plain versions at the flagship train step's
      shapes, batch 256, f32 and bf16, and at the MNIST train step's
      ConcatConv2d (128, 6, 6, 65 -> 64) in f32: the dgrad (``conv3x3_dgrad``, B1 on
-     flipped weights, the stem's with Cout 3) with the kernel path it took,
+     flipped weights, the stem's with Cout 3) with the kernel path it took
+     (f32: its plan, which must be that path),
      and the wgrad kernel (``conv3x3_wgrad``) with its launch plan, with
      cuDNN's ``conv2d_input`` / ``conv2d_weight`` as yardsticks, and two
      wgrad launches compared bit for bit;
@@ -168,12 +174,13 @@ Phases, in order; any failure exits non-zero:
      1e-3 of max|g|;
  23. the member-batched launches of a fleet (``training/fleet.py``) at 16
      members of 128 images, at the MNIST u-sweep step's shapes in f32: B1
-     at (6, 6, 65 -> 64), its dgrad and the split-K wgrad, B3 forward and
+     at (6, 6, 65 -> 64), its dgrad and the f32 wgrad, B3 forward and
      backward (dx only and full) at 26x26, 13x13 and 6x6 with 64 channels,
      relu and none; each bit-equal to 16 single launches and within
      phases 4 and 6b's bars of its plain version, its path or plan the
      single run's, with device ms of the launch, of 16 single launches,
-     of the plain version, of the library call and the bound;
+     of the plain version, of the library call (cuDNN's grouped conv in
+     full f32 for B1) and the bound, and the share of it;
  24. the u-sweep step (MNIST dim 64, batch 128 a member, f32, RK2 8 steps,
      RMSprop 1e-3, clean) as one fleet of 16 members (4 u x 4 seeds): one
      warm-up and five timed steps beside a single run's, finite losses,
@@ -1493,9 +1500,9 @@ def member_launch_phase(port, torch, dev, time_ms, bound, randn):
     member-batched launch, of S single launches, of the library call and
     the bound.  Returns the rows."""
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
-        conv3x3_dgrad, conv3x3_path, conv3x3_same, conv3x3_wgrad,
-        flip_weights, reference_conv3x3, reference_conv3x3_wgrad,
-        wgrad_plan)
+        conv3x3_dgrad, conv3x3_f32_plan, conv3x3_path, conv3x3_same,
+        conv3x3_wgrad, flip_weights, reference_conv3x3,
+        reference_conv3x3_wgrad, wgrad_plan)
     from neural_ode_metasolver_tpu_torch.ops.group_norm import (
         fused_group_norm_act, group_norm_backward,
         group_norm_backward_reference, group_norm_reference, launch_plan)
@@ -1547,7 +1554,8 @@ def member_launch_phase(port, torch, dev, time_ms, bound, randn):
               f"{[f'{b:.3e}' for b in bars]}); one launch {ms:.4f} ms, "
               f"{s} single launches {singles_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({row['bound_by']})", flush=True)
+              f"{b_ms:.4f} ms ({row['bound_by']}, {b_ms / ms:.3f} of it)",
+              flush=True)
         if not all(e <= b for e, b in zip(errs, bars)):
             fail(f"{name} {key}: max|diff| {errs} > {bars}")
 
@@ -1565,18 +1573,21 @@ def member_launch_phase(port, torch, dev, time_ms, bound, randn):
     xg, dyg = grouped(x), grouped(dy)
     kg = k.permute(0, 4, 3, 1, 2).reshape(s * cout, cin, 3, 3).contiguous()
     flops = 2 * s * n * h * w * cin * cout * 9
+    # each member runs a single run's plan, which the launcher takes
+    fwd_plan = conv3x3_f32_plan(n, h, w, cin, cout, sms)
+    dgrad_plan = conv3x3_f32_plan(n, h, w, cout, cin, sms)
     fwd_path = conv3x3_path(n, h, w, cin, cout, f32, dev)
     dgrad_path = conv3x3_path(n, h, w, cout, cin, f32, dev)
     plan = wgrad_plan(n, h, w, cin, cout, f32, sms)
-    if plan.path != "split_k":
-        fail(f"the member-batched wgrad's plan {plan} is not the split-K "
-             f"plan")
-    if (fwd_path, dgrad_path) != ("gather_elements", "gather_elements"):
+    if plan.path != "f32":
+        fail(f"the member-batched wgrad's plan {plan} is not the f32 plan")
+    if (fwd_path, dgrad_path) != (fwd_plan.path, dgrad_plan.path):
         fail(f"B1 at the ConcatConv2d took {fwd_path} / {dgrad_path}, not "
-             f"the f32 element gather")
+             f"its f32 plans' {fwd_plan.path} / {dgrad_plan.path}")
     with torch.no_grad():
         y_ref = reference_conv3x3(x, k)
-        record("conv3x3_same", (n, h, w, cin, cout), f"path {fwd_path}",
+        record("conv3x3_same", (n, h, w, cin, cout),
+               f"plan {tuple(fwd_plan)}",
                lambda: conv3x3_same(x, k),
                lambda m: conv3x3_same(x[m], k[m]),
                lambda: reference_conv3x3(x, k),
@@ -1584,7 +1595,8 @@ def member_launch_phase(port, torch, dev, time_ms, bound, randn):
                1e-4 * max(1.0, y_ref.abs().max().item()),
                (x.numel() + k.numel() + dy.numel()) * 4, flops)
         dx_ref = reference_conv3x3(dy, flip_weights(k))
-        record("conv3x3_dgrad", (n, h, w, cout, cin), f"path {dgrad_path}",
+        record("conv3x3_dgrad", (n, h, w, cout, cin),
+               f"plan {tuple(dgrad_plan)}",
                lambda: conv3x3_dgrad(dy, k),
                lambda m: conv3x3_dgrad(dy[m], k[m]),
                lambda: reference_conv3x3(dy, flip_weights(k)),
@@ -1594,7 +1606,8 @@ def member_launch_phase(port, torch, dev, time_ms, bound, randn):
                (dy.numel() + k.numel() + x.numel()) * 4, flops)
         dw_ref = reference_conv3x3_wgrad(x, dy)
         record("conv3x3_wgrad", (n, h, w, cin, cout),
-               f"plan {plan.path}, {plan.splits} K ranges a member",
+               f"plan {plan.path}, {plan.splits} K ranges a member, "
+               f"{plan.stages} ring slots",
                lambda: conv3x3_wgrad(x, dy),
                lambda m: conv3x3_wgrad(x[m], dy[m]),
                lambda: reference_conv3x3_wgrad(x, dy),
@@ -2082,6 +2095,7 @@ def main():
     from neural_ode_metasolver_tpu_torch.backend import full_f32
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
         conv3x3_dgrad,
+        conv3x3_f32_plan,
         conv3x3_path,
         conv3x3_same,
         conv3x3_wgrad,
@@ -2181,6 +2195,20 @@ def main():
             fail(f"the {name} library has no tensor-core instruction")
         if name == "conv3x3_wgrad" and not mma["HGMMA"]:
             fail("the wgrad library has no HGMMA: its TMA path needs wgmma")
+    # every f32 conv, dgrad and wgrad runs the f32 kernels; the old f32 FMA
+    # instances (float ones of the bf16 gather and split-K kernels) are gone
+    for name, new, old in (("conv3x3", "conv3x3_f32_kernel",
+                            "conv3x3_igemm_kernelIf"),
+                           ("ode_block_rk2", "conv3x3_f32_kernel",
+                            "conv3x3_igemm_kernelIf"),
+                           ("conv3x3_wgrad", "wgrad_f32_kernel",
+                            "wgrad_partial_kernelIf")):
+        names = _build.kernel_names(name)
+        n_new = sum(new in k for k in names)
+        print(f"  kernels[{name}]: {len(names)}, {n_new} of {new}",
+              flush=True)
+        if not n_new or any(old in k for k in names):
+            fail(f"the {name} library lacks {new} or holds {old}*")
 
     gen = torch.Generator(device=dev)
 
@@ -2224,11 +2252,26 @@ def main():
     dtypes = [torch.float32, torch.bfloat16]
 
     # ----------------------------------------------------- 3 B1 vs plain
-    phase("B1 conv3x3_same vs its plain version (batch 256)")
+    phase("B1 conv3x3_same vs its plain version (batch 256; f32 also the "
+          "digits step's ConcatConv2d at batch 128)")
     b1_rows = []
     b1_shapes = [c[1:6] for c in B1_CALLS + B1_MNIST_CALLS]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def f32_plan(n, h, w, cin, cout):
+        """The f32 core's plan, checked against the path the launcher
+        takes for it; printable."""
+        plan = conv3x3_f32_plan(n, h, w, cin, cout, sms)
+        path = conv3x3_path(n, h, w, cin, cout, torch.float32, dev)
+        if path != plan.path:
+            fail(f"f32 {(n, h, w, cin, cout)}: the launcher takes {path}, "
+                 f"the plan {plan.path}")
+        return (f"{plan.path} (rows {plan.rows}, cols {plan.cols}, K in "
+                f"{plan.ksplit}, {plan.stages} ring slots)")
+
     for dtype in dtypes:
-        for shape in dict.fromkeys(b1_shapes):
+        for shape in dict.fromkeys(b1_shapes + (
+                [TRAIN_MNIST] if dtype == torch.float32 else [])):
             n, h, w, cin, cout = shape
             x = randn((n, h, w, cin), 1.0, 1, dtype)
             k = randn((3, 3, cin, cout), (9 * cin) ** -0.5, 2, dtype)
@@ -2257,6 +2300,10 @@ def main():
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bytes_ms": b_bytes, "ops_ms": b_ops,
                    "flops": flops, **rate(flops, ms, b_ms)}
+            if dtype == torch.float32:
+                row["plan"] = f32_plan(*shape)
+                print(f"  B1 float32  {shape}: plan {row['plan']}",
+                      flush=True)
             b1_rows.append(row)
             print(f"  B1 {row['dtype']:8s} {shape}: max|diff| {err:.3e} "
                   f"(bar {bar:.3e}) kernel {ms:.4f} ms, plain "
@@ -2271,7 +2318,6 @@ def main():
     phase("B1 backward: dgrad (B1 on flipped weights) and the wgrad kernel "
           "vs their plain versions (batch 256)")
     bwd_rows = []
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in dtypes:
         for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2) + (
                 (TRAIN_MNIST,) if dtype == torch.float32 else ()):
@@ -2285,7 +2331,8 @@ def main():
                 memory_format=torch.channels_last)
             dy_cl, x_cl = dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
             # dgrad: dx (n, h, w, cin) of the forward conv (cin -> cout)
-            path = conv3x3_path(n, h, w, cout, cin, dtype, dev)
+            path = (f32_plan(n, h, w, cout, cin) if dtype == torch.float32
+                    else conv3x3_path(n, h, w, cout, cin, dtype, dev))
             got = conv3x3_dgrad(dy, k)
             torch.cuda.synchronize()
             ref = reference_conv3x3(dy, flip_weights(k))
@@ -2328,6 +2375,8 @@ def main():
                     and plan.path != "tma":
                 fail(f"the bf16 wgrad at {shape} is planned on {plan.path}, "
                      f"not on TMA")
+            if dtype == torch.float32 and plan.path != "f32":
+                fail(f"the f32 wgrad at {shape} is planned on {plan.path}")
             got = conv3x3_wgrad(x, dy)
             again = conv3x3_wgrad(x, dy)
             torch.cuda.synchronize()
@@ -3338,6 +3387,8 @@ def main():
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
               per_request_sums(b1_rows, b1_cifar, "bfloat16"),
               mnist_f32=per_request_sums(b1_rows, b1_mnist, "float32"),
+              digits_f32=per_request_sums(b1_rows, {TRAIN_MNIST: 1},
+                                          "float32"),
               train_step_bf16=per_request_sums(b1_rows, TRAIN_FWD,
                                                "bfloat16"),
               mnist_train_dgrad_f32=per_request_sums(

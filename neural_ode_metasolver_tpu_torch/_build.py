@@ -25,8 +25,8 @@ from typing import Dict, List, Tuple
 import torch
 
 __all__ = ["SOURCES", "DTYPE_CODES", "build_all", "build_log",
-           "sass_opcode_counts", "load", "check", "check_cuda_tensors",
-           "stream_handle"]
+           "sass_opcode_counts", "kernel_names", "load", "check",
+           "check_cuda_tensors", "stream_handle"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,9 +34,11 @@ BUILD_DIR = os.path.join(_PKG, "_build_out")
 
 # library name -> (source, headers it includes)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
-    "conv3x3": ("conv3x3.cu", ("conv3x3.cuh", "common.cuh")),
+    "conv3x3": ("conv3x3.cu", ("conv3x3_f32.cuh", "conv3x3.cuh",
+                               "common.cuh")),
     "conv3x3_wgrad": ("conv3x3_wgrad.cu", ("conv3x3.cuh", "common.cuh")),
-    "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3.cuh", "common.cuh")),
+    "ode_block_rk2": ("ode_block_rk2.cu", ("conv3x3_f32.cuh", "conv3x3.cuh",
+                                           "common.cuh")),
     "group_norm_act": ("group_norm_act.cu", ("group_norm_act.cuh",
                                              "common.cuh")),
     "group_norm_act_bwd": ("group_norm_act_bwd.cu", ("group_norm_act.cuh",
@@ -54,11 +56,13 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "conv3x3": {
-        # dtype, x, w, out, S (members), N, H, W, Cin, Cout, device, stream
+        # dtype, x, w, out, S (members), N, H, W, Cin, Cout, w's row
+        # stride, then the f32 plan (path, rows, cols, ksplit, stages),
+        # device, stream
         "conv3x3_same_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _P],
-        # dtype, N, H, W, Cin, Cout, device
-        "conv3x3_path": [_I, _I, _I, _I, _I, _I, _I],
+                                _I, _I, _I, _I, _I, _I, _P],
+        # dtype, N, H, W, Cin, Cout, the f32 plan, device
+        "conv3x3_path": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
     },
     "conv3x3_wgrad": {
         # dtype, x, dy, workspace, out, S (members), N, H, W, Cin, Cout,
@@ -68,9 +72,10 @@ _SIGNATURES = {
     },
     "ode_block_rk2": {
         # dtype, epilogue, x, w, out, y, k1, aux, N, H, W, C, a, b1, b2,
-        # device, stream
+        # the f32 plan (path, rows, cols, ksplit, stages), device, stream
         "ode_block_rk2_conv_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _F, _F, _F, _I, _P],
+                                      _I, _I, _I, _F, _F, _F, _I, _I, _I,
+                                      _I, _I, _I, _P],
         # dtype, x, out, n, device, stream
         "ode_block_rk2_gelu_launch": [_I, _P, _P, _LL, _I, _P],
     },
@@ -167,14 +172,24 @@ def build_log(name: str) -> str:
         return fh.read()
 
 
+def _sass(name: str) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "--dump-sass", _lib_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def kernel_names(name: str) -> List[str]:
+    """The (mangled) names of the kernels library ``name`` holds, from
+    ``cuobjdump --dump-sass`` of its build."""
+    return [line.split(":", 1)[1].strip() for line in _sass(name).splitlines()
+            if line.strip().startswith("Function :")]
+
+
 def sass_opcode_counts(name: str, opcodes: Tuple[str, ...]) -> Dict[str, int]:
     """How many instructions of each SASS opcode (``HMMA``, ``HGMMA``, ...)
     library ``name`` holds, from ``cuobjdump --dump-sass`` of its build."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "--dump-sass", _lib_path(name)],
-                         capture_output=True, text=True, check=True).stdout
     counts = dict.fromkeys(opcodes, 0)
-    for line in out.splitlines():
+    for line in _sass(name).splitlines():
         # an instruction line: /*0a30*/  HMMA.16816.F32.BF16 R4, R8, ... ;
         parts = line.split("*/", 1)
         if len(parts) != 2:

@@ -2,8 +2,9 @@
 // B1 (conv3x3.cu) and kernel B2 (ode_block_rk2.cu).
 //
 // Layouts are the JAX package's: x (N, H, W, Cin) NHWC, w (3, 3, Cin, Cout)
-// HWIO, outputs (N, H, W, Cout) NHWC, all contiguous.  T is float or
-// __nv_bfloat16; every sum is kept in f32.
+// HWIO, outputs (N, H, W, Cout) NHWC, all contiguous.  The kernels here are
+// bf16 (every sum kept in f32); the helpers and epilogues serve the f32
+// core of conv3x3_f32.cuh too.
 //
 // The GEMM is the one the TPU kernel ran (pallas_im2col.py:43-54,93-103):
 //   M = N*H*W output pixels, flattened across images (a 6x6 image wastes no
@@ -13,14 +14,13 @@
 // launch: grid dimension z is the member (to_member), M is counted per
 // member, and each member's blocks are a single launch's.
 // The 9x patch matrix is never formed in device memory.  A K step is 64
-// bf16 or 32 f32 channels (one 128-byte row of A per pixel) of one tap.  B
-// tiles (BK x BN) stream through a ring of STAGES slots in dynamic shared
-// memory, in panels of 128-byte rows; every tile is 16-byte chunks
-// XOR-swizzled by row (chunk ^ (row & 7)), which is wgmma's 128-byte
-// swizzle and keeps ldmatrix and the f32 fragment reads free of bank
-// conflicts.  Each K step waits on one cp.async group and one
-// __syncthreads, then issues the copies of a later step.  Four kernels
-// (conv_path picks one):
+// bf16 channels (one 128-byte row of A per pixel) of one tap.  B tiles (BK
+// x BN) stream through a ring of STAGES slots in dynamic shared memory, in
+// panels of 128-byte rows; every tile is 16-byte chunks XOR-swizzled by row
+// (chunk ^ (row & 7)), which is wgmma's 128-byte swizzle and keeps ldmatrix
+// free of bank conflicts.  Each K step waits on one cp.async group and one
+// __syncthreads, then issues the copies of a later step.  Three bf16
+// kernels (conv_path picks one):
 //
 // conv3x3_halo_kernel (bf16, Cin a multiple of 64, Cout of 8 and at least
 //   16: every conv of B2 and premetanode10's B1 but the stem).  The source
@@ -33,16 +33,13 @@
 // conv3x3_halo_narrow_kernel (bf16, Cin a multiple of 64, Cout under 16:
 //   the stem's 64 -> 3 dgrad): the same halo and A, an N tile of 8 or 16
 //   with B K-major, copied element by element (zero past Cout); kStore only.
-// conv3x3_igemm_kernel, bf16 (the stem's Cin 3, Cin 65, halos too wide for
+// conv3x3_igemm_kernel (bf16: the stem's Cin 3, Cin 65, halos too wide for
 //   shared memory): each K step gathers its A tile (BM shifted pixel rows)
 //   into the ring beside B, 16-byte cp.async.cg where Cin is a multiple of
 //   64, else element by element through registers (K = 9*Cin walked flat,
 //   zero past K, past Cout and outside the image); wgmma reads A and B from
 //   shared memory.
-// conv3x3_igemm_kernel, f32 (the MNIST ODEfunc's Cin 65 and every f32
-//   conv): the same gather (f32 element copies by 4-byte cp.async), full-f32
-//   FMAs, 4 x 4 outputs per thread.  The served MNIST path and the JAX
-//   reference compute in full f32, so TF32 is not an option.
+// Every f32 conv runs conv3x3_f32.cuh's core, on a plan the wrappers pass.
 //
 // Bound on the H100 at the serving shapes: 2*9*Cin*Cout flops per pixel
 // against 2*(Cin + Cout) bytes in bf16; at Cin = Cout = 64 that sits at the
@@ -80,6 +77,7 @@ struct ConvArgs {
   int N, H, W, Cin, Cout;  // N images a member
   float a, b1, b2;
   int S = 1;  // members: a fleet's runs, each its own images and weights
+  int ldw = 0;  // w's row stride in elements (f32 core only), 0: Cout
 };
 
 // A member-batched launch: grid dimension z is the member.  Member m's
@@ -94,7 +92,7 @@ __device__ __forceinline__ void to_member(ConvArgs& p) {
   const size_t out = m * pix * p.Cout;
   p.x = static_cast<const T*>(p.x) + m * pix * p.Cin;
   p.w = static_cast<const T*>(p.w) + m * 9 * static_cast<size_t>(p.Cin) *
-                                         p.Cout;
+                                         (p.ldw ? p.ldw : p.Cout);
   p.out = static_cast<T*>(p.out) + out;
   if (p.y != nullptr) p.y = static_cast<const T*>(p.y) + out;
   if (p.k1 != nullptr) p.k1 += out;
@@ -134,6 +132,31 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp_async_wait<n> for a depth n in 0..2 known only at run time
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2)
+    cp_async_wait<2>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// Shared-memory loads at 32-bit shared addresses (the f32 kernels).
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float lds32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
 }
 
 // A 64-bit shared-memory matrix descriptor of wgmma for a 128-byte-swizzled
@@ -349,28 +372,20 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// N single-element copies into shared memory: element j goes from src(j)
-// (0 where src(j) is null) to dst(j).  f32: 4-byte cp.async (from base,
-// with src-size 0, where null).  bf16: all N loads into registers first,
-// then all N stores, so the loads are in flight together.
+// N single-element copies of bf16 into shared memory: element j goes from
+// src(j) (0 where src(j) is null) to dst(j); all N loads into registers
+// first, then all N stores, so the loads are in flight together.
 template <typename T, int N, typename Src, typename Dst>
 __device__ __forceinline__ void copy_elems(const T* base, Src src, Dst dst) {
-  if constexpr (std::is_same<T, float>::value) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 copies");
+  T v[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T* s = src(j);
-      cp_async4(smem_u32(dst(j)), s ? s : base, s != nullptr);
-    }
-  } else {
-    T v[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T* s = src(j);
-      v[j] = s ? *s : from_f32<T>(0.0f);
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) *reinterpret_cast<T*>(dst(j)) = v[j];
+  for (int j = 0; j < N; ++j) {
+    const T* s = src(j);
+    v[j] = s ? *s : from_f32<T>(0.0f);
   }
+#pragma unroll
+  for (int j = 0; j < N; ++j) *reinterpret_cast<T*>(dst(j)) = v[j];
 }
 
 // T(gelu(T(v))) as f32: the Pallas kernels' _gelu of a rounded value
@@ -511,13 +526,13 @@ __device__ __forceinline__ void epilogue_tile(const ConvArgs& p,
   }
 }
 
-// Tile shapes.  bf16: one warpgroup (4 warps) per 64 rows of the tile, one
-// m64nBNk16 wgmma each per 16 channels (WM = BM/16 warps, WN = 1).  f32:
-// each warp is 8 x 4 threads of 4 x 4 outputs, a 32 x 16 warp tile, so
-// BM = 32*WM and BN = 16*WN.  B lies in panels of 128-byte rows (64 bf16
-// or 32 f32 columns), the layout wgmma reads as MN-major.
+// Tile shapes of the bf16 gather kernel: one warpgroup (4 warps) per 64
+// rows of the tile, one m64nBNk16 wgmma each per 16 channels (WM = BM/16
+// warps, WN = 1).  B lies in panels of 128-byte rows (64 columns), the
+// layout wgmma reads as MN-major.
 template <typename T, int BM, int BN, int WM, int WN, int STAGES>
 struct Tile {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 tiles");
   static constexpr int kThreads = 32 * WM * WN;
   static constexpr int BK = KStep<T>::value;
   static constexpr int kPanel = BK * kRowBytes;  // bytes of one B panel
@@ -544,9 +559,9 @@ __device__ __forceinline__ int b_off(int k, int ch) {
   return (ch >> 3) * (BK * kRowBytes) + swz(k, ch & 7, kRowBytes);
 }
 
-// The gather kernel: each K step copies its A tile (BM shifted pixel rows)
-// and its B tile into the ring; ASYNC: by 16-byte cp.async (Cin a multiple
-// of BK, Cout of 16 bytes), else element by element.
+// The bf16 gather kernel: each K step copies its A tile (BM shifted pixel
+// rows) and its B tile into the ring; ASYNC: by 16-byte cp.async (Cin a
+// multiple of BK, Cout of 16 bytes), else element by element.
 template <typename T, int BM, int BN, int WM, int WN, int STAGES, bool ASYNC,
           int EPI>
 __global__ void __launch_bounds__(32 * WM * WN, 2)
@@ -555,10 +570,9 @@ conv3x3_igemm_kernel(ConvArgs p) {
   constexpr int kThreads = Tl::kThreads;
   constexpr int BK = Tl::BK;
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr bool kMma = !std::is_same<T, float>::value;
   // K steps loaded ahead: wgmma keeps one step's products in flight, so
   // the slot it reads is refilled one step later than a synchronous one
-  constexpr int PD = kMma ? STAGES - 2 : STAGES - 1;
+  constexpr int PD = STAGES - 2;
   static_assert(PD >= 1, "at least one step ahead");
 
   extern __shared__ __align__(1024) char smem_raw[];
@@ -677,62 +691,32 @@ conv3x3_igemm_kernel(ConvArgs p) {
     }
   };
 
-  // bf16: a warpgroup's m64 x BN accumulators, BN/2 per thread;
-  // f32: 4 x 4 per thread
-  static_assert(!kMma || (WN == 1 && WM * 16 == BM && BM % 64 == 0),
-                "bf16: one warpgroup per 64 rows");
-  static_assert(kMma || (BM == 32 * WM && BN == 16 * WN), "f32 warp tile");
-  constexpr int kAcc = kMma ? BN / 2 : 16;
+  // a warpgroup's m64 x BN accumulators, BN/2 per thread
+  static_assert(WN == 1 && WM * 16 == BM && BM % 64 == 0,
+                "one warpgroup per 64 rows");
+  constexpr int kAcc = BN / 2;
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
-  const int wg = warp >> 2;  // bf16: rows wg*64 .. wg*64 + 63
+  const int wg = warp >> 2;  // rows wg*64 .. wg*64 + 63
 
   auto compute_stage = [&](int slot) {
     const char* sA = s_tiles + slot * Tl::kStageBytes;
     const char* sB = sA + Tl::kABytes;
-    if constexpr (kMma) {
-      // A: 128-byte rows, 8-row atoms 1024 B apart (SBO); a k16 slice
-      // starts 32 B further.  B: MN-major panels Tl::kPanel apart (LBO),
-      // 8-row atoms 1024 B apart (SBO); a k16 slice starts 2048 B further.
-      const uint64_t da =
-          sw128_desc(smem_u32(sA + wg * 64 * kRowBytes), 16, 1024);
-      const uint64_t db = sw128_desc(smem_u32(sB), Tl::kPanel, 1024);
-      fence_operands(acc);
-      wgmma_fence();
+    // A: 128-byte rows, 8-row atoms 1024 B apart (SBO); a k16 slice starts
+    // 32 B further.  B: MN-major panels Tl::kPanel apart (LBO), 8-row atoms
+    // 1024 B apart (SBO); a k16 slice starts 2048 B further.
+    const uint64_t da =
+        sw128_desc(smem_u32(sA + wg * 64 * kRowBytes), 16, 1024);
+    const uint64_t db = sw128_desc(smem_u32(sB), Tl::kPanel, 1024);
+    fence_operands(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<BN>::run(acc, da + (kk * 32 >> 4), db + (kk * 2048 >> 4));
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_operands(acc);
-    } else {
-      // thread (lane & 7, lane >> 3) of warp (wm, wn): rows wm*32 +
-      // (lane & 7) + 8i, columns wn*16 + (lane >> 3)*4 + j; row & 7 is
-      // lane & 7 for every i
-      const int wm = warp % WM, wn = warp / WM;
-      const int rsw = lane & 7;
-      const char* a_row = sA + (wm * 32 + rsw) * kRowBytes;
-      const int bch = wn * 4 + (lane >> 3);
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float*>(
-              a_row + i * 8 * kRowBytes + (((k >> 2) ^ rsw) << 4) +
-              (k & 3) * 4);
-        const float4 b =
-            *reinterpret_cast<const float4*>(sB + b_off<BK>(k, bch));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[4 * i + 0] = fmaf(a[i], b.x, acc[4 * i + 0]);
-          acc[4 * i + 1] = fmaf(a[i], b.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(a[i], b.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(a[i], b.w, acc[4 * i + 3]);
-        }
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<BN>::run(acc, da + (kk * 32 >> 4), db + (kk * 2048 >> 4));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(acc);
   };
 
 #pragma unroll
@@ -742,7 +726,7 @@ conv3x3_igemm_kernel(ConvArgs p) {
   }
   for (int kt = 0; kt < ksteps; ++kt) {
     cp_async_wait<PD - 1>();
-    if constexpr (kMma) fence_proxy_async();
+    fence_proxy_async();
     // step kt has landed for every thread; the slot refilled below was
     // last read by step kt + PD - STAGES, finished by every thread
     __syncthreads();
@@ -752,26 +736,13 @@ conv3x3_igemm_kernel(ConvArgs p) {
     compute_stage(kt % STAGES);
   }
   cp_async_wait<0>();
-  if constexpr (kMma) {
-    wgmma_wait<0>();
-    fence_operands(acc);
-  }
+  wgmma_wait<0>();
+  fence_operands(acc);
 
   __syncthreads();  // every warp is done with the ring
   float* s_c = reinterpret_cast<float*>(s_tiles);
   constexpr int kCRow = Tl::kCRow;
-  if constexpr (kMma) {
-    wgmma_sums_to_smem<BN, kCRow>(s_c, acc, warp, lane);
-  } else {
-    const int wm = warp % WM, wn = warp / WM;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wm * 32 + (lane & 7) + 8 * i;
-      const int c = wn * 16 + (lane >> 3) * 4;
-      *reinterpret_cast<float4*>(s_c + r * kCRow + c) = make_float4(
-          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
-    }
-  }
+  wgmma_sums_to_smem<BN, kCRow>(s_c, acc, warp, lane);
   __syncthreads();
   epilogue_tile<T, EPI, BM, BN, kCRow, kThreads>(p, s_c, m0, n0, M, tid);
 }
@@ -1151,46 +1122,36 @@ cudaError_t launch_tile(const ConvArgs& p, int device, cudaStream_t stream) {
 
 template <typename T, bool ASYNC, int EPI>
 cudaError_t launch_shape(const ConvArgs& p, int device, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    // 64 x 64 tiles, or 32 x 64 where 64-row tiles would not give two
-    // blocks to each of the H100's 132 SMs (MNIST's M = 9,216: 288 blocks)
-    const long long M = static_cast<long long>(p.N) * p.H * p.W;
-    const long long tiles64 = (M + 63) / 64 * ((p.Cout + 63) / 64);
-    if (tiles64 >= 2 * 132)
-      return launch_tile<T, 64, 64, 2, 4, 3, ASYNC, EPI>(p, device, stream);
-    return launch_tile<T, 32, 64, 1, 4, 3, ASYNC, EPI>(p, device, stream);
-  } else {
-    // 128 x 64 tiles for Cout <= 64, else 128 x 128; two warpgroups, two
-    // blocks per SM either way
-    if (p.Cout <= 64)
-      return launch_tile<T, 128, 64, 8, 1, 3, ASYNC, EPI>(p, device, stream);
-    return launch_tile<T, 128, 128, 8, 1, 3, ASYNC, EPI>(p, device, stream);
-  }
+  // 128 x 64 tiles for Cout <= 64, else 128 x 128; two warpgroups, two
+  // blocks per SM either way
+  if (p.Cout <= 64)
+    return launch_tile<T, 128, 64, 8, 1, 3, ASYNC, EPI>(p, device, stream);
+  return launch_tile<T, 128, 128, 8, 1, 3, ASYNC, EPI>(p, device, stream);
 }
 
 // The kernel a conv runs on (ops/conv3x3.py::CONV_PATHS names them).
 enum ConvPath {
-  kPathGather = 0,        // igemm kernel, 16-byte cp.async of A and B
-  kPathGatherElems = 1,   // igemm kernel, element copies
+  kPathGather = 0,        // bf16 igemm kernel, 16-byte cp.async of A and B
+  kPathGatherElems = 1,   // bf16 igemm kernel, element copies
   kPathHalo = 2,          // bf16, Cin a multiple of 64, Cout of 8 (>= 16)
   kPathHaloNarrow = 3,    // bf16, Cin a multiple of 64, Cout under 16
+  kPathF32Halo = 4,       // f32 core, the contiguous halo (conv3x3_f32.cuh)
+  kPathF32Bands = 5,      // f32 core, three bands (W > BM + 2)
 };
 
-// Picks the path from the shapes, the type and the device's opt-in shared
+// Picks the bf16 path from the shapes and the device's opt-in shared
 // memory: a halo path where its shared memory fits, else a gather path.
-template <typename T, int EPI>
+template <int EPI>
 ConvPath conv_path(const ConvArgs& p, int optin) {
+  using T = __nv_bfloat16;
   constexpr int BK = KStep<T>::value;
   constexpr int E = 16 / sizeof(T);
   const bool aligned = p.Cin % BK == 0 && p.Cout % E == 0;
-  if constexpr (!std::is_same<T, float>::value) {
-    if (EPI == kStore && p.Cin % BK == 0 && p.Cout < 16 &&
-        halo_smem_bytes(p, 128, p.Cout <= 8 ? 8 : 16, 4) <= optin)
-      return kPathHaloNarrow;
-    if (aligned &&
-        halo_smem_bytes(p, 128, p.Cout <= 64 ? 64 : 128, 4) <= optin)
-      return kPathHalo;
-  }
+  if (EPI == kStore && p.Cin % BK == 0 && p.Cout < 16 &&
+      halo_smem_bytes(p, 128, p.Cout <= 8 ? 8 : 16, 4) <= optin)
+    return kPathHaloNarrow;
+  if (aligned && halo_smem_bytes(p, 128, p.Cout <= 64 ? 64 : 128, 4) <= optin)
+    return kPathHalo;
   return aligned ? kPathGather : kPathGatherElems;
 }
 
@@ -1209,24 +1170,24 @@ inline cudaError_t conv3x3_prepare(const ConvArgs& p, int device,
   return smem_optin(device, optin);
 }
 
-template <typename T, int EPI>
-cudaError_t launch_conv3x3(const ConvArgs& p, int device, void* stream) {
+// The bf16 conv on the path conv_path picks.
+template <int EPI>
+cudaError_t launch_conv3x3_bf16(const ConvArgs& p, int device, void* stream) {
+  using T = __nv_bfloat16;
   int optin = 0;
   cudaError_t err = conv3x3_prepare(p, device, &optin);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (conv_path<T, EPI>(p, optin)) {
+  switch (conv_path<EPI>(p, optin)) {
     case kPathHaloNarrow:
-      if constexpr (!std::is_same<T, float>::value && EPI == kStore)
+      if constexpr (EPI == kStore)
         return p.Cout <= 8 ? launch_halo_narrow<8, 4>(p, device, optin, st)
                            : launch_halo_narrow<16, 4>(p, device, optin, st);
       return cudaErrorInvalidValue;
     case kPathHalo:
-      if constexpr (!std::is_same<T, float>::value)
-        return p.Cout <= 64
-                   ? launch_halo_wide<128, 64, 4, EPI>(p, device, optin, st)
-                   : launch_halo_wide<128, 128, 4, EPI>(p, device, optin, st);
-      return cudaErrorInvalidValue;
+      return p.Cout <= 64
+                 ? launch_halo_wide<128, 64, 4, EPI>(p, device, optin, st)
+                 : launch_halo_wide<128, 128, 4, EPI>(p, device, optin, st);
     case kPathGather:
       return launch_shape<T, true, EPI>(p, device, st);
     default:

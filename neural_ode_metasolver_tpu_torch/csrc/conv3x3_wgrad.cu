@@ -52,22 +52,47 @@
 //    memory and the cluster adds them in rank order through distributed
 //    shared memory before one partial is written.
 //
-// The split-K path (f32, and bf16 shapes the TMA path does not take: the
-// stem's Cin 3, MNIST's 65, W % 8 != 0, rows of more than 8 k16 slices):
-//  * A block owns one 128-byte chunk of Cin (64 bf16 or 32 f32 channels),
-//    one of Cout, and all nine taps: warp t computes tap t.  Each K step
-//    copies into shared memory, once, the x halo the step's nine taps read
-//    (pixels k0-W-1 .. k0+BK+W, the forward halo kernel's trick) and the
-//    step's dy rows.  Tap (kh, kw) reads the halo shifted by kh*W + kw
-//    rows, or a zero row where the source pixel lies outside its image (a
-//    9-bit mask per pixel, written when the step is copied).
-//  * bf16: mma.sync m16n8k16 on the tensor cores.  x and dy lie
-//    pixel-major (K-major for this GEMM), so ldmatrix.trans gathers both
-//    operands, one row address per lane (which is how the padding's zero
-//    row gets in); a warp holds its tap's 64 x 64 tile, 128 sums a thread.
-//    f32: full-f32 FMAs, 4 x 8 sums a lane of a warp's 32 x 32 tile.
+// The split-K path (bf16 shapes the TMA path does not take: the stem's Cin
+// 3, MNIST's 65, W % 8 != 0, rows of more than 8 k16 slices):
+//  * A block owns one 128-byte chunk of Cin (64 channels), one of Cout,
+//    and all nine taps: warp t computes tap t.  Each K step copies into
+//    shared memory, once, the x halo the step's nine taps read (pixels
+//    k0-W-1 .. k0+BK+W, the forward halo kernel's trick) and the step's dy
+//    rows.  Tap (kh, kw) reads the halo shifted by kh*W + kw rows, or a
+//    zero row where the source pixel lies outside its image (a 9-bit mask
+//    per pixel, written when the step is copied).
+//  * mma.sync m16n8k16 on the tensor cores.  x and dy lie pixel-major
+//    (K-major for this GEMM), so ldmatrix.trans gathers both operands, one
+//    row address per lane (which is how the padding's zero row gets in); a
+//    warp holds its tap's 64 x 64 tile, 128 sums a thread.
 //  * A ring of 3 K steps filled by 16-byte cp.async where the channel count
 //    and the pointer allow, else by element copies into a ring zeroed once.
+//
+// The f32 path (every f32 shape; full-f32 FMAs, no TF32, as the JAX
+// reference computes): the split-K path's halo, masks and ranges, cut for
+// FMAs.
+//  * x and dy lie pixel-major: for one pixel, a row of channels.  In this
+//    GEMM (M = Cin, N = Cout, K = pixels) that is both operands M- and
+//    N-contiguous, the layout of an FMA GEMM: a lane reads its 8 Cin sums'
+//    x values as two float4 from one halo row and its 4 Cout sums' dy
+//    values as one from one dy row, 3 16-byte loads for 32 FMAs.
+//  * A block owns 32 channels of Cin, 32 of Cout and all nine taps: warp t
+//    sums tap t's 32 x 32 tile, 8 x 4 sums a lane (lane (lm, ln) = (lane %
+//    4, lane / 4): Cin 4lm + i, 16 + 4lm + i; Cout 4ln + j), so two blocks
+//    of nine warps fit an SM (96 registers a thread); with 8 x 8 sums a
+//    lane one block did, and the digits wgrad ran 20% slower.
+//  * Channels past the last whole 32 (at most 4: MNIST's 65th) take no
+//    block of their own: they sit in the 16 bytes that pad each halo row of
+//    the last Cin block to 144 (the padding also keeps four neighbouring
+//    rows' loads in four bank groups), and each tap warp sums them with
+//    the dy values it already holds: 8 more FMAs a channel and pixel.
+//  * A tap's source pixel outside the image reads a zero row (a ballot of
+//    the step's 64 pixels a warp gives the mask): no branch in the loop.
+//  * K steps of 64 pixels; halo and dy rows by 16-byte cp.async where the
+//    channel count and the pointer allow (MNIST's Cin 65 rows are 260
+//    bytes: its halo takes 4-byte copies, once a step, not once a tap).
+//  * The K ranges (ops/conv3x3.py::wgrad_plan) keep three steps or more
+//    each, so the partials the reduce reads stay few beside the work.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and the driver's enums; no -lcuda needed
 
@@ -82,11 +107,8 @@ constexpr int kWarps = 9;  // one per tap
 constexpr int kWThreads = 32 * kWarps;
 constexpr int kStages = 3;
 
-// pixels per K step (ops/conv3x3.py::WGRAD_BK)
-template <typename T>
-struct WgradBK {
-  static constexpr int value = std::is_same<T, float>::value ? 64 : 128;
-};
+// pixels per K step of the bf16 split-K path (ops/conv3x3.py::WGRAD_BK)
+constexpr int kWgradBK = 128;
 
 struct WgradArgs {
   const void* x;   // (S, N, H, W, Cin)
@@ -123,20 +145,20 @@ __host__ __device__ __forceinline__ int slot_bytes(int halo_rows) {
                                             kRowBytes * kRowBytes;
 }
 
-// C (9-tap tile) of one block: blockIdx = (Cin chunk, Cout chunk, member *
-// splits + split).  A member-batched launch (S members, each N images of
+// The bf16 split-K path.  C (9-tap tile) of one block: blockIdx = (Cin
+// chunk, Cout chunk, member * splits + split).  A member-batched launch (S members, each N images of
 // its own) runs each member's splits over its own images only, exactly as
 // a single launch on that member runs them, into the member's own
 // workspace rows; a single run is member 0.  VX / VDY: 16-byte copies of x / dy (channels a multiple of 16 bytes and
 // the pointer aligned), else element copies.
-template <typename T, bool VX, bool VDY>
+template <bool VX, bool VDY>
 __global__ void __launch_bounds__(kWThreads, 1)
 wgrad_partial_kernel(WgradArgs p) {
-  constexpr int BK = WgradBK<T>::value;
+  using T = __nv_bfloat16;
+  constexpr int BK = kWgradBK;
   constexpr int CH = kRowBytes / static_cast<int>(sizeof(T));
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   constexpr int PD = kStages - 1;  // steps loaded ahead
-  constexpr bool kMma = !std::is_same<T, float>::value;
   constexpr int kDyBytes = BK * kRowBytes;
 
   extern __shared__ __align__(128) char smem_raw[];
@@ -238,9 +260,9 @@ wgrad_partial_kernel(WgradArgs p) {
     }
   };
 
-  // bf16: acc[(mi * 8 + nj) * 4 + i], the m16n8 tile (mi, nj) of the warp's
-  // 64 x 64; f32: acc[i * 8 + j], channel 4*(lane&7)+i, column 8*(lane>>3)+j
-  constexpr int kAcc = kMma ? 128 : 32;
+  // acc[(mi * 8 + nj) * 4 + i], the m16n8 tile (mi, nj) of the warp's
+  // 64 x 64
+  constexpr int kAcc = 128;
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
@@ -250,56 +272,36 @@ wgrad_partial_kernel(WgradArgs p) {
     const char* sh = smem + sl * slot;
     const char* sd = sh + halo_bytes;
     const uint16_t* sm = reinterpret_cast<const uint16_t*>(sd + kDyBytes);
-    if constexpr (kMma) {
-      // ldmatrix.trans lane rows: A (x) matrices are (k 0-7, m 0-7), (k 0-7,
-      // m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15); B (dy) matrices (k 0-7,
-      // n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-      const int a_r = (lane & 7) + ((lane >> 4) << 3);
-      const int a_c = (lane >> 3) & 1;
-      const int b_r = (lane & 7) + (((lane >> 3) & 1) << 3);
-      const int b_c = lane >> 4;
+    // ldmatrix.trans lane rows: A (x) matrices are (k 0-7, m 0-7), (k 0-7,
+    // m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15); B (dy) matrices (k 0-7,
+    // n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+    const int a_r = (lane & 7) + ((lane >> 4) << 3);
+    const int a_c = (lane >> 3) & 1;
+    const int b_r = (lane & 7) + (((lane >> 3) & 1) << 3);
+    const int b_c = lane >> 4;
 #pragma unroll 2
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const int r = kk * 16 + a_r;
-        const bool ok = (sm[r] >> tap) & 1u;
-        const int hr = r + toff;
-        uint32_t a[4][4], b[4][4];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int r = kk * 16 + a_r;
+      const bool ok = (sm[r] >> tap) & 1u;
+      const int hr = r + toff;
+      uint32_t a[4][4], b[4][4];
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int ch = 2 * mi + a_c;
-          ldmatrix_x4_trans(a[mi], smem_u32(ok ? sh + swz(hr, ch, kRowBytes)
-                                               : s_zero + ch * 16));
-        }
-        const int br = kk * 16 + b_r;
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp)
-          ldmatrix_x4_trans(b[jp],
-                            smem_u32(sd + swz(br, 2 * jp + b_c, kRowBytes)));
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < 8; ++nj)
-            mma_bf16(acc + (mi * 8 + nj) * 4, a[mi], b[nj >> 1][(nj & 1) * 2],
-                     b[nj >> 1][(nj & 1) * 2 + 1]);
+      for (int mi = 0; mi < 4; ++mi) {
+        const int ch = 2 * mi + a_c;
+        ldmatrix_x4_trans(a[mi], smem_u32(ok ? sh + swz(hr, ch, kRowBytes)
+                                             : s_zero + ch * 16));
       }
-    } else {
-      const int cig = lane & 7, cog = lane >> 3;
-      for (int r = 0; r < BK; ++r) {
-        if (!((sm[r] >> tap) & 1u)) continue;  // uniform across the warp
-        const float4 a = *reinterpret_cast<const float4*>(
-            sh + swz(r + toff, cig, kRowBytes));
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(sd + swz(r, 2 * cog, kRowBytes));
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            sd + swz(r, 2 * cog + 1, kRowBytes));
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const int br = kk * 16 + b_r;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int jp = 0; jp < 4; ++jp)
+        ldmatrix_x4_trans(b[jp],
+                          smem_u32(sd + swz(br, 2 * jp + b_c, kRowBytes)));
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
-      }
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+          mma_bf16(acc + (mi * 8 + nj) * 4, a[mi], b[nj >> 1][(nj & 1) * 2],
+                   b[nj >> 1][(nj & 1) * 2 + 1]);
     }
   };
 
@@ -322,31 +324,19 @@ wgrad_partial_kernel(WgradArgs p) {
 
   float* ws = p.ws + (static_cast<size_t>(blockIdx.z) * 9 + tap) *
                          static_cast<size_t>(p.Cin) * p.Cout;
-  if constexpr (kMma) {
-    const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
+    for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ci = c0 + mi * 16 + g + 8 * (i >> 1);
-          const int co = n0 + nj * 8 + 2 * t4 + (i & 1);
-          if (ci < p.Cin && co < p.Cout)
-            ws[static_cast<size_t>(ci) * p.Cout + co] =
-                acc[(mi * 8 + nj) * 4 + i];
-        }
-  } else {
-    const int cig = lane & 7, cog = lane >> 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int ci = c0 + 4 * cig + i, co = n0 + 8 * cog + j;
+      for (int i = 0; i < 4; ++i) {
+        const int ci = c0 + mi * 16 + g + 8 * (i >> 1);
+        const int co = n0 + nj * 8 + 2 * t4 + (i & 1);
         if (ci < p.Cin && co < p.Cout)
-          ws[static_cast<size_t>(ci) * p.Cout + co] = acc[i * 8 + j];
+          ws[static_cast<size_t>(ci) * p.Cout + co] =
+              acc[(mi * 8 + nj) * 4 + i];
       }
-  }
 }
 
 // out[m][i] = T(sum over k in order of ws[m][k][i]), member m = blockIdx.y
@@ -362,11 +352,11 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
   out[m * n + i] = from_f32<T>(s);
 }
 
-template <typename T, bool VX, bool VDY>
+template <bool VX, bool VDY>
 cudaError_t launch_partials(const WgradArgs& p, int S, int device,
                             cudaStream_t st) {
-  constexpr int BK = WgradBK<T>::value;
-  constexpr int CH = kRowBytes / static_cast<int>(sizeof(T));
+  constexpr int BK = kWgradBK;
+  constexpr int CH = kRowBytes / 2;
   int optin = 0;
   cudaError_t err = smem_optin(device, &optin);
   if (err != cudaSuccess) return err;
@@ -374,7 +364,7 @@ cudaError_t launch_partials(const WgradArgs& p, int S, int device,
       128LL + kStages * static_cast<long long>(slot_bytes<BK>(p.halo_rows)) +
       kRowBytes;
   if (bytes > optin) return cudaErrorInvalidValue;  // images too wide
-  auto kernel = wgrad_partial_kernel<T, VX, VDY>;
+  auto kernel = wgrad_partial_kernel<VX, VDY>;
   // the whole opt-in size once per device, on the first launch (which
   // callers make outside any CUDA-graph capture): the halo depends on W
   static std::atomic<bool> opted[kMaxDevices];
@@ -791,16 +781,302 @@ cudaError_t launch_tma_partials(const void* x, const void* dy, float* ws,
   }
 }
 
+// ------------------------------------------------------------- f32 path
+
+constexpr int kF32TapWarps = 9;
+constexpr int kF32WThreads = 32 * kF32TapWarps;
+constexpr int kF32Ci = 32;        // Cin channels of a block
+constexpr int kF32Co = 32;        // Cout channels of a block
+constexpr int kF32MaxFold = 4;    // channels past the last whole 32 folded
+constexpr int kF32BK = 64;        // pixels a K step (ops/conv3x3.py)
+constexpr int kF32XRow = kRowBytes + 16;  // a halo row: 32 channels, then
+                                          // the folded ones
+constexpr int kF32DyRow = kF32Co * 4;     // bytes of a dy row
+
+struct WgradF32Args {
+  const float* x;   // (S, N, H, W, Cin)
+  const float* dy;  // (S, N, H, W, Cout)
+  float* ws;        // (S, splits, 9, Cin, Cout) partial sums
+  int N, H, W, Cin, Cout;  // N images a member
+  int splits, steps, halo_rows, stages;  // a member's
+  int nci;      // Cin blocks
+  int vx, vdy;  // 16-byte copies of x, of dy
+};
+
+// Cin channels folded into the last whole block: what is past the last
+// whole 32, if at most kF32MaxFold and a whole block exists
+__host__ __device__ __forceinline__ int wgrad_f32_fold(int cin) {
+  const int rem = cin % kF32Ci;
+  return cin > kF32Ci && rem <= kF32MaxFold ? rem : 0;
+}
+
+// the bytes of one ring slot: halo rows, then dy rows
+__host__ __device__ __forceinline__ int wgrad_f32_slot(int halo_rows) {
+  return halo_rows * kF32XRow + kF32BK * kF32DyRow;
+}
+
+// blockIdx = (Cin block, Cout block, member * splits + split), as the bf16
+// split-K path; warp t sums tap t.  FOLD: the folded channels Cin - FOLD
+// .. Cin - 1, summed by every tap warp of the last Cin block from the 16
+// bytes past each halo row's 32 channels (its four lanes of a Cout group
+// alike: lane lm == 0 writes).
+template <int FOLD>
+__global__ void __launch_bounds__(kF32WThreads, 2)
+wgrad_f32_kernel(WgradF32Args p) {
+  extern __shared__ __align__(128) char smem_raw[];
+  char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const int R = p.halo_rows;
+  const int slot = wgrad_f32_slot(R);
+  const uint32_t s_ring = smem_u32(smem);
+  const uint32_t s_zero = s_ring + p.stages * slot;  // a zero halo row
+
+  const int member = static_cast<int>(blockIdx.z) / p.splits;
+  const int split = static_cast<int>(blockIdx.z) - member * p.splits;
+  const int HW = p.H * p.W;
+  const int P = p.N * HW;
+  const float* x = p.x + static_cast<size_t>(member) * P * p.Cin;
+  const float* dy = p.dy + static_cast<size_t>(member) * P * p.Cout;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tap = tid >> 5;
+  const int lm = lane & 3, ln = lane >> 2;
+  const int c0 = blockIdx.x * kF32Ci;
+  const int n0 = blockIdx.y * kF32Co;
+  const int f0 = p.Cin - FOLD;          // the first folded channel
+  const int cw = min(kF32Ci, f0 - c0);  // the block's whole-32 channels
+  const int nw = min(kF32Co, p.Cout - n0);
+  const bool folds = FOLD > 0 && static_cast<int>(blockIdx.x) == p.nci - 1;
+  const int g0 = static_cast<int>(static_cast<long long>(p.steps) * split /
+                                  p.splits);
+  const int nsteps = static_cast<int>(static_cast<long long>(p.steps) *
+                                      (split + 1) / p.splits) - g0;
+
+  if (tid < kF32XRow / 16)
+    reinterpret_cast<uint4*>(smem + (s_zero - s_ring))[tid] =
+        make_uint4(0, 0, 0, 0);
+
+  // halo row q is pixel k0 - W - 1 + q; dy row r is pixel k0 + r, zeros
+  // past the member's pixels
+  auto load_stage = [&](int g, int sl) {
+    const uint32_t sh = s_ring + sl * slot;
+    const uint32_t sd = sh + R * kF32XRow;
+    const int k0 = g * kF32BK;
+    const int q0 = k0 - p.W - 1;
+    if (p.vx) {
+      const int ch = tid & 7;
+      for (int q = tid >> 3; q < R; q += kF32WThreads / 8) {
+        const int pix = q0 + q;
+        const bool ok = pix >= 0 && pix < P && ch * 4 < cw;
+        const float* src =
+            ok ? x + static_cast<size_t>(pix) * p.Cin + c0 + ch * 4 : x;
+        cp_async16(sh + q * kF32XRow + ch * 16, src, ok);
+      }
+    } else {
+      for (int q = tap; q < R; q += kF32TapWarps) {
+        const int pix = q0 + q;
+        const bool ok = pix >= 0 && pix < P;
+        if (lane < cw)
+          cp_async4(sh + q * kF32XRow + lane * 4,
+                    ok ? x + static_cast<size_t>(pix) * p.Cin + c0 + lane : x,
+                    ok);
+      }
+    }
+    if (folds) {
+      for (int q = tid; q < R; q += kF32WThreads) {
+        const int pix = q0 + q;
+        const bool ok = pix >= 0 && pix < P;
+#pragma unroll
+        for (int f = 0; f < FOLD; ++f)
+          cp_async4(sh + q * kF32XRow + kRowBytes + f * 4,
+                    ok ? x + static_cast<size_t>(pix) * p.Cin + f0 + f : x,
+                    ok);
+      }
+    }
+    if (p.vdy) {
+      for (int i = tid; i < kF32BK * 8; i += kF32WThreads) {
+        const int r = i >> 3, ch = i & 7;
+        const int pix = k0 + r;
+        const bool ok = pix < P && ch * 4 < nw;
+        const float* src =
+            ok ? dy + static_cast<size_t>(pix) * p.Cout + n0 + ch * 4 : dy;
+        cp_async16(sd + r * kF32DyRow + ch * 16, src, ok);
+      }
+    } else {
+      for (int r = tap; r < kF32BK; r += kF32TapWarps) {
+        const int pix = k0 + r;
+        const bool ok = pix < P;
+        for (int c = lane; c < nw; c += 32)
+          cp_async4(sd + r * kF32DyRow + c * 4,
+                    ok ? dy + static_cast<size_t>(pix) * p.Cout + n0 + c : dy,
+                    ok);
+      }
+    }
+  };
+
+  // acc[i][j]: Cin c0 + 4lm + i (i < 4) or c0 + 16 + 4lm + i - 4, Cout n0 +
+  // 4ln + j; accf[f][j]: Cin f0 + f
+  float acc[8][4];
+  float accf[FOLD > 0 ? FOLD : 1][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][j] = 0.0f;
+#pragma unroll
+    for (int f = 0; f < (FOLD > 0 ? FOLD : 1); ++f) accf[f][j] = 0.0f;
+  }
+  const int kh = tap / 3, kw = tap - kh * 3;
+
+  // K step g in slot sl; F: the folded channels this block sums
+  auto compute = [&](int g, int sl, auto fold) {
+    constexpr int F = decltype(fold)::value;
+    // bit r of the masks: tap `tap`'s source pixel of pixel k0 + r lies
+    // inside its image (pixels 0-31, 32-63)
+    unsigned mask[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pix = g * kF32BK + 32 * h + lane;
+      bool ok = false;
+      if (pix < P) {
+        const int rem = pix % HW;
+        const int ih = rem / p.W + kh - 1;
+        const int iw = rem - (rem / p.W) * p.W + kw - 1;
+        ok = ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
+      }
+      mask[h] = __ballot_sync(0xffffffffu, ok);
+    }
+    const uint32_t sh = s_ring + sl * slot;
+    const uint32_t xrow = sh + (kh * p.W + kw) * kF32XRow + lm * 16;
+    const uint32_t zrow = s_zero + lm * 16;
+    const uint32_t drow = sh + R * kF32XRow + ln * 16;
+#pragma unroll 2
+    for (int r = 0; r < kF32BK; ++r) {
+      const unsigned bits = r < 32 ? mask[0] : mask[1];
+      const uint32_t xa = (bits >> (r & 31)) & 1u ? xrow + r * kF32XRow : zrow;
+      const float4 a0 = lds128(xa);
+      const float4 a1 = lds128(xa + 64);
+      const float4 b0 = lds128(drow + r * kF32DyRow);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      if constexpr (F > 0) {
+        const float4 v = lds128(xa - lm * 16 + kRowBytes);
+        const float fv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            accf[f][j] = fmaf(fv[f], bv[j], accf[f][j]);
+      }
+    }
+  };
+
+  const int PD = p.stages - 1;  // steps loaded ahead: 1 or 2
+  for (int s = 0; s < PD; ++s) {
+    if (s < nsteps) load_stage(g0 + s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nsteps; ++kt) {
+    cp_async_wait_upto(PD - 1);
+    // step kt has landed for every thread; the slot refilled below was
+    // last read by step kt - 1, which every warp has finished
+    __syncthreads();
+    const int next = kt + PD;
+    if (next < nsteps) load_stage(g0 + next, next % p.stages);
+    cp_async_commit();
+    if (folds)
+      compute(g0 + kt, kt % p.stages, std::integral_constant<int, FOLD>());
+    else
+      compute(g0 + kt, kt % p.stages, std::integral_constant<int, 0>());
+  }
+  cp_async_wait<0>();
+
+  const size_t tap_stride = static_cast<size_t>(p.Cin) * p.Cout;
+  float* ws = p.ws + (static_cast<size_t>(blockIdx.z) * 9 + tap) * tap_stride;
+  const bool vec = (p.Cout & 3) == 0;
+  // row ci of this lane's Cout columns n0 + 4ln .. + 3 from v
+  auto write = [&](int ci, const float (&v)[4]) {
+    const int co = n0 + 4 * ln;
+    float* dst = ws + static_cast<size_t>(ci) * p.Cout + co;
+    if (vec && co + 4 <= p.Cout) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (co + j < p.Cout) dst[j] = v[j];
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ci = (i < 4 ? 4 * lm + i : 16 + 4 * lm + i - 4);
+    if (ci < cw) write(c0 + ci, acc[i]);
+  }
+  if (folds && lm == 0) {
+#pragma unroll
+    for (int f = 0; f < (FOLD > 0 ? FOLD : 1); ++f) write(f0 + f, accf[f]);
+  }
+}
+
+template <int FOLD>
+cudaError_t launch_f32_fold(const WgradF32Args& p, int S, long long bytes,
+                            int device, int optin, cudaStream_t st) {
+  auto kernel = wgrad_f32_kernel<FOLD>;
+  static std::atomic<bool> opted[kMaxDevices];
+  if (!opted[device].load(std::memory_order_relaxed)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    opted[device].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid(p.nci, (p.Cout + kF32Co - 1) / kF32Co, S * p.splits);
+  kernel<<<grid, kF32WThreads, static_cast<size_t>(bytes), st>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32_partials(const void* x, const void* dy, float* ws,
+                                int S, int N, int H, int W, int Cin, int Cout,
+                                int splits, int stages, int device,
+                                cudaStream_t st) {
+  const long long P = static_cast<long long>(N) * H * W;
+  if (P + kF32BK + 2LL * W + 2 >= (1LL << 31) || stages < 2 || stages > 3)
+    return cudaErrorInvalidValue;
+  const int fold = wgrad_f32_fold(Cin);
+  const int R = kF32BK + 2 * W + 2;
+  const WgradF32Args p{
+      static_cast<const float*>(x), static_cast<const float*>(dy), ws, N, H,
+      W, Cin, Cout, splits, static_cast<int>((P + kF32BK - 1) / kF32BK), R,
+      stages, (Cin - fold + kF32Ci - 1) / kF32Ci,
+      Cin % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0,
+      Cout % 4 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0};
+  // members and their splits share grid dimension z (at most 65,535)
+  if (splits > p.steps || static_cast<long long>(S) * splits > 65535)
+    return cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err = smem_optin(device, &optin);
+  if (err != cudaSuccess) return err;
+  const long long bytes =
+      128LL + static_cast<long long>(stages) * wgrad_f32_slot(R) + kF32XRow;
+  if (bytes > optin) return cudaErrorInvalidValue;  // images too wide
+  switch (fold) {
+    case 0: return launch_f32_fold<0>(p, S, bytes, device, optin, st);
+    case 1: return launch_f32_fold<1>(p, S, bytes, device, optin, st);
+    case 2: return launch_f32_fold<2>(p, S, bytes, device, optin, st);
+    case 3: return launch_f32_fold<3>(p, S, bytes, device, optin, st);
+    default: return launch_f32_fold<4>(p, S, bytes, device, optin, st);
+  }
+}
+
 // ------------------------------------------------------------ the launch
 
-enum WgradPath { kPathSplitK = 0, kPathTma = 1 };  // wgrad_plan's paths
+enum WgradPath { kPathSplitK = 0, kPathTma = 1, kPathF32 = 2 };  // wgrad_plan's
 
-template <typename T>
 cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int S,
                            int N, int H, int W, int Cin, int Cout, int splits,
                            int device, cudaStream_t st) {
-  constexpr int BK = WgradBK<T>::value;
-  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  constexpr int BK = kWgradBK;
+  constexpr int E = 8;  // bf16 elements a 16-byte chunk
   const long long P = static_cast<long long>(N) * H * W;
   if (P + BK + 2LL * W + 2 >= (1LL << 31)) return cudaErrorInvalidValue;
   const WgradArgs p{x, dy, ws, N, H, W, Cin, Cout, splits,
@@ -811,10 +1087,10 @@ cudaError_t launch_split_k(const void* x, const void* dy, float* ws, int S,
   const bool vx = Cin % E == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool vdy =
       Cout % E == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  if (vx && vdy) return launch_partials<T, true, true>(p, S, device, st);
-  if (vx) return launch_partials<T, true, false>(p, S, device, st);
-  if (vdy) return launch_partials<T, false, true>(p, S, device, st);
-  return launch_partials<T, false, false>(p, S, device, st);
+  if (vx && vdy) return launch_partials<true, true>(p, S, device, st);
+  if (vx) return launch_partials<true, false>(p, S, device, st);
+  if (vdy) return launch_partials<false, true>(p, S, device, st);
+  return launch_partials<false, false>(p, S, device, st);
 }
 
 template <typename T>
@@ -829,16 +1105,18 @@ cudaError_t launch_wgrad(const void* x, const void* dy, float* ws, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (path == kPathTma) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (kF32 && path == kPathF32 && rows == kF32BK && cluster == 1) {
+    err = launch_f32_partials(x, dy, ws, S, N, H, W, Cin, Cout, splits,
+                              stages, device, st);
+  } else if (!kF32 && path == kPathTma && S == 1) {
     // one member a launch: the tensor maps cover one member's images
-    if (!std::is_same<T, __nv_bfloat16>::value || S != 1)
-      return cudaErrorInvalidValue;
     err = launch_tma_partials(x, dy, ws, N, H, W, Cin, Cout, splits, rows,
                               stages, cluster, device, st);
-  } else if (path == kPathSplitK && rows == WgradBK<T>::value &&
+  } else if (!kF32 && path == kPathSplitK && rows == kWgradBK &&
              cluster == 1) {
-    err = launch_split_k<T>(x, dy, ws, S, N, H, W, Cin, Cout, splits, device,
-                            st);
+    err = launch_split_k(x, dy, ws, S, N, H, W, Cin, Cout, splits, device,
+                         st);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -7,8 +7,9 @@
 // image is 128 KB in bf16, so y, k1, the stage input and k2 do not fit in a
 // block's 227 KB of shared memory, and the 3x3x128x128 weights alone are
 // 288 KB in bf16.  So the solve runs as launches of the implicit-GEMM conv
-// of conv3x3.cuh with an epilogue each, in the order ops/ode_block.py's
-// launch schedule gives.  In the RHS, h and the stage input are only ever
+// of conv3x3.cuh (bf16) or conv3x3_f32.cuh (f32, on the plan the wrapper
+// passes) with an epilogue each, in the order ops/ode_block.py's launch
+// schedule gives.  In the RHS, h and the stage input are only ever
 // used through gelu, so each epilogue writes the gelu'd value and every conv
 // is a plain GEMM:
 //   0. gy  = T(gelu(y0))                      elementwise, once per solve
@@ -29,7 +30,7 @@
 // rate, against 67 MB of bf16 state (y read once, y written once, 0.02 ms).
 // It is bound by operations.  Each launch round-trips gh, k1 and the gelu'd
 // state through device memory, which the 50 MB L2 holds only in part.
-#include "conv3x3.cuh"
+#include "conv3x3_f32.cuh"
 
 namespace {
 
@@ -59,20 +60,15 @@ cudaError_t launch_gelu(const void* x, void* out, long long n, int device,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_stage(int epilogue, const nodems::ConvArgs& p, int device,
-                         void* stream) {
-  using namespace nodems;
-  switch (epilogue) {
-    case kGelu:
-      return launch_conv3x3<T, kGelu>(p, device, stream);
-    case kStage1:
-      return launch_conv3x3<T, kStage1>(p, device, stream);
-    case kStage2:
-      return launch_conv3x3<T, kStage2>(p, device, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int EPI>
+cudaError_t launch_epi(int dtype, const nodems::ConvArgs& p,
+                       const nodems::F32Plan& plan, int device,
+                       void* stream) {
+  if (dtype == NODEMS_F32)
+    return nodems::launch_conv3x3_f32<EPI>(p, plan, device, stream);
+  if (dtype == NODEMS_BF16)
+    return nodems::launch_conv3x3_bf16<EPI>(p, device, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -87,17 +83,29 @@ extern "C" int ode_block_rk2_gelu_launch(int dtype, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
-// Steps 1-4: one conv with epilogue kGelu, kStage1 or kStage2.
+// Steps 1-4: one conv with epilogue kGelu, kStage1 or kStage2.  f32 runs
+// the plan (path, rows, cols, ksplit, stages) of
+// ops/conv3x3.py::conv3x3_f32_plan; bf16 ignores those five arguments.
 extern "C" int ode_block_rk2_conv_launch(int dtype, int epilogue,
                                          const void* x, const void* w,
                                          void* out, const void* y, void* k1,
                                          void* aux, int N, int H, int W,
                                          int C, float a, float b1, float b2,
-                                         int device, void* stream) {
-  const nodems::ConvArgs p{x, w, out, y, static_cast<float*>(k1), aux,
-                           N, H, W, C, C, a, b1, b2};
-  if (dtype == NODEMS_F32) return launch_stage<float>(epilogue, p, device, stream);
-  if (dtype == NODEMS_BF16)
-    return launch_stage<__nv_bfloat16>(epilogue, p, device, stream);
-  return cudaErrorInvalidValue;
+                                         int path, int rows, int cols,
+                                         int ksplit, int stages, int device,
+                                         void* stream) {
+  using namespace nodems;
+  const ConvArgs p{x, w, out, y, static_cast<float*>(k1), aux,
+                   N, H, W, C, C, a, b1, b2};
+  const F32Plan plan{path, rows, cols, ksplit, stages};
+  switch (epilogue) {
+    case kGelu:
+      return launch_epi<kGelu>(dtype, p, plan, device, stream);
+    case kStage1:
+      return launch_epi<kStage1>(dtype, p, plan, device, stream);
+    case kStage2:
+      return launch_epi<kStage2>(dtype, p, plan, device, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

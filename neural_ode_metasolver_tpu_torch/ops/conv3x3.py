@@ -2,11 +2,13 @@
 backward.
 
 Port of ``ops/pallas_im2col.py::conv3x3_im2col_gemm``.  The CUDA kernel
-(``csrc/conv3x3.cu`` over ``csrc/conv3x3.cuh``) runs the TPU kernel's GEMM,
-(N*H*W, 9*Cin) x (9*Cin, Cout), as an implicit GEMM: each K step's patch
-rows are gathered straight into shared memory, so the 9x im2col matrix is
-never formed.  bf16 products run on the tensor cores (``wgmma``), f32 ones
-as full-f32 FMAs; sums are f32 and the output is rounded once.
+(``csrc/conv3x3.cu``) runs the TPU kernel's GEMM, (N*H*W, 9*Cin) x (9*Cin,
+Cout), as an implicit GEMM: each block's source pixels are copied straight
+into shared memory, so the 9x im2col matrix is never formed.  bf16 products
+run on the tensor cores (``wgmma``, ``csrc/conv3x3.cuh``, which picks its
+path itself); f32 ones as full-f32 FMAs (``csrc/conv3x3_f32.cuh``) on the
+tile ``conv3x3_f32_plan`` picks, which the C entry point checks; sums are
+f32 and the output is rounded once.
 
 ``conv3x3_same`` is differentiable.  When a gradient can flow it is the
 apply of an ``autograd.Function`` whose backward runs only what
@@ -17,8 +19,8 @@ apply of an ``autograd.Function`` whose backward runs only what
   * wgrad, dW[kh, kw, ci, co] = sum over (n, h, w) of x[n, h+kh-1, w+kw-1,
     ci] * dy[n, h, w, co], zero-padded: ``csrc/conv3x3_wgrad.cu``, counted
     as ``conv3x3_wgrad``, on the path ``wgrad_plan`` picks: TMA boxes and
-    ``wgmma`` (bf16, channels and W multiples of 8) or split-K with
-    ``mma.sync`` / f32 FMAs.
+    ``wgmma`` (bf16, channels and W multiples of 8), split-K with
+    ``mma.sync`` (other bf16), or the f32 path's FMAs.
 The Pallas kernel has no VJP (JAX differentiates XLA's conv); these are the
 backward the port's training path needs.
 
@@ -31,15 +33,16 @@ Cin, Cout) and x (S, N, H, W, Cin), member m's images meet w[m].  The
 forward, the dgrad (flipped w[m]) and the split-K wgrad (output (S, 3, 3,
 Cin, Cout), each member reduced over its own images) are then one launch
 for all S members, grid dimension z the member: each member's blocks are
-a single launch's on its slice, so its output is bit-equal to that
-launch's, and the count is one a launch.  The TMA wgrad takes one member a
+a single launch's on its slice (every plan is a single run's: it never
+reads S), so its output is bit-equal to that launch's, and the count is
+one a launch.  The TMA wgrad takes one member a
 launch (its tensor maps cover one member's images): S launches, counted.
 The plain versions loop over the members.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,18 +52,28 @@ from .. import _build, backend
 
 __all__ = ["conv3x3_same", "conv3x3_dgrad", "conv3x3_wgrad",
            "reference_conv3x3", "reference_conv3x3_wgrad", "flip_weights",
-           "WgradPlan", "wgrad_plan", "run_wgrad_plan", "conv3x3_path",
-           "CONV_PATHS", "conv3x3_f32"]
+           "ConvF32Plan", "conv3x3_f32_plan", "run_conv3x3_f32_plan",
+           "WgradPlan", "wgrad_plan", "run_wgrad_plan",
+           "run_wgrad_f32_plan", "conv3x3_path", "CONV_PATHS",
+           "conv3x3_f32"]
 
 KERNEL_NAME = "conv3x3_same"
 DGRAD_NAME = "conv3x3_dgrad"
 WGRAD_NAME = "conv3x3_wgrad"
 
-# pixels per K step of the wgrad kernel's split-K path, by dtype
-# (csrc/conv3x3_wgrad.cu)
-WGRAD_BK = {torch.float32: 64, torch.bfloat16: 128}
+# pixels per K step of the wgrad kernel's bf16 split-K path and of its f32
+# path (csrc/conv3x3_wgrad.cu)
+WGRAD_BK = 128
+WGRAD_F32_BK = 64
+# the f32 path: Cin and Cout channels of a block, channels past the last
+# whole 32 that its block folds in, and the fewest K steps a range keeps
+# (fewer ranges, fewer partials to add)
+WGRAD_F32_CI = 32
+WGRAD_F32_CO = 32
+WGRAD_F32_MAX_FOLD = 4
+WGRAD_F32_MIN_STEPS = 3
 # the wgrad paths, by their code in the C entry point
-WGRAD_PATHS = ("split_k", "tma")
+WGRAD_PATHS = ("split_k", "tma", "f32")
 # the TMA path: pixels a K step aims at, its k16 slices (the kernel's
 # instances), channels per block and operand, ring slots, the blocks of a
 # cluster that sum their splits in shared memory, and an H100 block's
@@ -71,8 +84,25 @@ TMA_CHANNELS = 64
 TMA_MAX_STAGES = 4
 TMA_CLUSTER = 2
 SMEM_OPTIN = 232448
-# B1's kernels, by the code of csrc/conv3x3.cuh's ConvPath
-CONV_PATHS = ("gather", "gather_elements", "halo", "halo_narrow")
+# B1's kernels, by the code of csrc/conv3x3.cuh's ConvPath: bf16's four,
+# then the f32 core's two halo layouts
+CONV_PATHS = ("gather", "gather_elements", "halo", "halo_narrow",
+              "f32_halo", "f32_bands")
+# The f32 core (csrc/conv3x3_f32.cuh): threads a block, output rows a block
+# (most first), channels a halo row, channels past the whole chunks that
+# one step of nine taps takes, B rows a ring slot, bytes of a row of 32 f32
+# channels and of a halo row
+F32_THREADS = 128
+F32_ROWS = (128, 64, 32)
+F32_CHUNK = 32
+F32_MAX_TAIL = 4
+F32_SLOT_ROWS = 9 * F32_MAX_TAIL
+ROW_BYTES = 128
+F32_HALO_ROW = ROW_BYTES + 16  # a halo row of 32 f32 channels, padded
+# an H100 SM's shared memory and what each block reserves of it: the f32
+# core's tiles of 128 rows and of 72 columns run two blocks an SM, the
+# other K-split ones three (csrc/conv3x3_f32.cuh::f32_blocks_per_sm)
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
 # members a launch holds: they run on grid dimension z (the split-K wgrad
 # shares it with the splits), which CUDA caps at 65,535
 MAX_GRID_Z = 65535
@@ -108,6 +138,106 @@ def flip_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(-4, -3).transpose(-2, -1).contiguous()
 
 
+class ConvF32Plan(NamedTuple):
+    """How the f32 core runs a conv: ``path`` "f32_halo" (the block's
+    contiguous source pixels, m0-W-1 .. m0+BM+W) or "f32_bands" (three bands
+    of rows + 2 pixels, for W > rows + 2); ``rows`` output pixels a block
+    (BM); ``cols`` output channels a block (64, or 72 for Cout 65 to 72:
+    one tile, no second for the 65th); ``ksplit`` warps summing shares of K
+    for the same rows (128 / rows), added in share order; ``stages`` ring
+    slots of weight rows."""
+    path: str
+    rows: int
+    cols: int
+    ksplit: int
+    stages: int
+
+
+def _f32_chunks(cin: int):
+    """(K chunks stepped tap by tap, channels after them taken in one step
+    of nine taps): channels past the last whole 32 go to that one step when
+    they are at most ``F32_MAX_TAIL`` (MNIST's 65th), else to a short
+    chunk."""
+    rem = cin % F32_CHUNK
+    tail = rem if rem <= F32_MAX_TAIL else 0
+    return -(-(cin - tail) // F32_CHUNK), tail
+
+
+def _f32_smem(w: int, cin: int, rows: int, cols: int, ksplit: int,
+              stages: int) -> int:
+    """Dynamic shared memory of the f32 core (csrc/conv3x3_f32.cuh::
+    f32_plan_geom): the weight ring, one or two halos of rows + 2 + 2S rows,
+    the zero row and the halo rows' pixels, or the K shares' staged sums
+    where larger."""
+    band = min(w, rows + 2)
+    halo = rows + 2 + 2 * band
+    nmain, tail = _f32_chunks(cin)
+    nbuf = 2 if nmain + (tail > 0) > 1 else 1
+    ring = stages * F32_SLOT_ROWS * cols * 4 + nbuf * halo * F32_HALO_ROW \
+        + ROW_BYTES + 4 * halo
+    part = ksplit * rows * (cols + 4) * 4
+    return 128 + max(ring, part)
+
+
+def conv3x3_f32_plan(n: int, h: int, w: int, cin: int, cout: int,
+                     sms: int) -> ConvF32Plan:
+    """The f32 core's launch plan, from one run's shapes and the SM count
+    (never the member count: a member-batched launch runs each member on a
+    single run's blocks).  ``cols`` 72 where Cout is 65 to 72, else 64.
+    ``rows``: 128 where those blocks fill the SMs twice over (two blocks an
+    SM: at 64 sums a thread, fewer leave SM sub-partitions without a warp);
+    else 32 with K in four shares where 64-column blocks still give every
+    SM two (MNIST's 6x6 at batch 256: three fit an SM); else 64 with K in
+    two shares (MNIST at batch 128, and every fleet member: half the weight
+    copies and share sums of 32 rows, at no cost while the SMs are not
+    full anyway).  The bands where W > rows + 2; the most ring slots, up
+    to 4, with which the tile's blocks an SM still fit, at least 2."""
+    cols = 72 if 64 < cout <= 72 else 64
+    tiles_n = -(-cout // cols)
+    m = n * h * w
+    rows = (128 if -(-m // 128) * tiles_n >= 2 * sms else
+            32 if cols == 64 and -(-m // 32) * tiles_n >= 2 * sms else 64)
+    ksplit = F32_THREADS // rows
+    fit = SM_SMEM // (3 if ksplit > 1 and cols == 64 else 2) \
+        - BLOCK_RESERVED
+    stages = next((s for s in (4, 3)
+                   if _f32_smem(w, cin, rows, cols, ksplit, s) <= fit), 2)
+    return ConvF32Plan("f32_halo" if w <= rows + 2 else "f32_bands", rows,
+                       cols, ksplit, stages)
+
+
+def run_conv3x3_f32_plan(x: torch.Tensor, w: torch.Tensor,
+                         plan: ConvF32Plan) -> torch.Tensor:
+    """The f32 core's decomposition in plain torch, at least f32: K in
+    chunks of 32 channels (a short last one where more than
+    ``F32_MAX_TAIL`` remain), a chunk tap by tap, each tap's slabs of 4
+    channels dealt to the ``ksplit`` shares in turn; the channels past the
+    whole chunks (at most ``F32_MAX_TAIL``, MNIST's 65th) in one step of
+    nine taps, tap t to share t % ksplit; the shares added in order.  The
+    tiling of M and N does not change a sum.  Rounds once to x's dtype."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    xp = F.pad(_wide(x), (0, 0, 1, 1, 1, 1))
+    a = [xp[:, t // 3:t // 3 + h, t % 3:t % 3 + wd].reshape(-1, cin)
+         for t in range(9)]  # each tap's source pixels, zero outside
+    b = _wide(w).reshape(9, cin, cout)
+    parts = [a[0].new_zeros(a[0].shape[0], cout)
+             for _ in range(plan.ksplit)]
+    nmain, tail = _f32_chunks(cin)
+    for chunk in range(nmain):
+        c0 = chunk * F32_CHUNK
+        c1 = min(c0 + F32_CHUNK, cin - tail)
+        for t in range(9):
+            for sl, k in enumerate(range(c0, c1, 4)):
+                parts[sl % plan.ksplit] += a[t][:, k:k + 4] @ b[t, k:k + 4]
+    for t in range(9 if tail else 0):
+        parts[t % plan.ksplit] += a[t][:, cin - tail:] @ b[t, cin - tail:]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out.reshape(n, h, wd, cout).to(x.dtype)
+
+
 def reference_conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor
                             ) -> torch.Tensor:
     """Plain wgrad: nine (Cin, P) x (P, Cout) products of the zero-padded,
@@ -139,10 +269,31 @@ def _check_shapes(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
                          " or (S,N,H,W,C) and (S,3,3,C,Co)")
 
 
-def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str
-                 ) -> torch.Tensor:
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_args(dtype: torch.dtype, n: int, h: int, w: int, cin: int,
+               cout: int, device: torch.device,
+               plan: Optional[ConvF32Plan] = None):
+    """The five plan arguments of the C entry points: an f32 launch's plan
+    (path code, rows, cols, ksplit, stages), ``conv3x3_f32_plan``'s unless
+    given; zeros for bf16, which picks its path itself."""
+    if dtype != torch.float32:
+        return 0, 0, 0, 0, 0
+    plan = plan or conv3x3_f32_plan(n, h, w, cin, cout, _sms(device))
+    return (CONV_PATHS.index(plan.path), plan.rows, plan.cols, plan.ksplit,
+            plan.stages)
+
+
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str,
+                 plan: Optional[ConvF32Plan] = None,
+                 cout: Optional[int] = None) -> torch.Tensor:
     """Kernel B1 on CUDA tensors (counted under ``name``), the plain version
-    on CPU tensors; one launch for all members."""
+    on CPU tensors; one launch for all members.  ``plan``: an f32 plan other
+    than ``conv3x3_f32_plan``'s (the bench scripts' sweeps).  ``cout``: the
+    output channels, the first of w's columns (f32: w's rows may be padded
+    to a 16-byte stride); all of them by default."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return reference_conv3x3(x, w)
     _build.check_cuda_tensors(name, x.dtype, x=x, w=w)
@@ -151,7 +302,8 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str
         raise ValueError(f"{name}: {s} members exceed grid dimension z "
                          f"({MAX_GRID_Z})")
     n, h, wd, cin = x.shape[-4:]
-    cout = w.shape[-1]
+    ldw = w.shape[-1]
+    cout = ldw if cout is None else cout
     out = torch.empty(x.shape[:-1] + (cout,), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
@@ -159,7 +311,9 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, name: str
     lib = _build.load("conv3x3")
     err = lib.conv3x3_same_launch(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-        out.data_ptr(), s, n, h, wd, cin, cout, x.device.index,
+        out.data_ptr(), s, n, h, wd, cin, cout, ldw,
+        *_plan_args(x.dtype, n, h, wd, cin, cout, x.device, plan),
+        x.device.index,
         _build.stream_handle(x),
     )
     _build.check(lib, err, f"{name} launch")
@@ -177,16 +331,27 @@ def conv3x3_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3_dgrad: dy {tuple(dy.shape)} and w "
                          f"{tuple(w.shape)} are not ([S,]N,H,W,Co), "
                          "([S,]3,3,C,Co)")
+    cin = w.shape[-2]
+    if dy.dtype == torch.float32 and dy.device.type == "cuda" and cin % 4:
+        # the f32 core copies weight rows by 16 bytes: w' in rows padded to
+        # a multiple of 4 columns (MNIST's 65 -> 68), as one copy like
+        # flip_weights'; a padding column only feeds an output column past
+        # cin, which is never written
+        wf = w.new_empty(w.shape[:-2] + (w.shape[-1], cin + -cin % 4))
+        wf[..., :cin].copy_(w.flip(-4, -3).transpose(-2, -1))
+        return _launch_conv(dy, wf, DGRAD_NAME, cout=cin)
     return _launch_conv(dy, flip_weights(w), DGRAD_NAME)
 
 
 class WgradPlan(NamedTuple):
-    """How the wgrad kernel runs a shape: ``path`` "tma" (TMA boxes into a
-    ring, ``wgmma``) or "split_k" (``cp.async`` halo, ``mma.sync`` or f32
-    FMAs); ``splits`` K ranges summed apart, then in order; ``rows`` image
-    rows per K step ("tma") or pixels per K step ("split_k"); ``stages``
-    ring slots; ``cluster`` consecutive splits whose blocks add their sums
-    in shared memory, in rank order, before one partial is written."""
+    """How the wgrad kernel runs a shape: ``path`` "tma" (bf16, TMA boxes
+    into a ring, ``wgmma``), "split_k" (bf16, ``cp.async`` halo,
+    ``mma.sync``) or "f32" (``cp.async`` halo, 8 x 4 FMA sums a lane, the
+    channels past the last whole 32 folded into its block); ``splits`` K
+    ranges summed apart, then in order; ``rows`` image rows per K step
+    ("tma") or pixels per K step; ``stages`` ring slots; ``cluster``
+    consecutive splits whose blocks add their sums in shared memory, in
+    rank order, before one partial is written."""
     path: str
     splits: int
     rows: int
@@ -211,13 +376,25 @@ def wgrad_plan(n: int, h: int, w: int, cin: int, cout: int,
     strides) and W a multiple of 8 (each tap on whole swizzle atoms): a K
     step is ``rows`` image rows, the fewest that make ``TMA_STEP_PIXELS``
     pixels in whole k16 slices (4 to 8 of them), with as many ring slots as
-    fit (at least two), and clusters of ``TMA_CLUSTER`` splits.  Everything
-    else (f32, the stem's Cin 3, MNIST's 65, other widths) takes the split-K
-    path.  Either way K is cut into about one block per SM over the (Cin,
-    Cout) tiles (the TMA path rounds down to whole clusters), at most one
-    range per step.  A fleet's members (n images each) are each cut as a
-    single run is, so their sums keep its order."""
-    ch = 128 // (torch.finfo(dtype).bits // 8)  # channels per 128-byte row
+    fit (at least two), and clusters of ``TMA_CLUSTER`` splits.  Other bf16
+    shapes (the stem's Cin 3, MNIST's 65, other widths) take the split-K
+    path, f32 the f32 path: K steps of ``WGRAD_F32_BK`` pixels, two ring
+    slots (a third bought nothing on the H100: ``scripts/
+    bench_conv_kernels.py --f32-sweep``), blocks of 32 Cin x 32 Cout, the
+    channels past the last whole 32 folded into its block when at most
+    ``WGRAD_F32_MAX_FOLD``.  K is cut into about one block per SM over the
+    (Cin, Cout) tiles (the TMA path rounds down to whole clusters; the f32
+    path, whose blocks fit two an SM, at most two, so one wave holds them),
+    at most one range per step (the f32 path: ``WGRAD_F32_MIN_STEPS``).  A
+    fleet's members (n images each) are each cut as a single run is, so
+    their sums keep its order."""
+    if dtype == torch.float32:
+        fold = _wgrad_f32_fold(cin)
+        tiles = -(-(cin - fold) // WGRAD_F32_CI) * -(-cout // WGRAD_F32_CO)
+        steps = -(-n * h * w // WGRAD_F32_BK)
+        splits = max(1, min(steps, 2 * sms // tiles,
+                            -(-steps // WGRAD_F32_MIN_STEPS)))
+        return WgradPlan("f32", splits, WGRAD_F32_BK, 2, 1)
     if (dtype == torch.bfloat16 and aligned and cin % 8 == 0
             and cout % 8 == 0 and w % 8 == 0 and 0 < w <= 256):
         rows = math.ceil(TMA_STEP_PIXELS / w)
@@ -233,11 +410,17 @@ def wgrad_plan(n: int, h: int, w: int, cin: int, cout: int,
             cluster = TMA_CLUSTER if splits >= TMA_CLUSTER else 1
             return WgradPlan("tma", splits // cluster * cluster, rows, stages,
                              cluster)
-    bk = WGRAD_BK[dtype]
-    tiles = math.ceil(cin / ch) * math.ceil(cout / ch)
-    steps = math.ceil(n * h * w / bk)
+    tiles = math.ceil(cin / 64) * math.ceil(cout / 64)
+    steps = math.ceil(n * h * w / WGRAD_BK)
     return WgradPlan("split_k", max(1, min(steps, math.ceil(sms / tiles))),
-                     bk, 3, 1)
+                     WGRAD_BK, 3, 1)
+
+
+def _wgrad_f32_fold(cin: int) -> int:
+    """Cin channels the f32 path's fold warp sums: those past the last
+    whole 32, if at most ``WGRAD_F32_MAX_FOLD`` and a whole 32 exists."""
+    rem = cin % WGRAD_F32_CI
+    return rem if cin > WGRAD_F32_CI and rem <= WGRAD_F32_MAX_FOLD else 0
 
 
 def _window(img: torch.Tensor, row0: int, col0: int, rows: int
@@ -286,13 +469,51 @@ def run_wgrad_plan(x: torch.Tensor, dy: torch.Tensor, rows: int,
     return out.reshape(3, 3, cin, cout).to(x.dtype)
 
 
+def run_wgrad_f32_plan(x: torch.Tensor, dy: torch.Tensor, splits: int,
+                       bk: int = WGRAD_F32_BK) -> torch.Tensor:
+    """The f32 path's decomposition in plain torch, at least f32: K in
+    steps of ``bk`` pixels cut into ``splits`` ranges, each range's sums
+    apart; in a step, each block's 32 Cin channels (the last whole one with
+    the folded channels as their own product) under each tap, the source
+    pixel zero outside its image; the ranges' partials added in order.
+    Rounds once to x's dtype."""
+    n, h, w, cin = x.shape
+    cout = dy.shape[3]
+    xp = F.pad(_wide(x), (0, 0, 1, 1, 1, 1))
+    a = [xp[:, t // 3:t // 3 + h, t % 3:t % 3 + w].reshape(-1, cin)
+         for t in range(9)]
+    d = _wide(dy).reshape(-1, cout)
+    fold = _wgrad_f32_fold(cin)
+    chunks = [(c, min(c + WGRAD_F32_CI, cin - fold))
+              for c in range(0, cin - fold, WGRAD_F32_CI)]
+    if fold:
+        chunks.append((cin - fold, cin))
+    steps = -(-d.shape[0] // bk)
+    out = None
+    for split in range(splits):
+        acc = d.new_zeros(9, cin, cout)
+        for g in range(steps * split // splits,
+                       steps * (split + 1) // splits):
+            p0, p1 = g * bk, (g + 1) * bk
+            for c0, c1 in chunks:
+                for t in range(9):
+                    acc[t, c0:c1] += a[t][p0:p1, c0:c1].t() @ d[p0:p1]
+        out = acc if out is None else out + acc
+    return out.reshape(3, 3, cin, cout).to(x.dtype)
+
+
 def conv3x3_path(n: int, h: int, w: int, cin: int, cout: int,
                  dtype: torch.dtype, device: torch.device) -> str:
     """The kernel B1 runs for these shapes on a CUDA device (a name of
-    ``CONV_PATHS``), as the C launcher picks it."""
+    ``CONV_PATHS``), as the C launcher takes it: bf16 the path it picks,
+    f32 ``conv3x3_f32_plan``'s, which the launcher must accept."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
     lib = _build.load("conv3x3")
     code = lib.conv3x3_path(_build.DTYPE_CODES[dtype], n, h, w, cin, cout,
-                            torch.device(device).index or 0)
+                            *_plan_args(dtype, n, h, w, cin, cout, device),
+                            device.index)
     if code < 0:
         raise ValueError(f"conv3x3: no path for {(n, h, w, cin, cout)} "
                          f"{dtype}")
@@ -308,10 +529,11 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     The CUDA kernel runs ``wgrad_plan``: it splits K = N*H*W over its
     ranges, writes each range's (or each cluster's) f32 partial sums to a
     workspace and adds them in range order in a second launch: no float
-    atomics, so two calls give the same bits.  One count per call.  On the split-K path a block
-    holds three K steps' input halos (BK + 2 W + 2 pixel rows each), so
-    images wider than about 170 pixels (bf16; 230 in f32) do not fit its
-    shared memory and the launch raises."""
+    atomics, so two calls give the same bits.  One count per call.  On the
+    split-K and f32 paths a block holds two or three K steps' input halos
+    (BK + 2 W + 2 pixel rows each), so images wider than about 170 pixels
+    (bf16) or 340 (f32) do not fit its shared memory and the launch
+    raises."""
     if x.dim() not in (4, 5) or dy.dim() != x.dim() \
             or x.shape[:-1] != dy.shape[:-1]:
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and dy "
@@ -321,8 +543,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return reference_conv3x3_wgrad(x, dy)
     _build.check_cuda_tensors(WGRAD_NAME, x.dtype, x=x, dy=dy)
     n, h, wd, cin = x.shape[-4:]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = wgrad_plan(n, h, wd, cin, dy.shape[-1], x.dtype, sms,
+    plan = wgrad_plan(n, h, wd, cin, dy.shape[-1], x.dtype, _sms(x.device),
                       aligned=x.data_ptr() % 16 == 0
                       and dy.data_ptr() % 16 == 0)
     if x.dim() == 5 and plan.path == "tma":
@@ -338,9 +559,10 @@ def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, plan: WgradPlan
     tensors, one launch for all members (x (S, N, H, W, Cin)); counted.
     The split-K path runs S x splits blocks along grid dimension z, so a
     count above ``MAX_GRID_Z`` raises ValueError, as the C entry point
-    refuses it (the TMA path launches once a member)."""
+    refuses it (the TMA path launches once a member); so does the f32
+    path."""
     s = x.shape[0] if x.dim() == 5 else 1
-    if plan.path == "split_k" and s * plan.splits > MAX_GRID_Z:
+    if plan.path != "tma" and s * plan.splits > MAX_GRID_Z:
         raise ValueError(f"wgrad: {s} members x {plan.splits} splits "
                          f"exceed grid dimension z ({MAX_GRID_Z})")
     n, h, wd, cin = x.shape[-4:]

@@ -7,8 +7,9 @@ b2 = 1/(2u), b1 = 1 - b2, dt = 1/n_steps.  The Pallas kernel kept the whole
 solve of a batch tile in VMEM; on the H100 one image's state does not fit
 in a block's shared memory, so the solve runs as a schedule of launches
 (``launch_schedule``): one elementwise GELU of y0, then four launches per
-step of the implicit-GEMM conv of ``csrc/ode_block_rk2.cu``, each with an
-epilogue that writes the GELU'd value its consumer needs.  A solve of n
+step of the implicit-GEMM conv of ``csrc/ode_block_rk2.cu`` (f32: the
+core of ``csrc/conv3x3_f32.cuh`` on ``conv3x3_f32_plan``'s tile), each with
+an epilogue that writes the GELU'd value its consumer needs.  A solve of n
 steps is 4 n + 1 launches, each counted.
 
 Rounding points are the Pallas kernel's, in the kernel and in the plain
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build, backend
-from .conv3x3 import conv3x3_f32
+from .conv3x3 import _plan_args, conv3x3_f32
 
 __all__ = ["ode_block_rk2_forward", "reference_ode_block_rk2",
            "launch_schedule", "run_schedule", "plain_launch", "Launch"]
@@ -171,6 +172,7 @@ def _cuda_launcher(y0: torch.Tensor) -> LaunchFn:
     dev = y0.device.index
     stream = _build.stream_handle(y0)
     n, h, wd, c = y0.shape
+    plan = _plan_args(y0.dtype, n, h, wd, c, c, y0.device)  # f32's plan
 
     def launch(l, bufs, weights, b1, b2):
         if l.op == "gelu":
@@ -185,7 +187,7 @@ def _cuda_launcher(y0: torch.Tensor) -> LaunchFn:
                 bufs[l.y].data_ptr() if l.y else None,
                 bufs["k1"].data_ptr(),
                 bufs[l.aux].data_ptr() if l.aux else None,
-                n, h, wd, c, l.a, b1, b2, dev, stream)
+                n, h, wd, c, l.a, b1, b2, *plan, dev, stream)
         _build.check(lib, err, f"ode_block_rk2 {l.op} launch")
         backend.count_launch(KERNEL_NAME)
 

@@ -336,7 +336,7 @@ def test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 32, 32, 64, 64), (256, 16, 16, 128, 128),
                                    (5, 7, 9, 3, 72), (256, 32, 32, 64, 64),
-                                   (3, 8, 24, 64, 128)])
+                                   (3, 8, 24, 64, 128), (128, 6, 6, 65, 64)])
 def test_conv3x3_wgrad_kernel_repeats_its_bits(dev, dtype, shape):
     """Fixed-order sums of the K ranges: two launches, the same bits."""
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_wgrad
@@ -384,7 +384,8 @@ def test_conv3x3_wgrad_kernel_pins_each_tap(dev, n, h, w, kind):
 def test_conv3x3_paths_on_the_card(dev):
     """The path B1's launcher takes: the stem's 64 -> 3 dgrad and any Cout
     under 16 with Cin a multiple of 64 on the narrow halo kernel, the
-    train step's other convs on the wide one."""
+    train step's other convs on the wide one; f32 on the f32 core's
+    halo."""
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_path
 
     bf = torch.bfloat16
@@ -396,8 +397,181 @@ def test_conv3x3_paths_on_the_card(dev):
     assert conv3x3_path(2, 8, 8, 64, 16, bf, dev) == "halo"
     assert conv3x3_path(256, 32, 32, 3, 64, bf, dev) == "gather_elements"
     assert conv3x3_path(256, 32, 32, 64, 3, torch.float32, dev) \
-        == "gather_elements"
+        == "f32_halo"
     assert conv3x3_path(1, 2, 720, 64, 64, bf, dev) == "gather"
+
+
+# ------------------------------------------- the f32 core and f32 wgrad
+# Forward shapes (N, H, W, Cin, Cout); each runs B1, its dgrad (Cout ->
+# Cin) and the wgrad.  f32 bars: B1 and the dgrad 1e-4 of the largest
+# output, the wgrad 1e-5 (sums in another order only).
+F32_SHAPES = [
+    (2, 6, 6, 65, 64),     # MNIST's ConcatConv2d: the 65th channel's step;
+                           # its dgrad 64 -> 65 on one 72-wide tile
+    (4, 1, 1, 65, 64),     # 1x1: only the centre tap inside the image
+    (3, 13, 13, 1, 64),    # Cin 1 and 3: the nine-tap step alone
+    (3, 13, 13, 3, 64),
+    (2, 26, 26, 33, 64),   # Cin 33: a whole chunk and one channel folded
+    (1, 6, 6, 129, 64),    # Cin 129: four chunks and one channel
+    (2, 13, 13, 64, 1),    # Cout 1 and 3 (the dgrad's Cin 1 and 3)
+    (2, 13, 13, 64, 3),
+    (2, 26, 26, 40, 65),   # a short chunk of 8 channels; Cout 65
+    (2, 32, 32, 64, 64),
+    (1, 3, 150, 36, 8),    # W > rows + 2: the bands; Cin 36 folds 4
+]
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_f32_core_and_wgrad_match_plain(dev, shape):
+    """B1's f32 core forward and dgrad, each on the path its plan names,
+    and the f32 wgrad on its plan, against their plain versions."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_dgrad,
+        conv3x3_f32_plan,
+        conv3x3_path,
+        conv3x3_same,
+        conv3x3_wgrad,
+        flip_weights,
+        reference_conv3x3,
+        reference_conv3x3_wgrad,
+        wgrad_plan,
+    )
+
+    f32 = torch.float32
+    n, h, w, cin, cout = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for ci, co in ((cin, cout), (cout, cin)):
+        assert conv3x3_path(n, h, w, ci, co, f32, dev) == \
+            conv3x3_f32_plan(n, h, w, ci, co, sms).path
+    assert wgrad_plan(n, h, w, cin, cout, f32, sms).path == "f32"
+    x = _randn((n, h, w, cin), 1.0, 0, dev, f32)
+    k = _randn((3, 3, cin, cout), (9 * cin) ** -0.5, 1, dev, f32)
+    dy = _randn((n, h, w, cout), 1.0, 2, dev, f32)
+    reset_launch_counts()
+    y, dx, dw = (conv3x3_same(x, k), conv3x3_dgrad(dy, k),
+                 conv3x3_wgrad(x, dy))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv3x3_same": 1, "conv3x3_dgrad": 1,
+                               "conv3x3_wgrad": 1}
+    for got, ref, rel in ((y, reference_conv3x3(x, k), 1e-4),
+                          (dx, reference_conv3x3(dy, flip_weights(k)), 1e-4),
+                          (dw, reference_conv3x3_wgrad(x, dy), 1e-5)):
+        assert got.shape == ref.shape
+        bar = rel * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= bar
+
+
+def test_f32_kernels_replace_the_old_instances(dev):
+    """The f32 convs of B1 and B2 run the f32 core, the f32 wgrad its f32
+    path: no float instance of the bf16 gather kernel or of the split-K
+    wgrad kernel is left in the libraries."""
+    from neural_ode_metasolver_tpu_torch import _build
+
+    _build.build_all()
+    for lib in ("conv3x3", "ode_block_rk2"):
+        names = _build.kernel_names(lib)
+        assert any("conv3x3_f32_kernel" in k for k in names)
+        assert not any("conv3x3_igemm_kernelIf" in k for k in names)
+    names = _build.kernel_names("conv3x3_wgrad")
+    assert any("wgrad_f32_kernel" in k for k in names)
+    assert not any("wgrad_partial_kernelIf" in k for k in names)
+
+
+def test_f32_launches_refuse_plans_they_cannot_run(dev):
+    """The C entry points check the plan they are given: a tile, a path,
+    a ring or a wgrad path the kernel cannot run is refused (the launch
+    returns an error, the path query -1), never run another way."""
+    from neural_ode_metasolver_tpu_torch import _build
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        CONV_PATHS,
+        WGRAD_PATHS,
+    )
+
+    lib = _build.load("conv3x3")
+    n, h, w, cin, cout = 2, 6, 6, 65, 64
+    halo = CONV_PATHS.index("f32_halo")
+    bands = CONV_PATHS.index("f32_bands")
+    good = (halo, 32, 64, 4, 4)
+    assert lib.conv3x3_path(0, n, h, w, cin, cout, *good, dev.index or 0) \
+        == halo
+    bad = [(halo, 48, 64, 4, 4), (halo, 32, 64, 2, 4), (halo, 32, 80, 4, 4),
+           (halo, 32, 64, 4, 5), (halo, 32, 64, 4, 1), (bands, 32, 64, 4, 4),
+           (CONV_PATHS.index("gather"), 32, 64, 4, 4)]
+    for plan in bad:
+        assert lib.conv3x3_path(0, n, h, w, cin, cout, *plan,
+                                dev.index or 0) == -1
+    x = _randn((n, h, w, cin), 1.0, 0, dev, torch.float32)
+    k = _randn((3, 3, cin, cout), 0.1, 1, dev, torch.float32)
+    out = torch.empty(n, h, w, cout, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for plan in bad:
+        assert lib.conv3x3_same_launch(0, x.data_ptr(), k.data_ptr(),
+                                       out.data_ptr(), 1, n, h, w, cin, cout,
+                                       cout, *plan, dev.index or 0,
+                                       stream) != 0
+    # a row stride below Cout, and bf16 with a padded one
+    assert lib.conv3x3_same_launch(0, x.data_ptr(), k.data_ptr(),
+                                   out.data_ptr(), 1, n, h, w, cin, cout,
+                                   cout - 1, *good, dev.index or 0,
+                                   stream) != 0
+    xb, kb, ob = (t.to(torch.bfloat16) for t in (x, k, out))
+    assert lib.conv3x3_same_launch(1, xb.data_ptr(), kb.data_ptr(),
+                                   ob.data_ptr(), 1, n, h, w, cin, cout - 4,
+                                   cout, *good, dev.index or 0, stream) != 0
+    wlib = _build.load("conv3x3_wgrad")
+    dy = _randn((n, h, w, cout), 1.0, 2, dev, torch.float32)
+    ws = torch.empty(9 * cin * cout, device=dev)
+    dw = torch.empty(3, 3, cin, cout, device=dev)
+    f32p, splitk = WGRAD_PATHS.index("f32"), WGRAD_PATHS.index("split_k")
+    xb, dyb, dwb = (t.to(torch.bfloat16) for t in (x, dy, dw))
+    for dtype, (xx, dd, oo), plan in (
+            (0, (x, dy, dw), (splitk, 1, 64, 3, 1)),  # f32 on split-K
+            (0, (x, dy, dw), (f32p, 1, 32, 3, 1)),    # another K step
+            (0, (x, dy, dw), (f32p, 1, 64, 4, 1)),    # four ring slots
+            (0, (x, dy, dw), (f32p, 1, 64, 3, 2)),    # a cluster
+            (0, (x, dy, dw), (f32p, 3, 64, 3, 1)),    # ranges past K steps
+            (1, (xb, dyb, dwb), (f32p, 1, 64, 3, 1))):  # bf16 on the f32 path
+        assert wlib.conv3x3_wgrad_launch(
+            dtype, xx.data_ptr(), dd.data_ptr(), ws.data_ptr(),
+            oo.data_ptr(), 1, n, h, w, cin, cout, *plan, dev.index or 0,
+            stream) != 0
+
+
+@pytest.mark.parametrize("c,hw", [(64, 32), (128, 16)])
+def test_ode_block_f32_runs_the_f32_core_plan(dev, c, hw):
+    """B2's f32 launches run the f32 core on the plan its C entry point
+    accepts (the flagship ODE blocks' shapes at batch 2), and the solve
+    matches its plain version at B2's f32 bar."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import (
+        conv3x3_f32_plan,
+        conv3x3_path,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.ode_block import (
+        ode_block_rk2_forward,
+        reference_ode_block_rk2,
+    )
+
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert conv3x3_path(2, hw, hw, c, c, f32, dev) == \
+        conv3x3_f32_plan(2, hw, hw, c, c, sms).path
+    y0 = _randn((2, hw, hw, c), 0.5, 0, dev, f32)
+    w1 = _randn((3, 3, c, c), (9 * c) ** -0.5, 1, dev, f32)
+    w2 = _randn((3, 3, c, c), (9 * c) ** -0.5, 2, dev, f32)
+    reset_launch_counts()
+    got = ode_block_rk2_forward(y0, w1, w2, 0.5, 2)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"ode_block_rk2": 9}
+    ref = reference_ode_block_rk2(y0, w1, w2, 0.5, 2)
+    assert (got - ref).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -567,14 +741,15 @@ WIDE_GN = [((8, 8, 8, 256), 32, "gelu"), ((8, 8, 8, 256), 32, None),
 @pytest.mark.parametrize("shape", WIDE_CONVS)
 def test_wide_conv3x3_kernels_match_plain(dev, dtype, shape):
     """B1's forward, dgrad and wgrad at the wide shapes, under the bars of
-    the cases above; the wgrad at W 4 plans split-K."""
+    the cases above; the bf16 wgrad at W 4 plans split-K, f32 its f32
+    path."""
     from neural_ode_metasolver_tpu_torch.ops.conv3x3 import wgrad_plan
 
     n, h, w, cin, cout = shape
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = wgrad_plan(n, h, w, cin, cout, dtype, sms)
-    assert plan.path == ("tma" if dtype == torch.bfloat16 and w == 8
-                         else "split_k")
+    assert plan.path == ("f32" if dtype == torch.float32 else
+                         "tma" if w == 8 else "split_k")
     test_conv3x3_kernel_matches_plain(dev, dtype, shape)
     test_conv3x3_dgrad_kernel_matches_plain(dev, dtype, shape)
     test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, shape)
@@ -1248,6 +1423,8 @@ def test_solver_train_step_kernel_path_matches_plain_path(dev):
 
 # ------------------------------------------------------------ the fleet
 MEMBER_CONV = [(3, 4, 6, 6, 65, 64, torch.float32),    # MNIST's ConcatConv2d
+               (2, 9, 32, 32, 64, 64, torch.float32),  # f32 rows 64, K in 2
+               (2, 17, 32, 32, 64, 64, torch.float32),  # f32 rows 128
                (2, 3, 8, 8, 3, 64, torch.bfloat16),    # element copies
                (2, 2, 8, 8, 64, 64, torch.bfloat16),   # the halo kernel
                (2, 2, 8, 8, 64, 8, torch.bfloat16)]    # the narrow halo

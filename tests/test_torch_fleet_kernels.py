@@ -89,10 +89,10 @@ def test_member_group_norm_autograd_gives_member_rows():
 
 def test_plans_do_not_depend_on_the_member_count():
     """Each member runs a single run's plan (its sums keep their order);
-    the split-K wgrad's members x splits must fit grid dimension z: the
-    launch refuses more, as the C entry point does."""
+    the f32 (and the bf16 split-K) wgrad's members x splits must fit grid
+    dimension z: the launch refuses more, as the C entry point does."""
     one = c3.wgrad_plan(128, 6, 6, 65, 64, torch.float32, 132)
-    assert one.path == "split_k"
+    assert one.path == "f32"
     too_many = c3.MAX_GRID_Z // one.splits + 1
     x = torch.zeros(too_many, 1, 1, 1, 1)
     with pytest.raises(ValueError, match="grid dimension z"):

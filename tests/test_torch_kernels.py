@@ -306,10 +306,12 @@ def test_b1_wgrad_plain_matches_reference_and_bf16_rounds_once():
     ((256, 32, 32, 64, 64), torch.bfloat16, True, ("tma", 132, 2, 4, 2)),
     ((256, 16, 16, 128, 128), torch.bfloat16, True, ("tma", 32, 4, 4, 2)),
     ((256, 32, 32, 3, 64), torch.bfloat16, True, ("split_k", 132, 128, 3, 1)),
-    # f32 and MNIST's Cin 65 keep split-K; never more ranges than K steps
-    ((256, 32, 32, 64, 64), torch.float32, True, ("split_k", 33, 64, 3, 1)),
+    # f32 takes the f32 path (two blocks an SM over 32 x 32 channel tiles,
+    # two ring slots), bf16 MNIST's Cin 65 split-K; never more ranges than
+    # K steps
+    ((256, 32, 32, 64, 64), torch.float32, True, ("f32", 66, 64, 2, 1)),
     ((1, 4, 4, 64, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
-    ((1, 6, 6, 65, 64), torch.float32, True, ("split_k", 1, 64, 3, 1)),
+    ((1, 6, 6, 65, 64), torch.float32, True, ("f32", 1, 64, 2, 1)),
     ((1, 6, 6, 65, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
     # W = 7: taps would not start on swizzle atoms
     ((2, 7, 7, 64, 64), torch.bfloat16, True, ("split_k", 1, 128, 3, 1)),
