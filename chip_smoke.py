@@ -195,14 +195,28 @@ Phases, in order; any failure exits non-zero:
      accuracies within 0.2 of each other, robust ones in [0, 1], the wall
      seconds of both; ``sweep.main`` over two grid points of phase 15's
      ``mnist_runner``, 1 epoch: two committed run directories and two
-     summary rows.
+     summary rows;
+ 26. export the served models with ``serving.export_model``
+     (``torch.export``, B1, B2 and B3 as the ``nodems::`` custom ops of
+     ``ops/library.py``): the MNIST MetaNODE (dim 64, f32) and premetanode10
+     (in_planes 64, bf16), seeded random weights, a dynamic batch, on the
+     card, and the MNIST one on the CPU too; each graph's ops launch what
+     the live path launches a request; a fresh ``python3`` process that
+     imports only the port's ``serving`` loads each artifact onto the card
+     (the CPU's moved there) and the card's MNIST one onto the CPU, and
+     serves batch 1, 64 and 256 (a warm-up and five counted and timed
+     requests each; on the CPU batch 1): logits within the serving bars of
+     the live ``ServedModel`` on the same inputs (f32 1e-4 max(1,
+     max|logit|), bf16 2^-5 max|logit|), whether they are bit-equal, the
+     launches a request equal to the live path's at every size, export
+     and load seconds, artifact MB, ms and img/s of both paths.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under temporary directories that phases 15-17, 19, 22 and 25
-delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
+files only under temporary directories that phases 15-17, 19, 22, 25 and
+26 delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
 working directory).
 """
 import copy
@@ -2073,6 +2087,214 @@ def fleet_cli_phase(port, torch, dev):
     return out
 
 
+# Phase 26: the served models exported with torch.export and loaded in a
+# fresh process.  (name, build_model keywords, image shape, compute dtype
+# name, launches a request by kernel)
+EXPORTS = [
+    ("mnist", {"dim": MNIST_DIM}, (28, 28, 1), "float32",
+     {"group_norm_act": MNIST_GN_PER_PASS,
+      "conv3x3_same": MNIST_B1_PER_PASS}),
+    ("premetanode10", {"in_planes": 64}, (32, 32, 3), "bfloat16",
+     {"conv3x3_same": len(B1_CALLS),
+      "ode_block_rk2": len(B2_CALLS) * B2_LAUNCHES_PER_SOLVE}),
+]
+EXPORT_BATCHES = (1, 64, BATCH)
+# each kernel's custom op (ops/library.py), by its launch counter
+OPS = {"conv3x3_same": "nodems::conv3x3_same",
+       "ode_block_rk2": "nodems::ode_block_rk2",
+       "group_norm_act": "nodems::group_norm_act"}
+# what each op of a graph launches: B2's op is one whole solve
+OP_LAUNCHES = {"conv3x3_same": 1, "group_norm_act": 1,
+               "ode_block_rk2": B2_LAUNCHES_PER_SOLVE}
+# The loading process: it imports the port's serving module alone (and so
+# the op registration), loads each artifact, serves the saved requests
+# (a warm-up, then REQUEST_ROUNDS counted and timed requests a batch size)
+# and saves their logits; one JSON line out.
+LOADED_SERVER = r"""
+import json, os, sys, time
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+import torch
+from neural_ode_metasolver_tpu_torch import backend, serving
+out = {"models_imported": None, "runs": []}
+for run in spec["runs"]:
+    t0 = time.perf_counter()
+    served = serving.load_model(run["path"], run["device"])
+    load_s = time.perf_counter() - t0
+    row = {"label": run["label"], "load_s": load_s, "batches": []}
+    for b in run["batches"]:
+        x = torch.load(os.path.join(spec["dir"], f"x_{run['model']}_{b}.pt"))
+        served(x)
+        torch.cuda.synchronize()
+        ms, counts = [], []
+        for _ in range(spec["rounds"]):
+            backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = served(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(backend.launch_counts())
+        torch.save(y.cpu(), os.path.join(
+            spec["dir"], f"y_{run['label']}_{b}.pt"))
+        row["batches"].append({"batch": b, "ms": sorted(ms),
+                               "counts": counts})
+    out["runs"].append(row)
+out["models_imported"] = "neural_ode_metasolver_tpu_torch.models" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def export_phase(port, torch, dev):
+    """Phase 26: export the MNIST MetaNODE (dim 64, f32) and premetanode10
+    (in_planes 64, bf16) with ``serving.export_model`` on the card, with a
+    dynamic batch, and the MNIST one on the CPU too; load each in a fresh
+    process that imports only ``serving`` (the card's artifacts on the
+    card, the CPU's moved onto the card, and the card's MNIST one moved to
+    the CPU for batch 1); serve batch 1, 64 and 256 against the live
+    ``ServedModel`` on the same inputs: logits within the serving bars
+    (f32 1e-4 max(1, max|logit|), bf16 2^-5 max|logit|), launches per
+    request equal to the live path's at every size, each graph's nodems
+    ops as many as the live path's launches, export and load seconds,
+    artifact MB, ms and img/s of both paths.  Returns phase 26's record
+    for the kernels line."""
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.serving import (
+        ServedModel,
+        export_model,
+    )
+
+    phase(f"export the served models with torch.export (MNIST dim "
+          f"{MNIST_DIM} f32, premetanode10 in_planes 64 bf16) and serve "
+          f"them from a fresh process, batch {EXPORT_BATCHES}")
+    solvers = parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1")
+    gen = torch.Generator().manual_seed(26)
+    record = {"paths": {}, "counts": Counter(), "requests": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, live = [], {}
+        for name, kw, shape, dtype, per_request in EXPORTS:
+            model = build_model(name, generator=torch.Generator(
+                ).manual_seed(0), **kw)
+            cdt = getattr(torch, dtype)
+            served = ServedModel(model, solvers, SolverOptions(),
+                                 compute_dtype=cdt)
+            for b in EXPORT_BATCHES:
+                x = torch.rand(b, *shape, generator=gen)
+                torch.save(x, os.path.join(tmp, f"x_{name}_{b}.pt"))
+                served(x)  # warm-up
+                torch.cuda.synchronize()
+                ms = []
+                for _ in range(REQUEST_ROUNDS):
+                    t0 = time.perf_counter()
+                    y = served(x)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                live[(name, b)] = (y.cpu(), sorted(ms))
+            targets = [("cuda", model)]
+            if name == "mnist":  # the move onto the card
+                targets.append(("cpu", build_model(
+                    name, device="cpu",
+                    generator=torch.Generator().manual_seed(0), **kw)))
+            for where, m in targets:
+                path = os.path.join(tmp, f"{name}_{where}")
+                t0 = time.perf_counter()
+                export_model(path, m, solvers, SolverOptions(),
+                             input_shape=(1,) + shape, compute_dtype=cdt,
+                             config={"model": name, **kw})
+                export_s = time.perf_counter() - t0
+                program = torch.export.load(os.path.join(path, "model.pt2"))
+                ops = Counter(
+                    str(n.target).split(".")[1] for n in program.graph.nodes
+                    if n.op == "call_function"
+                    and str(n.target).startswith("nodems."))
+                graph_launches = {k: v * OP_LAUNCHES[k]
+                                  for k, v in ops.items()}
+                mb = os.path.getsize(os.path.join(path, "model.pt2")) / 1e6
+                label = f"{name}_{where}"
+                print(f"  {label}: export {export_s:.2f} s, artifact "
+                      f"{mb:.2f} MB, nodems ops in the graph {dict(ops)} = "
+                      f"{graph_launches} launches a request", flush=True)
+                if graph_launches != per_request:
+                    fail(f"{label}: the graph's ops launch "
+                         f"{graph_launches}, the live path {per_request}")
+                record["paths"][label] = {"export_s": export_s,
+                                          "artifact_mb": mb,
+                                          "graph_ops": dict(ops)}
+                runs.append({"label": label, "model": name,
+                             "path": path, "device": "cuda",
+                             "batches": list(EXPORT_BATCHES)})
+            if name == "mnist":  # the card's artifact moved to the CPU
+                runs.append({"label": "mnist_cuda_on_cpu", "model": name,
+                             "path": os.path.join(tmp, "mnist_cuda"),
+                             "device": "cpu", "batches": [1]})
+            del model, served
+            torch.cuda.empty_cache()
+        spec = {"repo": REPO, "dir": tmp, "rounds": REQUEST_ROUNDS,
+                "runs": runs}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", LOADED_SERVER,
+                               json.dumps(spec)], capture_output=True,
+                              text=True, timeout=600)
+        proc_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the loading process failed: {proc.stderr[-4000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"  loading process: {proc_s:.1f} s; it imported the models "
+              f"package: {out['models_imported']}", flush=True)
+        if out["models_imported"]:
+            fail("loading an artifact imported the model-building code")
+        by_name = {e[0]: e for e in EXPORTS}
+        for run in out["runs"]:
+            name = run["label"].split("_")[0]
+            _, _, _, dtype, per_request = by_name[name]
+            on_card = not run["label"].endswith("on_cpu")
+            rec = record["paths"].setdefault(run["label"], {})
+            rec["load_s"] = run["load_s"]
+            rec["batches"] = []
+            for row in run["batches"]:
+                b = row["batch"]
+                y_live, live_ms = live[(name, b)]
+                y = torch.load(os.path.join(
+                    tmp, f"y_{run['label']}_{b}.pt"))
+                err = (y - y_live).abs().max().item()
+                top = y_live.abs().max().item()
+                bar = (1e-4 * max(1.0, top) if dtype == "float32"
+                       else 2.0 ** -5 * top)
+                counts = row["counts"]
+                ms = row["ms"][len(row["ms"]) // 2]
+                lms = live_ms[len(live_ms) // 2]
+                print(f"  {run['label']} batch {b}: loaded {ms:.3f} ms "
+                      f"({b / ms * 1e3:.1f} img/s) vs live {lms:.3f} ms "
+                      f"({b / lms * 1e3:.1f} img/s); max|diff| {err:.3e} "
+                      f"(bar {bar:.3e}), bit-equal "
+                      f"{bool(torch.equal(y, y_live))}; launches a request "
+                      f"{counts[0]}", flush=True)
+                if y.shape != y_live.shape or not err <= bar:
+                    fail(f"{run['label']} batch {b}: logits {tuple(y.shape)}"
+                         f" {err} apart from the live path (bar {bar})")
+                want = per_request if on_card else {}
+                if any(c != want for c in counts):
+                    fail(f"{run['label']} batch {b}: launches {counts}, "
+                         f"the live path's {want} a request")
+                for c in counts:
+                    record["counts"].update(c)
+                rec["batches"].append({
+                    "batch": b, "ms": ms, "live_ms": lms,
+                    "img_s": b / ms * 1e3, "live_img_s": b / lms * 1e3,
+                    "max_abs_err": err, "bar": bar,
+                    "bit_equal": bool(torch.equal(y, y_live)),
+                    "launches_a_request": counts[0]})
+            if on_card:
+                record["requests"] += REQUEST_ROUNDS * len(run["batches"])
+    record["counts"] = dict(record["counts"])
+    return record
+
+
 def main():
     import torch
 
@@ -3254,6 +3476,12 @@ def main():
     print(f"  launches over phase 25's runs: {fleet_cli['counts']}",
           flush=True)
 
+    # ----------------------------------------- 26 export and load, serving
+    cudnn.allow_tf32, matmul.allow_tf32 = tf32_defaults
+    exported = export_phase(port, torch, dev)
+    print(f"  launches over phase 26's loaded requests: "
+          f"{exported['counts']}", flush=True)
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -3310,6 +3538,9 @@ def main():
                                 "members": FLEET_S,
                                 "launches": fleet["counts"].get(name, 0)},
             "fleet CLIs f32": {"launches": fleet_cli["counts"].get(name, 0)},
+            "exported serving": {
+                "requests": exported["requests"],
+                "launches": exported["counts"].get(name, 0)},
         }
         paths = {
             "adjoint_train_bf16": {
@@ -3328,9 +3559,10 @@ def main():
                     "single_step_ms", "single_step_ms_x_members", "img_s",
                     "peak_gib", "chunk_sizes", "pgd_step_ms",
                     "member_vs_single", "witness_f32_vs_f64")},
+            "exported_serving": exported["paths"],
         }
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
+        return {"name": name, "route": "cuda", "op": OPS.get(name),
+                "source": source, "replaces": replaces,
                 "launches": sum(p["launches"] for p in by_path.values()),
                 "by_path": by_path, **sums, **paths, **extra}
 
@@ -3538,7 +3770,17 @@ def main():
              "conv2d_weight with groups=16, F.group_norm on the 2048 "
              "samples then the members' affine and relu, aten's GN "
              "backward so composed), summed over a clean fleet step's "
-             "launches (launches_per_fleet_step)")
+             "launches (launches_per_fleet_step).  op: the kernel's "
+             "torch.library custom op (ops/library.py), through which an "
+             "exported program launches it (null: training only, no op).  "
+             "exported_serving: phase 26's artifacts (MNIST f32, "
+             "premetanode10 bf16; exported on the card, MNIST on the CPU "
+             "too): export_s, artifact_mb, the graph's nodems ops, and in "
+             "the loading process load_s and per batch size the median ms "
+             "and img/s of 5 requests beside the live ServedModel's, the "
+             "logits' max_abs_err and bar, bit_equal, launches_a_request; "
+             "by_path's exported serving counts the loading process's "
+             "requests on the card")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

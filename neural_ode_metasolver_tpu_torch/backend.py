@@ -12,6 +12,10 @@ them).  The plain versions the wrappers take for CPU tensors count nothing.
 ``full_f32()`` pins f32 convs and matmuls to full f32 (no TF32) for the
 duration of a call, whatever the process flags say.
 
+``kernel_ops()`` says whether the kernel wrappers call their custom ops
+(``ops/library.py``) rather than launch directly: only while
+``torch.export`` traces.
+
 ``check_forward_only`` guards the wrapper of the forward-only kernel B2:
 its outputs are fresh tensors with no ``grad_fn``, so where a gradient
 could flow it raises instead of silently cutting it off.
@@ -27,6 +31,7 @@ import torch
 __all__ = [
     "resolve_device",
     "full_f32",
+    "kernel_ops",
     "check_forward_only",
     "count_launch",
     "launch_counts",
@@ -68,6 +73,15 @@ def full_f32() -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def kernel_ops() -> bool:
+    """Whether the wrappers of B1, B2 and B3 go through their
+    ``torch.library`` ops (``ops/library.py``): while ``torch.export``
+    traces, which cannot trace a ctypes launch.  Eager calls launch
+    directly and skip the op's dispatch (PERF.md §6); both routes run the
+    same launch code."""
+    return torch.compiler.is_exporting()
 
 
 def check_forward_only(what: str, **tensors: torch.Tensor) -> None:

@@ -24,6 +24,17 @@ from .odenet_cifar10 import (
     premetanode34,
 )
 from .odenet_mnist import MnistConfig, apply_mnist, init_mnist
+from .torch_export import (
+    cifar_state_dict_from_params,
+    mnist_state_dict_from_params,
+    reference_wandb_config,
+    save_cifar_reference_checkpoint,
+    save_mnist_reference_checkpoint,
+)
+from .torch_import import (
+    cifar_params_from_torch_state_dict,
+    mnist_params_from_torch_state_dict,
+)
 
 __all__ = [
     "MODEL_REGISTRY",
@@ -34,6 +45,8 @@ __all__ = [
     "apply_mnist",
     "build_model",
     "cifar_params_from_jax",
+    "cifar_params_from_torch_state_dict",
+    "cifar_state_dict_from_params",
     "cifar_state_from_jax",
     "init_cifar",
     "init_mnist",
@@ -43,11 +56,16 @@ __all__ = [
     "metanode18",
     "metanode34",
     "mnist_params_from_jax",
+    "mnist_params_from_torch_state_dict",
+    "mnist_state_dict_from_params",
     "premetanode4",
     "premetanode6",
     "premetanode10",
     "premetanode18",
     "premetanode34",
+    "reference_wandb_config",
     "rmsprop_state_from_jax",
+    "save_cifar_reference_checkpoint",
+    "save_mnist_reference_checkpoint",
     "stack_members",
 ]

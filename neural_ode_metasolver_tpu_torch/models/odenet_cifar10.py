@@ -72,6 +72,7 @@ import torch
 from ..ops.conv3x3 import conv3x3_same
 from ..ops.ode_block import ode_block_rk2_forward
 from ..ops.regimes import SolverOptions, meta_integrate
+from ..ops.tableau import validity_eps
 from . import nn as fnn
 from .nn import (NormDef, ParamNormDef, batch_norm, make_norm_def,
                  make_param_norm_def)
@@ -324,13 +325,15 @@ def _ode_kernel_u(cfg: CifarConfig, solvers, options: SolverOptions
     if (s.method != "rk2" or s.custom_grid is not None or s.n_steps is None
             or s.step_size is not None):
         return None
-    if s.u is None:
+    if s.u is None or s.u.dim() > 1:
         return None
-    if s.u.dim() == 1:  # a fleet's members
-        return s.tableau().c[..., 1].detach().cpu().tolist()
-    if s.u.numel() != 1:
-        return None
-    return float(s.tableau().c[..., 1].detach())
+    # u~ = clip(u, eps, 1), the tableau's c2, from u's values on the host:
+    # tolist() runs no aten op, so torch.export reads a number where the
+    # tableau's c would be a traced tensor; a fleet's (S,) u gives a list
+    eps = validity_eps(s.u.dtype)
+    clip = lambda v: min(max(v, eps), 1.0)  # noqa: E731
+    u = s.u.tolist()
+    return [clip(v) for v in u] if s.u.dim() == 1 else clip(u)
 
 
 # -------------------------------------------------------------- MetaLayer --

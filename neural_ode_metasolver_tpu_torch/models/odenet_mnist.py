@@ -134,11 +134,17 @@ def _concat_conv(params: Params, t, x: torch.Tensor,
     fill on x's device, with no copy of a tensor; a ``t`` that carries a
     gradient (a trainable solver's stage time, u's path through c) or lives
     on the card is broadcast, so neither the gradient nor the host waits.
-    A fleet's t (S,) fills member m's channel with t[m]."""
+    A fleet's t (S,) fills member m's channel with t[m].  Under
+    ``torch.export`` a host t is a traced value, not a number: the fill
+    takes it as a host scalar tensor."""
     shape = x.shape[:-1] + (1,)
-    if isinstance(t, torch.Tensor) and (t.requires_grad
-                                        or t.device.type != "cpu"
-                                        or t.dim() > 0):
+    if (isinstance(t, torch.Tensor) and t.dim() == 0
+            and t.device.type == "cpu" and torch.compiler.is_exporting()):
+        # a traced t is no host number: fill with the host scalar (no
+        # copy to the card, no wait for it)
+        tt = x.new_empty(shape).fill_(t.to(x.dtype))
+    elif isinstance(t, torch.Tensor) and (
+            t.requires_grad or t.device.type != "cpu" or t.dim() > 0):
         t = t.reshape(t.shape + (1,) * (len(shape) - t.dim()))
         tt = x.new_zeros(shape) + t.to(device=x.device, dtype=x.dtype)
     else:

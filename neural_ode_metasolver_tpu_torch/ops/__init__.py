@@ -26,6 +26,7 @@ from .noise import (
     solver_ensemble_by_noising,
 )
 from .ode_block import ode_block_rk2_forward, reference_ode_block_rk2
+from . import library  # registers the kernels as nodems:: custom ops
 from .regimes import SolverOptions, meta_integrate
 from .solver import ParametricSolver, create_solver, parse_solver_dsl
 from .tableau import (

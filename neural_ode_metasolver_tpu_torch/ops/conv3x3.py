@@ -614,4 +614,6 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_shapes("conv3x3_same", x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv3x3.apply(x, w)
+    if backend.kernel_ops():
+        return torch.ops.nodems.conv3x3_same(x, w)  # ops/library.py
     return _launch_conv(x, w, KERNEL_NAME)

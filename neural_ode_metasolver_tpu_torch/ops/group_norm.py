@@ -532,4 +532,7 @@ def fused_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, scale, bias)):
         return _GroupNormAct.apply(x, scale, bias, num_groups, eps, act)
+    if backend.kernel_ops():
+        return torch.ops.nodems.group_norm_act(  # ops/library.py
+            x, scale, bias, num_groups, float(eps), act)
     return _forward(x, scale, bias, num_groups, eps, act)

@@ -209,6 +209,16 @@ def ode_block_rk2_forward(y0: torch.Tensor, w1: torch.Tensor,
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} are not "
                          "(N,H,W,C), (3,3,C,C), (3,3,C,C)")
     u = float(u)
+    if backend.kernel_ops():
+        return torch.ops.nodems.ode_block_rk2(  # ops/library.py
+            y0, w1, w2, u, int(n_steps))
+    return _solve(y0, w1, w2, u, n_steps)
+
+
+def _solve(y0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, u: float,
+           n_steps: int) -> torch.Tensor:
+    """The solve on checked shapes: the kernel's schedule for CUDA
+    tensors, the plain version for CPU tensors."""
     if all(t.device.type == "cpu" for t in (y0, w1, w2)):
         return reference_ode_block_rk2(y0, w1, w2, u, n_steps)
     backend.check_forward_only("ode_block_rk2_forward", y0=y0, w1=w1, w2=w2)

@@ -38,6 +38,7 @@ from ..data import (
     synthetic_dataset,
     train_val_split,
 )
+from ..data.download import ensure_dataset
 from ..models.api import build_model
 from ..ops import parse_solver_dsl
 from ..training import cyclic_lr, cyclic_momentum, make_optimizer
@@ -158,8 +159,8 @@ def build_parser():
     p.add_argument("--pgd_niter_testing", type=int, default=7)
     # io
     p.add_argument("--download", action="store_true",
-                   help="raises: the port downloads nothing (provision "
-                        "the files and pass --data_root)")
+                   help="fetch CIFAR-10 into --data_root (default data/) if "
+                        "missing — the torchvision download=True analog")
     p.add_argument("--data_root", type=str, default=None)
     p.add_argument("--save_dir", type=str, default="./experiment_cifar")
     p.add_argument("--debug", action="store_true")
@@ -257,6 +258,10 @@ def main(argv=None):
     args.data_mean = CIFAR10_MEAN
     args.data_std = CIFAR10_STD
 
+    if args.download:
+        fetched = ensure_dataset("cifar10", args.data_root)
+        if fetched:
+            args.data_root = fetched
     if args.data_root:
         full_train = load_cifar10(args.data_root, train=True)
         test_ds = load_cifar10(args.data_root, train=False)

@@ -25,8 +25,10 @@ from its key; the two frameworks draw differently, so a run that must
 start from given weights resumes from a checkpoint holding them).
 
 Flags that raise: ``--mesh``, ``--pp_microbatches`` and the multi-host
-flags (ROADMAP A21), ``--compiler_option`` (no counterpart: the port has
-no XLA compiler) and ``--download`` (the port downloads nothing).
+flags (ROADMAP A21) and ``--compiler_option`` (no counterpart: the port
+has no XLA compiler).  ``--download`` fetches the dataset into
+``--data_root`` (``data/download.py::ensure_dataset``) and falls back to
+the offline datasets where the fetch fails, as the JAX runners do.
 ``--integration_method adjoint`` reaches the train step, which
 differentiates the ODE blocks by the continuous adjoint.  ``--unroll`` is a compile-time hint of the JAX scan; the port's
 step loop is a Python loop, so it changes nothing, and the runner says so
@@ -126,11 +128,6 @@ def check_unported_flags(args) -> None:
             "--compiler_option has no counterpart in the PyTorch port (it "
             "forwards XLA compiler flags; the port compiles no XLA "
             "program): drop the flag")
-    if getattr(args, "download", False):
-        raise ValueError(
-            "--download: the PyTorch port downloads nothing; provision the "
-            "dataset files and pass --data_root (or run without it for the "
-            "synthetic or digits fallback)")
 
 
 def compute_dtype_of(precision: str) -> Optional[torch.dtype]:

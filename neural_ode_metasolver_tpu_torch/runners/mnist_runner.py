@@ -32,6 +32,7 @@ from ..data import (
     load_mnist,
     synthetic_dataset,
 )
+from ..data.download import ensure_dataset
 from ..models.api import build_model
 from ..ops import parse_solver_dsl
 from ..training import (
@@ -117,8 +118,8 @@ def build_parser():
                    help="train/eval dataset (svhn = the reference's "
                         "get_svhn_loaders path: 32x32 RGB cropped digits)")
     p.add_argument("--download", action="store_true",
-                   help="raises: the port downloads nothing (provision "
-                        "the files and pass --data_root)")
+                   help="fetch the dataset into --data_root (default data/) "
+                        "if missing — the torchvision download=True analog")
     p.add_argument("--data_root", type=str, default=None,
                    help="dir with MNIST IDX files; fallback data if unset")
     p.add_argument("--fallback_dataset", type=str, default="synthetic",
@@ -206,6 +207,10 @@ def main(argv=None):
     )
     logger.info(f"Number of parameters: {count_parameters(model)}")
 
+    if args.download:
+        fetched = ensure_dataset(args.dataset, args.data_root)
+        if fetched:
+            args.data_root = fetched
     if args.data_root:
         if args.dataset == "svhn":
             from ..data import load_svhn

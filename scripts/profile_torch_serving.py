@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where a served request's time goes in the PyTorch port, on the card.
 
-    python3 scripts/profile_torch_serving.py [--model M] [--trace-dir DIR]
-                                              [batch ...]
+    python3 scripts/profile_torch_serving.py [--model M] [--exported]
+                                              [--trace-dir DIR] [batch ...]
 
 Serves ``--model premetanode10`` (the default: in_planes 64, bf16) or
 ``--model mnist`` (the MNIST MetaNODE, dim 64, f32), random weights from
-seed 0, 8-step RK2 u=0.5.  For each batch size (default 1 and 256), after
+seed 0, 8-step RK2 u=0.5, as a live ``ServedModel``, or with
+``--exported`` through ``serving.export_model`` and ``load_model`` (the
+artifact written to a temporary directory).  For each batch size (default 1 and 256), after
 a warm-up, it times 20 requests without the profiler (host clock, median),
 then traces 3 requests with ``torch.profiler`` (CPU and CUDA activities).
 Prints per traced request: the host-clock time, the device time summed
@@ -20,6 +22,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +51,7 @@ MODELS = {
 }
 
 
-def main(model_name, batches, trace_dir=None):
+def main(model_name, batches, trace_dir=None, exported=False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -57,13 +60,22 @@ def main(model_name, batches, trace_dir=None):
         sys.exit("no CUDA device")
     from neural_ode_metasolver_tpu_torch.models import build_model
     from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
-    from neural_ode_metasolver_tpu_torch.serving import ServedModel
+    from neural_ode_metasolver_tpu_torch.serving import (
+        ServedModel,
+        export_model,
+        load_model,
+    )
 
     kwargs, dtype, shape = MODELS[model_name]
     model = build_model(model_name, generator=torch.Generator().manual_seed(0),
                         **kwargs)
-    served = ServedModel(model, parse_solver_dsl("rk2,u,8,-1,0.5,-1"),
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    served = ServedModel(model, solvers, compute_dtype=getattr(torch, dtype))
+    if exported:
+        with tempfile.TemporaryDirectory() as art:
+            export_model(art, model, solvers, input_shape=(1,) + shape,
                          compute_dtype=getattr(torch, dtype))
+            served = load_model(art)
     rows = []
     for batch in batches:
         x = torch.rand(batch, *shape,
@@ -109,7 +121,9 @@ def main(model_name, batches, trace_dir=None):
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(
                 os.path.join(trace_dir,
-                             f"torch_serving_{model_name}_b{batch}.trace.json"))
+                             f"torch_serving_{model_name}"
+                             f"{'_exported' if exported else ''}_b{batch}"
+                             ".trace.json"))
         print(f"batch {batch}: untraced median {untraced_ms:.3f} ms over "
               f"{N_TIMED} requests; traced {wall_ms:.3f} ms per request "
               f"(host clock), "
@@ -121,13 +135,15 @@ def main(model_name, batches, trace_dir=None):
         for k, v in row["device_ms_by_kernel"].items():
             print(f"  {v:9.3f} ms  {k[:100]}")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "model": model_name, "dtype": dtype, "rows": rows}))
+                      "model": model_name, "dtype": dtype,
+                      "exported": exported, "rows": rows}))
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="premetanode10")
+    ap.add_argument("--exported", action="store_true")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("batches", nargs="*", type=int, default=[1, 256])
     args = ap.parse_args()
-    main(args.model, args.batches, args.trace_dir)
+    main(args.model, args.batches, args.trace_dir, args.exported)

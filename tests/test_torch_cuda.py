@@ -1600,3 +1600,95 @@ def test_cifar_fleet_no_grad_forward_launches_b2_per_member(dev):
     assert counts == {"conv3x3_same": 1, "ode_block_rk2": 2 * 9}
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+def test_custom_ops_launch_what_the_wrappers_launch(dev):
+    """Each nodems:: op (ops/library.py) on CUDA tensors runs its kernel:
+    bit-equal to the wrapper's direct launch, counted the same, members
+    included; its fake kernel agrees (torch.library.opcheck)."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.conv3x3 import conv3x3_same
+    from neural_ode_metasolver_tpu_torch.ops.group_norm import (
+        fused_group_norm_act,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.ode_block import (
+        ode_block_rk2_forward,
+    )
+
+    bf = torch.bfloat16
+    x = _randn((4, 6, 6, 65), 1.0, 0, dev, torch.float32)
+    w = _randn((3, 3, 65, 64), 0.05, 1, dev, torch.float32)
+    xm = _randn((2, 4, 6, 6, 65), 1.0, 2, dev, torch.float32)
+    wm = _randn((2, 3, 3, 65, 64), 0.05, 3, dev, torch.float32)
+    g = _randn((4, 13, 13, 64), 1.0, 4, dev, torch.float32)
+    sc = _randn((64,), 1.0, 5, dev, torch.float32)
+    bi = _randn((64,), 1.0, 6, dev, torch.float32)
+    y0 = _randn((2, 16, 16, 128), 1.0, 7, dev, bf)
+    w1 = _randn((3, 3, 128, 128), 0.02, 8, dev, bf)
+    w2 = _randn((3, 3, 128, 128), 0.02, 9, dev, bf)
+    cases = [
+        (torch.ops.nodems.conv3x3_same, conv3x3_same, (x, w),
+         {"conv3x3_same": 1}),
+        (torch.ops.nodems.conv3x3_same, conv3x3_same, (xm, wm),
+         {"conv3x3_same": 1}),
+        (torch.ops.nodems.group_norm_act, fused_group_norm_act,
+         (g, sc, bi, 32, 1e-5, "relu"), {"group_norm_act": 1}),
+        (torch.ops.nodems.ode_block_rk2, ode_block_rk2_forward,
+         (y0, w1, w2, 0.5, 8), {"ode_block_rk2": 33}),
+    ]
+    with torch.no_grad():
+        for op, wrapper, args, launches in cases:
+            reset_launch_counts()
+            got = op(*args)
+            torch.cuda.synchronize()
+            assert launch_counts() == launches
+            assert torch.equal(got, wrapper(*args))
+            torch.library.opcheck(op, args)
+
+
+def test_exported_models_serve_on_the_card(dev, tmp_path):
+    """export_model on the card and on the CPU, load_model onto the card:
+    the live path's launches a request, and its logits bit for bit from
+    the card's artifact (the CPU's traced its strided convs in another
+    layout: within the serving bars)."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+    from neural_ode_metasolver_tpu_torch.serving import (
+        ServedModel,
+        export_model,
+        load_model,
+    )
+
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    for name, kw, shape, cdt, want in (
+            ("mnist", {"dim": 16}, (28, 28, 1), None,
+             {"group_norm_act": 51, "conv3x3_same": 32}),
+            ("premetanode10", {"in_planes": 16}, (32, 32, 3),
+             torch.bfloat16, {"conv3x3_same": 4, "ode_block_rk2": 66})):
+        for where in ("cuda", "cpu"):
+            model = build_model(name, device=where, **kw,
+                                generator=torch.Generator().manual_seed(0))
+            path = str(tmp_path / f"{name}_{where}")
+            export_model(path, model, solvers, input_shape=(1,) + shape,
+                         compute_dtype=cdt)
+            served = load_model(path)
+            live = ServedModel(model.to(dev), solvers, compute_dtype=cdt)
+            for b in (1, 5):
+                x = _randn((b,) + shape, 1.0, b, dev, torch.float32)
+                reset_launch_counts()
+                got = served(x)
+                torch.cuda.synchronize()
+                assert launch_counts() == want
+                ref = live(x)
+                if where == "cuda":
+                    assert torch.equal(got, ref)
+                top = ref.abs().max().item()
+                bar = 1e-4 * max(1.0, top) if cdt is None else 2 ** -5 * top
+                assert (got - ref).abs().max().item() <= bar

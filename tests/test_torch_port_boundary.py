@@ -27,7 +27,8 @@ required = {pkg.__name__ + "." + m for m in (
     "data.datasets", "data.prefetch", "training.checkpoint",
     "runners.common", "runners.mnist_runner", "runners.cifar_runner",
     "runners.attacks_runner", "training.fleet", "runners.sweep",
-    "runners.u_sweep")}
+    "runners.u_sweep", "ops.library", "serving", "data.download",
+    "models.torch_export", "models.torch_import")}
 print(len(names), bad, sorted(required - set(names)))
 sys.exit(1 if bad or len(names) < 25 or not required <= set(names) else 0)
 """

@@ -242,7 +242,6 @@ _REFUSED = [
      ValueError, "--profile_dir"),
     (mnist_runner, ["--compiler_option", "a=b"], ValueError,
      "--compiler_option"),
-    (mnist_runner, ["--download"], ValueError, "--data_root"),
     (cifar_runner, ["--pp_microbatches", "2"], NotImplementedError, "A21"),
     (cifar_runner, ["--mesh", "data=2,pp=2"], NotImplementedError, "A21"),
     (mnist_runner, ["--train_solver_params", "--mesh", "data=2"],
