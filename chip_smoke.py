@@ -209,7 +209,30 @@ Phases, in order; any failure exits non-zero:
      the live ``ServedModel`` on the same inputs (f32 1e-4 max(1,
      max|logit|), bf16 2^-5 max|logit|), whether they are bit-equal, the
      launches a request equal to the live path's at every size, export
-     and load seconds, artifact MB, ms and img/s of both paths.
+     and load seconds, artifact MB, ms and img/s of both paths;
+ 27. phase 24's fleet (16 members, 4 u x 4 seeds) under the Evaluate
+     notebook's switch[0.6,0.4] and solver_ens[0.6,0.4] (ensemble_prob 1)
+     over two noised RK2 solvers (the grid's model-ensembling pair around
+     u=0.5, shifted to each member's u), each member drawing from its own
+     generator: finite losses, the launches a step (switch: a standalone
+     step's, B3 51 + 51, B1 32, dgrad 32, wgrad 32, as its members' choices
+     share one solve on their stacked tableau; solver_ens: one more solve's
+     worth each way, B1 32, dgrad 32, wgrad 32, B3 48 + 48), a warm-up and
+     five timed steps beside phase 24's standalone fleet, each member
+     against its single run over two steps from one state with its draws
+     (phase 24's bars), the fleet's kernel path against its plain path
+     (phase 11's bars); then a fleet of four (one a u) under Adam 1e-3
+     with the non-finite backoff 0.5 and skip_nonfinite, member 1's batch
+     NaN at step 0 of three: each member's count, scale and n_skipped equal
+     its single run's, its params within phase 24's bars of them;
+ 28. the three ``examples/torch`` scripts as subprocesses on the card (their
+     default device), run together: MNIST on the shipped checkpoint in the
+     port's format (``examples/checkpoints/mnist_digits_smoothing_torch``),
+     CIFAR at in_planes 64, batch 256, 512 images, bf16, all four regimes,
+     and the coefficient example at its default 400 steps; each exits 0;
+     their accuracies, u, launches and wall seconds; the MNIST example's
+     clean accuracy equal to the port's in-process ``accuracy`` on the same
+     images.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -1507,6 +1530,17 @@ USWEEP_U, USWEEP_SEEDS = "0.25,0.5,0.75,1.0", "1,2"
 USWEEP_HELD_TRAIN, USWEEP_HELD_CHUNK, USWEEP_HELD_BAR = 2 * FLEET_N, 3, 1
 
 
+def params_apart(pa, pb):
+    """Two runs' params by name: the share of elements more than 1e-4 of
+    max|pb| apart, and the largest difference over max|pb|."""
+    big = max(v.detach().abs().max().item() for v in pb.values())
+    diffs = [(pa[k].detach().double() - pb[k].detach().double()).abs()
+             for k in pb]
+    far = sum((d > 1e-4 * big).sum().item() for d in diffs)
+    return (far / sum(d.numel() for d in diffs),
+            max(d.max().item() for d in diffs) / big)
+
+
 def member_launch_phase(port, torch, dev, time_ms, bound, randn):
     """Phase 23: each member-batched launch of the u-sweep's step at S =
     FLEET_S, N = FLEET_N against S single launches (bit-equal) and against
@@ -1884,12 +1918,6 @@ def fleet_train_phases(port, torch, dev):
         st, b = step(st, cast(xs[s + i]), ys[s + i], g, sv)
         return a, b, st
 
-    def far_share(pa, pb):
-        big = max(v.abs().max().item() for v in pb.values())
-        far = sum(((pa[k].double() - pb[k].double()).abs()
-                   > 1e-4 * big).sum().item() for k in pb)
-        return far / sum(v.numel() for v in pb.values())
-
     for i, (u, seed) in enumerate(members):
         a, b, st = two_single_steps(seed, u)
         rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
@@ -1899,8 +1927,8 @@ def fleet_train_phases(port, torch, dev):
                                                    a["grad_norm"].item()))
         worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
                                                  b["loss"].item()))
-        worst["far"] = max(worst["far"], far_share(
-            {k: v[i] for k, v in f2.params.items()}, st.params))
+        worst["far"] = max(worst["far"], params_apart(
+            {k: v[i] for k, v in f2.params.items()}, st.params)[0])
     # the witness: member 0's single run, plain path, f32 against f64
     a32, b32, st32 = two_single_steps(seed0, u0, plain=True)
     a64, b64, st64 = two_single_steps(seed0, u0, plain=True, f64=True)
@@ -1908,8 +1936,8 @@ def fleet_train_phases(port, torch, dev):
                / abs(a64["loss"].item()),
                "loss2": abs(b32["loss"].item() - b64["loss"].item())
                / abs(b64["loss"].item()),
-               "far": far_share(st32.params, {
-                   k: v.float() for k, v in st64.params.items()})}
+               "far": params_apart(st32.params, {
+                   k: v.float() for k, v in st64.params.items()})[0]}
     print(f"  each member against its single run (kernel paths, two steps "
           f"from one state; the fleet's stem and strided convs are one "
           f"grouped cuDNN conv and its head a bmm): step 1 loss relative "
@@ -2293,6 +2321,415 @@ def export_phase(port, torch, dev):
                 record["requests"] += REQUEST_ROUNDS * len(run["batches"])
     record["counts"] = dict(record["counts"])
     return record
+
+
+# Phase 27: phase 24's fleet recipe (16 members, 4 u x 4 seeds, MNIST dim
+# 64, batch 128 a member, f32, RK2 8 steps, RMSprop 1e-3 wd 5e-4, clean)
+# under the Evaluate notebook's switch[0.6,0.4] and solver_ens[0.6,0.4]
+# (ensemble_prob 1) over two noised RK2 solvers: the grid's model-
+# ensembling pair around u=0.5 (the original and a Normal(0.2)-noised copy,
+# ``notebook_regime_grid``), shifted to each member's u.  The pair shares
+# its statics, so a switch whose members chose apart is one solve on their
+# stacked tableau: a switch step launches a standalone step's, a solver_ens
+# step (every coin up) one more solve's worth each way.
+REGIME_FLEET_GRID_SEED = 15  # scripts/digits_regimes_eval.py's grid key
+REGIME_FLEET_OPTIONS = (
+    ("switch[0.6,0.4]", dict(solver_mode="switch", switch_probs=[0.6, 0.4]),
+     1),
+    ("solver_ens[0.6,0.4]", dict(solver_mode="ensemble", ensemble_prob=1.0,
+                                 ensemble_weights=[0.6, 0.4]), 2),
+)
+MNIST_CLEAN_STEP = {"group_norm_act": MNIST_GN_PER_PASS,
+                    "group_norm_act_bwd": MNIST_GN_PER_PASS,
+                    "group_norm_act_bwd_params": MNIST_GN_PER_PASS,
+                    "conv3x3_same": MNIST_B1_PER_PASS,
+                    "conv3x3_dgrad": MNIST_B1_PER_PASS,
+                    "conv3x3_wgrad": MNIST_B1_PER_PASS}
+# one more ODE solve in a clean step: its RHS calls' three GroupNorms and
+# two convs, both ways
+MNIST_SOLVE_STEP = {"group_norm_act": 3 * MNIST_RHS,
+                    "group_norm_act_bwd": 3 * MNIST_RHS,
+                    "group_norm_act_bwd_params": 3 * MNIST_RHS,
+                    "conv3x3_same": 2 * MNIST_RHS,
+                    "conv3x3_dgrad": 2 * MNIST_RHS,
+                    "conv3x3_wgrad": 2 * MNIST_RHS}
+# the backoff fleet: Adam 1e-3 with nan_backoff 0.5 and skip_nonfinite, one
+# member a u, member BACKOFF_BAD's batch NaN at step 0 of BACKOFF_STEPS.
+# Each member's counts, scale and n_skipped must equal its single run's, its
+# losses be within phase 24's bars of them (step 1 FLEET_LOSS1_BAR, later
+# FLEET_LOSS2_BAR) and its params more than 1e-4 max|p| apart no more often
+# than phase 24's bar or rounding alone moves them, whichever is larger:
+# Adam's update is about lr sign(g), so three steps of the u=0.25 member's
+# single run, plain path in f32 against f64, move 0.27 of the params that
+# far (PR 16's chip run), while the members that differ read 0.014 at most
+BACKOFF_LR, BACKOFF_FACTOR, BACKOFF_STEPS, BACKOFF_BAD = 1e-3, 0.5, 3, 1
+
+
+def regime_fleet_phase(port, torch, dev, standalone_fleet_ms):
+    """Phase 27: phase 24's fleet under switch[0.6,0.4] and
+    solver_ens[0.6,0.4]: finite losses, the launches a step (a single
+    step's whose draws take the same branches), ms a step beside phase
+    24's standalone fleet, each member against its single run over two
+    steps from one state with its draws (phase 24's bars), the kernel path
+    against the plain path (phase 11's bars); then a fleet under Adam with
+    the non-finite backoff and skip_nonfinite, one member's batch NaN at
+    step 0 of three: each member's counts, scale, n_skipped and params
+    against its single run.  Returns the phase's record."""
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     create_solver)
+    from neural_ode_metasolver_tpu_torch.ops.regimes import _choose
+    from neural_ode_metasolver_tpu_torch.training import (
+        create_fleet_state, create_train_state, fleet_generators,
+        fleet_member, make_fleet_train_step, make_optimizer,
+        make_train_step, notebook_regime_grid, stack_fleet_solvers)
+    from neural_ode_metasolver_tpu_torch.training.train import (
+        _regime_seeds, _seeds)
+
+    s, n = FLEET_S, FLEET_N
+    members = [(u, seed) for u in FLEET_US for seed in FLEET_SEEDS]
+    ref_solver = create_solver("rk2", "u", n_steps=N_STEPS, u0=U)
+    grid = notebook_regime_grid(
+        ref_solver, torch.Generator().manual_seed(REGIME_FLEET_GRID_SEED))
+    pair = next(g for g in grid if g.is_model_ensemble).solvers
+    offsets = [float(p.u) - U for p in pair]
+    member_pairs = [[ref_solver.replace(u=torch.tensor(
+        u + d, dtype=torch.float32)) for d in offsets] for u, _ in members]
+    phase(f"train: phase 24's fleet of {s} under switch[0.6,0.4] and "
+          f"solver_ens[0.6,0.4] over the notebook grid's noised pair "
+          f"(u {U} + {offsets}) shifted to each member's u")
+    opt = make_optimizer("rmsprop", FLEET_LR, weight_decay=5e-4)
+    model = build_model("mnist", dim=MNIST_DIM)
+    gcpu = torch.Generator().manual_seed(27)
+    xs = torch.rand(2 * s, n, 28, 28, 1, generator=gcpu).to(dev)
+    ys = torch.randint(0, 10, (2 * s, n), generator=gcpu).to(dev)
+    dyn = stack_fleet_solvers(member_pairs)
+    seeds = [seed for _, seed in members]
+    record = {"members": s, "regimes": {}, "counts": Counter()}
+
+    def fresh(options, use_kernels=True):
+        # the init draws consume their generators; the step gets fresh
+        # ones, as each single run's step does
+        fts = create_fleet_state(model, opt, fleet_generators(seeds))
+        return fts, make_fleet_train_step(model, opt, member_pairs[0],
+                                          options, use_kernels=use_kernels)
+
+    def train_draw(seed, options):
+        # member seed's training-forward draw at step 1 (its fifth seed)
+        g = torch.Generator().manual_seed(seed)
+        _seeds(g, 3)
+        fwd = torch.Generator().manual_seed(_regime_seeds(g, options, 2)[1])
+        if options.solver_mode == "switch":
+            return _choose(fwd, options.switch_probs)
+        return bool(float(torch.rand((), generator=fwd,
+                                     dtype=torch.float64))
+                    < options.ensemble_prob)
+
+    rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
+    for label, kw, solves in REGIME_FLEET_OPTIONS:
+        options = SolverOptions(**kw)
+        want = {k: v + (solves - 1) * MNIST_SOLVE_STEP[k]
+                for k, v in MNIST_CLEAN_STEP.items()}
+        fts, step = fresh(options)
+        gens = fleet_generators(seeds)
+        step(fts, xs[:s], ys[:s], gens, dyn)  # warm-up
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        ms = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, m = step(fts, xs[:s], ys[:s], gens, dyn)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = port.launch_counts()
+        record["counts"].update(counts)
+        per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+        med = sorted(ms)[len(ms) // 2]
+        draws = [train_draw(seed, options) for seed in seeds]
+        print(f"  {label}: median {med:.3f} ms a step ({s * n / med * 1e3:.1f}"
+              f" img/s over all members) against phase 24's standalone "
+              f"fleet {standalone_fleet_ms:.3f} ms "
+              f"({med / standalone_fleet_ms:.2f}x); "
+              f"launches a step {per_step} (want {want}); the members' "
+              f"training draws at step 1 {draws}; last losses "
+              f"{[round(v, 5) for v in m['loss'].tolist()]}", flush=True)
+        if not torch.isfinite(m["loss"]).all():
+            fail(f"{label}: non-finite fleet losses {m['loss'].tolist()}")
+        if per_step != want:
+            fail(f"{label}: a fleet step launches {per_step}, want {want}")
+        del fts
+        torch.cuda.empty_cache()
+
+        # each member against its own single run: two steps, its draws
+        fts, step = fresh(options)
+        gens = fleet_generators(seeds)
+        f1, m1 = step(fts, xs[:s], ys[:s], gens, dyn)
+        loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
+        f2, m2 = step(f1, xs[s:], ys[s:], gens, dyn)
+        worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0,
+                 "max_param_diff_of_max_p": 0.0}
+        for i, (u, seed) in enumerate(members):
+            mm = build_model("mnist", dim=MNIST_DIM,
+                             generator=torch.Generator().manual_seed(seed))
+            st = create_train_state(mm, opt)
+            sstep = make_train_step(mm, opt, member_pairs[i], options)
+            g = torch.Generator().manual_seed(seed)
+            st, a = sstep(st, xs[i], ys[i], g, member_pairs[i])
+            st, b = sstep(st, xs[s + i], ys[s + i], g, member_pairs[i])
+            far, top = params_apart(
+                {k: v[i] for k, v in f2.params.items()}, st.params)
+            worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
+                                                     a["loss"].item()))
+            worst["gnorm1"] = max(worst["gnorm1"], rel(
+                gn1[i].item(), a["grad_norm"].item()))
+            worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
+                                                     b["loss"].item()))
+            worst["far"] = max(worst["far"], far)
+            worst["max_param_diff_of_max_p"] = max(
+                worst["max_param_diff_of_max_p"], top)
+            del mm, st
+        print(f"  {label}, each member against its single run (two steps "
+              f"from one state, its draws): step 1 loss relative "
+              f"{worst['loss1']:.3e} (bar {FLEET_LOSS1_BAR}), grad norm "
+              f"{worst['gnorm1']:.3e} (bar {FLEET_GNORM1_BAR}); step 2 loss "
+              f"{worst['loss2']:.3e} (bar {FLEET_LOSS2_BAR}), params more "
+              f"than 1e-4 max|p| apart {worst['far']:.3e} of them (bar "
+              f"{FLEET_FAR_SHARE_BAR}), largest param difference "
+              f"{worst['max_param_diff_of_max_p']:.3e} of max|p|",
+              flush=True)
+        if not (worst["loss1"] <= FLEET_LOSS1_BAR
+                and worst["gnorm1"] <= FLEET_GNORM1_BAR
+                and worst["loss2"] <= FLEET_LOSS2_BAR
+                and worst["far"] <= FLEET_FAR_SHARE_BAR):
+            fail(f"{label}: fleet members differ from their single runs: "
+                 f"{worst}")
+        del fts, f1, f2
+        torch.cuda.empty_cache()
+
+        # the fleet's kernel path against its plain path, phase 11's bars
+        res = {}
+        for use_kernels in (True, False):
+            fts, step = fresh(options, use_kernels)
+            _, mk = step(fts, xs[:s], ys[:s], fleet_generators(seeds), dyn)
+            res[use_kernels] = (mk["loss"], mk["grad_norm"])
+            del fts
+        (lk, nk), (lp, np_) = res[True], res[False]
+        loss_gap = ((lk - lp).abs() / lp.abs().clamp(min=1.0)).max().item()
+        norm_gap = ((nk - np_).abs() / np_).max().item()
+        print(f"  {label}, fleet kernel path vs plain path: loss |diff| "
+              f"{loss_gap:.3e} of max(1, |loss|) (bar 2e-2), grad norm "
+              f"relative {norm_gap:.3e} (bar 5e-2)", flush=True)
+        if not (loss_gap <= 2e-2 and norm_gap <= 5e-2):
+            fail(f"{label}: the fleet's kernel and plain paths disagree")
+        torch.cuda.empty_cache()
+        record["regimes"][label] = {
+            "step_ms": med, "img_s": s * n / med * 1e3,
+            "standalone_fleet_step_ms": standalone_fleet_ms,
+            "launches_per_step": per_step, "want_per_step": want,
+            "train_draws_step1": draws, "member_vs_single": worst,
+            "kernel_vs_plain": {"loss": loss_gap, "grad_norm": norm_gap}}
+
+    # the backoff fleet: one member a u, member BACKOFF_BAD NaN at step 0
+    bopt = make_optimizer("adam", BACKOFF_LR,
+                          nonfinite_backoff=BACKOFF_FACTOR)
+    bseed = FLEET_SEEDS[0]
+    bx = [xs[k * len(FLEET_US):(k + 1) * len(FLEET_US)].clone()
+          for k in range(BACKOFF_STEPS)]
+    bx[0][BACKOFF_BAD, 0, 0, 0, 0] = float("nan")
+    by = [ys[k * len(FLEET_US):(k + 1) * len(FLEET_US)]
+          for k in range(BACKOFF_STEPS)]
+    usolvers = [[ref_solver.replace(u=torch.tensor(u, dtype=torch.float32))]
+                for u in FLEET_US]
+    bgens = [bseed] * len(FLEET_US)
+    bfts = create_fleet_state(model, bopt, fleet_generators(bgens))
+    bstep = make_fleet_train_step(model, bopt, [ref_solver],
+                                  SolverOptions(), skip_nonfinite=True)
+    gens = fleet_generators(bgens)
+    skipped, flosses = [], []
+    for k in range(BACKOFF_STEPS):
+        bfts, bm = bstep(bfts, bx[k], by[k], gens,
+                         stack_fleet_solvers(usolvers))
+        skipped.append(bm["skipped_nonfinite"].tolist())
+        flosses.append(bm["loss"].tolist())
+
+    def single_run(i, plain=False, f64=False):
+        mm = build_model("mnist", dim=MNIST_DIM,
+                         generator=torch.Generator().manual_seed(bseed))
+        sv = usolvers[i]
+        if f64:
+            mm.double()
+            sv = [sv[0].replace(u=sv[0].u.double())]
+        st = create_train_state(mm, bopt)
+        sstep = make_train_step(mm, bopt, [ref_solver], skip_nonfinite=True,
+                                use_kernels=not plain)
+        g = torch.Generator().manual_seed(bseed)
+        losses = []
+        for k in range(BACKOFF_STEPS):
+            x = bx[k][i].double() if f64 else bx[k][i]
+            st, m = sstep(st, x, by[k][i], g, sv)
+            losses.append(m["loss"].item())
+        return st, losses
+
+    # rounding alone: member 0's single run, plain path, f32 against f64
+    w32, _ = single_run(0, plain=True)
+    w64, _ = single_run(0, plain=True, f64=True)
+    witness, _ = params_apart(w32.params, {
+        k: v.detach().float() for k, v in w64.params.items()})
+    far_bar = max(FLEET_FAR_SHARE_BAR, witness)
+    del w32, w64
+    rows = []
+    keys = ("count", "scale", "n_skipped")
+    for i, u in enumerate(FLEET_US):
+        st, losses = single_run(i)
+        mine = fleet_member(bfts.opt_state, i)
+        far, top = params_apart(
+            {k: v[i] for k, v in bfts.params.items()}, st.params)
+        gaps = [abs(flosses[k][i] - losses[k]) / abs(losses[k])
+                for k in range(BACKOFF_STEPS) if math.isfinite(losses[k])]
+        rows.append({"u": u, **{k: mine[k] for k in keys},
+                     "single": {k: st.opt_state[k] for k in keys},
+                     "loss_gaps": gaps, "far": far,
+                     "max_param_diff_of_max_p": top})
+        if any(mine[k] != st.opt_state[k] for k in keys):
+            fail(f"backoff fleet member {i}: counts {mine} against its "
+                 f"single run's {st.opt_state}")
+        if gaps and (gaps[0] > FLEET_LOSS1_BAR
+                     or max(gaps) > FLEET_LOSS2_BAR):
+            fail(f"backoff fleet member {i}: losses {gaps} relative from "
+                 "its single run's")
+        if far > far_bar:
+            fail(f"backoff fleet member {i}: {far:.3e} of the params more "
+                 f"than 1e-4 max|p| from its single run's (bar {far_bar})")
+        del st
+    print(f"  backoff fleet (Adam {BACKOFF_LR}, nan_backoff "
+          f"{BACKOFF_FACTOR}, skip_nonfinite; member {BACKOFF_BAD}'s batch "
+          f"NaN at step 0 of {BACKOFF_STEPS}): skipped a step "
+          f"{skipped}; each member's count, scale, n_skipped equal its "
+          f"single run's: "
+          f"{[(r['count'], r['scale'], r['n_skipped']) for r in rows]}; "
+          f"losses relative at most "
+          f"{max(max(r['loss_gaps']) for r in rows):.3e} (step 1 bar "
+          f"{FLEET_LOSS1_BAR}, later {FLEET_LOSS2_BAR}); params more than "
+          f"1e-4 max|p| apart at most {max(r['far'] for r in rows):.3e} of "
+          f"them (bar {far_bar:.3e}: phase 24's {FLEET_FAR_SHARE_BAR} or "
+          f"the witness, member 0's single run in f32 against f64, "
+          f"{witness:.3e}), largest difference "
+          f"{max(r['max_param_diff_of_max_p'] for r in rows):.3e} of "
+          f"max|p|", flush=True)
+    if [r["n_skipped"] for r in rows] != [int(i == BACKOFF_BAD)
+                                          for i in range(len(FLEET_US))]:
+        fail(f"backoff fleet: n_skipped {[r['n_skipped'] for r in rows]}")
+    record["backoff"] = {"members": rows, "witness_f32_vs_f64": witness}
+    record["counts"] = dict(record["counts"])
+    del bfts, model
+    torch.cuda.empty_cache()
+    return record
+
+
+# Phase 28: the three examples/torch scripts as subprocesses on the card
+# (their default device), run together: MNIST on the shipped checkpoint in
+# the port's format, CIFAR at in_planes 64, batch 256, 512 images, bf16, all
+# four regimes, and the coefficient example at its default 400 steps.
+EXAMPLE_RUNS = (
+    ("mnist", "mnist_build_and_evaluate.py",
+     ["--checkpoint", os.path.join("examples", "checkpoints",
+                                   "mnist_digits_smoothing_torch")]),
+    ("cifar10", "cifar10_build_and_evaluate.py",
+     ["--in_planes", "64", "--batch_size", str(BATCH), "--n_eval", "512",
+      "--precision", "bf16"]),
+    ("learn_solver_coefficient", "learn_solver_coefficient.py", []),
+)
+EXAMPLE_MNIST_N_EVAL, EXAMPLE_MNIST_STEPS = 512, 8  # the script's defaults
+
+
+def examples_phase(port, torch, dev):
+    """Phase 28: run the examples, each must exit 0; print their
+    accuracies, u, launches and wall seconds; the MNIST example's clean
+    accuracy must equal the port's in-process ``accuracy`` on the same
+    images.  Returns the phase's record."""
+    from neural_ode_metasolver_tpu_torch.data import (batch_iterator,
+                                                      synthetic_dataset)
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     create_solver)
+    from neural_ode_metasolver_tpu_torch.runners.common import (
+        optimizer_from_saved_args)
+    from neural_ode_metasolver_tpu_torch.training import (
+        accuracy, create_train_state, load_checkpoint_config,
+        restore_checkpoint)
+
+    phase("examples: examples/torch/*.py as subprocesses on the card, run "
+          "together")
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(script, args):
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(REPO, "examples", "torch",
+                                              script)] + args,
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            return None, time.perf_counter() - t0
+        return proc, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLE_RUNS)) as pool:
+        futures = {label: pool.submit(run, script, args)
+                   for label, script, args in EXAMPLE_RUNS}
+    records, counts = {}, Counter()
+    for label, fut in futures.items():
+        proc, wall = fut.result()
+        if proc is None:
+            fail(f"example {label} ran past 300 s")
+        if proc.returncode != 0:
+            fail(f"example {label} exited {proc.returncode}: "
+                 f"{proc.stderr.strip()[-1500:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["wall_s"] = wall
+        records[label] = rec
+        counts.update(rec["launches"])
+    print(f"  all three in {time.perf_counter() - t0:.1f} s wall (wall_s: "
+          f"each subprocess's, interpreter start included; seconds: its "
+          f"own clock from main())", flush=True)
+    for label, rec in records.items():
+        body = {k: v for k, v in rec.items() if k not in ("example",)}
+        print(f"  {label}: " + json.dumps(body), flush=True)
+    mn = records["mnist"]
+    if not mn["launches"].get("conv3x3_same") or not mn["launches"].get(
+            "group_norm_act"):
+        fail(f"the MNIST example launched {mn['launches']} on the card")
+    cf = records["cifar10"]
+    if set(cf["regimes"]) != {"standalone", "switch [0.6,0.4]",
+                              "solver ens [0.6,0.4]", "model ensembling"}:
+        fail(f"the CIFAR example's regimes {sorted(cf['regimes'])}")
+    if not cf["launches"].get("ode_block_rk2") or not cf["launches"].get(
+            "conv3x3_same"):
+        fail(f"the CIFAR example launched {cf['launches']} on the card")
+    lr = records["learn_solver_coefficient"]
+    if not (math.isfinite(lr["final_loss"]) and lr["u"] != lr["u0"]):
+        fail(f"the coefficient example: {lr}")
+
+    # the MNIST example's clean accuracy against the port in-process
+    ckpt = os.path.join(REPO, EXAMPLE_RUNS[0][2][1])
+    cfg = load_checkpoint_config(ckpt)
+    model = build_model("mnist", dim=int(cfg["dim"]))
+    restore_checkpoint(ckpt, create_train_state(
+        model, optimizer_from_saved_args(cfg["args"])))
+    ds = synthetic_dataset(EXAMPLE_MNIST_N_EVAL, (28, 28, 1), seed=1)
+    acc = accuracy(model, [create_solver("rk4", "u3",
+                                         n_steps=EXAMPLE_MNIST_STEPS,
+                                         u0=1 / 3)],
+                   SolverOptions(), batch_iterator(ds, BATCH, shuffle=False))
+    print(f"  MNIST example's clean accuracy {mn['clean_acc']} against the "
+          f"port in-process on the same images {acc}", flush=True)
+    if acc != mn["clean_acc"]:
+        fail(f"the MNIST example's clean accuracy {mn['clean_acc']} is not "
+             f"the in-process {acc}")
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": records, "counts": dict(counts),
+            "mnist_in_process_clean_acc": acc}
 
 
 def main():
@@ -3482,6 +3919,16 @@ def main():
     print(f"  launches over phase 26's loaded requests: "
           f"{exported['counts']}", flush=True)
 
+    # --------------------------- 27 regime and backoff fleets, 28 examples
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    regime_fleet = regime_fleet_phase(port, torch, dev, fleet["step_ms"])
+    print(f"  launches over phase 27's timed steps: "
+          f"{regime_fleet['counts']}", flush=True)
+    cudnn.allow_tf32, matmul.allow_tf32 = tf32_defaults
+    examples = examples_phase(port, torch, dev)
+    print(f"  launches over phase 28's examples: {examples['counts']}",
+          flush=True)
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -3541,6 +3988,11 @@ def main():
             "exported serving": {
                 "requests": exported["requests"],
                 "launches": exported["counts"].get(name, 0)},
+            "regime fleet train f32": {
+                "steps": TRAIN_STEPS * len(REGIME_FLEET_OPTIONS),
+                "members": FLEET_S,
+                "launches": regime_fleet["counts"].get(name, 0)},
+            "examples": {"launches": examples["counts"].get(name, 0)},
         }
         paths = {
             "adjoint_train_bf16": {
@@ -3560,6 +4012,14 @@ def main():
                     "peak_gib", "chunk_sizes", "pgd_step_ms",
                     "member_vs_single", "witness_f32_vs_f64")},
             "exported_serving": exported["paths"],
+            "regime_fleet_train_f32": {
+                "regimes": regime_fleet["regimes"],
+                "backoff": regime_fleet["backoff"]},
+            "examples": {k: {f: v for f, v in r.items()
+                             if f in ("clean_acc", "pgd_acc", "regimes",
+                                      "u", "final_loss", "launches",
+                                      "seconds", "wall_s")}
+                         for k, r in examples["runs"].items()},
         }
         return {"name": name, "route": "cuda", "op": OPS.get(name),
                 "source": source, "replaces": replaces,
@@ -3780,7 +4240,19 @@ def main():
              "and img/s of 5 requests beside the live ServedModel's, the "
              "logits' max_abs_err and bar, bit_equal, launches_a_request; "
              "by_path's exported serving counts the loading process's "
-             "requests on the card")
+             "requests on the card.  regime_fleet_train_f32 (every "
+             "kernel): phase 27's fleet of 16 under switch[0.6,0.4] and "
+             "solver_ens[0.6,0.4] (launches a step against a single "
+             "step's whose draws take the same branches, median step_ms "
+             "beside phase 24's standalone fleet, the members' step-1 "
+             "training draws, the members against their single runs, the "
+             "kernel path against the plain path) and the Adam "
+             "nan_backoff fleet (each member's count, scale, n_skipped "
+             "beside its single run's, params apart); by_path's regime "
+             "fleet train f32 its timed steps.  examples: phase 28's "
+             "examples/torch scripts on the card (accuracies, u, their "
+             "own launches and seconds, wall_s of the subprocess); "
+             "by_path's examples their launches")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,7 +55,10 @@ model state with a leading member axis, x (S, N, 32, 32, 3), stacked
 solvers (u (S,)), logits (S, N, classes).  Every layer takes its members'
 path (``models/nn.py``): B1 and B3 member-batched, other convs grouped,
 BN's statistics per member, SN/WN per member's kernel.  B2 has no member
-axis: a fleet's no-grad forward launches it once per member.
+axis: a fleet's no-grad standalone forward launches it once per member.
+Under switch and ensemble ``generator`` is a list of the members' CPU
+generators, each member drawing once per ODE block from its own, and the
+ss-loss pass replays each member's draws (``ops/regimes.py``).
 
 The ss-loss (JAX ``:372-385``): each ODE block's output re-integrated over
 t in [1, 2], replaying the forward's regime draws, the batch mean of the L2
@@ -478,8 +481,9 @@ def apply_cifar(
     state, ``state`` itself in eval mode).  ``state`` is the model state
     tree (None: the config has none).  ``train`` selects train mode (BN's
     batch statistics, SN's power iteration); ``remat`` checkpoints each RK
-    step of the generic ODE-block path; ``generator`` (a CPU generator)
-    serves the switch and ensemble draws; ``integration_method``
+    step of the generic ODE-block path; ``generator`` (a CPU generator; a
+    fleet's list of them, one a member) serves the switch and ensemble
+    draws; ``integration_method``
     ("backprop" or "adjoint") picks how the ODE blocks are
     differentiated."""
     _check_cfg(cfg)

@@ -45,6 +45,9 @@ shape (S,)), logits (S, N, classes), the ss-loss (S,).  Every layer then
 takes its members' path (``models/nn.py``): B1 and B3 member-batched, one
 launch for all members; the stem and the strided convs as grouped
 ``F.conv2d``; the head as ``torch.bmm``; the time channel t per member.
+Under switch and ensemble ``generator`` is then a list of the members' CPU
+generators: member m draws its switch id or ensemble coin from its own, and
+the ss-loss pass replays each member's draw (``ops/regimes.py``).
 """
 from __future__ import annotations
 
@@ -259,8 +262,8 @@ def apply_mnist(
     ``return_aux`` also ``{"ss_loss": ..., "model_state": {}}`` (the
     ss-loss a 0-dim tensor in x's dtype; the net keeps no model state, so
     ``state`` is ignored, as JAX's adapter threads an empty one).
-    ``generator`` (a CPU generator) serves the switch and ensemble regimes
-    one draw per ODE block."""
+    ``generator`` (a CPU generator; a fleet's list of them, one a member)
+    serves the switch and ensemble regimes one draw per ODE block."""
     del train, unroll, state
     _check_cfg(cfg)
     if integration_method not in ("backprop", "adjoint"):

@@ -19,6 +19,21 @@ records the draw (``switch_solver_id``, ``ensemble_coin_flip``) and
 stream differs from JAX's threefry: parity tests pin the draws through
 ``aux_in`` or degenerate probabilities and compare distributions.
 
+A fleet (``training/fleet.py``: y0 with a leading member axis S) draws
+per member, as JAX's vmap of the regime does: ``generator`` is then a list
+of S CPU generators, member m drawing from its own exactly as its single
+run draws, and ``aux`` records a list of S draws, which ``aux_in`` replays.
+A switch whose members chose one solver integrates it alone.  Where they
+chose apart, solvers that share a grid integrate once, on a stacked
+tableau whose member m rows are its chosen solver's (padded to the largest
+stage count, ``ops/tableau.py``); solvers on different grids integrate
+each chosen one over all members, and member m takes its own by
+``torch.where`` (vmap of ``lax.switch``), so nothing of an unchosen branch
+reaches it, its gradient included.  An ensemble whose coins all fell tails
+integrates ``solvers[0]`` alone; otherwise every solver over all members,
+and member m takes the weighted sum or ``solvers[0]``'s output by its coin
+(vmap of ``lax.cond``).
+
 Solver smoothing is not a mode: it perturbs u/v before the forward
 (``ops/noise.py``) and composes with all three.
 
@@ -29,12 +44,14 @@ t, y)`` and its ``rhs_params`` (JAX ``regimes.py:49-66``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .adjoint import odeint_final_adjoint
+from .integrate import odeint_final
 from .solver import ParametricSolver
+from .tableau import ButcherTableau, pad_tableau
 
 __all__ = ["SolverOptions", "meta_integrate", "switch_probs"]
 
@@ -100,11 +117,12 @@ def meta_integrate(
     rhs_with_params=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Integrate ``y0`` over [t0, t1] under the configured regime; returns
-    ``(y(t1), aux)``.  ``generator`` (a CPU generator) serves the switch
-    and ensemble draws, one per call; without it, and without ``aux_in`` to
-    replay, those modes raise.  ``remat`` checkpoints each RK step of the
-    backprop path; ``adjoint`` takes the continuous adjoint instead, which
-    needs ``rhs_with_params`` and ``rhs_params`` (``rhs`` is then unused)."""
+    ``(y(t1), aux)``.  ``generator`` (a CPU generator; a fleet's list of
+    them, one a member) serves the switch and ensemble draws, one per call;
+    without it, and without ``aux_in`` to replay, those modes raise.
+    ``remat`` checkpoints each RK step of the backprop path; ``adjoint``
+    takes the continuous adjoint instead, which needs ``rhs_with_params``
+    and ``rhs_params`` (``rhs`` is then unused)."""
     n = len(solvers)
     mode = options.solver_mode
     if mode not in ("standalone", "switch", "ensemble"):
@@ -113,32 +131,104 @@ def meta_integrate(
         raise ValueError("adjoint integration needs an explicit-params RHS "
                          "(rhs_with_params / rhs_params)")
 
-    def integrate(s):
+    def integrate(s, tableau=None):
+        """``s``'s solve of y0, on ``tableau`` in place of s's own."""
         if adjoint:
-            return odeint_final_adjoint(s.tableau(), rhs_with_params,
-                                        rhs_params, y0,
-                                        s.final_grid(y0, t0, t1))
-        return s.integrate_final(rhs, y0, t0, t1, remat=remat)
+            return odeint_final_adjoint(
+                s.tableau() if tableau is None else tableau,
+                rhs_with_params, rhs_params, y0, s.final_grid(y0, t0, t1))
+        if tableau is None:
+            return s.integrate_final(rhs, y0, t0, t1, remat=remat)
+        return odeint_final(tableau, rhs, y0,
+                            time_grid=s.final_grid(y0, t0, t1), remat=remat)
 
+    fleet = isinstance(generator, (list, tuple)) or (
+        aux_in is not None and any(isinstance(v, (list, tuple))
+                                   for v in aux_in.values()))
     if mode == "standalone":
         return integrate(solvers[0]), {}
     if mode == "switch":
         if aux_in is not None and "switch_solver_id" in aux_in:
-            solver_id = int(aux_in["switch_solver_id"])
+            solver_id = aux_in["switch_solver_id"]
+            solver_id = (list(solver_id) if fleet else int(solver_id))
         else:
-            solver_id = _choose(generator, switch_probs(options, n))
-        return integrate(solvers[solver_id]), {"switch_solver_id": solver_id}
+            probs = switch_probs(options, n)
+            solver_id = ([_choose(g, probs) for g in generator] if fleet
+                         else _choose(generator, probs))
+        aux = {"switch_solver_id": solver_id}
+        if not fleet or len(set(solver_id)) == 1:
+            one = solver_id[0] if fleet else solver_id
+            return integrate(solvers[one]), aux
+        return _member_switch(solvers, solver_id, y0, integrate), aux
     if aux_in is not None and "ensemble_coin_flip" in aux_in:
-        coin = bool(aux_in["ensemble_coin_flip"])
+        coin = aux_in["ensemble_coin_flip"]
+        coin = [bool(c) for c in coin] if fleet else bool(coin)
     else:
-        coin = _host_uniform(generator, "ensemble") < options.ensemble_prob
-    if not coin:
-        return integrate(solvers[0]), {"ensemble_coin_flip": False}
+        draw = lambda g: (_host_uniform(g, "ensemble")  # noqa: E731
+                          < options.ensemble_prob)
+        coin = [draw(g) for g in generator] if fleet else draw(generator)
+    aux = {"ensemble_coin_flip": coin}
+    if not any(coin if fleet else [coin]):
+        return integrate(solvers[0]), aux
     weights = options.ensemble_weights
     if weights is None:
         weights = [1.0 / n] * n
-    y = None
+    y = first = None
     for w, s in zip(weights, solvers):
-        yi = w * integrate(s)
+        out = integrate(s)
+        first = out if first is None else first
+        yi = w * out
         y = yi if y is None else y + yi
-    return y, {"ensemble_coin_flip": True}
+    if fleet and not all(coin):
+        y = torch.where(_member_mask(coin, y), y, first)
+    return y, aux
+
+
+def _member_mask(values: Sequence[bool], like: torch.Tensor) -> torch.Tensor:
+    """A fleet's per-member booleans shaped to select along ``like``'s
+    leading (member) axis."""
+    return torch.tensor(list(values), device=like.device).reshape(
+        (-1,) + (1,) * (like.dim() - 1))
+
+
+def _grid_key(s: ParametricSolver):
+    return (s.n_steps, s.step_size, s.custom_grid)
+
+
+def _member_tableau(solvers: Sequence[ParametricSolver], ids: List[int],
+                    device: torch.device) -> ButcherTableau:
+    """The stacked tableau whose member m rows are those of solver ids[m]
+    (a stacked solver's row m), padded to the largest stage count."""
+    chosen = sorted(set(ids))
+    tabs = {j: solvers[j].tableau() for j in chosen}
+    smax = max(t.stages for t in tabs.values())
+    s_count = len(ids)
+    rows = {}
+    for name in ("c", "w", "b"):
+        stack = []
+        for j in chosen:
+            t = getattr(pad_tableau(tabs[j], smax), name).to(device)
+            lead = 1 if name != "w" else 2
+            if t.dim() == lead:  # one solver for every member
+                t = t.expand((s_count,) + tuple(t.shape))
+            stack.append(t)
+        pick = torch.tensor([chosen.index(i) for i in ids], device=device)
+        rows[name] = torch.stack(stack)[pick, torch.arange(s_count,
+                                                           device=device)]
+    return ButcherTableau(c=rows["c"], w=rows["w"], b=rows["b"])
+
+
+def _member_switch(solvers, ids: List[int], y0: torch.Tensor, integrate):
+    """A fleet's switch where members chose apart: one solve on the members'
+    tableau where the chosen solvers share a grid, else each chosen solver
+    over all members and member m's own output picked by selection."""
+    chosen = sorted(set(ids))
+    if len({_grid_key(solvers[j]) for j in chosen}) == 1:
+        return integrate(solvers[chosen[0]],
+                         _member_tableau(solvers, ids, y0.device))
+    y = None
+    for j in chosen:
+        out = integrate(solvers[j])
+        y = out if y is None else torch.where(
+            _member_mask([i == j for i in ids], out), out, y)
+    return y

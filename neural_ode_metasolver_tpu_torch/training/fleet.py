@@ -12,8 +12,9 @@ while the card does S runs'.  That is the point on the H100 as on the TPU:
 a digits-size MNIST step is host-bound (PERF.md section 5).
 
 Per-member semantics are ``make_train_step``'s:
-  * member m draws its step seeds (noise, attack start, data noise) from
-    its own CPU generator, in the single step's order
+  * member m draws its step seeds (noise, attack start, data noise, then
+    under switch and ensemble the attack's and the training forward's
+    regime seeds) from its own CPU generator, in the single step's order
     (``fleet_generators(seeds)[m]`` is the generator a single run seeded
     with ``seeds[m]`` uses; ``create_fleet_state`` draws member m's init
     from it first, as ``build_model`` does);
@@ -22,8 +23,17 @@ Per-member semantics are ``make_train_step``'s:
   * the loss is each member's mean cross-entropy (plus its ss-loss), and
     one ``torch.autograd.grad`` of their sum gives each member its own
     gradient;
-  * global-norm clipping, ``every_k``, ``skip_nonfinite`` and the
-    ``grad_norm`` metric are per member; SGD, RMSprop and Adam run
+  * the switch and ensemble regimes draw per member, from generators
+    seeded with member m's regime seeds (``ops/regimes.py``): a switch
+    whose members chose solvers of one grid is one solve on their stacked
+    tableau, so it launches what a standalone step does;
+  * global-norm clipping, ``every_k``, the non-finite backoff,
+    ``skip_nonfinite`` and the ``grad_norm`` metric are per member, and so
+    are the optimizer's counts (the learning-rate schedule's step, the
+    momentum schedule's, Adam's bias correction, ``every_k``'s phase, the
+    backoff's scale): a member that ``skip_nonfinite`` skips keeps its
+    params, optimizer state and model state, counts included, while the
+    others step (``training/optimizers.py``); SGD, RMSprop and Adam run
     elementwise on the stacked tensors.
 
 A stacked solver (``stack_fleet_solvers``) carries u and v of shape (S,);
@@ -41,12 +51,8 @@ stem and the strided convs run as one grouped cuDNN conv (``groups=S``)
 and the head as ``torch.bmm``, whose sums may be ordered otherwise.
 
 No counterpart: ``donate`` and ``compiler_options`` (nothing is compiled;
-accepted and ignored, as ``unroll`` is), the mesh (``--mesh`` is ROADMAP
-A21), the switch and ensemble regimes (their draws would pick a branch per
-member; the fleet raises), and the non-finite backoff (raises).  The
-optimizer counts (the learning-rate schedule's step, Adam's bias
-correction) are the fleet's: a member skipped by ``skip_nonfinite`` keeps
-its tensors, but the shared count advances when another member steps.
+accepted and ignored, as ``unroll`` is) and the mesh (``--mesh`` is ROADMAP
+A21).
 """
 from __future__ import annotations
 
@@ -62,9 +68,9 @@ from ..models.api import _flatten
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
-from .optimizers import Optimizer, global_norm
+from .optimizers import global_norm, keep_members
 from .train import (AttackConfig, LossConfig, NoiseConfig, TrainState,
-                    _run_attack, _seeds)
+                    _regime_generator, _regime_seeds, _run_attack, _seeds)
 
 __all__ = [
     "fleet_generators",
@@ -109,7 +115,9 @@ def create_fleet_state(model, optimizer, seeds_or_generators=None, *,
     params = {k: v.requires_grad_(True) for k, v in flat.items()
               if k.startswith("params.")}
     model_state = {k: v for k, v in flat.items() if k.startswith("state.")}
-    return TrainState(0, params, optimizer.init(params), model_state)
+    members = next(iter(params.values())).shape[0]
+    return TrainState(0, params, optimizer.init(params, members),
+                      model_state)
 
 
 def stack_fleet_solvers(member_solvers: Sequence[Sequence[ParametricSolver]]
@@ -153,7 +161,9 @@ def tile_fleet(x, n_members: int) -> torch.Tensor:
 def fleet_member(tree: Any, i: int) -> Any:
     """Member i's slice of a stacked fleet tree (a TrainState, a dict of
     tensors, an optimizer state), for checkpointing or evaluating one
-    member through the single-run harnesses; numbers (counts) stay."""
+    member through the single-run harnesses: an optimizer state's
+    per-member counts (lists of numbers) give member i's, as its single
+    run's state holds them; other numbers stay."""
     if isinstance(tree, TrainState):
         return TrainState(tree.step, fleet_member(tree.params, i),
                           fleet_member(tree.opt_state, i),
@@ -162,6 +172,9 @@ def fleet_member(tree: Any, i: int) -> Any:
         return tree[i].detach()
     if isinstance(tree, dict):
         return {k: fleet_member(v, i) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and all(
+            isinstance(v, (int, float)) for v in tree):
+        return tree[i]
     if isinstance(tree, (list, tuple)):
         return type(tree)(fleet_member(v, i) for v in tree)
     return tree
@@ -215,11 +228,14 @@ def _member_solvers(base: Sequence[ParametricSolver], n: int,
 def _fleet_forward(model, solver_options: SolverOptions, use_kernels: bool,
                    compute_dtype: Optional[torch.dtype], remat: bool,
                    integration_method: str):
-    """``forward(x, solvers, train, params, state, ss=None) -> (logits,
-    ss, new_state)``: the members' forward of x (S, N, ...), logits (S, N,
-    K) and ss (S,) in f32, ``new_state`` flat by buffer name."""
+    """``forward(x, solvers, train, params, state, ss=None,
+    generators=None) -> (logits, ss, new_state)``: the members' forward of
+    x (S, N, ...), logits (S, N, K) and ss (S,) in f32, ``new_state`` flat
+    by buffer name; ``generators`` (one a member, or None) serve the
+    regime draws."""
 
-    def forward(x, solvers_t, train, params, state, ss=None):
+    def forward(x, solvers_t, train, params, state, ss=None,
+                generators=None):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         want_ss = ss is not None and ss.ss_loss
@@ -227,7 +243,8 @@ def _fleet_forward(model, solver_options: SolverOptions, use_kernels: bool,
             x, solvers_t, solver_options, use_kernels=use_kernels,
             train=train, params=model.param_tree(params),
             model_state=model.state_tree(state), remat=remat,
-            ss_loss=want_ss, ss_loss_abs=want_ss and ss.ss_loss_abs,
+            generator=generators, ss_loss=want_ss,
+            ss_loss_abs=want_ss and ss.ss_loss_abs,
             integration_method=integration_method, return_aux=True)
         ss_val = (aux["ss_loss"].float() if want_ss else
                   torch.zeros(x.shape[0], device=logits.device))
@@ -235,27 +252,6 @@ def _fleet_forward(model, solver_options: SolverOptions, use_kernels: bool,
                                                 "state", {})
 
     return forward
-
-
-def _check_fleet(solver_options: SolverOptions) -> None:
-    if solver_options.solver_mode != "standalone":
-        raise NotImplementedError(
-            f"a fleet runs standalone solvers; {solver_options.solver_mode}"
-            " would draw a branch per member")
-
-
-def _keep_members(new: List[torch.Tensor], old: List[torch.Tensor],
-                  ok: torch.Tensor) -> None:
-    """Restore, in place, the rows of ``new`` whose member is not ``ok``."""
-    with torch.no_grad():
-        for t, o in zip(new, old):
-            mask = ok.reshape((-1,) + (1,) * (t.dim() - 1))
-            t.copy_(torch.where(mask, t, o))
-
-
-def _opt_buffers(opt_state: dict) -> List[torch.Tensor]:
-    return [t for v in opt_state.values() if isinstance(v, dict)
-            for t in v.values()]
 
 
 def make_fleet_train_step(model, optimizer, solvers: Sequence,
@@ -280,24 +276,26 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
     Metrics are (S,) tensors: loss, xentropy, ss_loss, accuracy,
     grad_norm (each member's global norm) and, with ``skip_nonfinite``,
     skipped_nonfinite (a member with a non-finite loss or gradient keeps
-    its params, optimizer buffers and model state; the check reads one
-    value back to the host).  The keyword arguments are
-    ``make_train_step``'s; ``donate``, ``compiler_options`` and ``unroll``
-    have no counterpart and are ignored."""
+    its params, optimizer state and model state, and its backoff records
+    the skip; the check reads the members' flags back to the host).  The
+    keyword arguments are ``make_train_step``'s; ``donate``,
+    ``compiler_options`` and ``unroll`` have no counterpart and are
+    ignored."""
     del unroll, donate, compiler_options
-    _check_fleet(solver_options)
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype} not supported")
     forward = _fleet_forward(model, solver_options, use_kernels,
                              compute_dtype, remat, integration_method)
-    member_opt = isinstance(optimizer, Optimizer)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generators: Sequence[torch.Generator], dynamic_solvers=None):
         n = x.shape[0]
         if len(generators) != n:
             raise ValueError(f"{len(generators)} generators for {n} members")
-        seeds = [_seeds(g, 3) for g in generators]
+        # member m's three step seeds, then its two regime seeds (None
+        # under standalone, which draws none), as a single step draws them
+        seeds = [_seeds(g, 3) + _regime_seeds(g, solver_options, 2)
+                 for g in generators]
         base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         solvers_t = _member_solvers(
             base, n, None if noise_cfg.noise_type is None
@@ -308,10 +306,11 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
                 frozen = {k: v.detach() for k, v in params.items()}
                 x_adv = _run_attack(
                     lambda xi, g: forward(xi, solvers_t, False, frozen,
-                                          state.model_state)[0],
+                                          state.model_state,
+                                          generators=g)[0],
                     attack_cfg, x, y,
                     [torch.Generator(device=x.device).manual_seed(s[1])
-                     for s in seeds])
+                     for s in seeds], [s[3] for s in seeds])
             if loss_cfg.data_noise_std > 1e-12:
                 noise = torch.stack([torch.randn(
                     x_adv.shape[1:], generator=torch.Generator(
@@ -321,7 +320,8 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
             with record_function("nodems.train_pass"), torch.enable_grad():
                 logits, ss, new_state = forward(
                     x_adv, solvers_t, True, params, state.model_state,
-                    ss=loss_cfg)
+                    ss=loss_cfg,
+                    generators=_regime_generator([s[4] for s in seeds]))
                 xent = attacks.member_cross_entropy(logits, y)
                 loss = xent
                 if loss_cfg.ss_loss:
@@ -334,30 +334,24 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
                        "grad_norm": gnorm}
             ok = None
             if skip_nonfinite:
-                ok = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
-                metrics["skipped_nonfinite"] = (~ok).float()
-                if bool(ok.all()):
+                flags = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
+                metrics["skipped_nonfinite"] = (~flags).float()
+                ok = flags.tolist()
+                if all(ok):
                     ok = None
-                elif not bool(ok.any()):
-                    return TrainState(state.step + 1, params,
-                                      state.opt_state,
-                                      state.model_state), metrics
             with record_function("nodems.update"):
-                tensors = (list(params.values())
-                           + _opt_buffers(state.opt_state)
-                           + list(state.model_state.values()))
+                optimizer.update(params, grads, state.opt_state, members=n,
+                                 skip=None if ok is None
+                                 else [not v for v in ok])
+                # a skipped member keeps its model state too
+                buffers = list(state.model_state.values())
                 old = (None if ok is None else
-                       [t.detach().clone() for t in tensors])
-                if member_opt:
-                    optimizer.update(params, grads, state.opt_state,
-                                     members=n)
-                else:
-                    optimizer.update(params, grads, state.opt_state)
+                       [t.detach().clone() for t in buffers])
                 with torch.no_grad():
                     for k, buf in state.model_state.items():
                         buf.copy_(new_state[k])
                 if old is not None:
-                    _keep_members(tensors, old, ok)
+                    keep_members(buffers, old, ok)
         return TrainState(state.step + 1, params, state.opt_state,
                           state.model_state), metrics
 
@@ -378,14 +372,15 @@ def make_fleet_eval_step(model, solvers: Sequence,
     fleet state's ``params`` and ``model_state``) and, with
     ``dynamic_solvers``, its own coefficients.
 
-    ``attack_cfg=None`` (or mode "clean") counts clean predictions and
-    draws nothing.  Otherwise each member's batch is attacked through its
-    own params first, and member m draws its attack seed from
-    ``generators[m]`` as ``adversarial_accuracy`` draws a batch's: the
+    ``attack_cfg=None`` (or mode "clean") counts clean predictions;
+    member m draws from ``generators[m]`` the regime seed of the switch
+    and ensemble regimes (standalone draws nothing) as ``accuracy`` draws
+    a batch's.  Otherwise each member's batch is attacked through its own
+    params first, and member m draws its attack seed, then its regime
+    seed, as ``adversarial_accuracy`` draws a batch's.  Either way the
     counts equal that harness's on member m.  Accumulate the counts on the
     card and divide at the end."""
     del unroll, compiler_options
-    _check_fleet(solver_options)
     forward = _fleet_forward(model, solver_options, use_kernels,
                              compute_dtype, remat, "backprop")
     attacked = attack_cfg is not None and attack_cfg.mode != "clean"
@@ -396,22 +391,26 @@ def make_fleet_eval_step(model, solvers: Sequence,
         base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         solvers_t = _member_solvers(base, n, None, NoiseConfig(), x.device)
         frozen = {k: v.detach() for k, v in params.items()}
+        drawn = attacked or solver_options.solver_mode != "standalone"
+        if drawn and (generators is None or len(generators) != n):
+            what = "an attacked" if attacked else solver_options.solver_mode
+            raise ValueError(f"{what} fleet eval needs one CPU generator "
+                             "per member")
+        seeds = ([int(torch.randint(0, 2 ** 62, (), generator=g))
+                  for g in generators] if attacked else None)
+        fwd_seeds = ([_regime_seeds(g, solver_options, 1)[0]
+                      for g in generators] if drawn else None)
         with full_f32():
             if attacked:
-                if generators is None or len(generators) != n:
-                    raise ValueError("an attacked fleet eval needs one CPU "
-                                     "generator per member")
-                seeds = [int(torch.randint(0, 2 ** 62, (), generator=g))
-                         for g in generators]
                 x = _run_attack(
                     lambda xi, g: forward(xi, solvers_t, False, frozen,
-                                          model_state)[0],
+                                          model_state, generators=g)[0],
                     attack_cfg, x, y,
                     [torch.Generator(device=x.device).manual_seed(s)
-                     for s in seeds])
+                     for s in seeds], fwd_seeds)
             with torch.inference_mode():
-                logits = forward(x, solvers_t, False, frozen,
-                                 model_state)[0]
+                logits = forward(x, solvers_t, False, frozen, model_state,
+                                 generators=_regime_generator(fwd_seeds))[0]
                 return (logits.argmax(-1) == y).sum(1)
 
     return counts

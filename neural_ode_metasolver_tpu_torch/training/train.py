@@ -172,9 +172,19 @@ def _noise_solvers(solvers, generator: torch.Generator,
             for s in solvers]
 
 
-def _regime_generator(seed: Optional[int]) -> Optional[torch.Generator]:
-    """A CPU generator for the regime draws of one forward, or None."""
+def _regime_generator(seed):
+    """A CPU generator for the regime draws of one forward, or None; a
+    fleet's list of seeds (one a member) gives one generator a member."""
+    if isinstance(seed, list):
+        return [_regime_generator(s) for s in seed]
     return None if seed is None else torch.Generator().manual_seed(seed)
+
+
+def _seed_plus(seed, k: int):
+    """``seed + k`` for a seed, None or a fleet's list of seeds."""
+    if isinstance(seed, list):
+        return [_seed_plus(s, k) for s in seed]
+    return None if seed is None else seed + k
 
 
 def _run_attack(forward, attack_cfg: AttackConfig, x, y,
@@ -182,7 +192,8 @@ def _run_attack(forward, attack_cfg: AttackConfig, x, y,
                 fwd_seed: Optional[int] = None) -> torch.Tensor:
     """The adversarial batch (JAX ``train.py:154-173``); ``forward(xi,
     g)`` runs the model in eval mode on detached weights, with ``g`` the
-    regime generator of that forward (from ``fwd_seed``, or None)."""
+    regime generator of that forward (from ``fwd_seed``, or None; a
+    fleet's generators and seeds are lists, one a member)."""
     m, c = attack_cfg.mode, attack_cfg
     one = lambda xi: forward(xi, _regime_generator(fwd_seed))
     if m == "clean":
@@ -196,7 +207,7 @@ def _run_attack(forward, attack_cfg: AttackConfig, x, y,
         # each iteration draws its own regime choice, as JAX's fwd_key does
         return attacks.pgd(
             lambda xi, i: forward(xi, _regime_generator(
-                None if fwd_seed is None else fwd_seed + 1 + i)),
+                _seed_plus(fwd_seed, 1 + i))),
             generator, x, y, c.eps, c.pgd_lr, c.pgd_niter,
             c.pgd_random_start, c.mean, c.std, per_iteration=True)[0]
     raise ValueError("Attack type not understood.")
@@ -313,16 +324,20 @@ def make_train_step(model, optimizer: AnyOptimizer,
                        "grad_norm": gnorm}
             ok = True
             if skip_nonfinite:
-                # a skipped step leaves params, optimizer and model state
+                # a skipped step leaves params, optimizer and model state;
+                # the non-finite backoff records it (JAX train.py:255-297)
                 ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
                 metrics["skipped_nonfinite"] = torch.tensor(
                     float(not ok), device=x.device)
-            if ok:
-                with record_function("nodems.update"):
+            with record_function("nodems.update"):
+                if ok:
                     optimizer.update(state.params, grads, state.opt_state)
                     # a skipped step keeps its BN/SN state too (JAX
                     # train.py:307-316)
                     model.commit_state(new_state)
+                else:
+                    optimizer.update(state.params, grads, state.opt_state,
+                                     skip=True)
         return TrainState(state.step + 1, state.params, state.opt_state,
                           state.model_state), metrics
 

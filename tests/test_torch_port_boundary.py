@@ -1,6 +1,6 @@
-"""Boundaries of the PyTorch port: it imports neither JAX (nor orbax or
-optax) nor the JAX package, its entry points never fall back to the CPU on
-their own, and a CPU run launches no kernel."""
+"""Boundaries of the PyTorch port: it and its examples import neither JAX
+(nor orbax or optax) nor the JAX package, its entry points never fall back
+to the CPU on their own, and a CPU run launches no kernel."""
 import os
 import subprocess
 import sys
@@ -40,6 +40,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the JAX package's."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT_EXAMPLES = r"""
+import glob, importlib.util, os, sys
+paths = sorted(glob.glob(os.path.join("examples", "torch", "*.py")))
+for path in paths:
+    spec = importlib.util.spec_from_file_location(
+        "example_" + os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "optax",
+                                    "neural_ode_metasolver_tpu"))
+print(paths, bad)
+sys.exit(1 if bad or len(paths) < 3 else 0)
+"""
+
+
+def test_examples_import_neither_jax_nor_the_jax_package():
+    """Load every ``examples/torch`` script (its ``main`` is not run) in a
+    fresh interpreter: what they import pulls in no JAX."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
