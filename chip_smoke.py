@@ -186,8 +186,9 @@ Phases, in order; any failure exits non-zero:
      warm-up and five timed steps beside a single run's, finite losses,
      the launches of a fleet step equal to a single step's, img/s, peak
      memory; step ms and peak memory at 1, 4, 8, 16 and 32 members; each
-     member against its single run over two steps from one state (with
-     an f32 against f64 witness of what rounding alone moves); the fleet's
+     member against its single run over two steps from one state, cuDNN
+     on its deterministic algorithms on both sides (with an f32 against
+     f64 witness of what rounding alone moves); the fleet's
      kernel path against its plain path (phase 11's bars); one step under
      PGD-7, launching what a single PGD-7 step launches;
  25. ``u_sweep.main`` (4 u x 2 seeds, 1280 train and 512 test synthetic
@@ -220,6 +221,7 @@ Phases, in order; any failure exits non-zero:
      worth each way, B1 32, dgrad 32, wgrad 32, B3 48 + 48), a warm-up and
      five timed steps beside phase 24's standalone fleet, each member
      against its single run over two steps from one state with its draws
+     (cuDNN deterministic, as in 24)
      (phase 24's bars), the fleet's kernel path against its plain path
      (phase 11's bars); then a fleet of four (one a u) under Adam 1e-3
      with the non-finite backoff 0.5 and skip_nonfinite, member 1's batch
@@ -233,15 +235,44 @@ Phases, in order; any failure exits non-zero:
      their accuracies, u, launches and wall seconds; the MNIST example's
      clean accuracy equal to the port's in-process ``accuracy`` on the same
      images.
+ 29. the ensemble on the member axis: four members of
+     ``solver_ensemble_by_noising`` (RK2 u=0.5, 8 steps, Normal(0.2)) through
+     ``accuracy_ensemble`` and ``adversarial_accuracy_ensemble`` (FGSM) with
+     a one-rank ``ensemble`` mesh beside the member loop, the MNIST
+     MetaNODE (dim 64, f32) and premetanode10 (in_planes 64, bf16), two
+     batches of 256: averaged probabilities within 1e-5 (f32) or 2^-5
+     (bf16) of the loop's and of the plain path's, exact launches a batch
+     (B1, its dgrad, B3 and its backward once for all members where the
+     loop launches them once a member; B2 once a member either way), the
+     accuracies and ms a batch both ways;
+ 30. data parallelism, as subprocesses on the one card: (a)
+     ``mnist_runner --mesh data=1`` on a one-rank NCCL group against the
+     same run without ``--mesh`` (dim 64, batch 128, SGD lr 0.05, 2
+     epochs on 1280 synthetic images): epoch losses and final params bit
+     for bit, launches equal (cuDNN on its deterministic algorithms); (b)
+     the run as two gloo ranks sharing the card (NCCL refuses two ranks on
+     one device) against one process over two epochs of one batch: step
+     1's loss within 2e-5, step 2's within 1e-3 and at most 1e-2 of the
+     params more than 1e-4 max|p| apart (phase 24's bars over its two
+     steps), each rank's launches the one process's; the 20-step pair
+     printed beside a witness (the one-process run with cuDNN's default,
+     atomic-ordered algorithms); (d) phase 29's MNIST
+     ensemble over an ``ensemble`` axis of two gloo ranks against the
+     one-rank result; (c) phase 9's flagship step at batch 256 as two
+     ranks of 128: one f32 step's reduced gradient within 1e-4 max|g| of
+     one process's (clean, smoothing kept), three bf16 steps timed with
+     the all-reduce's ms a step per rank beside one process's step, each
+     rank launching phase 9's step.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under temporary directories that phases 15-17, 19, 22, 25 and
-26 delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
+files only under temporary directories that phases 15-17, 19, 22, 25, 26
+and 30 delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
 working directory).
 """
+import contextlib
 import copy
 import json
 import math
@@ -1530,6 +1561,23 @@ USWEEP_U, USWEEP_SEEDS = "0.25,0.5,0.75,1.0", "1,2"
 USWEEP_HELD_TRAIN, USWEEP_HELD_CHUNK, USWEEP_HELD_BAR = 2 * FLEET_N, 3, 1
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN on its deterministic algorithms inside the block.  Its default
+    algorithms for the stem and strided convs may order their sums by
+    atomics, and two steps of RMSprop turn a rounding-level gradient into a
+    +-10 lr move: run to run, phase 24's member-against-single share of
+    params apart read 1.06e-3 to 1.06e-2 on an H100 80GB HBM3 (the same
+    program, the same inputs); on the deterministic algorithms it reads
+    one value.  The timed steps keep cuDNN's defaults."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def params_apart(pa, pb):
     """Two runs' params by name: the share of elements more than 1e-4 of
     max|pb| apart, and the largest difference over max|pb|."""
@@ -1893,51 +1941,53 @@ def fleet_train_phases(port, torch, dev):
         del fts_c
     torch.cuda.empty_cache()
 
-    # each member against its own single run: two steps from one state
-    fts, gens, dyn, fstep = fleet_of(s)
-    f1, m1 = fstep(fts, xs[:s], ys[:s], gens, dyn)
-    loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
-    f2, m2 = fstep(f1, xs[s:], ys[s:], gens, dyn)
-    worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0}
+    # each member against its own single run: two steps from one state,
+    # cuDNN deterministic on both sides
+    with deterministic_cudnn(torch):
+        fts, gens, dyn, fstep = fleet_of(s)
+        f1, m1 = fstep(fts, xs[:s], ys[:s], gens, dyn)
+        loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
+        f2, m2 = fstep(f1, xs[s:], ys[s:], gens, dyn)
+        worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0}
 
-    def two_single_steps(seed, u, plain=False, f64=False):
-        mm = build_model("mnist", dim=MNIST_DIM,
-                         generator=torch.Generator().manual_seed(seed))
-        if f64:
-            mm.double()
-        st = create_train_state(mm, opt)
-        step = make_train_step(mm, opt, [ref_solver], opts,
-                               use_kernels=not plain)
-        g = torch.Generator().manual_seed(seed)
-        sv = u_solver(u)
-        if f64:
-            sv = [sv[0].replace(u=sv[0].u.double())]
-        cast = (lambda t: t.double()) if f64 else (lambda t: t)
-        i = members.index((u, seed))
-        st, a = step(st, cast(xs[i]), ys[i], g, sv)
-        st, b = step(st, cast(xs[s + i]), ys[s + i], g, sv)
-        return a, b, st
+        def two_single_steps(seed, u, plain=False, f64=False):
+            mm = build_model("mnist", dim=MNIST_DIM,
+                             generator=torch.Generator().manual_seed(seed))
+            if f64:
+                mm.double()
+            st = create_train_state(mm, opt)
+            step = make_train_step(mm, opt, [ref_solver], opts,
+                                   use_kernels=not plain)
+            g = torch.Generator().manual_seed(seed)
+            sv = u_solver(u)
+            if f64:
+                sv = [sv[0].replace(u=sv[0].u.double())]
+            cast = (lambda t: t.double()) if f64 else (lambda t: t)
+            i = members.index((u, seed))
+            st, a = step(st, cast(xs[i]), ys[i], g, sv)
+            st, b = step(st, cast(xs[s + i]), ys[s + i], g, sv)
+            return a, b, st
 
-    for i, (u, seed) in enumerate(members):
-        a, b, st = two_single_steps(seed, u)
-        rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
-        worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
-                                                 a["loss"].item()))
-        worst["gnorm1"] = max(worst["gnorm1"], rel(gn1[i].item(),
-                                                   a["grad_norm"].item()))
-        worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
-                                                 b["loss"].item()))
-        worst["far"] = max(worst["far"], params_apart(
-            {k: v[i] for k, v in f2.params.items()}, st.params)[0])
-    # the witness: member 0's single run, plain path, f32 against f64
-    a32, b32, st32 = two_single_steps(seed0, u0, plain=True)
-    a64, b64, st64 = two_single_steps(seed0, u0, plain=True, f64=True)
-    witness = {"loss1": abs(a32["loss"].item() - a64["loss"].item())
-               / abs(a64["loss"].item()),
-               "loss2": abs(b32["loss"].item() - b64["loss"].item())
-               / abs(b64["loss"].item()),
-               "far": params_apart(st32.params, {
-                   k: v.float() for k, v in st64.params.items()})[0]}
+        for i, (u, seed) in enumerate(members):
+            a, b, st = two_single_steps(seed, u)
+            rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
+            worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
+                                                     a["loss"].item()))
+            worst["gnorm1"] = max(worst["gnorm1"], rel(gn1[i].item(),
+                                                       a["grad_norm"].item()))
+            worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
+                                                     b["loss"].item()))
+            worst["far"] = max(worst["far"], params_apart(
+                {k: v[i] for k, v in f2.params.items()}, st.params)[0])
+        # the witness: member 0's single run, plain path, f32 against f64
+        a32, b32, st32 = two_single_steps(seed0, u0, plain=True)
+        a64, b64, st64 = two_single_steps(seed0, u0, plain=True, f64=True)
+        witness = {"loss1": abs(a32["loss"].item() - a64["loss"].item())
+                   / abs(a64["loss"].item()),
+                   "loss2": abs(b32["loss"].item() - b64["loss"].item())
+                   / abs(b64["loss"].item()),
+                   "far": params_apart(st32.params, {
+                       k: v.float() for k, v in st64.params.items()})[0]}
     print(f"  each member against its single run (kernel paths, two steps "
           f"from one state; the fleet's stem and strided convs are one "
           f"grouped cuDNN conv and its head a bmm): step 1 loss relative "
@@ -2460,34 +2510,36 @@ def regime_fleet_phase(port, torch, dev, standalone_fleet_ms):
         del fts
         torch.cuda.empty_cache()
 
-        # each member against its own single run: two steps, its draws
-        fts, step = fresh(options)
-        gens = fleet_generators(seeds)
-        f1, m1 = step(fts, xs[:s], ys[:s], gens, dyn)
-        loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
-        f2, m2 = step(f1, xs[s:], ys[s:], gens, dyn)
-        worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0,
-                 "max_param_diff_of_max_p": 0.0}
-        for i, (u, seed) in enumerate(members):
-            mm = build_model("mnist", dim=MNIST_DIM,
-                             generator=torch.Generator().manual_seed(seed))
-            st = create_train_state(mm, opt)
-            sstep = make_train_step(mm, opt, member_pairs[i], options)
-            g = torch.Generator().manual_seed(seed)
-            st, a = sstep(st, xs[i], ys[i], g, member_pairs[i])
-            st, b = sstep(st, xs[s + i], ys[s + i], g, member_pairs[i])
-            far, top = params_apart(
-                {k: v[i] for k, v in f2.params.items()}, st.params)
-            worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
-                                                     a["loss"].item()))
-            worst["gnorm1"] = max(worst["gnorm1"], rel(
-                gn1[i].item(), a["grad_norm"].item()))
-            worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
-                                                     b["loss"].item()))
-            worst["far"] = max(worst["far"], far)
-            worst["max_param_diff_of_max_p"] = max(
-                worst["max_param_diff_of_max_p"], top)
-            del mm, st
+        # each member against its own single run: two steps, its draws,
+        # cuDNN deterministic on both sides
+        with deterministic_cudnn(torch):
+            fts, step = fresh(options)
+            gens = fleet_generators(seeds)
+            f1, m1 = step(fts, xs[:s], ys[:s], gens, dyn)
+            loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
+            f2, m2 = step(f1, xs[s:], ys[s:], gens, dyn)
+            worst = {"loss1": 0.0, "gnorm1": 0.0, "loss2": 0.0, "far": 0.0,
+                     "max_param_diff_of_max_p": 0.0}
+            for i, (u, seed) in enumerate(members):
+                mm = build_model("mnist", dim=MNIST_DIM,
+                                 generator=torch.Generator().manual_seed(seed))
+                st = create_train_state(mm, opt)
+                sstep = make_train_step(mm, opt, member_pairs[i], options)
+                g = torch.Generator().manual_seed(seed)
+                st, a = sstep(st, xs[i], ys[i], g, member_pairs[i])
+                st, b = sstep(st, xs[s + i], ys[s + i], g, member_pairs[i])
+                far, top = params_apart(
+                    {k: v[i] for k, v in f2.params.items()}, st.params)
+                worst["loss1"] = max(worst["loss1"], rel(loss1[i].item(),
+                                                         a["loss"].item()))
+                worst["gnorm1"] = max(worst["gnorm1"], rel(
+                    gn1[i].item(), a["grad_norm"].item()))
+                worst["loss2"] = max(worst["loss2"], rel(m2["loss"][i].item(),
+                                                         b["loss"].item()))
+                worst["far"] = max(worst["far"], far)
+                worst["max_param_diff_of_max_p"] = max(
+                    worst["max_param_diff_of_max_p"], top)
+                del mm, st
         print(f"  {label}, each member against its single run (two steps "
               f"from one state, its draws): step 1 loss relative "
               f"{worst['loss1']:.3e} (bar {FLEET_LOSS1_BAR}), grad norm "
@@ -2730,6 +2782,660 @@ def examples_phase(port, torch, dev):
     torch.cuda.empty_cache()
     return {"runs": records, "counts": dict(counts),
             "mnist_in_process_clean_acc": acc}
+
+
+# Phase 29: the members of a solver ensemble on the member axis (training/
+# evaluate.py with mesh=, a one-rank ``ensemble`` mesh) beside the member
+# loop: four members from solver_ensemble_by_noising (RK2 u=0.5, 8 steps,
+# Normal(0.2), as JAX's test_mesh_sharded_ensemble_eval_matches_loop), clean
+# and FGSM, the MNIST MetaNODE (dim 64, f32, eps 0.3) and premetanode10
+# (in_planes 64, bf16, eps 8/255 with the CIFAR mean and std), two batches
+# of 256 each.  The averaged probabilities of the two paths agree within
+# 1e-5 (f32) or 2^-5 (bf16) of 1; the member path launches B1, its dgrad,
+# B3 and B3's backward once where the loop launches them once a member, B2
+# (no member axis) once a member either way.
+ENS_MEMBERS, ENS_SIGMA, ENS_BATCHES = 4, 0.2, 2
+ENS_PROB_BAR = {None: 1e-5, "bfloat16": 2.0 ** -5}
+# the kernels with a member axis (B2 has none: once a member)
+MEMBER_BATCHED = ("conv3x3_same", "conv3x3_dgrad", "group_norm_act",
+                  "group_norm_act_bwd")
+# Phase 30: data parallelism.  (a) and (b) run mnist_runner at the digits
+# width (dim 64, global batch 128, SGD lr 0.05, clean, 2 epochs of 10
+# steps on 1280 synthetic images, validation on 256) as subprocesses on
+# the one card; (c) the flagship step of phase 9 at batch 256 as two ranks
+# of 128; (d) phase 29's MNIST ensemble as two ranks of two members.
+DP_TRAIN, DP_TEST, DP_EPOCHS = 1280, 256, 2
+# (b) holds phase 24's bars over two steps (two epochs of one batch), as
+# phase 24 holds a fleet member over two steps: past them rounding grows
+# with every step (ReLU masks flip on it), so the 20-step pair is printed
+# beside a witness, the one-process run again with cuDNN free to order
+# its sums by atomics (two such runs of one program read their second
+# epoch's losses 7e-4 apart on an H100 80GB HBM3)
+DP_HELD_TRAIN = MNIST_TRAIN_BATCH
+DP_BF16_STEPS = 3
+DP_GRAD_BAR = 1e-4  # of max|g|: the reduced f32 gradient against one process
+DP_TIMEOUT_S = 300
+
+
+def dp_runner_argv(save_dir, train=DP_TRAIN):
+    """mnist_runner's flags for phase 30's runs."""
+    return ["--solvers", f"rk2,u,{N_STEPS},-1,{U},-1", "--optim", "sgd",
+            "--lr", "0.05", "--batch_size", str(MNIST_TRAIN_BATCH),
+            "--test_batch_size", str(DP_TEST), "--nepochs", str(DP_EPOCHS),
+            "--synthetic_train_size", str(train),
+            "--synthetic_test_size", str(DP_TEST), "--save_dir", save_dir]
+
+
+def ensemble_members(torch, model):
+    """Phase 29's members on ``model``: the noised solvers, one each."""
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     create_solver)
+    from neural_ode_metasolver_tpu_torch.ops.noise import (
+        solver_ensemble_by_noising)
+
+    noised = solver_ensemble_by_noising(
+        create_solver("rk2", "u", n_steps=N_STEPS, u0=U),
+        torch.Generator().manual_seed(29), ensemble_size=ENS_MEMBERS,
+        std=ENS_SIGMA, noise_type="normal")
+    return [(model, [s], SolverOptions()) for s in noised]
+
+
+def ensemble_mnist(torch, dev):
+    """Phase 29's MNIST model and batches (seeded)."""
+    from neural_ode_metasolver_tpu_torch.models import build_model
+
+    model = build_model("mnist", dim=MNIST_DIM,
+                        generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(29)
+    data = [(torch.rand(BATCH, 28, 28, 1, generator=g).to(dev),
+             torch.randint(0, 10, (BATCH,), generator=g).to(dev))
+            for _ in range(ENS_BATCHES)]
+    return model, data
+
+
+def ensemble_mesh_phase(port, torch, dev):
+    """Phase 29.  Returns the phase's record: per model the probabilities
+    apart, the accuracies and ms a batch both ways, the launches a batch,
+    and the launches of the member path's counted batches."""
+    from neural_ode_metasolver_tpu_torch.attacks import normalize
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.parallel import make_mesh
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig, accuracy_ensemble, adversarial_accuracy_ensemble,
+        make_ensemble_probs)
+
+    phase(f"ensemble on the member axis: {ENS_MEMBERS} members of "
+          f"solver_ensemble_by_noising (RK2 u={U}, {N_STEPS} steps, "
+          f"Normal({ENS_SIGMA})), a one-rank mesh beside the member loop, "
+          f"clean and FGSM, {ENS_BATCHES} batches of {BATCH}")
+    mesh = make_mesh({"ensemble": 1})
+    mnist, mdata = ensemble_mnist(torch, dev)
+    cifar = build_model("premetanode10", in_planes=64,
+                        generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(30)
+    cdata = [(normalize(torch.rand(BATCH, 32, 32, 3, generator=g),
+                        CIFAR10_MEAN, CIFAR10_STD).to(dev),
+              torch.randint(0, 10, (BATCH,), generator=g).to(dev))
+             for _ in range(ENS_BATCHES)]
+    configs = [
+        ("mnist f32", mnist, mdata, None,
+         AttackConfig(mode="fgsm", eps=MNIST_FGSM_EPS),
+         mnist_forward_counts("standalone", N_STEPS),
+         mnist_forward_counts("standalone", N_STEPS)),
+        ("premetanode10 bf16", cifar, cdata, torch.bfloat16,
+         AttackConfig(mode="fgsm", eps=8 / 255, mean=CIFAR10_MEAN,
+                      std=CIFAR10_STD),
+         cifar_forward_counts("standalone", N_STEPS),
+         cifar_forward_counts("standalone", N_STEPS, b2=False)),
+    ]
+
+    def timed(batches, marks):
+        for b in batches:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    record, mesh_counts = {}, Counter()
+    for label, model, data, dtype, atk, fwd, atk_fwd in configs:
+        members = ensemble_members(torch, model)
+        n = len(members)
+        # a batch's launches: clean one forward a member; FGSM one attack
+        # forward a member (under grad: no B2) with its input's backward,
+        # then the clean forward
+        clean1 = Counter(fwd)
+        fgsm1 = clean1 + Counter(atk_fwd) + Counter({
+            "conv3x3_dgrad": atk_fwd.get("conv3x3_same", 0),
+            "group_norm_act_bwd": atk_fwd.get("group_norm_act", 0)})
+        want = {}
+        for what, one in (("clean", clean1), ("fgsm", fgsm1)):
+            want[("loop", what)] = {k: n * v for k, v in one.items() if v}
+            want[("mesh", what)] = {
+                k: v * (1 if k in MEMBER_BATCHED else n)
+                for k, v in one.items() if v}
+        x0 = data[0][0]
+        probs = {}
+        for path, m in (("loop", None), ("mesh", mesh)):
+            for uk in (True, False):
+                fn = make_ensemble_probs(members, mesh=m, compute_dtype=dtype,
+                                         use_kernels=uk)
+                probs[(path, uk)] = fn(x0).float()
+        torch.cuda.synchronize()
+        row = {"members": n, "batches": len(data), "batch": BATCH}
+        for path, m in (("loop", None), ("mesh", mesh)):
+            accuracy_ensemble(members, data[:1], mesh=m,
+                              compute_dtype=dtype)  # warm-up
+            adversarial_accuracy_ensemble(
+                members, data[:1], atk, torch.Generator().manual_seed(0),
+                mesh=m, compute_dtype=dtype)
+            for what in ("clean", "fgsm"):
+                torch.cuda.synchronize()
+                port.reset_launch_counts()
+                marks = []
+                if what == "clean":
+                    acc = accuracy_ensemble(members, timed(data, marks),
+                                            mesh=m, compute_dtype=dtype)
+                else:
+                    acc = adversarial_accuracy_ensemble(
+                        members, timed(data, marks), atk,
+                        torch.Generator().manual_seed(1), mesh=m,
+                        compute_dtype=dtype)
+                got = port.launch_counts()
+                ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+                expect = {k: v * len(data)
+                          for k, v in want[(path, what)].items()}
+                if got != expect:
+                    fail(f"ensemble {label} {path} {what}: launches {got}, "
+                         f"expected {expect}")
+                if path == "mesh":
+                    mesh_counts += Counter(got)
+                row[f"{path}_{what}_acc"] = acc
+                row[f"{path}_{what}_ms"] = ms
+                row[f"{path}_{what}_launches_per_batch"] = want[(path, what)]
+        bar = ENS_PROB_BAR[None if dtype is None else "bfloat16"]
+        row["probs_mesh_vs_loop"] = (
+            probs[("mesh", True)] - probs[("loop", True)]).abs().max().item()
+        row["probs_kernel_vs_plain"] = (
+            probs[("mesh", True)] - probs[("mesh", False)]).abs().max().item()
+        row["probs_plain_mesh_vs_loop"] = (
+            probs[("mesh", False)]
+            - probs[("loop", False)]).abs().max().item()
+        row["probs_bar"] = bar
+        record[label] = row
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        print(f"  {label}: probabilities mesh vs loop max|diff| "
+              f"{row['probs_mesh_vs_loop']:.3e}, kernel vs plain (mesh) "
+              f"{row['probs_kernel_vs_plain']:.3e}, plain mesh vs loop "
+              f"{row['probs_plain_mesh_vs_loop']:.3e} (bar {bar:.3e})",
+              flush=True)
+        print(f"  {label}: accuracy clean mesh {row['mesh_clean_acc']} loop "
+              f"{row['loop_clean_acc']}, FGSM mesh {row['mesh_fgsm_acc']} "
+              f"loop {row['loop_fgsm_acc']}", flush=True)
+        print(f"  {label}: ms a batch (median of {len(data)}) clean mesh "
+              f"{med(row['mesh_clean_ms']):.3f} loop "
+              f"{med(row['loop_clean_ms']):.3f}, FGSM mesh "
+              f"{med(row['mesh_fgsm_ms']):.3f} loop "
+              f"{med(row['loop_fgsm_ms']):.3f}; launches a batch clean mesh "
+              f"{want[('mesh', 'clean')]} loop {want[('loop', 'clean')]}, "
+              f"FGSM mesh {want[('mesh', 'fgsm')]} loop "
+              f"{want[('loop', 'fgsm')]}", flush=True)
+        if not (row["probs_mesh_vs_loop"] <= bar
+                and row["probs_kernel_vs_plain"] <= bar
+                and row["probs_plain_mesh_vs_loop"] <= bar):
+            fail(f"ensemble {label}: probabilities apart {row}")
+    del cifar, cdata
+    torch.cuda.empty_cache()
+    # phase 30 (d) holds two ranks against this one-rank result
+    members = ensemble_members(torch, mnist)
+    fn = make_ensemble_probs(members, mesh=mesh)
+    record["mnist_probs"] = [fn(x).float().cpu() for x, _ in mdata]
+    record["mnist_clean_acc"] = accuracy_ensemble(members, mdata, mesh=mesh)
+    del mnist, mdata
+    torch.cuda.empty_cache()
+    record["counts"] = dict(mesh_counts)
+    return record
+
+
+def run_procs(cmds, timeout=DP_TIMEOUT_S):
+    """Start every command at once (``python3`` with the given arguments,
+    from the repo, stdout and stderr captured); wait for all; return
+    [(returncode, stdout, stderr)].  A command past ``timeout`` is
+    killed and fails the phase."""
+    procs = [subprocess.Popen([sys.executable] + c, cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e))
+    except subprocess.TimeoutExpired:
+        fail(f"a phase-30 process ran past {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, (rc, o, e) in zip(cmds, out):
+        if rc != 0:
+            fail(f"{' '.join(c[:3])}... exited {rc}: {e.strip()[-2000:]}")
+    return out
+
+
+def last_json(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def saved_params(torch, save_dir):
+    """The params of ``save_dir``'s newest ``last`` checkpoint, by name."""
+    base = os.path.join(save_dir, "last")
+    step = sorted(d for d in os.listdir(base) if d.startswith("step_"))[-1]
+    return torch.load(os.path.join(base, step, "state"), map_location="cpu",
+                      weights_only=True)["params"]
+
+
+def epoch_losses(save_dir):
+    return [r["train_loss"] for r in read_metrics(save_dir)
+            if "train_loss" in r]
+
+
+def dp_phase(port, torch, dev, ens, flagship_ms):
+    """Phase 30.  Returns the phase's record."""
+    import tempfile
+
+    from neural_ode_metasolver_tpu_torch.models import build_model
+
+    phase(f"data parallelism: (a) one-rank NCCL mnist_runner --mesh data=1 "
+          f"vs no mesh, (b) two ranks sharing the card over gloo vs one "
+          f"process (dim {MNIST_DIM}, global batch {MNIST_TRAIN_BATCH}), (d) "
+          f"phase 29's MNIST ensemble over ensemble=2; then (c) the flagship "
+          f"step at batch {BATCH} as two ranks of {BATCH // 2}")
+    from neural_ode_metasolver_tpu_torch.data import data_backend
+
+    data_backend("auto")  # the native data library, built before spawning
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    me = os.path.abspath(__file__)
+    d = lambda name: os.path.join(tmp, name)  # noqa: E731
+    ports = set()
+    while len(ports) < 4:
+        ports.add(free_port())
+    pa, pb1, pb2, pd = sorted(ports)
+
+    def runner(save, extra, train=DP_TRAIN, free=False):
+        return [me, "--worker", "runner", json.dumps(
+            dp_runner_argv(save, train) + extra)] + (["free"] if free else [])
+
+    def ranks(port, n=2, mesh="data=-1"):
+        return [["--mesh", mesh, "--coordinator", f"localhost:{port}",
+                 "--num_hosts", str(n), "--process_id", str(r)]
+                for r in range(n)]
+
+    cmds = {
+        "a_none": runner(d("a_none"), []),
+        "a_nccl": runner(d("a_nccl"), ranks(pa, 1, "data=1")[0]),
+        "a_free": runner(d("a_free"), [], free=True),
+        "b2_one": runner(d("b2_one"), [], DP_HELD_TRAIN),
+        "b2_r0": runner(d("b2_two"), ranks(pb1)[0], DP_HELD_TRAIN),
+        "b2_r1": runner(d("b2_two"), ranks(pb1)[1], DP_HELD_TRAIN),
+        "b_r0": runner(d("b_two"), ranks(pb2)[0]),
+        "b_r1": runner(d("b_two"), ranks(pb2)[1]),
+        "d_r0": [me, "--worker", "ensemble", str(pd), "0"],
+        "d_r1": [me, "--worker", "ensemble", str(pd), "1"],
+    }
+    t0 = time.perf_counter()
+    outs = dict(zip(cmds, run_procs(list(cmds.values()))))
+    wall_abd = time.perf_counter() - t0
+    res = {k: last_json(o) for k, (_, o, _) in outs.items()}
+    record = {"wall_s_abd": wall_abd}
+
+    # (a) one-rank NCCL against no mesh: bit for bit
+    la, ln = epoch_losses(d("a_none")), epoch_losses(d("a_nccl"))
+    pa_, pn_ = saved_params(torch, d("a_none")), saved_params(torch,
+                                                              d("a_nccl"))
+    bit = la == ln and all(torch.equal(pa_[k], pn_[k]) for k in pa_)
+    record["a"] = {"backend": res["a_nccl"]["backend"], "losses": ln,
+                   "losses_no_mesh": la, "bit_equal": bit,
+                   "launches": res["a_nccl"]["launches"],
+                   "launches_no_mesh": res["a_none"]["launches"],
+                   "nccl_all_reduce": res["a_nccl"]["all_reduce"]}
+    problems = []
+    print(f"  (a) backend {res['a_nccl']['backend']}, one NCCL all-reduce "
+          f"{res['a_nccl']['all_reduce']}; losses {ln} vs no mesh {la}; "
+          f"params and losses bit-equal: {bit}; launches equal: "
+          f"{res['a_nccl']['launches'] == res['a_none']['launches']}",
+          flush=True)
+    if not bit:
+        record["a"]["params_far_share"], record["a"]["params_worst"] = \
+            params_apart(pn_, pa_)
+        print(f"  (a) params apart: {record['a']['params_far_share']:.3e} "
+              f"past 1e-4 max|p|, largest {record['a']['params_worst']:.3e}",
+              flush=True)
+    if (res["a_nccl"]["backend"] != "nccl" or not bit
+            or res["a_nccl"]["all_reduce"] != 1.0
+            or res["a_nccl"]["launches"] != res["a_none"]["launches"]):
+        problems.append(f"(a): {record['a']}")
+
+    # (b) two ranks over gloo against one process: step 1's loss, then
+    # the losses and params after two steps (phase 24's bars); the 20-step
+    # runs printed beside the witness
+    l2, l2_two = epoch_losses(d("b2_one")), epoch_losses(d("b2_two"))
+    far, worst = params_apart(saved_params(torch, d("b2_two")),
+                              saved_params(torch, d("b2_one")))
+    loss1_rel = abs(l2_two[0] - l2[0]) / abs(l2[0])
+    loss2_rel = abs(l2_two[1] - l2[1]) / abs(l2[1])
+    ranks_launch = [res["b2_r0"]["launches"], res["b2_r1"]["launches"]]
+    lb, lb_two = epoch_losses(d("a_none")), epoch_losses(d("b_two"))
+    lw = epoch_losses(d("a_free"))
+    p_one = saved_params(torch, d("a_none"))
+    far20, worst20 = params_apart(saved_params(torch, d("b_two")), p_one)
+    far_w, worst_w = params_apart(saved_params(torch, d("a_free")), p_one)
+    rel = lambda a, b: max(abs(x - y) / abs(y)  # noqa: E731
+                           for x, y in zip(a, b))
+    record["b"] = {"backends": [res["b2_r0"]["backend"],
+                                res["b2_r1"]["backend"]],
+                   "losses": l2_two, "losses_one": l2,
+                   "step1_rel": loss1_rel, "step2_rel": loss2_rel,
+                   "params_far_share": far, "params_worst": worst,
+                   "launches_per_rank": ranks_launch,
+                   "launches_one": res["b2_one"]["launches"],
+                   "twenty_steps": {
+                       "losses": lb_two, "losses_one": lb,
+                       "loss_rel": rel(lb_two, lb),
+                       "params_far_share": far20, "params_worst": worst20,
+                       "launches_per_rank": [res["b_r0"]["launches"],
+                                             res["b_r1"]["launches"]],
+                       "witness_losses": lw, "witness_loss_rel": rel(lw, lb),
+                       "witness_far_share": far_w,
+                       "witness_worst": worst_w},
+                   "seconds": [res[k]["seconds"]
+                               for k in ("a_none", "b_r0", "b_r1")]}
+    tw = record["b"]["twenty_steps"]
+    print(f"  (b) backends {record['b']['backends']}; two steps: losses "
+          f"{l2_two} vs one process {l2} (step 1 rel {loss1_rel:.3e}, bar "
+          f"{FLEET_LOSS1_BAR}; step 2 rel {loss2_rel:.3e}, bar "
+          f"{FLEET_LOSS2_BAR}); params more than 1e-4 max|p| apart "
+          f"{far:.3e} (bar {FLEET_FAR_SHARE_BAR}), largest {worst:.3e} of "
+          f"max|p|; launches a rank {ranks_launch} vs one process "
+          f"{res['b2_one']['launches']}", flush=True)
+    print(f"  (b) 20 steps (2 epochs of 10): losses {lb_two} vs {lb} (rel "
+          f"{tw['loss_rel']:.3e}), params past 1e-4 max|p| {far20:.3e}, "
+          f"largest {worst20:.3e}; the witness (one process, cuDNN free "
+          f"to use atomics) {lw} (rel {tw['witness_loss_rel']:.3e}), params "
+          f"{far_w:.3e}, largest {worst_w:.3e}; runner seconds (one, rank "
+          f"0, rank 1, run together with (a) and (d)) "
+          f"{record['b']['seconds']}", flush=True)
+    if (record["b"]["backends"] != ["gloo", "gloo"]
+            or not loss1_rel <= FLEET_LOSS1_BAR
+            or not loss2_rel <= FLEET_LOSS2_BAR
+            or not far <= FLEET_FAR_SHARE_BAR
+            or any(c != res["b2_one"]["launches"] for c in ranks_launch)
+            or any(c != res["a_none"]["launches"]
+                   for c in tw["launches_per_rank"])):
+        problems.append(f"(b): {record['b']}")
+
+    # (d) ensemble=2 over two ranks against phase 29's one rank
+    d_err, moved, near = 0.0, 0, 0
+    for k in ("d_r0", "d_r1"):
+        for p2, p1 in zip(res[k]["probs"], ens["mnist_probs"]):
+            p2 = torch.tensor(p2)
+            d_err = max(d_err, (p2 - p1).abs().max().item())
+            mv, nr = argmax_apart(p2, p1)
+            moved, near = moved + mv, max(near, nr)
+    record["d"] = {"probs_vs_one_rank": d_err, "bar": ENS_PROB_BAR[None],
+                   "clean_acc": [res[k]["clean_acc"]
+                                 for k in ("d_r0", "d_r1")],
+                   "clean_acc_one_rank": ens["mnist_clean_acc"],
+                   "predictions_moved": moved, "near_ties": near,
+                   "launches_per_rank": [res[k]["launches"]
+                                         for k in ("d_r0", "d_r1")]}
+    print(f"  (d) ensemble=2: probabilities vs the one-rank mesh max|diff| "
+          f"{d_err:.3e} (bar {ENS_PROB_BAR[None]}), clean accuracy "
+          f"{record['d']['clean_acc']} vs {ens['mnist_clean_acc']} "
+          f"({near} near-ties), launches a rank "
+          f"{record['d']['launches_per_rank']}", flush=True)
+    if (not d_err <= ENS_PROB_BAR[None] or moved
+            or any(round(abs(a - ens["mnist_clean_acc"]) * BATCH
+                         * ENS_BATCHES) > near
+                   for a in record["d"]["clean_acc"])):
+        problems.append(f"(d): {record['d']}")
+
+    # (c) the flagship step: one process first (f32 gradient, bf16 ms),
+    # then two ranks of half the batch each
+    model = build_model("premetanode10", in_planes=64,
+                        acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    x, y = flagship_batch(torch, dev)
+    g1 = flagship_grad(torch, model, x, y, None)
+    single = flagship_timed(torch, port, model, x, y, None)
+    torch.save(g1, d("g_one.pt"))
+    del model
+    torch.cuda.empty_cache()
+    pc = free_port()
+    t0 = time.perf_counter()
+    outs = run_procs([[me, "--worker", "flagship", str(pc), str(r),
+                       d(f"g_two{r}.pt")] for r in range(2)])
+    wall_c = time.perf_counter() - t0
+    rc = [last_json(o) for _, o, _ in outs]
+    gmax = max(v.abs().max().item() for v in g1.values())
+    gerr = 0.0
+    for r in range(2):
+        g2 = torch.load(d(f"g_two{r}.pt"), weights_only=True)
+        gerr = max(gerr, max((g2[k] - g1[k]).abs().max().item()
+                             for k in g1))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    record["c"] = {"grad_err": gerr, "grad_bar": DP_GRAD_BAR * gmax,
+                   "one_process": single, "ranks": rc,
+                   "wall_s": wall_c, "phase9_step_ms": flagship_ms}
+    print(f"  (c) f32 reduced gradient vs one process max|diff| {gerr:.3e} "
+          f"(bar {DP_GRAD_BAR} x max|g| = {DP_GRAD_BAR * gmax:.3e}); bf16 "
+          f"ms a step (median of {DP_BF16_STEPS}): one process "
+          f"{med(single['ms']):.3f} (phase 9: {flagship_ms:.3f}), rank 0 "
+          f"{med(rc[0]['ms']):.3f}, rank 1 {med(rc[1]['ms']):.3f}; the "
+          f"all-reduce's ms a step rank 0 "
+          f"{[round(m, 3) for m in rc[0]['all_reduce_ms']]}, rank 1 "
+          f"{[round(m, 3) for m in rc[1]['all_reduce_ms']]} (gloo, "
+          f"{rc[0]['bucket_mb']:.2f} MB a bucket); launches a step a rank "
+          f"{[r['launches_per_step'] for r in rc]}", flush=True)
+    if not gerr <= DP_GRAD_BAR * gmax:
+        problems.append(f"(c): the reduced gradient is {gerr} apart")
+    for r in rc:
+        if r["launches_per_step"] != TRAIN_PER_STEP or r["backend"] != "gloo":
+            problems.append(f"(c): {r}")
+    if problems:
+        fail("phase 30 " + "; ".join(problems))
+    counts = Counter()
+    for k in ("a_nccl", "b_r0", "b_r1", "b2_r0", "b2_r1"):
+        counts += Counter(res[k]["launches"])
+    for r in rc:
+        counts += Counter(r["launches"])
+    record["counts"] = dict(counts)
+    record["ensemble_counts"] = dict(
+        Counter(res["d_r0"]["launches"]) + Counter(res["d_r1"]["launches"]))
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
+def flagship_batch(torch, dev):
+    """Phase 9's images and labels at batch 256."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(BATCH, 32, 32, 3, generator=g).to(dev)
+    y = torch.randint(0, 10, (BATCH,), generator=g).to(dev)
+    return x, y
+
+
+def flagship_grad(torch, model, x, y, mesh):
+    """One f32 step of phase 9's recipe without the attack (clean, the
+    smoothing kept) by SGD at lr 1 from the model's weights: the gradient
+    is the params' change.  ``mesh`` makes it data-parallel on this rank's
+    rows.  The model's weights are restored after."""
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+    from neural_ode_metasolver_tpu_torch.parallel import (
+        batch_sharding, make_parallel_train_step)
+    from neural_ode_metasolver_tpu_torch.training import (
+        NoiseConfig, create_train_state, make_optimizer, make_train_step)
+
+    snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer("sgd", 1.0, momentum=0.0)
+    step = make_train_step(model, opt, parse_solver_dsl(
+        f"rk2,u,{N_STEPS},-1,{U},-1"), noise_cfg=NoiseConfig(
+            noise_type="normal", sigma=0.0125, prob=1.0))
+    if mesh is not None:
+        step = make_parallel_train_step(step, mesh)
+        x, y = batch_sharding(mesh).local((x, y))
+    ts = create_train_state(model, opt)
+    before = {k: v.detach().clone() for k, v in ts.params.items()}
+    step(ts, x, y, torch.Generator().manual_seed(10))
+    g = {k: (before[k] - v.detach()).cpu() for k, v in ts.params.items()}
+    model.load_state_dict(snap)
+    return g
+
+
+def flagship_timed(torch, port, model, x, y, mesh):
+    """Phase 9's bf16 step: a warm-up, then DP_BF16_STEPS timed; with
+    ``mesh`` on this rank's rows, the all-reduce timed inside each step
+    (synchronized before and after).  Returns ms, all_reduce_ms, losses,
+    launches and launches_per_step."""
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     parse_solver_dsl)
+    from neural_ode_metasolver_tpu_torch.parallel import (
+        batch_sharding, make_parallel_train_step)
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig, NoiseConfig, create_train_state, cyclic_lr,
+        make_optimizer, make_train_step)
+    from neural_ode_metasolver_tpu_torch.training import train as train_mod
+
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    step = make_train_step(
+        model, opt, parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1"),
+        SolverOptions(), AttackConfig(mode="fgsm_random", eps=8 / 255,
+                                      alpha=10 / 255, mean=CIFAR10_MEAN,
+                                      std=CIFAR10_STD),
+        NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0),
+        compute_dtype=torch.bfloat16)
+    ar_ms, bucket = [], []
+    if mesh is not None:
+        step = make_parallel_train_step(step, mesh)
+        x, y = batch_sharding(mesh).local((x, y))
+        inner = train_mod.all_reduce_mean
+
+        def timed_all_reduce(tensors, shard):
+            tensors = list(tensors)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(tensors, shard)
+            torch.cuda.synchronize()
+            ar_ms.append((time.perf_counter() - t0) * 1e3)
+            bucket.append(sum(t.numel() for t in tensors) * 4 / 1e6)
+            return out
+
+        train_mod.all_reduce_mean = timed_all_reduce
+    ts = create_train_state(model, opt)
+    gen = torch.Generator().manual_seed(10)
+    ts, m = step(ts, x, y, gen)  # warm-up
+    torch.cuda.synchronize()
+    ar_ms.clear()
+    port.reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(DP_BF16_STEPS):
+        t0 = time.perf_counter()
+        ts, m = step(ts, x, y, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    counts = port.launch_counts()
+    if mesh is not None:
+        train_mod.all_reduce_mean = inner
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 30 (c): non-finite losses {losses}")
+    return {"ms": ms, "all_reduce_ms": ar_ms, "losses": losses,
+            "bucket_mb": bucket[0] if bucket else 0.0,
+            "launches": counts,
+            "launches_per_step": {k: v // DP_BF16_STEPS
+                                  for k, v in counts.items()}}
+
+
+def worker(argv):
+    """Phase 30's subprocesses: ``runner ARGV_JSON`` runs mnist_runner
+    (forming its process group from the flags) and prints its launches
+    and backend; ``ensemble PORT RANK`` runs phase 29's MNIST ensemble
+    over an ensemble axis of two gloo ranks; ``flagship PORT RANK OUT``
+    one f32 gradient and the timed bf16 steps of phase 9's recipe on
+    this rank's half of the batch.  Each prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import neural_ode_metasolver_tpu_torch as port
+    from neural_ode_metasolver_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+
+    dist = torch.distributed
+    kind = argv[0]
+    if kind == "runner":
+        from neural_ode_metasolver_tpu_torch.runners import mnist_runner
+
+        # cuDNN's stem and strided convs are the step's only kernels that
+        # may order their sums by atomics: pick its deterministic
+        # algorithms, so two runs of one program can agree bit for bit
+        # (``free``: the witness, cuDNN's defaults)
+        torch.backends.cudnn.deterministic = argv[2:3] != ["free"]
+        torch.backends.cudnn.benchmark = False
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        mnist_runner.main(json.loads(argv[1]))
+        torch.cuda.synchronize()
+        out = {"launches": port.launch_counts(),
+               "seconds": time.perf_counter() - t0,
+               "backend": dist.get_backend() if dist.is_initialized()
+               else None, "all_reduce": None}
+        if dist.is_initialized():
+            one = torch.ones(1, device="cuda")
+            dist.all_reduce(one)
+            out["all_reduce"] = one.item() / dist.get_world_size()
+            dist.destroy_process_group()
+        print(json.dumps(out), flush=True)
+        return 0
+    port_, rank = int(argv[1]), int(argv[2])
+    dev = initialize_distributed(f"localhost:{port_}", 2, rank)
+    if kind == "ensemble":
+        from neural_ode_metasolver_tpu_torch.training import (
+            accuracy_ensemble, make_ensemble_probs)
+
+        mesh = make_mesh({"ensemble": 2})
+        model, data = ensemble_mnist(torch, dev)
+        members = ensemble_members(torch, model)
+        port.reset_launch_counts()
+        fn = make_ensemble_probs(members, mesh=mesh)
+        probs = [fn(x).float().cpu().tolist() for x, _ in data]
+        acc = accuracy_ensemble(members, data, mesh=mesh)
+        torch.cuda.synchronize()
+        out = {"probs": probs, "clean_acc": acc,
+               "launches": port.launch_counts()}
+    else:
+        from neural_ode_metasolver_tpu_torch.models import build_model
+
+        mesh = make_mesh({"data": 2})
+        model = build_model("premetanode10", in_planes=64,
+                            acts=("GeLUpoly",) * 3,
+                            generator=torch.Generator().manual_seed(0))
+        x, y = flagship_batch(torch, dev)
+        torch.save(flagship_grad(torch, model, x, y, mesh), argv[3])
+        out = flagship_timed(torch, port, model, x, y, mesh)
+    out["backend"] = dist.get_backend()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def main():
@@ -3929,6 +4635,17 @@ def main():
     print(f"  launches over phase 28's examples: {examples['counts']}",
           flush=True)
 
+    # ------------------- 29 the ensemble's member axis, 30 data parallelism
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    ens = ensemble_mesh_phase(port, torch, dev)
+    print(f"  launches over phase 29's member-path batches: {ens['counts']}",
+          flush=True)
+    dp = dp_phase(port, torch, dev, ens, med)
+    print(f"  launches over phase 30's data-parallel runs: {dp['counts']}; "
+          f"its ensemble ranks: {dp['ensemble_counts']}", flush=True)
+    ens_rows = {k: v for k, v in ens.items()
+                if k in ("mnist f32", "premetanode10 bf16")}
+
     # ------------------------------------------------------------- report
     def per_request_sums(rows, calls, dtype):
         """Sums over one request's calls; calls maps a row key to its
@@ -3993,6 +4710,11 @@ def main():
                 "members": FLEET_S,
                 "launches": regime_fleet["counts"].get(name, 0)},
             "examples": {"launches": examples["counts"].get(name, 0)},
+            "ensemble_eval": {
+                "batches": 2 * ENS_BATCHES * len(ens_rows),
+                "launches": ens["counts"].get(name, 0)
+                + dp["ensemble_counts"].get(name, 0)},
+            "dp_train": {"launches": dp["counts"].get(name, 0)},
         }
         paths = {
             "adjoint_train_bf16": {
@@ -4020,6 +4742,9 @@ def main():
                                       "u", "final_loss", "launches",
                                       "seconds", "wall_s")}
                          for k, r in examples["runs"].items()},
+            "ensemble_eval": ens_rows,
+            "dp_train": {k: dp[k] for k in ("a", "b", "c", "d",
+                                             "wall_s_abd")},
         }
         return {"name": name, "route": "cuda", "op": OPS.get(name),
                 "source": source, "replaces": replaces,
@@ -4252,7 +4977,21 @@ def main():
              "fleet train f32 its timed steps.  examples: phase 28's "
              "examples/torch scripts on the card (accuracies, u, their "
              "own launches and seconds, wall_s of the subprocess); "
-             "by_path's examples their launches")
+             "by_path's examples their launches.  ensemble_eval: phase "
+             "29's four noised members on the member axis (a one-rank "
+             "ensemble mesh) beside the member loop, MNIST f32 and "
+             "premetanode10 bf16, two batches of 256 each: probabilities "
+             "apart, accuracies, ms a batch and launches a batch both ways; "
+             "by_path's ensemble_eval the member path's counted batches and "
+             "phase 30 (d)'s two ranks.  dp_train: phase 30's data "
+             "parallelism: (a) mnist_runner --mesh data=1 on a one-rank "
+             "NCCL group against no mesh, (b) two gloo ranks sharing the "
+             "card against one process, (c) the flagship step as two ranks "
+             "of 128 (the f32 reduced gradient's error and bar, bf16 ms a "
+             "step and the all-reduce's ms a step per rank beside one "
+             "process), (d) ensemble=2 against phase 29's one rank; "
+             "by_path's dp_train the launches of (a)'s and (b)'s mesh runs "
+             "and (c)'s timed steps, every rank")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4263,4 +5002,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:  # phase 30's subprocesses
+        sys.exit(worker(sys.argv[2:]))
     sys.exit(main())

@@ -30,6 +30,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import GlobalDraws
+
 Forward = Callable[[torch.Tensor], torch.Tensor]
 
 __all__ = ["cross_entropy", "member_cross_entropy", "normalize",
@@ -81,7 +83,13 @@ def clean(x: torch.Tensor, y: torch.Tensor
 def uniform_like(x: torch.Tensor, generator) -> torch.Tensor:
     """U[0, 1) of x's shape, dtype and device (the attack's random start;
     tests pin it here).  A list of generators draws member m's slice
-    x[m] from generator m."""
+    x[m] from generator m; a ``GlobalDraws`` draws the global batch and
+    keeps this rank's rows."""
+    if isinstance(generator, GlobalDraws):
+        return generator.shard.draw(
+            lambda shape: torch.rand(shape, generator=generator.generator,
+                                     dtype=x.dtype, device=x.device),
+            x.shape)
     if isinstance(generator, (list, tuple)):
         return torch.stack([torch.rand(x.shape[1:], generator=g,
                                        dtype=x.dtype, device=x.device)

@@ -18,7 +18,7 @@ from .datasets import (
     synthetic_dataset,
     train_val_split,
 )
-from .prefetch import prefetch_to_device
+from .prefetch import prefetch_to_device, threaded_iterator
 
 __all__ = [
     "CIFAR10_MEAN",
@@ -34,6 +34,7 @@ __all__ = [
     "load_svhn",
     "normalize_images",
     "prefetch_to_device",
+    "threaded_iterator",
     "synthetic_dataset",
     "train_val_split",
 ]

@@ -15,8 +15,11 @@ issue) on a background thread with a bounded queue, so host batch
 preparation overlaps the card's work.  For a CPU device the items are only
 converted to tensors.
 
-The mesh placement and ``threaded_iterator``'s multi-host use of the JAX
-module wait for ROADMAP A21.
+``sharding=`` takes a data-parallel rule (``parallel.batch_sharding(mesh)``,
+``parallel/mesh.py``): each item is cut to this rank's rows on the host
+before it is copied, so a rank moves only its slice of the global batch.
+``threaded_iterator`` runs any iterator on a background thread with a
+bounded queue and yields its items unchanged.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 
 from ..backend import resolve_device
 
-__all__ = ["prefetch_to_device"]
+__all__ = ["prefetch_to_device", "threaded_iterator"]
 
 _END = object()
 
@@ -71,10 +74,12 @@ def prefetch_to_device(
     size: int = 2,
     device: Optional[Union[str, torch.device]] = None,
     thread: bool = False,
+    sharding=None,
 ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Yield the items of ``iterator`` as tuples of tensors on ``device``
     (default: the card; raises without one, see ``backend.resolve_device``),
-    ``size`` items ahead of the consumer."""
+    ``size`` items ahead of the consumer; with ``sharding`` (a rule with
+    ``local(item)``) each item is first cut to this rank's rows."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
     dev = resolve_device(device)
@@ -83,6 +88,9 @@ def prefetch_to_device(
     else:
         put = lambda item: tuple(_as_tensor(a) for a in item)
         take = lambda staged: staged
+    if sharding is not None:
+        whole_put = put
+        put = lambda item: whole_put(sharding.local(tuple(item)))
     if thread:
         return _threaded_prefetch(iterator, size, put, take)
 
@@ -101,6 +109,18 @@ def prefetch_to_device(
             yield take(staged)
 
     return gen()
+
+
+def threaded_iterator(iterator: Iterable[Any], size: int = 2
+                      ) -> Iterator[Any]:
+    """Run ``iterator`` on a background thread with a ``size``-bounded
+    queue, yielding its items unchanged: its host work (augmentation,
+    slicing) overlaps the consumer's, as ``prefetch_to_device(thread=True)``
+    does without the copy."""
+    if size < 1:
+        raise ValueError(f"prefetch size must be >= 1, got {size}")
+    return _threaded_prefetch(iterator, size, lambda item: item,
+                              lambda item: item)
 
 
 def _threaded_prefetch(iterator, size, put, take) -> Iterator[Any]:

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.group_norm import fused_group_norm_act, group_norm_reference
+from ..parallel.mesh import active_data_shard, all_sum
 
 Params = Dict[str, Any]
 
@@ -250,17 +251,26 @@ def batch_norm(params: Params, state: Optional[Params], x: torch.Tensor,
     tensors, detached; ``state`` is not touched); eval mode uses the
     running statistics and returns ``state``.  Members (x (S, N, H, W, C),
     params and state (S, C)) take each member's statistics over its own N,
-    H, W."""
+    H, W.  In train mode under a data-parallel step
+    (``parallel.mesh.data_shard``) the statistics and n are the global
+    batch's, summed over the data group with a differentiable all-reduce,
+    as GSPMD computes them in JAX."""
     xf = x.float()
     dims = tuple(range(x.dim() - 4, x.dim() - 1))  # N, H, W
     per = ((lambda t: t.reshape(t.shape[0], 1, 1, 1, t.shape[1]))
            if x.dim() == 5 else (lambda t: t))
     if train:
-        mean = xf.mean(dim=dims)
-        var = ((xf - per(mean)) ** 2).mean(dim=dims)
+        n = x.shape[-4] * x.shape[-3] * x.shape[-2]
+        shard = active_data_shard()
+        if shard is None:
+            mean = xf.mean(dim=dims)
+            var = ((xf - per(mean)) ** 2).mean(dim=dims)
+        else:
+            n *= shard.size
+            mean = all_sum(xf.sum(dim=dims), shard) / n
+            var = all_sum(((xf - per(mean)) ** 2).sum(dim=dims), shard) / n
         new_state = None
         if state is not None:
-            n = x.shape[-4] * x.shape[-3] * x.shape[-2]
             unbiased = var.detach() * (n / max(n - 1, 1))
             new_state = {
                 "mean": (1 - momentum) * state["mean"]

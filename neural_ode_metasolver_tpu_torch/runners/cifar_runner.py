@@ -20,6 +20,10 @@ vectors, is checkpointed with the step and restored by ``--resume``):
 ``--device cpu`` runs the plain PyTorch versions on the CPU; without a card
 and without it the run raises.  The flags are the JAX runner's; those the
 port does not run raise (``runners/common.py::check_unported_flags``).
+``--mesh data=-1`` with ``--coordinator``, ``--num_hosts`` and
+``--process_id`` trains one run data-parallel over that many processes,
+one device each; BatchNorm then normalizes with the global batch's
+statistics.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from .common import (
     check_unported_flags,
     fit,
     parse_num_blocks,
+    setup_multihost,
 )
 
 ACTIVATIONS = ["ReLU", "GeLU", "GeLUtanh", "GeLUpoly", "Softsign", "Tanh",
@@ -184,11 +189,13 @@ def build_parser():
                    help="compute precision (bf16 = mixed precision, the "
                         "apex-O1 analog; master params stay f32)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-chip training, e.g. 'data=8' (ROADMAP A21: "
-                        "raises)")
+                   help="data-parallel training over the process group, "
+                        "e.g. 'data=-1' (every rank; a model, sp or pp "
+                        "axis is ROADMAP A21 and raises)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="GPipe microbatches per step under --mesh pp= "
-                        "(ROADMAP A21: a nonzero value raises)")
+                        "(pipeline parallelism is ROADMAP A21: a nonzero "
+                        "value raises)")
     p.add_argument("--num_blocks", type=str, default=None,
                    help="override the registry's per-stage (res,ode) "
                         "counts, e.g. '1,2;1,2' for two stages of one res "
@@ -245,10 +252,13 @@ def main(argv=None):
     TrainState."""
     args = parse_args(argv)
     check_unported_flags(args)
+    rank = setup_multihost(args)  # before any device use
     dev = resolve_device(args.device)
     fix_seeds(args.seed)
-    logger = get_logger(os.path.join(args.save_dir, "logs"),
-                        debug=args.debug, name="cifar")
+    logger = get_logger(
+        os.path.join(args.save_dir,
+                     "logs" if rank == 0 else f"logs_p{rank}"),
+        debug=args.debug, name="cifar")
     logger.info(str(vars(args)))
 
     solvers = parse_solver_dsl(args.solvers)

@@ -24,9 +24,18 @@ runners seed with ``--seed`` too (the JAX runner's initial weights come
 from its key; the two frameworks draw differently, so a run that must
 start from given weights resumes from a checkpoint holding them).
 
-Flags that raise: ``--mesh``, ``--pp_microbatches`` and the multi-host
-flags (ROADMAP A21) and ``--compiler_option`` (no counterpart: the port
-has no XLA compiler).  ``--download`` fetches the dataset into
+``--mesh data=N`` trains data-parallel over N processes, one device each
+(``parallel/mesh.py``): every rank iterates the same seeded batch stream
+and keeps its contiguous 1/N of each global batch, the step reduces the
+gradients over the ranks, validation and the adversarial test run on each
+process over the full test set, as JAX's do, and rank 0 alone writes the
+checkpoints and ``metrics.jsonl`` while the others wait at a barrier at
+each epoch's end.  ``--coordinator``, ``--num_hosts`` and ``--process_id``
+form the process group (``setup_multihost``, JAX's validation and
+messages); the backend is NCCL when every rank owns a CUDA device of its
+own, gloo otherwise.  Flags that raise: a ``model``, ``sp`` or ``pp`` mesh
+axis and ``--pp_microbatches`` (ROADMAP A21) and ``--compiler_option`` (no
+counterpart: the port has no XLA compiler).  ``--download`` fetches the dataset into
 ``--data_root`` (``data/download.py::ensure_dataset``) and falls back to
 the offline datasets where the fetch fails, as the JAX runners do.
 ``--integration_method adjoint`` reaches the train step, which
@@ -72,6 +81,15 @@ from ..training.train import (
     make_eval_step,
     make_train_step,
 )
+from ..parallel.mesh import (
+    barrier,
+    batch_sharding,
+    initialize_distributed,
+    make_mesh,
+    make_parallel_train_step,
+    rank as process_rank,
+    world_size,
+)
 
 __all__ = [
     "device_batches",
@@ -82,6 +100,8 @@ __all__ = [
     "parse_num_blocks",
     "optimizer_from_saved_args",
     "add_multihost_flags",
+    "setup_multihost",
+    "parse_mesh_spec",
     "add_device_flag",
     "check_unported_flags",
     "compute_dtype_of",
@@ -89,16 +109,87 @@ __all__ = [
 
 
 def add_multihost_flags(p):
-    """The JAX runners' multi-host flags; each raises (ROADMAP A21)."""
+    """The multi-host flags of the training CLIs: they form the process
+    group of a data-parallel run (``setup_multihost``)."""
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host coordinator address (ROADMAP A21: "
-                        "raises)")
+                   help="process-group coordinator address (host:port, a "
+                        "free port on rank 0's host); with --num_hosts > "
+                        "1, every process passes the same value")
     p.add_argument("--num_hosts", type=int, default=None,
-                   help="processes of a multi-host run (ROADMAP A21: "
-                        "raises)")
+                   help="total number of processes in the run, one device "
+                        "each (with --coordinator alone, WORLD_SIZE and "
+                        "RANK are read from the environment, as torchrun "
+                        "sets them)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="this process's rank (ROADMAP A21: raises)")
+                   help="this process's rank in [0, num_hosts)")
     return p
+
+
+def setup_multihost(args):
+    """Form the process group from the CLI flags.  MUST run before any
+    device use.  Returns this process's rank (0 when single-host); sets
+    ``args.device`` to the rank's device when the flag was not given."""
+    if not (args.coordinator or (args.num_hosts or 0) > 1
+            or args.process_id is not None):
+        return 0
+    # Valid flag shapes: --coordinator alone (WORLD_SIZE and RANK come
+    # from the environment), or the full triple.  Anything else would
+    # leave a rank waiting for peers that never come — reject with the
+    # missing flag named (the messages are the JAX runner's).
+    if args.coordinator is None:
+        given = [n for n, v in (("--num_hosts", args.num_hosts),
+                                ("--process_id", args.process_id))
+                 if v is not None]
+        raise ValueError(
+            f"{' '.join(given)} given without --coordinator; pass "
+            f"--coordinator too (auto-detecting TPU pod/Slurm envs), or "
+            f"the full --coordinator/--num_hosts/--process_id triple")
+    if (args.num_hosts is None) != (args.process_id is None):
+        missing = ("--process_id" if args.process_id is None
+                   else "--num_hosts")
+        raise ValueError(
+            f"--num_hosts/--process_id must be passed together "
+            f"(or both omitted for auto-detection); missing: {missing}")
+    if not getattr(args, "mesh", None):
+        raise ValueError(
+            "multi-host training needs --mesh (e.g. --mesh data=-1 to "
+            "span every device of every host)")
+    dev = initialize_distributed(args.coordinator, args.num_hosts,
+                                 args.process_id,
+                                 device=getattr(args, "device", None))
+    args.device = str(dev)
+    return process_rank()
+
+
+def parse_mesh_spec(spec: Optional[str]) -> Optional[dict]:
+    """Parse ``--mesh`` strings like ``"data=8"`` / ``"data=4,model=2"`` /
+    ``"data=2,sp=2"`` into an axis-size dict (None/empty -> None).
+    ``data`` is required; ``-1`` sizes mean "all remaining devices"
+    (resolved by ``parallel.make_mesh``)."""
+    if not spec:
+        return None
+    axes = {}
+    known = ("data", "model", "sp", "pp")
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if not name or not size:
+            raise ValueError(
+                f"bad --mesh entry {part!r}; expected axis=size")
+        if name not in known:
+            # an unrecognized axis would silently replicate over its
+            # devices (only these names are wired into the sharded step)
+            raise ValueError(
+                f"unknown mesh axis {name!r}; supported: {known}")
+        n = int(size)
+        if n < 1 and n != -1:
+            raise ValueError(
+                f"mesh axis {name!r} size must be >= 1 (or -1 for "
+                f"'all remaining devices'), got {n}")
+        axes[name] = n
+    if "data" not in axes:
+        raise ValueError(f"--mesh must include a data axis, got {spec!r}")
+    return axes
 
 
 def add_device_flag(p):
@@ -116,13 +207,13 @@ def check_unported_flags(args) -> None:
     def label(what, lab):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {lab})")
 
-    if getattr(args, "mesh", None):
-        label("--mesh (sharded training)", "A21")
+    spec = parse_mesh_spec(getattr(args, "mesh", None)) or {}
+    for axis, what in (("model", "tensor"), ("sp", "spatial"),
+                       ("pp", "pipeline")):
+        if axis in spec:
+            label(f"--mesh {axis}= ({what} parallelism)", "A21")
     if getattr(args, "pp_microbatches", 0):
         label("--pp_microbatches (pipeline parallelism)", "A21")
-    for flag in ("coordinator", "num_hosts", "process_id"):
-        if getattr(args, flag, None) is not None:
-            label(f"--{flag} (multi-host training)", "A21")
     if getattr(args, "compiler_option", None):
         raise ValueError(
             "--compiler_option has no counterpart in the PyTorch port (it "
@@ -275,13 +366,17 @@ def validate(
     return best
 
 
-def device_batches(batches, device: torch.device, prefetch: int):
+def device_batches(batches, device: torch.device, prefetch: int,
+                   sharding=None):
     """(x, y) tensors on ``device``: through the prefetch (pinned memory,
-    side stream, producer thread) when ``prefetch`` > 0."""
+    side stream, producer thread) when ``prefetch`` > 0; with ``sharding``
+    (``parallel.batch_sharding``) each batch cut to this rank's rows on
+    the host first."""
     if prefetch:
         return prefetch_to_device(batches, size=prefetch, device=device,
-                                  thread=True)
-    return ((torch.as_tensor(x).to(device), torch.as_tensor(y).to(device))
+                                  thread=True, sharding=sharding)
+    cut = (lambda b: b) if sharding is None else sharding.local
+    return (tuple(torch.as_tensor(a).to(device) for a in cut((x, y)))
             for x, y in batches)
 
 
@@ -342,6 +437,34 @@ def fit(
         skip_nonfinite=getattr(args, "skip_nonfinite", False),
         integration_method=getattr(args, "integration_method", "backprop"),
     )
+    # Data parallelism: every process runs this same fit() in lockstep;
+    # rank r keeps its contiguous 1/N of each (identically seeded, hence
+    # identically ordered) global batch, so the step sees the global batch
+    # of a one-process run
+    sharding = None
+    mesh_spec = parse_mesh_spec(getattr(args, "mesh", None))
+    if mesh_spec:
+        mesh = make_mesh(mesh_spec)
+        logger.info(f"mesh: {mesh.shape} over {mesh.size} devices"
+                    + (f", backend {torch.distributed.get_backend()}"
+                       if torch.distributed.is_initialized() else ""))
+        if getattr(args, "batch_size", 0) % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size {args.batch_size} must be divisible by the "
+                f"data axis size ({mesh.shape['data']})"
+            )
+        step = make_parallel_train_step(step, mesh, ts, data_axis="data")
+        sharding = batch_sharding(mesh)
+    nproc, rank = world_size(), process_rank()
+    multihost = nproc > 1
+    if multihost:
+        if not mesh_spec:
+            raise ValueError(
+                "multi-host training needs --mesh (e.g. data=-1)")
+        if getattr(args, "batch_size", 0) % nproc:
+            raise ValueError(
+                f"batch_size {args.batch_size} must be divisible by the "
+                f"process count ({nproc})")
     config = dict(config or {})
     logger.info(
         "NFE/forward: %s",
@@ -351,7 +474,9 @@ def fit(
     best: dict = {}
     predict_cache: dict = {}
     prefetch = getattr(args, "prefetch", 2)
-    mlog = MetricsLogger(save_dir, config=config) if save_dir else None
+    # rank 0 alone appends to metrics.jsonl and writes the checkpoints
+    mlog = (MetricsLogger(save_dir, config=config)
+            if save_dir and rank == 0 else None)
     profile_dir = getattr(args, "profile_dir", None)
     profiling_on = False
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
@@ -359,7 +484,7 @@ def fit(
     try:
         for epoch in range(getattr(args, "nepochs", 1)):
             batches = device_batches(train_data_factory(epoch), dev,
-                                      prefetch)
+                                      prefetch, sharding)
             losses = []
             skipped = []
             n_batches = 0
@@ -455,9 +580,14 @@ def fit(
                 # the next epoch
                 save_checkpoint(os.path.join(save_dir, "last"), ts, config,
                                 block=False)
+            if multihost:
+                # rank 0's saves are committed (a multi-rank save blocks)
+                barrier()
     finally:
         if save_dir:
             wait_for_checkpoints()
+    if multihost:
+        barrier()
     if mlog:
         mlog.log({"best": max(best.values()) if best else 0.0}, step=ts.step)
         mlog.close()

@@ -8,7 +8,9 @@ Example, on the card:
 
 ``--device cpu`` runs the plain PyTorch versions on the CPU; without a card
 and without it the run raises.  The flags are the JAX runner's; those the
-port does not run raise (``runners/common.py``).
+port does not run raise (``runners/common.py``).  ``--mesh data=-1`` with
+``--coordinator``, ``--num_hosts`` and ``--process_id`` trains one run
+data-parallel over that many processes, one device each.
 
 ``--train_solver_params`` trains the solvers' (u, v) with the network
 (``training/solver_training.py``; SGD at ``--lr_uv``), logs u each epoch
@@ -55,6 +57,7 @@ from .common import (
     check_unported_flags,
     device_batches,
     fit,
+    setup_multihost,
 )
 
 
@@ -154,8 +157,9 @@ def build_parser():
                    help="compute precision (bf16 = mixed precision, the "
                         "apex-O1 analog; master params stay f32)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-chip training, e.g. 'data=8' (ROADMAP A21: "
-                        "raises)")
+                   help="data-parallel training over the process group, "
+                        "e.g. 'data=-1' (every rank; a model, sp or pp "
+                        "axis is ROADMAP A21 and raises)")
     p.add_argument("--compiler_option", action="append", default=None,
                    metavar="NAME=VALUE",
                    help="an XLA compiler flag of the JAX runner; raises "
@@ -183,10 +187,13 @@ def main(argv=None):
     check_unported_flags(args)
     if args.train_solver_params:
         _check_solver_training_flags(args)
+    rank = setup_multihost(args)  # before any device use
     dev = resolve_device(args.device)
     fix_seeds(args.seed)
-    logger = get_logger(os.path.join(args.save_dir, "logs"),
-                        debug=args.debug, name="mnist")
+    logger = get_logger(
+        os.path.join(args.save_dir,
+                     "logs" if rank == 0 else f"logs_p{rank}"),
+        debug=args.debug, name="mnist")
     logger.info(str(vars(args)))
 
     if args.dataset == "svhn" and args.in_channels == 1:
@@ -269,8 +276,11 @@ def main(argv=None):
 
 
 def _check_solver_training_flags(args) -> None:
-    """The JAX runner's refusals of ``--train_solver_params``
-    (``--mesh`` raises before, as ROADMAP A21)."""
+    """The JAX runner's refusals of ``--train_solver_params``."""
+    if getattr(args, "mesh", None):
+        raise ValueError(
+            "--mesh is not supported with --train_solver_params "
+            "(the joint solver-parameter loop is single-device)")
     if args.integration_method != "backprop":
         raise ValueError(
             "--train_solver_params needs discretize-then-optimize "

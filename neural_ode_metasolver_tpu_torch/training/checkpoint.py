@@ -16,7 +16,10 @@ writes on one background thread, in the order of the calls;
 ``wait_for_checkpoints()`` waits for every write.  ``restore_checkpoint``
 copies the saved values into a target state's tensors in place, on the
 target's devices (the model's own parameters and buffers, so the model
-sees them), bit for bit.  A state that extends ``TrainState`` with more
+sees them), bit for bit.  In a process group of several ranks (data
+parallelism, ``parallel/mesh.py``) rank 0 alone writes, and its write
+blocks, so a barrier after the save means the checkpoint is committed;
+the other ranks return the path at once; every rank can restore.  A state that extends ``TrainState`` with more
 fields (a trainable solver's u and v and their optimizer's state, which JAX
 writes under ``save_dir/solver_trained``) saves and restores each of them
 the same way, as a tree of tensors and numbers.
@@ -32,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import rank, world_size
 from .train import TrainState, load_opt_state
 
 __all__ = [
@@ -88,6 +92,10 @@ def save_checkpoint(
     global _writer
     step = int(ts.step)
     path = _ckpt_dir(base_dir, step)
+    if world_size() > 1:
+        if rank() != 0:
+            return path
+        block = True
     payload = {"step": step, "params": _to_host(ts.params),
                "opt_state": _to_host(ts.opt_state),
                "model_state": _to_host(ts.model_state)}

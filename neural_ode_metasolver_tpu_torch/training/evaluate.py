@@ -27,8 +27,22 @@ an attacked batch is evaluated under the draw its FGSM attacked, as in JAX.
 A member of an ensemble is ``(model, solvers, options)``: the port's models
 carry their own parameters and model state.  Every forward here runs in
 eval mode and reads the model's state (BN running statistics, SN vectors)
-from its buffers; nothing here writes it.  Sharding the members over a
-mesh is ROADMAP A21.
+from its buffers; nothing here writes it.
+
+``mesh=`` runs the ensemble-by-noising shape (one model, one options, one
+solver a member differing only in u/v) on the member axis instead of the
+member loop: the model's params are repeated along a leading member axis
+and the members run through the fleet's member path
+(``training/fleet.py``), so B1 and B3 launch once for all of a rank's
+members, each with its own stacked tableau and its own stage times.  With
+an ``ensemble`` axis of k ranks each rank runs its n/k contiguous members
+and the partial sums of their softmax are summed over the axis; the
+attacked entry points differentiate through that sum (``parallel/
+mesh.py``: the sum's backward passes the replicated gradient on, the
+input's sums the ranks' shares), so every rank attacks with the whole
+ensemble's input gradient.  Member m's regime draws come from the seed the
+loop path gives it, whichever rank it lands on.  A one-rank axis runs no
+collective.
 """
 from __future__ import annotations
 
@@ -37,13 +51,17 @@ from typing import (Callable, Iterable, List, NamedTuple, Optional,
 
 import torch
 
-from ..attacks import fgsm2ensemble
+from ..attacks import fgsm2ensemble, fgsm_mean_prob_attack
 from ..backend import full_f32
 from ..ops.noise import solver_ensemble_by_noising
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
-from .train import (AttackConfig, _model_forward, _regime_generator,
-                    _regime_seeds, _run_attack, _seeds, make_eval_step)
+from ..parallel.ensemble import member_rows, stack_solver_params
+from ..parallel.mesh import all_sum_replicated, replicate_grad
+from .fleet import _fleet_forward, _member_solvers, tile_fleet
+from .train import (AttackConfig, NoiseConfig, _model_forward,
+                    _regime_generator, _regime_seeds, _run_attack, _seeds,
+                    make_eval_step)
 
 __all__ = [
     "accuracy",
@@ -76,12 +94,6 @@ def _accumulate_accuracy(device: torch.device, data: Batches,
         total += int(y.shape[0])
     correct = int(torch.stack(counts).sum()) if counts else 0
     return correct / max(total, 1)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded ensemble evaluation is not ported yet (ROADMAP A21)")
 
 
 def accuracy(model, solvers: Sequence, solver_options: SolverOptions,
@@ -189,13 +201,91 @@ def _mean_probs(fwds, x, seeds) -> torch.Tensor:
     return probs / len(fwds)
 
 
+def _homogeneous_solver_members(members: Sequence[Member]):
+    """The ensemble-by-noising shape: every member shares the model and
+    the options and carries ONE solver differing only in (u, v).  Returns
+    (model, options, the first solver, u, v stacked (n,)); raises the one
+    ValueError both mesh entry points share otherwise."""
+    err = ValueError(
+        "mesh-sharded ensemble eval needs homogeneous members "
+        "(same params/state/options, one solver varying only in "
+        "u/v — what solver_ensemble_by_noising produces)"
+    )
+    m0, sol0, o0 = members[0]
+    if len(sol0) != 1:
+        raise err
+    for m, sol, o in members[1:]:
+        if m is not m0 or o != o0 or len(sol) != 1:
+            raise err
+    try:
+        ref, u, v = stack_solver_params([m[1][0] for m in members])
+    except ValueError:
+        raise err from None
+    return m0, o0, ref, u, v
+
+
+def _vmapped_member_probs(members: Sequence[Member], mesh, member_axis: str,
+                          use_kernels: bool,
+                          compute_dtype: Optional[torch.dtype], remat: bool):
+    """``probs(x, seeds) -> (B, classes)``: the mean over all members of
+    their softmax, this rank's members run at once on the member axis
+    (the model's params and state repeated along it, x tiled, the solvers
+    stacked) and their partial sum reduced over ``member_axis``; ``seeds``
+    one per member (all members', or None under standalone).  x may
+    require grad (the attack's forward)."""
+    model, options, ref, u, v = _homogeneous_solver_members(members)
+    n = len(members)
+    rows, shard = member_rows(n, mesh, member_axis)
+    k = rows.stop - rows.start
+    u, v = u[rows], None if v is None else v[rows]
+    forward = _fleet_forward(model, options, use_kernels, compute_dtype,
+                             remat, "backprop")
+
+    def probs(x: torch.Tensor, seeds=None) -> torch.Tensor:
+        if seeds is None or seeds[0] is None:
+            # as the loop path: a regime that draws must not run unseeded
+            if options.solver_mode in ("switch", "ensemble"):
+                raise ValueError(
+                    f"{options.solver_mode} mode needs a PRNG key")
+            gens = None
+        else:
+            gens = _regime_generator(list(seeds[rows]))
+        params = {name: tile_fleet(p.detach(), k)
+                  for name, p in model.named_parameters()}
+        state = {name: tile_fleet(b, k) for name, b in model.named_buffers()}
+        solvers_t = _member_solvers([ref.replace(u=u, v=v)], k, None,
+                                    NoiseConfig(), x.device)
+        if shard is not None:
+            x = replicate_grad(x, shard)
+        xs = x.unsqueeze(0).expand((k,) + tuple(x.shape)).contiguous()
+        logits = forward(xs, solvers_t, False, params, state,
+                         generators=gens)[0]
+        part = torch.softmax(logits, dim=-1).sum(0)
+        if shard is not None:
+            part = all_sum_replicated(part, shard)
+        return part / n
+
+    return probs
+
+
 def make_ensemble_probs(members: Sequence[Member], *, mesh=None,
+                        member_axis: str = "ensemble",
                         compute_dtype: Optional[torch.dtype] = None,
                         use_kernels: bool = True):
     """``probs_fn(x, seeds=None) -> (B, classes)``: the mean of the
     members' softmax in eval mode under ``torch.inference_mode()``;
-    ``seeds`` (one per member, or None) serve their regime draws."""
-    _no_mesh(mesh)
+    ``seeds`` (one per member, or None) serve their regime draws.
+    ``mesh`` runs the members on the member axis, sharded over
+    ``member_axis`` (module docstring)."""
+    if mesh is not None:
+        vprobs = _vmapped_member_probs(members, mesh, member_axis,
+                                       use_kernels, compute_dtype, False)
+
+        def mesh_probs(x: torch.Tensor, seeds=None) -> torch.Tensor:
+            with torch.inference_mode():
+                return vprobs(x, seeds)
+
+        return mesh_probs
     fwds = _member_forwards(members, use_kernels, compute_dtype, False)
 
     def probs_fn(x: torch.Tensor, seeds=None) -> torch.Tensor:
@@ -207,15 +297,18 @@ def make_ensemble_probs(members: Sequence[Member], *, mesh=None,
 
 def accuracy_ensemble(members: Sequence[Member], data: Batches,
                       generator: Optional[torch.Generator] = None, *,
-                      mesh=None, predict=None,
+                      mesh=None, member_axis: str = "ensemble",
+                      predict=None,
                       compute_dtype: Optional[torch.dtype] = None,
                       use_kernels: bool = True) -> float:
     """Accuracy of the softmax-averaged ensemble (Evaluate notebook cell
     25); with ``generator`` each batch draws one seed per member.
-    ``predict`` (from ``make_ensemble_probs``) may be passed in."""
+    ``predict`` (from ``make_ensemble_probs``) may be passed in; ``mesh``
+    runs the members on the member axis, sharded over ``member_axis``
+    (homogeneous members only, else ValueError)."""
     probs_fn = predict if predict is not None else make_ensemble_probs(
-        members, mesh=mesh, compute_dtype=compute_dtype,
-        use_kernels=use_kernels)
+        members, mesh=mesh, member_axis=member_axis,
+        compute_dtype=compute_dtype, use_kernels=use_kernels)
     n = len(members)
     return _accumulate_accuracy(
         members[0][0].device, data,
@@ -225,6 +318,7 @@ def accuracy_ensemble(members: Sequence[Member], data: Batches,
 
 def make_ensemble_attacked_probs(members: Sequence[Member],
                                  attack_cfg: AttackConfig, *, mesh=None,
+                                 member_axis: str = "ensemble",
                                  remat: bool = False,
                                  compute_dtype: Optional[torch.dtype] = None,
                                  use_kernels: bool = True):
@@ -233,8 +327,25 @@ def make_ensemble_attacked_probs(members: Sequence[Member],
     mode on detached weights, then the mean of the members' softmax at the
     attacked batch under ``torch.inference_mode()``.  A member's attack
     forward and final forward draw from the same seed.  ``remat``
-    checkpoints the attack's RK steps."""
-    _no_mesh(mesh)
+    checkpoints the attack's RK steps.  ``mesh``: the members on the
+    member axis, sharded over ``member_axis``; the attack differentiates
+    the same mean probabilities through the axis's sum."""
+    if mesh is not None:
+        atk = _vmapped_member_probs(members, mesh, member_axis, use_kernels,
+                                    compute_dtype, remat)
+        vprobs = _vmapped_member_probs(members, mesh, member_axis,
+                                       use_kernels, compute_dtype, False)
+
+        def mesh_attacked(x: torch.Tensor, y: torch.Tensor,
+                          seeds=None) -> torch.Tensor:
+            with full_f32(), torch.enable_grad():
+                xa, _ = fgsm_mean_prob_attack(
+                    lambda xn: atk(xn, seeds), x, y, attack_cfg.eps,
+                    attack_cfg.mean, attack_cfg.std)
+            with torch.inference_mode():
+                return vprobs(xa, seeds)
+
+        return mesh_attacked
     fwds = _member_forwards(members, use_kernels, compute_dtype, False)
     atk = (_member_forwards(members, use_kernels, compute_dtype, True)
            if remat else fwds)
@@ -257,16 +368,18 @@ def make_ensemble_attacked_probs(members: Sequence[Member],
 def adversarial_accuracy_ensemble(members: Sequence[Member], data: Batches,
                                   attack_cfg: AttackConfig,
                                   generator: torch.Generator, *, mesh=None,
+                                  member_axis: str = "ensemble",
                                   predict=None, remat: bool = False,
                                   compute_dtype: Optional[torch.dtype] = None,
                                   use_kernels: bool = True) -> float:
     """Ensemble accuracy on batches attacked by ``fgsm2ensemble`` (notebook
     cell 25; fgsm.py:109-155); each batch draws one seed per member from
     ``generator``.  ``predict`` (from ``make_ensemble_attacked_probs``) may
-    be passed in."""
+    be passed in; ``mesh`` as in ``accuracy_ensemble``."""
     attacked = predict if predict is not None else \
         make_ensemble_attacked_probs(members, attack_cfg, mesh=mesh,
-                                     remat=remat, compute_dtype=compute_dtype,
+                                     member_axis=member_axis, remat=remat,
+                                     compute_dtype=compute_dtype,
                                      use_kernels=use_kernels)
     return _accumulate_accuracy(
         members[0][0].device, data,

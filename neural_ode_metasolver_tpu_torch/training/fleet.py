@@ -51,8 +51,8 @@ stem and the strided convs run as one grouped cuDNN conv (``groups=S``)
 and the head as ``torch.bmm``, whose sums may be ordered otherwise.
 
 No counterpart: ``donate`` and ``compiler_options`` (nothing is compiled;
-accepted and ignored, as ``unroll`` is) and the mesh (``--mesh`` is ROADMAP
-A21).
+accepted and ignored, as ``unroll`` is) and the members sharded over a
+mesh axis (ROADMAP A21's tp/sp/pp slice).
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ train_validate.py:80-84,169-178,335-342).  The primary sink here is an
 append-only ``metrics.jsonl``: a ``_type: config`` line, then one JSON
 object per log call with ``_time`` (seconds since the logger opened) and
 ``step``.  With ``use_wandb`` and the ``wandb`` package importable the same
-stream is mirrored to it.
+stream is mirrored to it.  In a process group of several ranks only rank 0
+opens and writes the file (and the wandb run); the others' calls do
+nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+from ..parallel.mesh import rank
 
 __all__ = ["MetricsLogger"]
 
@@ -33,11 +37,14 @@ class MetricsLogger:
         project: str = "neural-ode-metasolver-tpu",
         entity: Optional[str] = None,
     ):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._f = open(self.path, "a")
         self._t0 = time.time()
         self.wandb_run = None
+        self._f = None
+        if rank() != 0:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._f = open(self.path, "a")
         if use_wandb and _wandb is not None:
             self.wandb_run = _wandb.init(project=project, entity=entity,
                                          config=config)
@@ -45,6 +52,8 @@ class MetricsLogger:
             self._write({"_type": "config", **_jsonable(config)})
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        if self._f is None:
+            return
         rec = {"_time": round(time.time() - self._t0, 3)}
         if step is not None:
             rec["step"] = int(step)
@@ -58,6 +67,8 @@ class MetricsLogger:
         self._f.flush()
 
     def close(self):
+        if self._f is None:
+            return
         self._f.close()
         if self.wandb_run is not None:
             self.wandb_run.finish()

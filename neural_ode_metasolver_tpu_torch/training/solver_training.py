@@ -23,7 +23,9 @@ Solver smoothing is not wired in (no ``NoiseConfig``), by JAX's design:
 noise on coefficients that are being optimized feeds their own gradient.
 Randomness: ``step(state, x, y, generator)`` draws the attack's and the
 data noise's seeds from the CPU generator, then the regime seeds as
-``make_train_step`` does.
+``make_train_step`` does; ``step(..., shard=S)`` is one rank's part of a
+data-parallel step as there, u's and v's gradients reduced in the model's
+bucket.
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ from ..attacks import attacks
 from ..backend import full_f32
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
+from ..parallel.mesh import Shard, data_shard
 from .optimizers import global_norm
-from .train import (AttackConfig, LossConfig, TrainState, _model_forward,
+from .train import (AttackConfig, LossConfig, TrainState, _batch_generator,
+                    _model_forward, _randn_rows, _reduce_over_data,
                     _regime_generator, _regime_seeds, _run_attack, _seeds,
                     create_train_state)
 
@@ -141,11 +145,11 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
     clip_hi = [1.0 - 1e-3 if s.method == "rk4" else 1.0 for s in solvers]
 
     def step(state: SolverTrainState, x: torch.Tensor, y: torch.Tensor,
-             generator: torch.Generator):
+             generator: torch.Generator, shard: Optional[Shard] = None):
         s_attack, s_data = _seeds(generator, 2)
         s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         current = solvers_from_state(solvers, state.solver_params)
-        with full_f32():
+        with full_f32(), data_shard(shard):
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 attack_solvers = [s.freeze() for s in current]
@@ -153,13 +157,10 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                     lambda xi, g: forward(xi, attack_solvers, False, frozen,
                                           generator=g)[0],
                     attack_cfg, x, y,
-                    torch.Generator(device=x.device).manual_seed(s_attack),
-                    s_afwd)
+                    _batch_generator(x.device, s_attack, shard), s_afwd)
             if loss_cfg.data_noise_std > 1e-12:
-                g = torch.Generator(device=x.device).manual_seed(s_data)
-                x_adv = x_adv + loss_cfg.data_noise_std * torch.randn(
-                    x_adv.shape, generator=g, dtype=x_adv.dtype,
-                    device=x_adv.device)
+                x_adv = x_adv + loss_cfg.data_noise_std * _randn_rows(
+                    x_adv, s_data, shard)
             with record_function("nodems.train_pass"), torch.enable_grad():
                 leaves = [{k: None if t is None
                            else t.detach().requires_grad_(True)
@@ -177,11 +178,15 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                 grads = torch.autograd.grad(loss, wrt, allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g
                      for g, w in zip(grads, wrt)]
+            # u's and v's gradients share the model's bucket
+            loss, xent, acc, grads = _reduce_over_data(
+                shard, [loss, xent, (logits.argmax(-1) == y).float().mean()],
+                grads)
             n = len(state.params)
             g_model, g_solver = grads[:n], grads[n:]
             metrics = {
                 "loss": loss.detach(), "xentropy": xent.detach(),
-                "accuracy": (logits.argmax(-1) == y).float().mean(),
+                "accuracy": acc,
                 "grad_norm": global_norm(g_model),
                 "solver_grad_norm": (global_norm(g_solver) if g_solver else
                                      torch.zeros((), device=loss.device)),

@@ -52,6 +52,22 @@ dynamic_solvers=S)`` run with the solvers S in place of the ones the step
 was built with (a u-sweep's, or trained ones), as JAX's traced argument
 does; the port has no compilation to reuse, so this is exactly a step built
 with S.  JAX compiler options have no counterpart.
+
+Data parallelism (``parallel/mesh.py::make_parallel_train_step``):
+``step(..., shard=S)`` takes this rank's slice of the global batch.  Every
+draw sized by the batch (the attack's start, the data noise) is made at
+the global shape and sliced to the rank, as JAX's sharded ``jax.random``
+gives each shard its part; the per-step draws (noise, regime seeds) are
+equal on every rank already.  Train-mode BatchNorm takes the global
+batch's statistics (``models/nn.py::batch_norm``).  After
+``torch.autograd.grad`` one flat f32 bucket of the gradients and the four
+metrics is summed over the data group and divided by its size, so every
+rank updates with the global batch's gradient; ``grad_norm`` is its norm
+and ``skip_nonfinite`` decides on those global values, so every rank skips
+together.  The attack's input gradient stays on its rank.
+``DistributedDataParallel`` cannot serve here: its reducer hooks the
+gradient-accumulator nodes, which ``torch.autograd.grad`` never runs.  A
+one-rank axis runs none of this and is bit-equal to no shard.
 """
 from __future__ import annotations
 
@@ -65,6 +81,8 @@ from ..attacks import attacks
 from ..backend import full_f32
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
+from ..parallel.mesh import (GlobalDraws, Shard, all_reduce_mean,
+                             data_shard)
 from .optimizers import Adam, Optimizer, RMSprop, SGD
 
 AnyOptimizer = Union[SGD, RMSprop, Adam, Optimizer]
@@ -252,6 +270,38 @@ def _regime_seeds(generator: torch.Generator, solver_options: SolverOptions,
     return _seeds(generator, n)
 
 
+def _batch_generator(device: torch.device, seed: int,
+                     shard: Optional[Shard]):
+    """The generator of a batch-sized draw on ``device``; under a data
+    shard it draws at the global batch's shape and keeps this rank's
+    rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return g if shard is None else GlobalDraws(g, shard)
+
+
+def _randn_rows(x: torch.Tensor, seed: int, shard: Optional[Shard]
+                ) -> torch.Tensor:
+    """N(0, 1) of x's shape on its device (the data noise), drawn at the
+    global batch's shape under a data shard and sliced to this rank."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    fn = lambda shape: torch.randn(shape, generator=g, dtype=x.dtype,  # noqa: E731
+                                   device=x.device)
+    return fn(x.shape) if shard is None else shard.draw(fn, x.shape)
+
+
+def _reduce_over_data(shard: Optional[Shard], scalars, grads):
+    """The global batch's scalars and gradients: one all-reduce of a flat
+    f32 bucket over the data group, divided by its size (``scalars`` and
+    ``grads`` unchanged without a shard or on a one-rank axis).  Returns
+    the scalars then the list of gradients."""
+    if shard is None or shard.group is None:
+        return (*scalars, list(grads))
+    grads = list(grads)
+    out = all_reduce_mean(
+        grads + [torch.stack([t.detach().float() for t in scalars])], shard)
+    return (*out[-1].unbind(), out[:-1])
+
+
 def make_train_step(model, optimizer: AnyOptimizer,
                     solvers: Sequence,
                     solver_options: SolverOptions = SolverOptions(),
@@ -263,9 +313,10 @@ def make_train_step(model, optimizer: AnyOptimizer,
                     skip_nonfinite: bool = False,
                     use_kernels: bool = True,
                     integration_method: str = "backprop"):
-    """Returns ``step(state, x, y, generator, dynamic_solvers=None) ->
-    (state, metrics)``; ``dynamic_solvers`` replaces ``solvers`` for that
-    step.
+    """Returns ``step(state, x, y, generator, dynamic_solvers=None,
+    shard=None) -> (state, metrics)``; ``dynamic_solvers`` replaces
+    ``solvers`` for that step, ``shard`` makes it one rank's part of a
+    data-parallel step (module docstring).
     The attack reads the model state in eval mode; the training pass runs
     in train mode, and the model state it returns (BN running statistics,
     SN vectors) is copied into the model's buffers with the update, after
@@ -287,26 +338,24 @@ def make_train_step(model, optimizer: AnyOptimizer,
                              compute_dtype, remat, integration_method)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-             generator: torch.Generator, dynamic_solvers=None):
+             generator: torch.Generator, dynamic_solvers=None,
+             shard: Optional[Shard] = None):
         s_noise, s_attack, s_data = _seeds(generator, 3)
         s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         solvers_t = _noise_solvers(
             base, torch.Generator().manual_seed(s_noise), noise_cfg)
-        with full_f32():
+        with full_f32(), data_shard(shard):
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 x_adv = _run_attack(
                     lambda xi, g: forward(xi, solvers_t, False, frozen,
                                           generator=g)[0],
                     attack_cfg, x, y,
-                    torch.Generator(device=x.device).manual_seed(s_attack),
-                    s_afwd)
+                    _batch_generator(x.device, s_attack, shard), s_afwd)
             if loss_cfg.data_noise_std > 1e-12:
-                g = torch.Generator(device=x.device).manual_seed(s_data)
-                x_adv = x_adv + loss_cfg.data_noise_std * torch.randn(
-                    x_adv.shape, generator=g, dtype=x_adv.dtype,
-                    device=x_adv.device)
+                x_adv = x_adv + loss_cfg.data_noise_std * _randn_rows(
+                    x_adv, s_data, shard)
             with record_function("nodems.train_pass"), torch.enable_grad():
                 logits, ss, new_state = forward(
                     x_adv, solvers_t, True, ss=loss_cfg,
@@ -316,11 +365,13 @@ def make_train_step(model, optimizer: AnyOptimizer,
                 if loss_cfg.ss_loss:
                     loss = loss + loss_cfg.ss_loss_reg * ss
                 grads = torch.autograd.grad(loss, list(state.params.values()))
+            acc = (logits.argmax(-1) == y).float().mean()
+            loss, xent, ss, acc, grads = _reduce_over_data(
+                shard, [loss, xent, ss, acc], grads)
             gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
             metrics = {"loss": loss.detach(), "xentropy": xent.detach(),
-                       "ss_loss": ss.detach(),
-                       "accuracy": (logits.argmax(-1) == y).float().mean(),
+                       "ss_loss": ss.detach(), "accuracy": acc,
                        "grad_norm": gnorm}
             ok = True
             if skip_nonfinite:

@@ -28,7 +28,8 @@ required = {pkg.__name__ + "." + m for m in (
     "runners.common", "runners.mnist_runner", "runners.cifar_runner",
     "runners.attacks_runner", "training.fleet", "runners.sweep",
     "runners.u_sweep", "ops.library", "serving", "data.download",
-    "models.torch_export", "models.torch_import")}
+    "models.torch_export", "models.torch_import", "parallel",
+    "parallel.mesh", "parallel.ensemble")}
 print(len(names), bad, sorted(required - set(names)))
 sys.exit(1 if bad or len(names) < 25 or not required <= set(names) else 0)
 """
@@ -68,6 +69,32 @@ def test_examples_import_neither_jax_nor_the_jax_package():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Every import statement of ``chip_smoke.py``, its functions' and its
+    subprocess scripts' included, names the port and never JAX or the JAX
+    package (the JAX files it names are strings of its report)."""
+    import ast
+    import re
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    tree = ast.parse(src)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    # the scripts it hands to ``python3 -c`` are strings: their imports too
+    for text in (n.value for n in ast.walk(tree)
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)):
+        names |= set(re.findall(r"^\s*(?:from|import)\s+(\w+)", text,
+                                re.MULTILINE))
+    assert "neural_ode_metasolver_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "orbax", "optax",
+                        "neural_ode_metasolver_tpu"}, sorted(names)
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu():

@@ -265,13 +265,25 @@ def test_mnist_train_step_under_switch_matches_jax(setup):
 
 
 def test_mesh_and_missing_generators_raise(setup):
-    """The mesh-sharded ensemble evaluation is ROADMAP A21; the draw of a
-    switch regime needs a generator in every entry point."""
-    pm = [(setup["pmodel"], [setup["ps"]], SolverOptions())]
-    with pytest.raises(NotImplementedError, match="A21"):
-        accuracy_ensemble(pm, setup["data"](), mesh=object())
-    with pytest.raises(NotImplementedError, match="A21"):
-        make_ensemble_attacked_probs(pm, AttackConfig(), mesh=object())
+    """A one-rank mesh gives the member loop's clean and FGSM results (the
+    members on the member axis); the draw of a switch regime needs a
+    generator in every entry point, the mesh path's too."""
+    from neural_ode_metasolver_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"ensemble": 1})
+    pm = [(setup["pmodel"], [setup["ps"].replace(u=torch.tensor(u))],
+           SolverOptions()) for u in (0.5, 0.7)]
+    assert accuracy_ensemble(pm, setup["data"](), mesh=mesh) == \
+        accuracy_ensemble(pm, setup["data"]())
+    x, y = (torch.tensor(a) for a in next(setup["data"]()))
+    atk = AttackConfig(mode="fgsm", eps=EPS)
+    torch.testing.assert_close(
+        make_ensemble_attacked_probs(pm, atk, mesh=mesh)(x, y),
+        make_ensemble_attacked_probs(pm, atk)(x, y), rtol=0, atol=1e-6)
+    sw_members = [(setup["pmodel"], [setup["ps"]],
+                   SolverOptions(solver_mode="switch"))] * 2
+    with pytest.raises(ValueError, match="needs a PRNG key"):
+        accuracy_ensemble(sw_members, setup["data"](), mesh=mesh)
     sw = SolverOptions(solver_mode="switch")
     with pytest.raises(ValueError, match="needs a PRNG key"):
         accuracy(setup["pmodel"], [setup["ps"]], sw, setup["data"]())

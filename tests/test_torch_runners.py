@@ -231,11 +231,15 @@ def test_attacks_runner_model_ensemble(mnist_runs, tmp_path):
 
 
 _REFUSED = [
-    (mnist_runner, ["--mesh", "data=2"], NotImplementedError, "A21"),
-    (mnist_runner, ["--coordinator", "localhost:1"], NotImplementedError,
-     "A21"),
-    (mnist_runner, ["--num_hosts", "2"], NotImplementedError, "A21"),
-    (mnist_runner, ["--process_id", "0"], NotImplementedError, "A21"),
+    # without a process group of that size, JAX's validation errors
+    (mnist_runner, ["--mesh", "data=2"], ValueError,
+     r"mesh \{'data': 2\} != 1 devices"),
+    (mnist_runner, ["--coordinator", "localhost:1"], ValueError,
+     "multi-host training needs --mesh"),
+    (mnist_runner, ["--num_hosts", "2"], ValueError,
+     "--num_hosts given without --coordinator"),
+    (mnist_runner, ["--process_id", "0"], ValueError,
+     "--process_id given without --coordinator"),
     (mnist_runner, ["--train_solver_params", "--integration_method",
                     "adjoint"], ValueError, "discretize-then-optimize"),
     (mnist_runner, ["--train_solver_params", "--profile_dir", "p"],
@@ -245,7 +249,10 @@ _REFUSED = [
     (cifar_runner, ["--pp_microbatches", "2"], NotImplementedError, "A21"),
     (cifar_runner, ["--mesh", "data=2,pp=2"], NotImplementedError, "A21"),
     (mnist_runner, ["--train_solver_params", "--mesh", "data=2"],
-     NotImplementedError, "A21"),
+     ValueError, "--mesh is not supported with --train_solver_params"),
+    (mnist_runner, ["--mesh", "data=2,model=2"], NotImplementedError,
+     "A21"),
+    (cifar_runner, ["--mesh", "data=2,sp=2"], NotImplementedError, "A21"),
 ]
 
 
