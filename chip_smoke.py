@@ -262,14 +262,30 @@ Phases, in order; any failure exits non-zero:
      ranks of 128: one f32 step's reduced gradient within 1e-4 max|g| of
      one process's (clean, smoothing kept), three bf16 steps timed with
      the all-reduce's ms a step per rank beside one process's step, each
-     rank launching phase 9's step.
+     rank launching phase 9's step;
+ 31. tensor, spatial and pipeline parallelism, as two gloo ranks sharing
+     the card against one process: the flagship recipe (f32, batch 256,
+     cuDNN deterministic) over (a) ``data=1,model=2``, (b) ``data=1,sp=2``
+     and (c) ``data=1,pp=2`` with ``num_blocks ((1,2),(1,2))`` at 2 and 4
+     microbatches (batch 128: two ranks of its f32 step at 256 do not fit
+     the card beside the parent): step 1's loss within 2e-5, step 2's within 1e-3 and at
+     most 1e-2 of the params more than 1e-4 max|p| apart (phase 24's
+     bars), each rank's launches a step exactly ``mesh_per_step``'s, and
+     one bf16 step a rank timed beside one process's; (a) also a no-grad
+     exact-GELU eval on the local channels (B1 4 + 64, no B2) against the
+     unsharded model on B2 within 1e-4 max|logit|; (c) also the switch
+     regime's logits and a no-grad exact-GELU eval (B2 once a microbatch)
+     against the sequential model within 1e-6; (d) ``cifar_runner --mesh
+     data=1,pp=2`` for one epoch, then ``--resume`` for one more: two
+     checkpoints, two finite epoch losses.  Phases 3-4 hold and time B1,
+     its dgrad and its wgrad at the shapes these axes give them.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  Besides the kernels it builds (and the data
 library, built with g++ into the package's ``_build_out/``), it writes
-files only under temporary directories that phases 15-17, 19, 22, 25, 26
-and 30 delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
+files only under temporary directories that phases 15-17, 19, 22, 25, 26,
+30 and 31 delete at their end (and ``u_sweep``'s log, ``u_sweep.log``, in the
 working directory).
 """
 import contextlib
@@ -2997,12 +3013,12 @@ def ensemble_mesh_phase(port, torch, dev):
     return record
 
 
-def run_procs(cmds, timeout=DP_TIMEOUT_S):
+def run_procs(cmds, timeout=DP_TIMEOUT_S, env=None):
     """Start every command at once (``python3`` with the given arguments,
-    from the repo, stdout and stderr captured); wait for all; return
-    [(returncode, stdout, stderr)].  A command past ``timeout`` is
-    killed and fails the phase."""
-    procs = [subprocess.Popen([sys.executable] + c, cwd=REPO,
+    from the repo, stdout and stderr captured, ``env`` its environment or
+    this one's); wait for all; return [(returncode, stdout, stderr)].  A
+    command past ``timeout`` is killed and fails the phase."""
+    procs = [subprocess.Popen([sys.executable] + c, cwd=REPO, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
     out = []
@@ -3017,9 +3033,10 @@ def run_procs(cmds, timeout=DP_TIMEOUT_S):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for c, (rc, o, e) in zip(cmds, out):
-        if rc != 0:
-            fail(f"{' '.join(c[:3])}... exited {rc}: {e.strip()[-2000:]}")
+    failed = [f"{' '.join(c[:4])}... exited {rc}: {e.strip()[-1500:]}"
+              for c, (rc, o, e) in zip(cmds, out) if rc != 0]
+    if failed:
+        fail(" | ".join(failed))
     return out
 
 
@@ -3366,13 +3383,453 @@ def flagship_timed(torch, port, model, x, y, mesh):
                                   for k, v in counts.items()}}
 
 
+# Phase 31: the flagship recipe over a model, sp or pp axis of two gloo
+# ranks sharing the card, against one process.  Every rank computes with
+# the global batch (data=1).  The B1, dgrad and wgrad shapes those axes
+# give the kernels (phases 3-4 hold and time them): tp the local output
+# channels (Cout / 2), sp this rank's rows plus a halo row each side
+# (H / 2 + 2), pp a microbatch (M = 2, 4) of the pipelined ODE stacks.
+TP_STEM, TP_L1, TP_L2 = ((BATCH, 32, 32, 3, 32), (BATCH, 32, 32, 64, 32),
+                         (BATCH, 16, 16, 128, 64))
+SP_STEM, SP_L1, SP_L2 = ((BATCH, 18, 32, 3, 64), (BATCH, 18, 32, 64, 64),
+                         (BATCH, 10, 16, 128, 128))
+PP_MICROBATCHES = (2, 4)
+PP_BLOCKS = ((1, 2), (1, 2))
+PP_BATCH = BATCH
+PP_SHAPES = [(PP_BATCH // m, h, h, c, c) for m in PP_MICROBATCHES
+             for h, c in ((32, 64), (16, 128))]
+MESH_SHAPES = [TP_STEM, TP_L1, TP_L2, SP_STEM, SP_L1, SP_L2] + PP_SHAPES
+MESH_AXES = {"tp": "model", "sp": "sp", "pp": "pp"}
+MESH_F32_STEPS = 2  # held against one process (phase 24's bars)
+# one timed bf16 step, after a warm-up but on tp's ranks, whose step (the
+# seam's collectives through the host) takes seconds either way
+MESH_BF16_STEPS = 1
+MESH_EVAL_BATCH = 64  # the no-grad eval checks
+MESH_SWITCH_BAR = 1e-6
+MESH_TIMEOUT_S = 600
+
+
+def mesh_per_step(kind, m=None):
+    """Launches a rank makes in one flagship-recipe step (pp's at
+    PP_BATCH: the counts do not depend on the batch).  A pass runs B1
+    for the stem, the three stride-1 res convs and 32 a block (8 RK2 steps
+    x 2 stages x 2 convs); tp and sp keep phase 9's count (on local
+    channels or rows); under pp a rank runs its stage's block of each of
+    the two layers once a microbatch, so 64 x M a pass.  The dgrad runs
+    for every conv of both passes but the stem's in the training pass, the
+    wgrad for every conv of the training pass."""
+    if kind in ("tp", "sp"):
+        return dict(TRAIN_PER_STEP)
+    ode = 64 * m
+    return {"conv3x3_same": 2 * (4 + ode), "conv3x3_dgrad": 1 + 2 * (3 + ode),
+            "conv3x3_wgrad": 4 + ode}
+
+
+def mesh_model(torch, kind, acts=("GeLUpoly",) * 3, pipeline=None):
+    from neural_ode_metasolver_tpu_torch.models import (MODEL_REGISTRY,
+                                                        make_cifar_model)
+
+    cfg = MODEL_REGISTRY["premetanode10"](
+        in_planes=64, acts=acts,
+        num_blocks=PP_BLOCKS if kind == "pp" else ((1, 1),) * 2)
+    return make_cifar_model(cfg, pipeline=pipeline,
+                            generator=torch.Generator().manual_seed(0))
+
+
+def mesh_step(torch, model, mesh, kind, compute_dtype, ts=None):
+    """The flagship recipe's step (phase 30's) on ``model``, over ``mesh``'s
+    axis for ``kind`` when given; returns (state, step)."""
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     parse_solver_dsl)
+    from neural_ode_metasolver_tpu_torch.parallel import (
+        make_parallel_train_step)
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig, NoiseConfig, create_train_state, cyclic_lr,
+        make_optimizer, make_train_step)
+
+    opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                         weight_decay=5e-4)
+    step = make_train_step(
+        model, opt, parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1"),
+        SolverOptions(), AttackConfig(mode="fgsm_random", eps=8 / 255,
+                                      alpha=10 / 255, mean=CIFAR10_MEAN,
+                                      std=CIFAR10_STD),
+        NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0),
+        compute_dtype=compute_dtype)
+    ts = create_train_state(model, opt)
+    if mesh is not None:
+        step = make_parallel_train_step(
+            step, mesh, ts, model_axis="model" if kind == "tp" else None,
+            spatial_axis="sp" if kind == "sp" else None)
+    return ts, step
+
+
+def mesh_run(torch, port, dev, kind, mesh=None, m=None):
+    """One process (``mesh`` None) or one rank of ``kind``: MESH_F32_STEPS
+    f32 steps from the seed-0 weights (cuDNN deterministic): their losses,
+    the global params after them and the launches a step; then
+    MESH_BF16_STEPS timed bf16 steps (cuDNN's defaults)."""
+    from neural_ode_metasolver_tpu_torch.parallel import PipelineConfig
+    from neural_ode_metasolver_tpu_torch.parallel.mesh import tp_sharding_of
+
+    pipe = (PipelineConfig(mesh=mesh, axis="pp", n_microbatches=m,
+                           batch_axis="data")
+            if mesh is not None and kind == "pp" else None)
+    model = mesh_model(torch, kind, pipeline=pipe)
+    x, y = flagship_batch(torch, dev)
+    if kind == "pp":
+        x, y = x[:PP_BATCH], y[:PP_BATCH]
+    gen = torch.Generator().manual_seed(10)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with deterministic_cudnn(torch):
+        ts, step = mesh_step(torch, model, mesh, kind, None)
+        port.reset_launch_counts()
+        losses = []
+        for _ in range(MESH_F32_STEPS):
+            ts, met = step(ts, x, y, gen)
+            losses.append(met["loss"].item())
+        torch.cuda.synchronize()
+        counts = port.launch_counts()
+    params = {}
+    for k, v in ts.params.items():
+        rule = tp_sharding_of(v)
+        params[k] = (v if rule is None else rule.gather(v)).detach().cpu()
+    ts, step = mesh_step(torch, model, mesh, kind, torch.bfloat16)
+    if mesh is None or kind != "tp":
+        ts, _ = step(ts, x, y, gen)  # warm-up
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(MESH_BF16_STEPS):
+        t0 = time.perf_counter()
+        ts, _ = step(ts, x, y, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak_reserved = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    del model, ts, step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 31 {kind}: non-finite losses {losses}")
+    return {"losses": losses, "launches": counts, "bf16_ms": ms,
+            "peak_gib": peak, "peak_reserved_gib": peak_reserved,
+            "launches_per_step": {k: v // MESH_F32_STEPS
+                                  for k, v in counts.items()}}, params
+
+
+def mesh_pp_evals(torch, port, dev, mesh):
+    """pp's no-grad checks at MESH_EVAL_BATCH, M = 2, f32: the switch
+    regime's logits against the sequential model's (the draws made in the
+    sequential loop's order), and the exact-GELU NF stack, whose no-grad
+    forward runs B2 once a microbatch for this rank's block of each layer,
+    against the sequential model's (B2 once a block on the batch)."""
+    from neural_ode_metasolver_tpu_torch.ops import (SolverOptions,
+                                                     create_solver)
+    from neural_ode_metasolver_tpu_torch.parallel import PipelineConfig
+
+    x = flagship_batch(torch, dev)[0][:MESH_EVAL_BATCH]  # M = 2 of 32
+    pcfg = PipelineConfig(mesh=mesh, axis="pp", n_microbatches=2,
+                          batch_axis="data")
+    out = {}
+    two = [create_solver("rk2", "u", n_steps=N_STEPS, u0=u)
+           for u in (0.5, 1.0)]
+    sw = SolverOptions(solver_mode="switch")
+    for name, acts, solvers, opts in (
+            ("switch", ("GeLUpoly",) * 3, two, sw),
+            ("b2", ("GeLU",) * 3, two[:1], SolverOptions())):
+        seq = mesh_model(torch, "pp", acts)
+        pp = mesh_model(torch, "pp", acts, pcfg)
+        err, counts = 0.0, []
+        for trial in range(3 if name == "switch" else 1):
+            g = lambda: torch.Generator().manual_seed(100 + trial)  # noqa
+            with torch.no_grad():
+                port.reset_launch_counts()
+                a = seq(x, solvers, opts, generator=g())
+                torch.cuda.synchronize()
+                c_seq = port.launch_counts()
+                port.reset_launch_counts()
+                b = pp(x, solvers, opts, generator=g())
+                torch.cuda.synchronize()
+                counts.append((c_seq, port.launch_counts()))
+            err = max(err, (a - b).abs().max().item())
+        out[name] = {"max_abs_err": err, "launches": counts[-1][1],
+                     "launches_sequential": counts[-1][0]}
+        del seq, pp
+    return out
+
+
+def mesh_b2_eval(torch, port, dev, mesh, kind):
+    """tp's or sp's no-grad check at MESH_EVAL_BATCH, f32: the exact-GELU
+    NF flagship on this rank's output channels (tp) or rows (sp), whose
+    ODE blocks run B2 on the gathered kernels (tp) or on the gathered rows
+    (sp), against the unsharded model on B2."""
+    from neural_ode_metasolver_tpu_torch.ops import parse_solver_dsl
+    from neural_ode_metasolver_tpu_torch.parallel import shard_params_tp
+    from neural_ode_metasolver_tpu_torch.parallel.mesh import (
+        shard_state_tp, spatial_rows)
+    from neural_ode_metasolver_tpu_torch.training import (
+        create_train_state, make_optimizer)
+
+    x = flagship_batch(torch, dev)[0][:MESH_EVAL_BATCH]
+    solvers = parse_solver_dsl(f"rk2,u,{N_STEPS},-1,{U},-1")
+    whole = mesh_model(torch, kind, ("GeLU",) * 3)
+    part = mesh_model(torch, kind, ("GeLU",) * 3)
+    sp, xp = None, x
+    if kind == "tp":
+        ts = create_train_state(part, make_optimizer("sgd", 0.0))
+        shard_state_tp(ts, shard_params_tp(ts.params, mesh, "model"))
+    else:
+        sp = mesh.shard("sp")
+        xp = x[:, sp.rows(x.shape[1])]
+    with torch.no_grad():
+        port.reset_launch_counts()
+        a = whole(x, solvers)
+        torch.cuda.synchronize()
+        c_whole = port.launch_counts()
+        port.reset_launch_counts()
+        with spatial_rows(sp):
+            b = part(xp, solvers)
+        torch.cuda.synchronize()
+    return {"max_abs_err": (a - b).abs().max().item(),
+            "logit_max": a.abs().max().item(),
+            "launches": port.launch_counts(), "launches_whole": c_whole}
+
+
+def mesh_worker(port_, rank, out_path):
+    """A rank of phase 31's tp, sp and pp parts, run in turn in one process
+    group: prints one JSON line."""
+    import torch
+
+    import neural_ode_metasolver_tpu_torch as port
+    from neural_ode_metasolver_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+
+    dev = initialize_distributed(f"localhost:{port_}", 2, rank)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, params = {}, {}
+    for kind, axis in MESH_AXES.items():
+        t0 = time.perf_counter()
+        mesh = make_mesh({"data": 1, axis: 2})
+        rec, params[kind] = {}, {}
+        for m in (PP_MICROBATCHES if kind == "pp" else (None,)):
+            rec[str(m)], params[kind][str(m)] = mesh_run(torch, port, dev,
+                                                         kind, mesh, m)
+        if kind == "pp":
+            rec["evals"] = mesh_pp_evals(torch, port, dev, mesh)
+        else:
+            rec["eval"] = mesh_b2_eval(torch, port, dev, mesh, kind)
+        torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t0
+        out[kind] = rec
+    if rank == 0:
+        torch.save(params, out_path)
+    out["backend"] = torch.distributed.get_backend()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def mesh_cli_argv(save_dir):
+    """cifar_runner's flags for phase 31 (d): the flagship recipe on a
+    narrower net (in_planes 16) with pipelined stacks, one short epoch
+    of synthetic images (one step: the CLI's path, not its speed)."""
+    return ["--network", "premetanode10", "--num_blocks", "1,2;1,2",
+            "--in_planes", "16",
+            "--solvers", f"rk2,u,{N_STEPS},-1,{U},-1", "--nepochs", "1",
+            "--batch_size", "64", "--test_batch_size", "64",
+            "--synthetic_train_size", "80", "--synthetic_test_size", "64",
+            "--adv_training_mode", "fgsm_random", "--noise_type", "normal",
+            "--noise_sigma", "0.0125", "--noise_prob", "1.0", "--precision",
+            "bf16", "--prefetch", "0", "--save_dir", save_dir]
+
+
+def mesh_axes_phase(port, torch, dev):
+    """Phase 31.  Returns the phase's record."""
+    import shutil
+    import tempfile
+
+    phase(f"tensor, spatial and pipeline parallelism: the flagship recipe "
+          f"(batch {BATCH}) over (a) data=1,model=2, (b) data=1,sp=2 and "
+          f"(c) data=1,pp=2 with num_blocks {PP_BLOCKS} at M = "
+          f"{PP_MICROBATCHES} (batch {PP_BATCH}), as two gloo ranks sharing "
+          f"the card (one process group, the parts in turn), against one "
+          f"process: {MESH_F32_STEPS} f32 steps held, a bf16 step timed, "
+          f"launches a rank exact; (a), (b) also a no-grad exact-GELU eval "
+          f"on B2 (the kernels, the rows gathered); (c) also the switch "
+          f"regime's logits and a no-grad exact-GELU eval on B2; (d) "
+          f"cifar_runner --mesh data=1,pp=2, one epoch, then a resume")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    me = os.path.abspath(__file__)
+    record, problems = {}, []
+    ones = {}
+    for kind in ("tp", "pp"):  # sp's one process is tp's: the flagship
+        ones[kind], ones[kind + "_params"] = mesh_run(
+            torch, port, dev, kind, None, 1)
+    ones["sp"], ones["sp_params"] = ones["tp"], ones["tp_params"]
+    torch.cuda.empty_cache()
+    record["parent_reserved_gib"] = torch.cuda.memory_reserved(dev) / 2 ** 30
+    record["card_free_gib"] = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
+    t0 = time.perf_counter()
+    pt = free_port()
+    # a pp rank of the four-block net at batch 256 holds about 36 GiB: two
+    # of them fill the card unless their allocators map memory in
+    # expandable segments (without them each kept some 2.5 GiB of free
+    # fragments, and a rank ran out of memory at 35.2 GiB allocated)
+    outs = run_procs([[me, "--worker", "mesh", str(pt), str(r),
+                       os.path.join(tmp, "mesh.pt")] for r in range(2)],
+                     timeout=MESH_TIMEOUT_S, env=dict(
+                         os.environ,
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    ranks = [last_json(o) for _, o, _ in outs]
+    record["ranks_wall_s"] = time.perf_counter() - t0
+    params = torch.load(os.path.join(tmp, "mesh.pt"), weights_only=True)
+    want_b2 = {"conv3x3_same": 4, "ode_block_rk2": 2 * B2_LAUNCHES_PER_SOLVE}
+    for kind in MESH_AXES:
+        one, p_one = ones[kind], ones[kind + "_params"]
+        rec = {"wall_s": ranks[0][kind]["wall_s"],
+               "backends": [r["backend"] for r in ranks],
+               "one_process": {k: one[k] for k in (
+                   "losses", "bf16_ms", "launches_per_step", "peak_gib")}}
+        for m in (PP_MICROBATCHES if kind == "pp" else (None,)):
+            got = [r[kind][str(m)] for r in ranks]
+            want = mesh_per_step(kind, m)
+            far, worst = params_apart(params[kind][str(m)], p_one)
+            l1 = abs(got[0]["losses"][0] - one["losses"][0]) \
+                / abs(one["losses"][0])
+            l2 = abs(got[0]["losses"][1] - one["losses"][1]) \
+                / abs(one["losses"][1])
+            sub = {"losses": got[0]["losses"], "step1_rel": l1,
+                   "step2_rel": l2, "params_far_share": far,
+                   "params_worst": worst,
+                   "launches_per_step_per_rank": [g["launches_per_step"]
+                                                  for g in got],
+                   "expected_per_step": want,
+                   "bf16_ms_per_rank": [g["bf16_ms"] for g in got],
+                   "peak_gib_per_rank": [g["peak_gib"] for g in got],
+                   "peak_reserved_gib_per_rank": [g["peak_reserved_gib"]
+                                                  for g in got],
+                   "launches": [g["launches"] for g in got]}
+            rec[f"M={m}" if m else "step"] = sub
+            print(f"  ({kind}{'' if m is None else f', M={m}'}) losses "
+                  f"{sub['losses']} vs one process {one['losses']} (step 1 "
+                  f"rel {l1:.3e}, bar {FLEET_LOSS1_BAR}; step 2 rel "
+                  f"{l2:.3e}, bar {FLEET_LOSS2_BAR}); params past 1e-4 "
+                  f"max|p| {far:.3e} (bar {FLEET_FAR_SHARE_BAR}), largest "
+                  f"{worst:.3e}; launches a step a rank "
+                  f"{sub['launches_per_step_per_rank']} (expected {want}); "
+                  f"bf16 step ms a rank {sub['bf16_ms_per_rank']} vs one "
+                  f"process {one['bf16_ms']}; peak GiB a rank "
+                  f"{[round(v, 2) for v in sub['peak_gib_per_rank']]} "
+                  f"(reserved "
+                  f"{[round(v, 2) for v in sub['peak_reserved_gib_per_rank']]}"
+                  f") vs {one['peak_gib']:.2f}", flush=True)
+            if (not l1 <= FLEET_LOSS1_BAR or not l2 <= FLEET_LOSS2_BAR
+                    or not far <= FLEET_FAR_SHARE_BAR
+                    or any(g["launches_per_step"] != want for g in got)
+                    or any(v % MESH_F32_STEPS for g in got
+                           for v in g["launches"].values())):
+                problems.append(f"({kind}, M={m}): {sub}")
+        if kind == "pp":
+            ev = [r["pp"]["evals"] for r in ranks]
+            m2 = 2 * 2 * B2_LAUNCHES_PER_SOLVE  # 2 layers x M=2
+            want_pp = {"conv3x3_same": 4, "ode_block_rk2": m2}
+            rec["evals"] = ev
+            print(f"  (pp) switch logits vs sequential max|diff| "
+                  f"{[e['switch']['max_abs_err'] for e in ev]} (bar "
+                  f"{MESH_SWITCH_BAR}); exact-GELU eval on B2: logits "
+                  f"{[e['b2']['max_abs_err'] for e in ev]}, launches a rank "
+                  f"{[e['b2']['launches'] for e in ev]} (expected "
+                  f"{want_pp}; sequential "
+                  f"{ev[0]['b2']['launches_sequential']})", flush=True)
+            for e in ev:
+                if (not e["switch"]["max_abs_err"] <= MESH_SWITCH_BAR
+                        or not e["b2"]["max_abs_err"] <= MESH_SWITCH_BAR
+                        or e["b2"]["launches"] != want_pp):
+                    problems.append(f"(pp evals): {e}")
+        else:
+            ev = [r[kind]["eval"] for r in ranks]
+            bar = 1e-4 * max(1.0, ev[0]["logit_max"])
+            rec["eval"] = ev
+            print(f"  ({kind}) no-grad exact-GELU eval on B2 ("
+                  f"{'kernels' if kind == 'tp' else 'rows'} gathered): "
+                  f"logits vs the unsharded model max|diff| "
+                  f"{[e['max_abs_err'] for e in ev]} (bar {bar:.3e}); "
+                  f"launches a rank {[e['launches'] for e in ev]} (expected "
+                  f"{want_b2}; unsharded {ev[0]['launches_whole']})",
+                  flush=True)
+            for e in ev:
+                if (not e["max_abs_err"] <= bar or e["launches"] != want_b2
+                        or e["launches_whole"] != want_b2):
+                    problems.append(f"({kind} eval): {e}")
+        if rec["backends"] != ["gloo", "gloo"]:
+            problems.append(f"({kind}): backends {rec['backends']}")
+        print(f"  ({kind}) {rec['wall_s']:.1f} s in the ranks", flush=True)
+        record[kind] = rec
+    print(f"  ranks' process {record['ranks_wall_s']:.1f} s; the parent "
+          f"held {record['parent_reserved_gib']:.2f} GiB while they ran, "
+          f"the card had {record['card_free_gib']:.2f} GiB free as they "
+          f"started", flush=True)
+    # (d) the CLI: one epoch over pp=2, then a resume for one more, in
+    # one process a rank (a process group for each run)
+    save = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    pts = [free_port(), free_port()]
+    while pts[1] == pts[0]:
+        pts[1] = free_port()
+    runs = [[mesh_cli_argv(save) + extra + [
+        "--mesh", "data=1,pp=2", "--coordinator", f"localhost:{p}",
+        "--num_hosts", "2", "--process_id", str(r)]
+        for extra, p in (([], pts[0]), (["--resume"], pts[1]))]
+        for r in range(2)]
+    outs = run_procs([[me, "--worker", "runner_cifar", json.dumps(a)]
+                      for a in runs], timeout=MESH_TIMEOUT_S)
+    cli = [last_json(o)["runs"] for _, o, _ in outs]
+    steps = sorted(os.listdir(os.path.join(save, "last")))
+    losses = epoch_losses(save)
+    record["d"] = {"checkpoints": steps, "losses": losses,
+                   "launches": [run["launches"] for r in cli for run in r],
+                   "wall_s": time.perf_counter() - t0}
+    print(f"  (d) cifar_runner --mesh data=1,pp=2: checkpoints {steps}, "
+          f"epoch losses {losses} ({record['d']['wall_s']:.1f} s)",
+          flush=True)
+    if len(steps) != 2 or len(losses) != 2 or not all(
+            math.isfinite(v) for v in losses):
+        problems.append(f"(d): {record['d']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        fail("phase 31 " + "; ".join(problems))
+    counts = {}
+    for kind in MESH_AXES:
+        c = Counter()
+        for key, sub in record[kind].items():
+            if key == "step" or key.startswith("M="):
+                for cnt in sub["launches"]:
+                    c += Counter(cnt)
+        if kind == "pp":
+            for e in record["pp"]["evals"]:
+                c += Counter(e["b2"]["launches"])
+            for cnt in record["d"]["launches"]:
+                c += Counter(cnt)
+        else:
+            for e in record[kind]["eval"]:
+                c += Counter(e["launches"])
+        counts[kind] = dict(c)
+    record["counts"] = counts
+    record["wall_s"] = time.perf_counter() - t_phase
+    return record
+
+
 def worker(argv):
     """Phase 30's subprocesses: ``runner ARGV_JSON`` runs mnist_runner
     (forming its process group from the flags) and prints its launches
     and backend; ``ensemble PORT RANK`` runs phase 29's MNIST ensemble
     over an ensemble axis of two gloo ranks; ``flagship PORT RANK OUT``
     one f32 gradient and the timed bf16 steps of phase 9's recipe on
-    this rank's half of the batch.  Each prints one JSON line."""
+    this rank's half of the batch; phase 31's: ``mesh PORT RANK OUT`` a
+    rank of its tp, sp and pp parts, ``runner_cifar ARGV_JSON``
+    cifar_runner as ``runner`` runs mnist_runner (ARGV_JSON a list of
+    runs makes them in turn).  Each prints one JSON line."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -3382,8 +3839,12 @@ def worker(argv):
 
     dist = torch.distributed
     kind = argv[0]
-    if kind == "runner":
-        from neural_ode_metasolver_tpu_torch.runners import mnist_runner
+    if kind == "mesh":
+        return mesh_worker(int(argv[1]), int(argv[2]), argv[3])
+    if kind in ("runner", "runner_cifar"):
+        from neural_ode_metasolver_tpu_torch.runners import (cifar_runner,
+                                                             mnist_runner)
+        runner = cifar_runner if kind == "runner_cifar" else mnist_runner
 
         # cuDNN's stem and strided convs are the step's only kernels that
         # may order their sums by atomics: pick its deterministic
@@ -3391,20 +3852,28 @@ def worker(argv):
         # (``free``: the witness, cuDNN's defaults)
         torch.backends.cudnn.deterministic = argv[2:3] != ["free"]
         torch.backends.cudnn.benchmark = False
-        port.reset_launch_counts()
-        t0 = time.perf_counter()
-        mnist_runner.main(json.loads(argv[1]))
-        torch.cuda.synchronize()
-        out = {"launches": port.launch_counts(),
-               "seconds": time.perf_counter() - t0,
-               "backend": dist.get_backend() if dist.is_initialized()
-               else None, "all_reduce": None}
-        if dist.is_initialized():
-            one = torch.ones(1, device="cuda")
-            dist.all_reduce(one)
-            out["all_reduce"] = one.item() / dist.get_world_size()
-            dist.destroy_process_group()
-        print(json.dumps(out), flush=True)
+        # ARGV_JSON: one run's flags, or a list of runs made in turn (a
+        # process group for each), which print {"runs": [...]}
+        argvs = json.loads(argv[1])
+        single = bool(argvs) and isinstance(argvs[0], str)
+        runs = [argvs] if single else argvs
+        outs = []
+        for a in runs:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            runner.main(a)
+            torch.cuda.synchronize()
+            out = {"launches": port.launch_counts(),
+                   "seconds": time.perf_counter() - t0,
+                   "backend": dist.get_backend() if dist.is_initialized()
+                   else None, "all_reduce": None}
+            if dist.is_initialized():
+                one = torch.ones(1, device="cuda")
+                dist.all_reduce(one)
+                out["all_reduce"] = one.item() / dist.get_world_size()
+                dist.destroy_process_group()
+            outs.append(out)
+        print(json.dumps(outs[0] if single else {"runs": outs}), flush=True)
         return 0
     port_, rank = int(argv[1]), int(argv[2])
     dev = initialize_distributed(f"localhost:{port_}", 2, rank)
@@ -3618,9 +4087,10 @@ def main():
 
     # ----------------------------------------------------- 3 B1 vs plain
     phase("B1 conv3x3_same vs its plain version (batch 256; f32 also the "
-          "digits step's ConcatConv2d at batch 128)")
+          "digits step's ConcatConv2d at batch 128; phase 31's tp, sp and "
+          "pp shapes)")
     b1_rows = []
-    b1_shapes = [c[1:6] for c in B1_CALLS + B1_MNIST_CALLS]
+    b1_shapes = [c[1:6] for c in B1_CALLS + B1_MNIST_CALLS] + MESH_SHAPES
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def f32_plan(n, h, w, cin, cout):
@@ -3681,11 +4151,13 @@ def main():
 
     # --------------------------------------- 4 B1 backward vs plain
     phase("B1 backward: dgrad (B1 on flipped weights) and the wgrad kernel "
-          "vs their plain versions (batch 256)")
+          "vs their plain versions (batch 256; phase 31's tp, sp and pp "
+          "shapes)")
     bwd_rows = []
     for dtype in dtypes:
         for shape in (TRAIN_STEM, TRAIN_L1, TRAIN_L2) + (
-                (TRAIN_MNIST,) if dtype == torch.float32 else ()):
+                (TRAIN_MNIST,) if dtype == torch.float32 else ()) + tuple(
+                    MESH_SHAPES):
             n, h, w, cin, cout = shape
             es = torch.tensor([], dtype=dtype).element_size()
             flops = 2 * n * h * w * cin * cout * 9
@@ -3736,7 +4208,7 @@ def main():
                   f"{plan.path}, {plan.splits} K ranges, "
                   f"{plan.rows} {'image rows' if plan.path == 'tma' else 'pixels'}"
                   f" a step, {plan.stages} ring slots", flush=True)
-            if dtype == torch.bfloat16 and shape != TRAIN_STEM \
+            if dtype == torch.bfloat16 and shape in (TRAIN_L1, TRAIN_L2) \
                     and plan.path != "tma":
                 fail(f"the bf16 wgrad at {shape} is planned on {plan.path}, "
                      f"not on TMA")
@@ -4643,6 +5115,11 @@ def main():
     dp = dp_phase(port, torch, dev, ens, med)
     print(f"  launches over phase 30's data-parallel runs: {dp['counts']}; "
           f"its ensemble ranks: {dp['ensemble_counts']}", flush=True)
+
+    # ----------------------------- 31 tensor, spatial, pipeline parallelism
+    mesh_axes = mesh_axes_phase(port, torch, dev)
+    print(f"  launches over phase 31's counted steps and evals: "
+          f"{mesh_axes['counts']} ({mesh_axes['wall_s']:.1f} s)", flush=True)
     ens_rows = {k: v for k, v in ens.items()
                 if k in ("mnist f32", "premetanode10 bf16")}
 
@@ -4715,6 +5192,9 @@ def main():
                 "launches": ens["counts"].get(name, 0)
                 + dp["ensemble_counts"].get(name, 0)},
             "dp_train": {"launches": dp["counts"].get(name, 0)},
+            **{f"{kind}_train": {
+                "launches": mesh_axes["counts"][kind].get(name, 0)}
+               for kind in ("tp", "sp", "pp")},
         }
         paths = {
             "adjoint_train_bf16": {
@@ -4745,6 +5225,8 @@ def main():
             "ensemble_eval": ens_rows,
             "dp_train": {k: dp[k] for k in ("a", "b", "c", "d",
                                              "wall_s_abd")},
+            "mesh_train": {k: mesh_axes[k] for k in ("tp", "sp", "pp", "d",
+                                                     "wall_s")},
         }
         return {"name": name, "route": "cuda", "op": OPS.get(name),
                 "source": source, "replaces": replaces,
@@ -4799,6 +5281,13 @@ def main():
     fleet_wgrad = {TRAIN_MNIST: fleet["launches_per_step"]["conv3x3_wgrad"]}
     fleet_b3 = {(FLEET_N,) + c[2:6]: c[6] for c in B3_CALLS}
     fleet_b3b = {(FLEET_N,) + c[2:6] + ("full",): c[6] for c in B3_CALLS}
+    def mesh_rows(rows):
+        """Phases 3-4's rows at phase 31's shapes, by dtype and shape."""
+        return {f"{r['dtype']} {r['key']}": {
+            k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "path", "plan") if k in r}
+            for r in rows if r["key"] in MESH_SHAPES}
+
     kernels = [
         entry("conv3x3_same", "neural_ode_metasolver_tpu_torch/csrc/conv3x3.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -4816,8 +5305,10 @@ def main():
                      "paths": {str(r["key"]): r["path"] for r in dgrad_rows
                                if r["dtype"] == "bfloat16"},
                      "members_f32": member_sums("conv3x3_dgrad",
-                                                fleet_dgrad)},
-              members_f32=member_sums("conv3x3_same", fleet_b1)),
+                                                fleet_dgrad),
+                     "tp_sp_pp_shapes": mesh_rows(dgrad_rows)},
+              members_f32=member_sums("conv3x3_same", fleet_b1),
+              tp_sp_pp_shapes=mesh_rows(b1_rows)),
         entry("conv3x3_wgrad",
               "neural_ode_metasolver_tpu_torch/csrc/conv3x3_wgrad.cu",
               "neural_ode_metasolver_tpu/ops/pallas_im2col.py:93",
@@ -4828,6 +5319,7 @@ def main():
               plans={str(r["key"]): r["plan"] for r in wgrad_rows
                      if r["dtype"] == "bfloat16"},
               members_f32=member_sums("conv3x3_wgrad", fleet_wgrad),
+              tp_sp_pp_shapes=mesh_rows(wgrad_rows),
               note="not a TPU kernel: the backward of B1 that slice 3 "
                    "needs (the Pallas B1 has no VJP)"),
         entry("ode_block_rk2",
@@ -4991,7 +5483,17 @@ def main():
              "step and the all-reduce's ms a step per rank beside one "
              "process), (d) ensemble=2 against phase 29's one rank; "
              "by_path's dp_train the launches of (a)'s and (b)'s mesh runs "
-             "and (c)'s timed steps, every rank")
+             "and (c)'s timed steps, every rank.  mesh_train: phase 31's "
+             "flagship recipe over data=1,model=2 (tp), data=1,sp=2 (sp) and "
+             "data=1,pp=2 at M=2 and M=4 (pp), two gloo ranks against one "
+             "process (two f32 steps: losses, step rels, params apart, "
+             "launches a step a rank and the expected ones; one timed bf16 "
+             "step ms a rank beside one process's), pp's switch and B2 "
+             "evals, (d) cifar_runner --mesh data=1,pp=2 and its resume; "
+             "by_path's tp_train, sp_train and pp_train the launches of "
+             "those counted f32 steps (both ranks), pp's evals and (d)'s "
+             "runs.  tp_sp_pp_shapes: phases 3-4's rows at the shapes "
+             "those axes give the kernels")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -84,9 +84,10 @@ def uniform_like(x: torch.Tensor, generator) -> torch.Tensor:
     """U[0, 1) of x's shape, dtype and device (the attack's random start;
     tests pin it here).  A list of generators draws member m's slice
     x[m] from generator m; a ``GlobalDraws`` draws the global batch and
-    keeps this rank's rows."""
+    keeps this rank's rows (and, under an sp axis, its rows of the
+    height)."""
     if isinstance(generator, GlobalDraws):
-        return generator.shard.draw(
+        return generator.draw(
             lambda shape: torch.rand(shape, generator=generator.generator,
                                      dtype=x.dtype, device=x.device),
             x.shape)

@@ -1,5 +1,5 @@
 """Models of the PyTorch port (mirrors the JAX ``models``)."""
-from .api import Model, build_model
+from .api import Model, build_model, make_cifar_model
 from .convert import (
     cifar_params_from_jax,
     cifar_state_from_jax,
@@ -44,6 +44,7 @@ __all__ = [
     "apply_cifar",
     "apply_mnist",
     "build_model",
+    "make_cifar_model",
     "cifar_params_from_jax",
     "cifar_params_from_torch_state_dict",
     "cifar_state_dict_from_params",

@@ -27,11 +27,12 @@ from torch import nn
 
 from ..backend import full_f32, resolve_device
 from ..ops.regimes import SolverOptions
+from ..parallel.mesh import mark_tp, tp_sharding_of
 from .nn import apply_init_scheme
 from .odenet_cifar10 import MODEL_REGISTRY, apply_cifar, init_cifar
 from .odenet_mnist import MnistConfig, apply_mnist, init_mnist
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "make_cifar_model"]
 
 
 class _Buffers(nn.Module):
@@ -59,11 +60,19 @@ def _params_leaf(tree: Dict[str, torch.Tensor]) -> nn.Module:
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
 
 
+def _detach(p: torch.Tensor) -> torch.Tensor:
+    """A detached view of a parameter, which keeps the parameter's
+    tensor-parallel mark (``parallel.mesh.tp_sharding_of``)."""
+    rule = tp_sharding_of(p)
+    d = p.detach()
+    return d if rule is None else mark_tp(d, rule)
+
+
 def _tree(node: Any) -> Any:
     """A module tree as nested dicts and lists of its tensors: detached
     views of the parameters, the buffers themselves."""
     if isinstance(node, nn.ParameterDict):
-        return {k: v.detach() for k, v in node.items()}
+        return {k: _detach(v) for k, v in node.items()}
     if isinstance(node, _Buffers):
         return dict(node.named_buffers(recurse=False))
     if isinstance(node, nn.ModuleDict):
@@ -113,13 +122,16 @@ class Model(nn.Module):
     ``commit_state`` copies it in (the train step does, once a step's
     update is accepted).  ``generator``, a
     CPU ``torch.Generator``, serves the switch and ensemble regimes one
-    draw per ODE block; standalone draws nothing."""
+    draw per ODE block; standalone draws nothing.  ``pipeline`` (a CIFAR
+    model's ``parallel.PipelineConfig``, given to ``make_cifar_model``)
+    routes its ODE-block stacks through GPipe."""
 
     def __init__(self, cfg: Any, params: dict, state: dict,
                  apply_fn: Callable, input_shape: Tuple[int, int, int],
-                 init_fn: Optional[Callable] = None):
+                 init_fn: Optional[Callable] = None, pipeline: Any = None):
         super().__init__()
         self.cfg = cfg
+        self.pipeline = pipeline
         self.init_fn = init_fn
         self.params = _as_module(params, _params_leaf)
         self.state = _as_module(state, _Buffers)
@@ -177,6 +189,8 @@ class Model(nn.Module):
                 generator: Optional[torch.Generator] = None, **options: Any):
         if solver_options is None:
             solver_options = SolverOptions()
+        if self.pipeline is not None:
+            options = dict(options, pipeline=self.pipeline)
         with full_f32():
             return self.apply_fn(
                 self.params if params is None else params, x, solvers,
@@ -185,6 +199,35 @@ class Model(nn.Module):
                        else model_state),
                 use_kernels=use_kernels, train=train, generator=generator,
                 **options)
+
+
+def make_cifar_model(cfg, device: Optional[Union[str, torch.device]] = None,
+                     *, pipeline: Any = None,
+                     generator: Optional[torch.Generator] = None,
+                     init_scheme: Optional[str] = None) -> Model:
+    """A CIFAR-family model of ``cfg`` (a ``CifarConfig``), drawn as
+    ``build_model`` draws; ``pipeline`` (a ``parallel.PipelineConfig``)
+    makes the forward route same-shape ODE-block stacks through GPipe over
+    its mesh's pp axis (JAX ``models/api.py:70-87``)."""
+    return _build(cfg, lambda g: init_cifar(cfg, g), apply_cifar,
+                  (32, 32, 3), device, generator, init_scheme, pipeline)
+
+
+def _build(cfg, init, apply_fn, shape, device, generator, init_scheme,
+           pipeline=None) -> Model:
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    def init_fn(g: torch.Generator):
+        params, state = init(g)
+        if init_scheme is not None:
+            params = apply_init_scheme(g, params, init_scheme)
+        return params, state
+
+    params, state = init_fn(generator)
+    return Model(cfg, params, state, apply_fn, shape, init_fn,
+                 pipeline).to(dev)
 
 
 def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
@@ -200,25 +243,12 @@ def build_model(name: str, device: Optional[Union[str, torch.device]] = None,
     to ``device``.  ``init_scheme`` (``"orthogonal"`` or ``"xavier"``, the
     CIFAR runner's ``--init``) then re-initializes the kernels from the
     same generator (``nn.apply_init_scheme``)."""
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     if name == "mnist":
         cfg = MnistConfig(**overrides)
-        init = lambda g: (init_mnist(cfg, g), {})
-        apply_fn, shape = apply_mnist, (28, 28, cfg.in_channels)
-    elif name in MODEL_REGISTRY:
-        cfg = MODEL_REGISTRY[name](**overrides)
-        init = lambda g: init_cifar(cfg, g)
-        apply_fn, shape = apply_cifar, (32, 32, 3)
-    else:
-        raise ValueError(f"unknown model {name!r}")
-
-    def init_fn(g: torch.Generator):
-        params, state = init(g)
-        if init_scheme is not None:
-            params = apply_init_scheme(g, params, init_scheme)
-        return params, state
-
-    params, state = init_fn(generator)
-    return Model(cfg, params, state, apply_fn, shape, init_fn).to(dev)
+        return _build(cfg, lambda g: (init_mnist(cfg, g), {}), apply_mnist,
+                      (28, 28, cfg.in_channels), device, generator,
+                      init_scheme)
+    if name in MODEL_REGISTRY:
+        return make_cifar_model(MODEL_REGISTRY[name](**overrides), device,
+                                generator=generator, init_scheme=init_scheme)
+    raise ValueError(f"unknown model {name!r}")

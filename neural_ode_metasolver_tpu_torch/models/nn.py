@@ -26,6 +26,33 @@ same leading axis, (S, N, H, W, C) or (S, N, F), and applies member m's
 params to member m's slice: ``F.conv2d`` with ``groups=S``, ``torch.bmm``,
 kernel B3 member-batched, BN's statistics over each member's own batch.
 Params without that axis take the single-run path unchanged.
+
+**The tensor-parallel seam** (a ``model`` mesh axis, ``parallel/mesh.py``):
+a conv (``conv2d``, kernel B1's route ``conv3x3_b1``) or ``linear`` whose
+kernel holds this rank's output channels (``tp_sharding_of``) runs on them
+between two conjugate operators: before it ``replicate_grad`` (identity
+forward, the input's gradient all-reduced over the axis backward), after
+it an all-gather of the channels (this rank's slice of the gradient
+backward).  Everything between convs runs replicated on full channels, so
+a 1-D channel param that a replicated layer reads (GN's and BN's
+``scale``/``bias`` where the name rule shards them) is all-gathered first,
+its gradient sliced back.  SN and WN (``ParamNormDef.materialize``)
+gather the whole kernel (the gradient summed over the axis and sliced),
+normalize it, and keep this rank's columns.
+
+**The spatial seam** (an ``sp`` axis, ``parallel/mesh.py::spatial_rows``):
+activations hold this rank's rows of the height.  Every conv takes a halo
+of its neighbours' rows (``halo_rows``: zeros past the global edges; its
+backward sends the halo rows' gradients back): kernel B1 runs SAME on
+``H_local + 2`` rows and drops the outer output rows, so B1, its dgrad and
+its wgrad stay on the path; ``F.conv2d`` runs with the height's padding
+taken by the halo (one row above for a strided 3x3, none for a strided
+1x1).  GroupNorm (B3) gathers the rows, normalizes the whole height with
+its statistics inside the kernel, and keeps this rank's rows (the
+gradient summed over the axis and sliced): B3 still runs, on the full
+height, at the cost of one all-gather of the activation.  BatchNorm's
+statistics reduce over data x sp (``data_shard`` is that group in a
+step); ``global_avg_pool`` sums over the axis.
 """
 from __future__ import annotations
 
@@ -36,14 +63,18 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv3x3 import conv3x3_same
 from ..ops.group_norm import fused_group_norm_act, group_norm_reference
-from ..parallel.mesh import active_data_shard, all_sum
+from ..parallel.mesh import (active_data_shard, active_spatial, all_sum,
+                             gather, halo_rows, mark_tp, replicate_grad,
+                             tp_sharding_of)
 
 Params = Dict[str, Any]
 
 __all__ = [
     "conv2d_init",
     "conv2d",
+    "conv3x3_b1",
     "linear_init",
     "linear",
     "gelu_poly",
@@ -61,6 +92,7 @@ __all__ = [
     "orthogonal_fc_init",
     "apply_init_scheme",
     "global_avg_pool",
+    "row_norm",
     "add_bias",
 ]
 
@@ -126,24 +158,97 @@ def _member_conv2d(kernel: torch.Tensor, x: torch.Tensor, stride: int,
         .permute(3, 0, 1, 2, 4).contiguous()
 
 
+def _column_parallel(kernel: torch.Tensor, x: torch.Tensor,
+                     f: Callable[[torch.Tensor], torch.Tensor]
+                     ) -> torch.Tensor:
+    """``f(x)``, a layer on ``kernel``'s output channels: where the kernel
+    holds this rank's channels of a ``model`` axis, between
+    ``replicate_grad`` and an all-gather of the channels."""
+    rule = tp_sharding_of(kernel)
+    if rule is None or rule.shard.group is None:
+        return f(x)
+    y = f(replicate_grad(x, rule.shard))
+    return gather(y, rule.shard, -1, sum_grads=False)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A 1-D channel param as a replicated layer reads it: all-gathered
+    where it holds this rank's slice of a ``model`` axis."""
+    rule = tp_sharding_of(t)
+    if rule is None or rule.shard.group is None:
+        return t
+    return gather(t, rule.shard, 0, sum_grads=False)
+
+
+def _spatial_halo(x: torch.Tensor, kh: int, stride: int, padding: int
+                  ) -> torch.Tensor:
+    """x's rows of the sp axis with the halo a conv of height ``kh``,
+    ``stride`` and ``padding`` needs (``padding`` rows above, ``kh -
+    stride - padding`` below), so that the conv without height padding
+    gives exactly this rank's rows of the output; raises where the
+    output's rows do not split as the input's do."""
+    sp = active_spatial()
+    above, below = padding, max(0, kh - stride - padding)
+    h = x.shape[-3]
+    if h % stride or (h + above + below - kh) // stride + 1 != h // stride:
+        raise ValueError(
+            f"a {kh}-row conv of stride {stride} and padding {padding} does "
+            f"not keep {h} rows a rank split over the {sp.axis} axis")
+    return halo_rows(x, sp, above, below)
+
+
 def conv2d(params: Params, x: torch.Tensor, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC (contiguous), symmetric integer
     padding; the kernel is cast to x's dtype.  Members (kernel (S, kh, kw,
-    I, O), x (S, N, H, W, I)) run as one grouped conv."""
-    kernel = params["kernel"].to(x.dtype)
+    I, O), x (S, N, H, W, I)) run as one grouped conv.  Under a ``model``
+    axis a marked kernel runs on its channels, under ``spatial_rows`` on
+    this rank's rows with a halo (module docstring)."""
+    kernel = params["kernel"]
     if kernel.dim() == 5:
-        y = _member_conv2d(kernel, x, stride, padding)
-    else:
-        xi = x.permute(0, 3, 1, 2)
-        if x.device.type == "cpu" and stride != 1:
+        y = _member_conv2d(kernel.to(x.dtype), x, stride, padding)
+        return add_bias(y, params["bias"]) if "bias" in params else y
+
+    def local(xi: torch.Tensor) -> torch.Tensor:
+        pad_h = padding
+        if active_spatial() is not None:
+            xi = _spatial_halo(xi, kernel.shape[0], stride, padding)
+            pad_h = 0
+        xi = xi.permute(0, 3, 1, 2)
+        if xi.device.type == "cpu" and stride != 1:
             # torch 2.13's CPU build (oneDNN 3.12) corrupts its heap in the
             # backward of a strided 1x1 conv on a channels-last input
             xi = xi.contiguous()
-        y = F.conv2d(xi, kernel.permute(3, 2, 0, 1), stride=stride,
-                     padding=padding)
+        y = F.conv2d(xi, kernel.to(xi.dtype).permute(3, 2, 0, 1),
+                     stride=stride, padding=(pad_h, padding))
         y = y.permute(0, 2, 3, 1).contiguous()
-    return add_bias(y, params["bias"]) if "bias" in params else y
+        return add_bias(y, params["bias"]) if "bias" in params else y
+
+    return _column_parallel(kernel, x, local)
+
+
+def conv3x3_b1(x: torch.Tensor, kernel: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B1 (a SAME 3x3 conv of stride 1) on x, the kernel cast to
+    x's dtype, ``bias`` added after it; members (kernel (S, 3, 3, I, O))
+    in one launch; under a ``model`` axis on the kernel's channels, under
+    ``spatial_rows`` on this rank's rows plus one halo row each side, the
+    outer output rows dropped."""
+    if kernel.dim() == 5:
+        y = conv3x3_same(x, kernel.to(x.dtype))
+        return y if bias is None else add_bias(y, bias)
+
+    def local(xi: torch.Tensor) -> torch.Tensor:
+        k = kernel.to(xi.dtype)
+        sp = active_spatial()
+        if sp is None:
+            y = conv3x3_same(xi, k)
+        else:
+            y = conv3x3_same(halo_rows(xi, sp, 1, 1), k)
+            y = y[..., 1:-1, :, :].contiguous()
+        return y if bias is None else add_bias(y, bias)
+
+    return _column_parallel(kernel, x, local)
 
 
 def linear_init(generator: torch.Generator, in_f: int, out_f: int,
@@ -163,9 +268,16 @@ def linear_init(generator: torch.Generator, in_f: int, out_f: int,
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ kernel + bias; members (kernel (S, I, O), x (S, N, I)) as one
     ``torch.bmm``."""
-    kernel = params["kernel"].to(x.dtype)
-    y = torch.bmm(x, kernel) if kernel.dim() == 3 else x @ kernel
-    return add_bias(y, params["bias"]) if "bias" in params else y
+    kernel = params["kernel"]
+    if kernel.dim() == 3:
+        y = torch.bmm(x, kernel.to(x.dtype))
+        return add_bias(y, params["bias"]) if "bias" in params else y
+
+    def local(xi: torch.Tensor) -> torch.Tensor:
+        y = xi @ kernel.to(xi.dtype)
+        return add_bias(y, params["bias"]) if "bias" in params else y
+
+    return _column_parallel(kernel, x, local)
 
 
 # erf(x/sqrt2) ~= tanh(x * q(x^2)), q of degree 4 (JAX nn.py:353-368)
@@ -230,7 +342,15 @@ def group_norm(params: Params, x: torch.Tensor, num_groups: int,
     model rounds and then activates: identical in f32 and for ReLU, at most
     one rounding apart otherwise."""
     f = fused_group_norm_act if use_kernels else group_norm_reference
-    return f(x, params["scale"], params["bias"], num_groups, eps, act)
+    scale, bias = _full(params["scale"]), _full(params["bias"])
+    sp = active_spatial()
+    if sp is None or x.dim() != 4:
+        return f(x, scale, bias, num_groups, eps, act)
+    # the whole height's statistics: B3 on the gathered rows
+    h = x.shape[-3]
+    y = f(gather(x, sp, -3, sum_grads=True), scale, bias, num_groups, eps,
+          act)
+    return y[:, sp.index * h:(sp.index + 1) * h].contiguous()
 
 
 def batch_norm_init(ch: int):
@@ -281,7 +401,8 @@ def batch_norm(params: Params, state: Optional[Params], x: torch.Tensor,
         mean, var = state["mean"], state["var"]
         new_state = state
     y = (xf - per(mean)) * torch.rsqrt(per(var) + eps)
-    y = y * per(params["scale"].float()) + per(params["bias"].float())
+    y = y * per(_full(params["scale"]).float()) \
+        + per(_full(params["bias"]).float())
     return y.to(x.dtype), new_state
 
 
@@ -406,6 +527,9 @@ class ParamNormDef:
             return params, state
         if params["kernel"].dim() == 5:
             return self._materialize_members(params, state, train)
+        rule = tp_sharding_of(params["kernel"])
+        if rule is not None and rule.shard.group is not None:
+            return self._materialize_tp(params, state, train, rule)
         kernel = params["kernel"]
         mat = _kernel_as_matrix(kernel).float()
         if self.kind == "WN":
@@ -430,6 +554,23 @@ class ParamNormDef:
         return {**params, "kernel": kernel / sigma.to(kernel.dtype)}, \
             new_state
 
+
+    def _materialize_tp(self, params: Params, state: Optional[Params],
+                        train: bool, rule):
+        """``materialize`` of a kernel holding this rank's output channels
+        of a ``model`` axis: the whole kernel gathered (its gradient summed
+        over the axis, then sliced), ``wn_g`` read whole (its gradient
+        summed over the axis), normalized, this rank's columns kept."""
+        shard = rule.shard
+        kernel = params["kernel"]
+        full = dict(params)
+        full["kernel"] = gather(kernel, shard, -1, sum_grads=True)
+        if "wn_g" in full:
+            full["wn_g"] = replicate_grad(full["wn_g"], shard)
+        out, new_state = self.materialize(full, state, train)
+        o = kernel.shape[-1]
+        k = out["kernel"].narrow(-1, shard.index * o, o).contiguous()
+        return {**out, "kernel": mark_tp(k, rule)}, new_state
 
     def _materialize_members(self, params: Params, state: Optional[Params],
                              train: bool):
@@ -543,7 +684,22 @@ def apply_init_scheme(generator: torch.Generator, params: Any,
     return walk(params)
 
 
+def row_norm(diff: torch.Tensor) -> torch.Tensor:
+    """The L2 norm over the last axis of a sample's flattened values (the
+    ss-loss's); under ``spatial_rows`` the rows' squares are summed over
+    the sp axis first."""
+    sp = active_spatial()
+    if sp is None:
+        return torch.linalg.vector_norm(diff, dim=-1)
+    return all_sum(diff.pow(2).sum(-1), sp).sqrt()
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1, 1)) + Flatten for NHWC (members' (S, N, H,
-    W, C) -> (S, N, C))."""
-    return x.mean(dim=(-3, -2))
+    W, C) -> (S, N, C)); under ``spatial_rows`` the mean over the whole
+    height, the rows' f32 sums summed over the sp axis."""
+    sp = active_spatial()
+    if sp is None:
+        return x.mean(dim=(-3, -2))
+    n = x.shape[-3] * sp.size * x.shape[-2]
+    return (all_sum(x.float().sum(dim=(-3, -2)), sp) / n).to(x.dtype)

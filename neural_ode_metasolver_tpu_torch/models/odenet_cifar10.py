@@ -63,7 +63,34 @@ ss-loss pass replays each member's draws (``ops/regimes.py``).
 The ss-loss (JAX ``:372-385``): each ODE block's output re-integrated over
 t in [1, 2], replaying the forward's regime draws, the batch mean of the L2
 norm of the difference reduced in f32.  GPipe over a mesh (``pipeline``)
-is ROADMAP A21.
+runs through ``parallel/pipeline.py`` (below).
+
+Parallel axes (``parallel/mesh.py``):
+  * ``model`` (tp): the convs and the head run on the kernel's local
+    output channels between the conjugate operators of ``models/nn.py``.
+    B2 takes whole kernels: the no-grad forward gathers each ODE block's
+    two kernels (no gradient) and runs B2 once a block on the replicated
+    activations, so it launches what one process does (B1 for the convs
+    outside the blocks, on the local channels; B2 once a block).
+  * ``sp``: the activations hold this rank's rows of the height; the convs
+    take halos (B1 on ``H_local + 2`` rows), GN gathers the rows for B3,
+    the pool sums over the axis.  A stride-2 layer whose rows do not halve
+    on every rank gathers the rows first, and the net runs whole images
+    from there.  B2 has no halo: the no-grad forward gathers a block's
+    rows, runs B2 on the whole height and keeps this rank's rows, as GN
+    does for B3, so it launches B2 once a block as one process does.
+  * ``pp`` (``pipeline``, a ``parallel.PipelineConfig``): a layer whose
+    ODE blocks are more than one and a multiple of the stage count runs
+    them through GPipe (``_pipeline_ode_blocks``), consecutive blocks
+    grouped ``len // S`` a stage; it falls back to the sequential loop,
+    as JAX's does, for a single block or an indivisible stack, under the
+    ss-loss, under the adjoint, for a batch that does not split into
+    microbatches each divisible by the ``batch_axis``, and (the port's
+    own) for a fleet, a tp-sharded stack or a trainable solver.  The
+    switch and ensemble draws of the pipelined blocks are made up front
+    in the sequential loop's order (``ops/regimes.py::draw_regime``) and
+    replayed, so a regime chooses the same solvers with and without pp.
+    A no-grad exact-GELU NF stack runs B2 per microbatch.
 """
 from __future__ import annotations
 
@@ -71,11 +98,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
-from ..ops.conv3x3 import conv3x3_same
 from ..ops.ode_block import ode_block_rk2_forward
-from ..ops.regimes import SolverOptions, meta_integrate
+from ..ops.regimes import SolverOptions, draw_regime, meta_integrate
 from ..ops.tableau import validity_eps
+from ..parallel.mesh import (active_data_shard, active_spatial, gather,
+                             run_spatial, spatial_rows, tp_sharding_of)
+from ..parallel.pipeline import pipeline_apply, stack_stage_params
 from . import nn as fnn
 from .nn import (NormDef, ParamNormDef, batch_norm, make_norm_def,
                  make_param_norm_def)
@@ -154,7 +184,7 @@ def _conv(p_eff: Params, x: torch.Tensor, stride: int, padding: int,
     if (use_kernels and stride == 1 and padding == 1
             and tuple(kernel.shape[-4:-2]) == (3, 3)
             and "bias" not in p_eff):
-        return conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
+        return fnn.conv3x3_b1(x, kernel)  # kernel B1
     return fnn.conv2d(p_eff, x, stride=stride, padding=padding)
 
 
@@ -370,10 +400,98 @@ def _grad_can_flow(x: torch.Tensor, p_eff: Params, solvers) -> bool:
                for s in solvers for t in (s.u, s.v)))
 
 
+def _whole_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """A conv kernel whole: all-gathered (no gradient) where it holds this
+    rank's output channels of a ``model`` axis."""
+    rule = tp_sharding_of(kernel)
+    return kernel if rule is None else rule.gather(kernel)
+
+
+def _ode_block(cfg, p_eff, x, solvers, options, use_kernels, u_k, remat,
+               generator=None, aux_in=None, integration_method="backprop"):
+    """One ODE block's solve of x: ``(y, aux)``, kernel B2 where it can
+    run (``u_k``, the clamped u~, given and no gradient can flow), else
+    ``meta_integrate`` over the torch RHS.  B2 takes whole images and
+    whole kernels: under a ``model`` axis the kernels are gathered (the
+    activations are whole already), under ``spatial_rows`` the rows are
+    gathered and this rank's rows of the result kept."""
+    sp = active_spatial()
+    if u_k is not None and not _grad_can_flow(x, p_eff, solvers):
+        w1 = _whole_kernel(p_eff["conv1"]["kernel"]).to(x.dtype)
+        w2 = _whole_kernel(p_eff["conv2"]["kernel"]).to(x.dtype)
+        n = solvers[0].n_steps
+        xs = x if sp is None else gather(x, sp, -3, sum_grads=False)
+        if isinstance(u_k, list):  # a fleet: B2 once per member
+            y = torch.stack([ode_block_rk2_forward(xs[m], w1[m], w2[m], u, n)
+                             for m, u in enumerate(u_k)])
+        else:
+            y = ode_block_rk2_forward(xs, w1, w2, u_k, n)  # kernel B2
+        if sp is not None:
+            y = y[..., sp.rows(y.shape[-3]), :, :].contiguous()
+        return y, {}
+    rhs = run_spatial(sp, lambda t, y: _odefunc_apply(cfg, p_eff, t, y,
+                                                      use_kernels))
+    return meta_integrate(
+        solvers, rhs, x, options, generator, aux_in=aux_in, remat=remat,
+        adjoint=integration_method == "adjoint", rhs_params=p_eff,
+        rhs_with_params=run_spatial(sp, lambda pp, t, y: _odefunc_apply(
+            cfg, pp, t, y, use_kernels)))
+
+
+def _pipeline_ode_blocks(cfg, p_effs, auxes, x, solvers, options,
+                         use_kernels, u_k, remat, pipeline):
+    """Route a layer's same-shape ODE-block stack through GPipe
+    (``parallel/pipeline.py``): consecutive blocks grouped ``len(p_effs) //
+    stages`` a stage, each block replaying its regime draw ``auxes[j]``,
+    so the result equals the sequential loop's up to reduction order."""
+    S = pipeline.stages
+    per = len(p_effs) // S
+    stage = pipeline.mesh.shard(pipeline.axis).index
+    grouped = pytree.tree_map(lambda t: t.reshape((S, per) + t.shape[1:]),
+                              stack_stage_params(p_effs))
+    sp = active_spatial()
+
+    def body(stage_p, x_mb):
+        for j in range(per):
+            pj = pytree.tree_map(lambda t: t[j], stage_p)  # noqa: B023
+            with spatial_rows(sp):
+                x_mb, _ = _ode_block(cfg, pj, x_mb, solvers, options,
+                                     use_kernels, u_k, remat,
+                                     aux_in=auxes[stage * per + j])
+        return x_mb
+
+    return pipeline_apply(body, grouped, x, pipeline.mesh,
+                          axis=pipeline.axis,
+                          n_microbatches=pipeline.microbatches,
+                          batch_axis=pipeline.batch_axis)
+
+
+def _use_pipeline(pipeline, p, x, solvers, ss_loss, integration_method
+                  ) -> bool:
+    """JAX's ``use_pp`` rule (``odenet_cifar10.py:290-306``), plus the
+    port's fleet, tp-sharded stacks and trainable solvers (whose gradient
+    would not leave the pipeline's stages), which take the sequential
+    loop.  Inside a parallel step x is this rank's rows of the data axis,
+    so its microbatches are already a split of the global ones."""
+    num_ode = len(p["ode"])
+    if (pipeline is None or num_ode <= 1 or num_ode % pipeline.stages
+            or ss_loss or integration_method != "backprop" or x.dim() != 4
+            or any(tp_sharding_of(bp["conv1"]["kernel"]) is not None
+                   for bp in p["ode"])
+            or any(not s.frozen and t is not None and t.requires_grad
+                   for s in solvers for t in (s.u, s.v))):
+        return False
+    b, m = x.shape[0], pipeline.microbatches
+    if b % m:
+        return False
+    return (pipeline.batch_axis is None or active_data_shard() is not None
+            or (b // m) % pipeline.mesh.shape[pipeline.batch_axis] == 0)
+
+
 def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
                       use_kernels, remat=False, generator=None,
                       ss_loss=False, ss_loss_abs=False,
-                      integration_method="backprop"):
+                      integration_method="backprop", pipeline=None):
     """The layer's output, new state and ss-loss (0 without
     ``ss_loss``)."""
     s = {k: list(s.get(k) or [{}] * len(p[k])) for k in ("res", "ode")}
@@ -383,38 +501,34 @@ def _meta_layer_apply(cfg, p, s, x, strides, solvers, options, train,
     ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
     u_k = (_ode_kernel_u(cfg, solvers, options)
            if use_kernels and not ss_loss else None)
+    if _use_pipeline(pipeline, p, x, solvers, ss_loss, integration_method):
+        p_effs = []
+        for i, bp in enumerate(p["ode"]):
+            p_eff, s["ode"][i] = _materialize_odefunc(cfg, bp, s["ode"][i],
+                                                      train)
+            p_effs.append({k: dict(v) for k, v in p_eff.items()})
+        auxes = [draw_regime(solvers, options, generator) for _ in p_effs]
+        x = _pipeline_ode_blocks(cfg, p_effs, auxes, x, solvers, options,
+                                 use_kernels, u_k, remat, pipeline)
+        return x, s, ss_total
     for i, bp in enumerate(p["ode"]):
         p_eff, s["ode"][i] = _materialize_odefunc(cfg, bp, s["ode"][i],
                                                   train)
-        if u_k is not None and not _grad_can_flow(x, p_eff, solvers):
-            w1 = p_eff["conv1"]["kernel"].to(x.dtype)
-            w2 = p_eff["conv2"]["kernel"].to(x.dtype)
-            n = solvers[0].n_steps
-            if isinstance(u_k, list):  # a fleet: B2 once per member
-                x = torch.stack([ode_block_rk2_forward(x[m], w1[m], w2[m],
-                                                       u, n)
-                                 for m, u in enumerate(u_k)])
-            else:
-                x = ode_block_rk2_forward(x, w1, w2, u_k, n)  # kernel B2
-            continue
-        rhs = lambda t, y, _p=p_eff: _odefunc_apply(cfg, _p, t, y,
-                                                    use_kernels)
-        x, aux = meta_integrate(
-            solvers, rhs, x, options, generator, remat=remat,
-            adjoint=integration_method == "adjoint", rhs_params=p_eff,
-            rhs_with_params=lambda pp, t, y: _odefunc_apply(cfg, pp, t, y,
-                                                            use_kernels))
+        x, aux = _ode_block(cfg, p_eff, x, solvers, options, use_kernels,
+                            u_k, remat, generator,
+                            integration_method=integration_method)
         if ss_loss:
-            rhs_ss = lambda t, y, _p=p_eff: _odefunc_apply(
-                cfg, _p, t, y, use_kernels, ss_abs=ss_loss_abs)
+            rhs_ss = run_spatial(active_spatial(), lambda t, y, _p=p_eff:
+                                 _odefunc_apply(cfg, _p, t, y, use_kernels,
+                                                ss_abs=ss_loss_abs))
             z, _ = meta_integrate(solvers, rhs_ss, x, options, t0=1.0,
                                   t1=2.0, aux_in=aux, remat=remat)
             # f32 reduction: the squared sum over HW*C elements loses
             # mantissa in bf16 (the torch reference reduces in f32)
             # a fleet's x (S, N, ...) gives each member's mean, (S,)
             diff = (z - x).reshape(x.shape[:x.dim() - 3] + (-1,)).float()
-            ss_total = ss_total + torch.linalg.vector_norm(
-                diff, dim=-1).mean(-1).to(ss_total.dtype)
+            ss_total = ss_total + fnn.row_norm(diff).mean(-1).to(
+                ss_total.dtype)
     return x, s, ss_total
 
 
@@ -474,6 +588,7 @@ def apply_cifar(
     ss_loss_abs: bool = False,
     integration_method: str = "backprop",
     return_aux: bool = False,
+    pipeline=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, Any]]]:
     """Forward of NHWC ``x``; returns the logits in x's dtype, and with
     ``return_aux`` also ``{"ss_loss": ..., "model_state": ...}`` (the
@@ -485,7 +600,10 @@ def apply_cifar(
     fleet's list of them, one a member) serves the switch and ensemble
     draws; ``integration_method``
     ("backprop" or "adjoint") picks how the ODE blocks are
-    differentiated."""
+    differentiated; ``pipeline`` (a ``parallel.PipelineConfig``) runs the
+    ODE-block stacks that divide into its stages through GPipe.  Under
+    ``spatial_rows`` x is this rank's rows of the height (module
+    docstring)."""
     _check_cfg(cfg)
     if integration_method not in ("backprop", "adjoint"):
         raise ValueError(f"unknown integration_method "
@@ -506,20 +624,29 @@ def apply_cifar(
                                train, act_bn1, use_kernels)
         _set(new_state, "bn1", st)
     ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
+    sp = active_spatial()
     for li in range(len(cfg.num_blocks)):
         name = f"layer{li + 1}"
-        out, new_state[name], ss = _meta_layer_apply(
-            cfg, params[name], state.get(name, {}), out,
-            _layer_strides(cfg, li),
-            solvers, solver_options, train, use_kernels, remat, generator,
-            ss_loss, ss_loss_abs, integration_method,
-        )
+        strides = _layer_strides(cfg, li)
+        h = out.shape[-3]
+        if sp is not None and strides[0] == 2 and (h % 2 or h < 2):
+            # the rows no longer halve on every rank: whole images on
+            # (the net's depth) from here
+            out = gather(out, sp, -3, sum_grads=True)
+            sp = None
+        with spatial_rows(sp):
+            out, new_state[name], ss = _meta_layer_apply(
+                cfg, params[name], state.get(name, {}), out, strides,
+                solvers, solver_options, train, use_kernels, remat,
+                generator, ss_loss, ss_loss_abs, integration_method,
+                pipeline)
         ss_total = ss_total + ss
-    if preact:
-        out, st = nd_bn1.apply(_get(params, "bn1"), state.get("bn1"), out,
-                               train, act_bn1, use_kernels)
-        _set(new_state, "bn1", st)
-    logits = fnn.linear(params["fc"], fnn.global_avg_pool(out))
+    with spatial_rows(sp):
+        if preact:
+            out, st = nd_bn1.apply(_get(params, "bn1"), state.get("bn1"),
+                                   out, train, act_bn1, use_kernels)
+            _set(new_state, "bn1", st)
+        logits = fnn.linear(params["fc"], fnn.global_avg_pool(out))
     if return_aux:
         return logits, {"ss_loss": ss_total, "model_state": new_state}
     return logits

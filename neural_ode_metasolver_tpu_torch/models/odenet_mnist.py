@@ -39,6 +39,16 @@ result is ``(logits, {"ss_loss": ...})``, the JAX function's aux (0 when
 ODE block by the continuous adjoint (``ops/adjoint.py``) over the block's
 params; the ss-loss pass backpropagates, as in JAX.
 
+Parallel axes (``parallel/mesh.py``): under a ``model`` axis every conv,
+the ConcatConv2ds and the head run on their kernels' local output channels
+and GroupNorm's affine is gathered (``models/nn.py``); under
+``spatial_rows`` (an ``sp`` axis) the downsampling runs on whole images
+(the rows gathered: its VALID stem and 4x4 strided convs do not keep an
+even split of the rows), each rank keeps its rows of the 6x6 map where
+they split evenly (else whole images on from there), and the ODE block
+and the head run on them with halos, B3 on the gathered rows.  The
+net has one ODE block, so it has no pipeline.
+
 A fleet (``training/fleet.py``) runs S members in one forward: params
 with a leading member axis, x (S, N, 28, 28, C), stacked solvers (u of
 shape (S,)), logits (S, N, classes), the ss-loss (S,).  Every layer then
@@ -57,8 +67,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv3x3 import conv3x3_same
 from ..ops.regimes import SolverOptions, meta_integrate
+from ..parallel.mesh import active_spatial, gather, run_spatial, spatial_rows
 from . import nn as fnn
 
 Params = Dict[str, Any]
@@ -110,10 +120,7 @@ def _conv(params: Params, x: torch.Tensor, stride: int, padding: int,
     kernel = params["kernel"]
     if (use_kernels and stride == 1 and padding == 1
             and tuple(kernel.shape[-4:-2]) == (3, 3)):
-        y = conv3x3_same(x, kernel.to(x.dtype))  # kernel B1
-        if "bias" in params:
-            y = fnn.add_bias(y, params["bias"])
-        return y
+        return fnn.conv3x3_b1(x, kernel, params.get("bias"))  # kernel B1
     return fnn.conv2d(params, x, stride=stride, padding=padding)
 
 
@@ -273,33 +280,52 @@ def apply_mnist(
         raise ValueError("this config integrates an ODE block: pass "
                          "solvers=[create_solver('rk2', 'u', n_steps=8)]")
     act = _act(cfg)
-    x = _downsample(params, x, cfg, use_kernels)
+    sp = active_spatial()
+    if sp is not None:
+        # the downsampling runs on whole images (its 3x3 VALID stem and
+        # 4x4 strided convs do not keep the rows' split), then this rank
+        # keeps its rows of the 6x6 map where they split evenly
+        x = gather(x, sp, -3, sum_grads=True)
+    with spatial_rows(None):
+        x = _downsample(params, x, cfg, use_kernels)
+    if sp is not None:
+        h = x.shape[-3]
+        if h % sp.size:
+            sp = None
+        else:
+            x = x[:, sp.rows(h)].contiguous()
     ss_total = torch.zeros((), dtype=x.dtype, device=x.device)
-    for block in params["blocks"]:
-        if not cfg.is_odenet:
-            x = _resblock_apply(block, x, 1, use_kernels)
-            continue
-        rhs = lambda t, y, _p=block: _odefunc_apply(_p, t, y, act,
-                                                    use_kernels)
-        x, aux = meta_integrate(
-            solvers, rhs, x, solver_options, generator, remat=remat,
-            adjoint=integration_method == "adjoint", rhs_params=block,
-            rhs_with_params=lambda p, t, y: _odefunc_apply(p, t, y, act,
-                                                           use_kernels))
-        if ss_loss:
-            # re-integrate t in [1, 2] from the block output, replaying the
-            # forward's regime draws (layers.py:53-93)
-            rhs_ss = lambda t, y, _p=block: _odefunc_apply(
-                _p, t, y, act, use_kernels, ss_abs=ss_loss_abs)
-            z, _ = meta_integrate(solvers, rhs_ss, x, solver_options,
-                                  t0=1.0, t1=2.0, aux_in=aux, remat=remat)
-            # a fleet's x (S, N, ...) gives each member's mean, (S,)
-            diff = (z - x).reshape(x.shape[:x.dim() - 3] + (-1,)).float()
-            ss_total = ss_total + torch.linalg.vector_norm(
-                diff, dim=-1).mean(-1).to(ss_total.dtype)
-    h = params["head"]
-    x = _gn_act(h["norm"], x, "relu", use_kernels)
-    logits = fnn.linear(h["fc"], fnn.global_avg_pool(x))
+    with spatial_rows(sp):
+        for block in params["blocks"]:
+            if not cfg.is_odenet:
+                x = _resblock_apply(block, x, 1, use_kernels)
+                continue
+            rhs = run_spatial(sp, lambda t, y, _p=block: _odefunc_apply(
+                _p, t, y, act, use_kernels))
+            x, aux = meta_integrate(
+                solvers, rhs, x, solver_options, generator, remat=remat,
+                adjoint=integration_method == "adjoint", rhs_params=block,
+                rhs_with_params=run_spatial(sp, lambda p, t, y:
+                                            _odefunc_apply(p, t, y, act,
+                                                           use_kernels)))
+            if ss_loss:
+                # re-integrate t in [1, 2] from the block output, replaying
+                # the forward's regime draws (layers.py:53-93)
+                rhs_ss = run_spatial(sp, lambda t, y, _p=block:
+                                     _odefunc_apply(_p, t, y, act,
+                                                    use_kernels,
+                                                    ss_abs=ss_loss_abs))
+                z, _ = meta_integrate(solvers, rhs_ss, x, solver_options,
+                                      t0=1.0, t1=2.0, aux_in=aux,
+                                      remat=remat)
+                # a fleet's x (S, N, ...) gives each member's mean, (S,)
+                diff = (z - x).reshape(x.shape[:x.dim() - 3] + (-1,)) \
+                    .float()
+                ss_total = ss_total + fnn.row_norm(diff).mean(-1).to(
+                    ss_total.dtype)
+        h = params["head"]
+        x = _gn_act(h["norm"], x, "relu", use_kernels)
+        logits = fnn.linear(h["fc"], fnn.global_avg_pool(x))
     if return_aux:
         return logits, {"ss_loss": ss_total, "model_state": {}}
     return logits

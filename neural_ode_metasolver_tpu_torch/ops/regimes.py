@@ -53,7 +53,7 @@ from .integrate import odeint_final
 from .solver import ParametricSolver
 from .tableau import ButcherTableau, pad_tableau
 
-__all__ = ["SolverOptions", "meta_integrate", "switch_probs"]
+__all__ = ["SolverOptions", "meta_integrate", "switch_probs", "draw_regime"]
 
 
 @dataclass(frozen=True)
@@ -99,6 +99,29 @@ def _choose(generator, probs: Sequence[float]) -> int:
         if r < cum:
             return i
     return max(i for i, p in enumerate(probs) if p > 0)
+
+
+def draw_regime(solvers: Sequence[ParametricSolver], options: SolverOptions,
+                generator) -> Dict[str, Any]:
+    """The draw one ``meta_integrate`` call makes (its ``aux``), made
+    without integrating: ``{}`` for standalone, the switch's solver id or
+    the ensemble's coin, from ``generator`` (a fleet's list of
+    generators, one draw each); ``meta_integrate`` draws through it.
+    Passed back as ``aux_in``, it replays that call's choice: the
+    pipelined ODE stacks draw every block's in the sequential loop's order
+    this way."""
+    mode = options.solver_mode
+    fleet = isinstance(generator, (list, tuple))
+    if mode == "switch":
+        probs = switch_probs(options, len(solvers))
+        return {"switch_solver_id": ([_choose(g, probs) for g in generator]
+                                     if fleet else _choose(generator, probs))}
+    if mode == "ensemble":
+        draw = lambda g: (_host_uniform(g, "ensemble")  # noqa: E731
+                          < options.ensemble_prob)
+        return {"ensemble_coin_flip": ([draw(g) for g in generator] if fleet
+                                       else draw(generator))}
+    return {}
 
 
 def meta_integrate(
@@ -147,28 +170,19 @@ def meta_integrate(
                                    for v in aux_in.values()))
     if mode == "standalone":
         return integrate(solvers[0]), {}
-    if mode == "switch":
-        if aux_in is not None and "switch_solver_id" in aux_in:
-            solver_id = aux_in["switch_solver_id"]
-            solver_id = (list(solver_id) if fleet else int(solver_id))
-        else:
-            probs = switch_probs(options, n)
-            solver_id = ([_choose(g, probs) for g in generator] if fleet
-                         else _choose(generator, probs))
-        aux = {"switch_solver_id": solver_id}
-        if not fleet or len(set(solver_id)) == 1:
-            one = solver_id[0] if fleet else solver_id
-            return integrate(solvers[one]), aux
-        return _member_switch(solvers, solver_id, y0, integrate), aux
-    if aux_in is not None and "ensemble_coin_flip" in aux_in:
-        coin = aux_in["ensemble_coin_flip"]
-        coin = [bool(c) for c in coin] if fleet else bool(coin)
+    key = "switch_solver_id" if mode == "switch" else "ensemble_coin_flip"
+    if aux_in is not None and key in aux_in:
+        cast = int if mode == "switch" else bool
+        drawn = aux_in[key]
+        drawn = [cast(v) for v in drawn] if fleet else cast(drawn)
     else:
-        draw = lambda g: (_host_uniform(g, "ensemble")  # noqa: E731
-                          < options.ensemble_prob)
-        coin = [draw(g) for g in generator] if fleet else draw(generator)
-    aux = {"ensemble_coin_flip": coin}
-    if not any(coin if fleet else [coin]):
+        drawn = draw_regime(solvers, options, generator)[key]
+    aux = {key: drawn}
+    if mode == "switch":
+        if not fleet or len(set(drawn)) == 1:
+            return integrate(solvers[drawn[0] if fleet else drawn]), aux
+        return _member_switch(solvers, drawn, y0, integrate), aux
+    if not any(drawn if fleet else [drawn]):
         return integrate(solvers[0]), aux
     weights = options.ensemble_weights
     if weights is None:
@@ -179,8 +193,8 @@ def meta_integrate(
         first = out if first is None else first
         yi = w * out
         y = yi if y is None else y + yi
-    if fleet and not all(coin):
-        y = torch.where(_member_mask(coin, y), y, first)
+    if fleet and not all(drawn):
+        y = torch.where(_member_mask(drawn, y), y, first)
     return y, aux
 
 

@@ -1,12 +1,14 @@
-"""Parallelism: the process mesh, data parallelism and ensemble parallelism
-(port of parallel/; pipeline parallelism, ``PipelineConfig``,
-``pipeline_apply`` and ``stack_stage_params``, is ROADMAP A21)."""
+"""Parallelism (port of parallel/): the process mesh, data, tensor and
+spatial parallelism, ensemble parallelism and GPipe pipeline
+parallelism."""
 from .ensemble import ensemble_integrate, stack_solver_params
+from .pipeline import PipelineConfig, pipeline_apply, stack_stage_params
 from .mesh import (
     Mesh,
     Shard,
     barrier,
     batch_sharding,
+    gather_tree,
     host_local_batch_to_global,
     initialize_distributed,
     make_mesh,
@@ -14,14 +16,15 @@ from .mesh import (
     replicated,
     shard_opt_state_tp,
     shard_params_tp,
+    shard_tree,
 )
 
 __all__ = [
     "ensemble_integrate",
+    "PipelineConfig",
+    "pipeline_apply",
+    "stack_stage_params",
     "stack_solver_params",
-    "Mesh",
-    "Shard",
-    "barrier",
     "batch_sharding",
     "host_local_batch_to_global",
     "initialize_distributed",
@@ -30,4 +33,9 @@ __all__ = [
     "replicated",
     "shard_opt_state_tp",
     "shard_params_tp",
+    "Mesh",
+    "Shard",
+    "barrier",
+    "shard_tree",
+    "gather_tree",
 ]

@@ -23,7 +23,10 @@ port does not run raise (``runners/common.py::check_unported_flags``).
 ``--mesh data=-1`` with ``--coordinator``, ``--num_hosts`` and
 ``--process_id`` trains one run data-parallel over that many processes,
 one device each; BatchNorm then normalizes with the global batch's
-statistics.
+statistics.  A ``model``, ``sp`` or ``pp`` axis trains tensor parallel,
+with the height sharded, or with the ODE-block stacks pipelined
+(``--pp_microbatches``; e.g. ``--num_blocks "1,2;1,2" --mesh
+data=1,pp=2``), over ranks of one host.
 """
 from __future__ import annotations
 
@@ -189,13 +192,15 @@ def build_parser():
                    help="compute precision (bf16 = mixed precision, the "
                         "apex-O1 analog; master params stay f32)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="data-parallel training over the process group, "
-                        "e.g. 'data=-1' (every rank; a model, sp or pp "
-                        "axis is ROADMAP A21 and raises)")
+                   help="device mesh over the process group, e.g. "
+                        "'data=-1' (every rank), 'data=2,model=2' "
+                        "(tensor parallelism), 'data=1,sp=2' (the "
+                        "height sharded), 'data=1,pp=2' (GPipe over "
+                        "the ODE-block stacks; CIFAR family)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="GPipe microbatches per step under --mesh pp= "
-                        "(pipeline parallelism is ROADMAP A21: a nonzero "
-                        "value raises)")
+                        "(0 = the pp axis size); no effect without a pp "
+                        "axis")
     p.add_argument("--num_blocks", type=str, default=None,
                    help="override the registry's per-stage (res,ode) "
                         "counts, e.g. '1,2;1,2' for two stages of one res "

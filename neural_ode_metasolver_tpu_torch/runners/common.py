@@ -33,9 +33,14 @@ checkpoints and ``metrics.jsonl`` while the others wait at a barrier at
 each epoch's end.  ``--coordinator``, ``--num_hosts`` and ``--process_id``
 form the process group (``setup_multihost``, JAX's validation and
 messages); the backend is NCCL when every rank owns a CUDA device of its
-own, gloo otherwise.  Flags that raise: a ``model``, ``sp`` or ``pp`` mesh
-axis and ``--pp_microbatches`` (ROADMAP A21) and ``--compiler_option`` (no
-counterpart: the port has no XLA compiler).  ``--download`` fetches the dataset into
+own, gloo otherwise.  A ``model``, ``sp`` or ``pp`` axis
+(``make_parallel_train_step(model_axis=, spatial_axis=)``, the model's
+``PipelineConfig`` with ``--pp_microbatches``) runs with JAX's checks and
+messages (validation and the adversarial test run on the same axes: the
+tp forward, the pipelined stacks, each batch's rows split over sp); as
+JAX's multi-host runner refuses them, the port refuses them when the
+ranks span more than one host.  The flag that raises:
+``--compiler_option`` (no counterpart: the port has no XLA compiler).  ``--download`` fetches the dataset into
 ``--data_root`` (``data/download.py::ensure_dataset``) and falls back to
 the offline datasets where the fetch fails, as the JAX runners do.
 ``--integration_method adjoint`` reaches the train step, which
@@ -54,7 +59,7 @@ import torch
 
 from ..backend import resolve_device
 from ..data.prefetch import prefetch_to_device
-from ..models.api import Model
+from ..models.api import Model, make_cifar_model
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
 from ..training import profiling
@@ -87,9 +92,11 @@ from ..parallel.mesh import (
     initialize_distributed,
     make_mesh,
     make_parallel_train_step,
+    num_hosts,
     rank as process_rank,
     world_size,
 )
+from ..parallel.pipeline import PipelineConfig
 
 __all__ = [
     "device_batches",
@@ -202,18 +209,7 @@ def add_device_flag(p):
 
 
 def check_unported_flags(args) -> None:
-    """Raise on every flag the port does not run, naming its ROADMAP
-    label (or why it has none)."""
-    def label(what, lab):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {lab})")
-
-    spec = parse_mesh_spec(getattr(args, "mesh", None)) or {}
-    for axis, what in (("model", "tensor"), ("sp", "spatial"),
-                       ("pp", "pipeline")):
-        if axis in spec:
-            label(f"--mesh {axis}= ({what} parallelism)", "A21")
-    if getattr(args, "pp_microbatches", 0):
-        label("--pp_microbatches (pipeline parallelism)", "A21")
+    """Raise on every flag the port does not run, saying why."""
     if getattr(args, "compiler_option", None):
         raise ValueError(
             "--compiler_option has no counterpart in the PyTorch port (it "
@@ -310,11 +306,12 @@ def validate(
     config: dict,
     epoch: int,
     predict_cache: Optional[dict] = None,
+    spatial=None,
 ):
     """Run every requested validation mode; update ``best`` and write
     checkpoints on improvement (train_validate.py:250-342 semantics).
     ``predict_cache`` (owned by the caller) keeps the predictors across
-    epochs."""
+    epochs; ``spatial`` (the mesh's sp axis) splits each batch's rows."""
     cache = predict_cache if predict_cache is not None else {}
 
     def get_predict(tag, solvers_, opts_):  # f32, as the JAX runner
@@ -328,7 +325,7 @@ def validate(
             for i, s in enumerate(solvers):
                 acc = accuracy(model, [s], opts, eval_data_factory(),
                                predict=get_predict(f"standalone_{i}", [s],
-                                                   opts))
+                                                   opts), spatial=spatial)
                 logger.info(
                     f"epoch {epoch} | standalone solver {i} "
                     f"(u0={s.u0}) acc {acc:.4f}"
@@ -351,7 +348,7 @@ def validate(
             )
             acc = accuracy(model, solvers, opts, eval_data_factory(),
                            predict=get_predict(mode, solvers, opts),
-                           generator=generator)
+                           generator=generator, spatial=spatial)
             logger.info(f"epoch {epoch} | {mode} acc {acc:.4f}")
             if acc > best.get(mode, 0.0):
                 best[mode] = acc
@@ -393,6 +390,10 @@ def fit(
 ) -> TrainState:
     """The end-to-end training driver of the MNIST and CIFAR CLIs, on the
     model's device."""
+    mesh_spec = parse_mesh_spec(getattr(args, "mesh", None))
+    mesh = make_mesh(mesh_spec) if mesh_spec else None
+    if mesh_spec and "pp" in mesh_spec:
+        model = _pipeline_model(model, mesh, args, logger)
     dev = resolve_device(model.device)
     generator = torch.Generator().manual_seed(getattr(args, "seed", 502))
     ts = create_train_state(model, tx)
@@ -441,10 +442,8 @@ def fit(
     # rank r keeps its contiguous 1/N of each (identically seeded, hence
     # identically ordered) global batch, so the step sees the global batch
     # of a one-process run
-    sharding = None
-    mesh_spec = parse_mesh_spec(getattr(args, "mesh", None))
+    sharding = spatial = None
     if mesh_spec:
-        mesh = make_mesh(mesh_spec)
         logger.info(f"mesh: {mesh.shape} over {mesh.size} devices"
                     + (f", backend {torch.distributed.get_backend()}"
                        if torch.distributed.is_initialized() else ""))
@@ -453,14 +452,23 @@ def fit(
                 f"batch_size {args.batch_size} must be divisible by the "
                 f"data axis size ({mesh.shape['data']})"
             )
-        step = make_parallel_train_step(step, mesh, ts, data_axis="data")
+        step = make_parallel_train_step(
+            step, mesh, ts, data_axis="data",
+            model_axis="model" if "model" in mesh_spec else None,
+            spatial_axis="sp" if "sp" in mesh_spec else None)
         sharding = batch_sharding(mesh)
+        spatial = mesh.shard("sp") if "sp" in mesh_spec else None
     nproc, rank = world_size(), process_rank()
     multihost = nproc > 1
     if multihost:
         if not mesh_spec:
             raise ValueError(
                 "multi-host training needs --mesh (e.g. data=-1)")
+        if num_hosts() > 1 and any(ax != "data" for ax in mesh_spec):
+            raise ValueError(
+                "multi-host runners shard the data axis only; model/sp/pp "
+                "meshes are single-host (their param/halo placements are "
+                "not wired through host_local_batch_to_global)")
         if getattr(args, "batch_size", 0) % nproc:
             raise ValueError(
                 f"batch_size {args.batch_size} must be divisible by the "
@@ -544,7 +552,7 @@ def fit(
             best = validate(
                 model, ts, solvers, args, eval_data_factory, generator,
                 logger, best, save_dir, config, epoch,
-                predict_cache=predict_cache,
+                predict_cache=predict_cache, spatial=spatial,
             )
             if mlog and best:
                 mlog.log(
@@ -568,7 +576,7 @@ def fit(
                 adv_acc = adversarial_accuracy(
                     model, solvers, solver_options, test_data_factory(),
                     test_attack, generator,
-                    predict=predict_cache["adv_predict"],
+                    predict=predict_cache["adv_predict"], spatial=spatial,
                 )
                 logger.info(
                     f"epoch {epoch} | adversarial test acc {adv_acc:.4f}")
@@ -592,6 +600,41 @@ def fit(
         mlog.log({"best": max(best.values()) if best else 0.0}, step=ts.step)
         mlog.close()
     return ts
+
+
+def _pipeline_model(model: Model, mesh, args, logger) -> Model:
+    """The model rebuilt (``make_cifar_model(pipeline=)``, its params and
+    state copied) so that its same-shape ODE-block stacks route through
+    GPipe over the mesh's pp axis (layers whose block count does not
+    divide the stage count, and the ss-loss/adjoint paths, fall back to
+    the sequential loop), with the JAX runner's checks and messages."""
+    if not hasattr(model.cfg, "num_blocks"):
+        raise ValueError(
+            "--mesh pp= needs a cifar-family model (stacked "
+            "same-shape ODE blocks); the MNIST net has one block")
+    pcfg = PipelineConfig(mesh=mesh, axis="pp",
+                          n_microbatches=getattr(args, "pp_microbatches", 0),
+                          batch_axis="data")
+    batch = getattr(args, "batch_size", 0)
+    if batch % pcfg.microbatches or (batch // pcfg.microbatches) \
+            % mesh.shape["data"]:
+        raise ValueError(
+            f"batch_size {args.batch_size} must split into "
+            f"{pcfg.microbatches} microbatches each divisible by "
+            f"the data axis size ({mesh.shape['data']})")
+    if not any(n_ode > 1 and n_ode % pcfg.stages == 0
+               for _, n_ode in model.cfg.num_blocks):
+        logger.warning(
+            f"--mesh pp={pcfg.stages}: no layer in "
+            f"num_blocks={list(model.cfg.num_blocks)} has an "
+            f"ODE-block stack divisible into {pcfg.stages} stages; "
+            "the pp devices are reserved but every layer runs "
+            "sequentially (use --num_blocks to deepen the stacks, "
+            "e.g. premetanode18/34)")
+    piped = make_cifar_model(model.cfg, model.device, pipeline=pcfg,
+                             init_scheme=getattr(args, "init", None))
+    piped.load_state_dict(model.state_dict())
+    return piped
 
 
 def _count_ode_blocks(model: Model) -> int:

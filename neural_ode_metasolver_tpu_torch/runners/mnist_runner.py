@@ -10,7 +10,10 @@ Example, on the card:
 and without it the run raises.  The flags are the JAX runner's; those the
 port does not run raise (``runners/common.py``).  ``--mesh data=-1`` with
 ``--coordinator``, ``--num_hosts`` and ``--process_id`` trains one run
-data-parallel over that many processes, one device each.
+data-parallel over that many processes, one device each; a ``model`` or
+``sp`` axis trains tensor parallel or with the height sharded, over ranks
+of one host (``--mesh pp=`` needs a CIFAR-family model and raises JAX's
+message).
 
 ``--train_solver_params`` trains the solvers' (u, v) with the network
 (``training/solver_training.py``; SGD at ``--lr_uv``), logs u each epoch
@@ -157,9 +160,11 @@ def build_parser():
                    help="compute precision (bf16 = mixed precision, the "
                         "apex-O1 analog; master params stay f32)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="data-parallel training over the process group, "
-                        "e.g. 'data=-1' (every rank; a model, sp or pp "
-                        "axis is ROADMAP A21 and raises)")
+                   help="device mesh over the process group, e.g. "
+                        "'data=-1' (every rank), 'data=2,model=2' "
+                        "(tensor parallelism), 'data=1,sp=2' (the "
+                        "height sharded), 'data=1,pp=2' (GPipe over "
+                        "the ODE-block stacks; CIFAR family)")
     p.add_argument("--compiler_option", action="append", default=None,
                    metavar="NAME=VALUE",
                    help="an XLA compiler flag of the JAX runner; raises "

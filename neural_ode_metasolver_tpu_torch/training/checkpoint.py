@@ -19,7 +19,10 @@ target's devices (the model's own parameters and buffers, so the model
 sees them), bit for bit.  In a process group of several ranks (data
 parallelism, ``parallel/mesh.py``) rank 0 alone writes, and its write
 blocks, so a barrier after the save means the checkpoint is committed;
-the other ranks return the path at once; every rank can restore.  A state that extends ``TrainState`` with more
+the other ranks return the path at once; every rank can restore.  Under
+tensor parallelism every rank calls the save, which gathers the
+tp-sharded params and their optimizer mirrors first: the checkpoint is
+the global tree; a target holding tp slices restores its slices of it.  A state that extends ``TrainState`` with more
 fields (a trainable solver's u and v and their optimizer's state, which JAX
 writes under ``save_dir/solver_trained``) saves and restores each of them
 the same way, as a tree of tensors and numbers.
@@ -35,7 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..parallel.mesh import rank, world_size
+from ..parallel.mesh import map_tp_state, rank, world_size
 from .train import TrainState, load_opt_state
 
 __all__ = [
@@ -92,12 +95,15 @@ def save_checkpoint(
     global _writer
     step = int(ts.step)
     path = _ckpt_dir(base_dir, step)
+    # the global tree: tp slices gathered (every rank takes part)
+    params, opt_state = map_tp_state(ts.params, ts.params, ts.opt_state,
+                                     lambda _, rule, t: rule.gather(t))
     if world_size() > 1:
         if rank() != 0:
             return path
         block = True
-    payload = {"step": step, "params": _to_host(ts.params),
-               "opt_state": _to_host(ts.opt_state),
+    payload = {"step": step, "params": _to_host(params),
+               "opt_state": _to_host(opt_state),
                "model_state": _to_host(ts.model_state)}
     payload.update({name: _to_host(getattr(ts, name))
                     for name in _extra_fields(ts)})
@@ -176,6 +182,11 @@ def restore_checkpoint(base_dir: str, target: TrainState,
     path = _ckpt_dir(base_dir, step)
     saved = torch.load(os.path.join(path, "state"), map_location="cpu",
                        weights_only=True)
+    if set(saved["params"]) == set(target.params):
+        # a target holding tp slices takes its slices of the global tree
+        saved["params"], saved["opt_state"] = map_tp_state(
+            target.params, saved["params"], saved["opt_state"],
+            lambda _, rule, t: rule.local(t))
     _copy_by_name(path, "parameters", saved["params"], target.params)
     _copy_by_name(path, "model-state buffers", saved.get("model_state", {}),
                   target.model_state)

@@ -29,6 +29,14 @@ carry their own parameters and model state.  Every forward here runs in
 eval mode and reads the model's state (BN running statistics, SN vectors)
 from its buffers; nothing here writes it.
 
+Parallel axes: under a ``model`` axis the model's parameters hold this
+rank's tp slices and every forward here runs the tp forward; a model with
+a ``pipeline`` runs its stacks through GPipe (every rank of the axis must
+evaluate alike); ``spatial=`` (an sp axis, ``parallel/mesh.py``) makes
+``accuracy`` and ``adversarial_accuracy`` evaluate each batch on this
+rank's rows of the height, the attack's random start drawn at the whole
+image's shape and sliced, so every rank counts the same predictions.
+
 ``mesh=`` runs the ensemble-by-noising shape (one model, one options, one
 solver a member differing only in u/v) on the member axis instead of the
 member loop: the model's params are repeated along a leading member axis
@@ -57,7 +65,8 @@ from ..ops.noise import solver_ensemble_by_noising
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
 from ..parallel.ensemble import member_rows, stack_solver_params
-from ..parallel.mesh import all_sum_replicated, replicate_grad
+from ..parallel.mesh import (GlobalDraws, Shard, all_sum_replicated,
+                             replicate_grad, spatial_rows)
 from .fleet import _fleet_forward, _member_solvers, tile_fleet
 from .train import (AttackConfig, NoiseConfig, _model_forward,
                     _regime_generator, _regime_seeds, _run_attack, _seeds,
@@ -96,21 +105,29 @@ def _accumulate_accuracy(device: torch.device, data: Batches,
     return correct / max(total, 1)
 
 
+def _rows(x: torch.Tensor, spatial: Optional[Shard]) -> torch.Tensor:
+    """This rank's rows of x's height under an sp axis, else x."""
+    return x if spatial is None else x[:, spatial.rows(x.shape[1])]
+
+
 def accuracy(model, solvers: Sequence, solver_options: SolverOptions,
              data: Batches, predict=None,
-             generator: Optional[torch.Generator] = None) -> float:
+             generator: Optional[torch.Generator] = None, *,
+             spatial: Optional[Shard] = None) -> float:
     """Clean accuracy of ``model`` over ``data``; ``predict`` (from
     ``make_eval_step``) may be passed in, else one is built.  Under switch
     and ensemble, which need ``generator``, each batch's forward draws its
-    regime choices from a seed of its own; standalone draws none."""
+    regime choices from a seed of its own; standalone draws none.
+    ``spatial``: the sp axis each batch's rows are split over."""
     if predict is None:
         predict = make_eval_step(model, solvers, solver_options)
 
     def batch_scores(x, y):
-        if generator is None:
-            return predict(x)
-        (seed,) = _regime_seeds(generator, solver_options, 1)
-        return predict(x, _regime_generator(seed))
+        with spatial_rows(spatial):
+            if generator is None:
+                return predict(_rows(x, spatial))
+            (seed,) = _regime_seeds(generator, solver_options, 1)
+            return predict(_rows(x, spatial), _regime_generator(seed))
 
     return _accumulate_accuracy(model.device, data, batch_scores)
 
@@ -153,13 +170,15 @@ def adversarial_accuracy(model, solvers: Sequence,
                          solver_options: SolverOptions, data: Batches,
                          attack_cfg: AttackConfig,
                          generator: torch.Generator, predict=None, *,
-                         remat: bool = False, unroll: int = 1) -> float:
+                         remat: bool = False, unroll: int = 1,
+                         spatial: Optional[Shard] = None) -> float:
     """Accuracy on attacked batches (train_and_attack.py:212-243).  Each
     batch draws from ``generator`` (a CPU generator the caller seeds) a
     seed for the attack's generator on the model's device and, under
     switch and ensemble, a seed for the regime draws.  ``predict`` (from
     ``make_adversarial_predict``) may be passed in, else one is built with
-    ``remat`` and ``unroll``."""
+    ``remat`` and ``unroll``.  ``spatial``: the sp axis each batch's rows
+    are split over (the random start drawn whole and sliced)."""
     if predict is None:
         predict = make_adversarial_predict(model, solvers, solver_options,
                                            attack_cfg, remat=remat,
@@ -169,8 +188,11 @@ def adversarial_accuracy(model, solvers: Sequence,
     def batch_scores(x, y):
         seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
         (fwd_seed,) = _regime_seeds(generator, solver_options, 1)
-        return predict(x, y, torch.Generator(device=dev).manual_seed(seed),
-                       fwd_seed)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if spatial is not None:
+            g = GlobalDraws(g, Shard("batch", 1, 0), spatial)
+        with spatial_rows(spatial):
+            return predict(_rows(x, spatial), y, g, fwd_seed)
 
     return _accumulate_accuracy(dev, data, batch_scores)
 

@@ -50,9 +50,16 @@ bit.  B1 and B3 give each member exactly a single launch's bits, but the
 stem and the strided convs run as one grouped cuDNN conv (``groups=S``)
 and the head as ``torch.bmm``, whose sums may be ordered otherwise.
 
+The members over a mesh axis (JAX places the stacked state and inputs
+with ``NamedSharding(mesh, P(axis))`` and the step compiles to per-device
+member groups with no collectives): ``shard_fleet(tree, mesh, axis)``
+gives this rank its contiguous S/k members of any stacked fleet tree (the
+state, x, y, the generators, stacked solvers), the same step advances
+them with no collective, and ``gather_fleet(metrics, mesh, axis)`` puts
+the members' metrics back together in member order.
+
 No counterpart: ``donate`` and ``compiler_options`` (nothing is compiled;
-accepted and ignored, as ``unroll`` is) and the members sharded over a
-mesh axis (ROADMAP A21's tp/sp/pp slice).
+accepted and ignored, as ``unroll`` is).
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from ..models.api import _flatten
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
+from ..parallel.mesh import host_local_batch_to_global
 from .optimizers import global_norm, keep_members
 from .train import (AttackConfig, LossConfig, NoiseConfig, TrainState,
                     _regime_generator, _regime_seeds, _run_attack, _seeds)
@@ -78,6 +86,8 @@ __all__ = [
     "stack_fleet_solvers",
     "tile_fleet",
     "fleet_member",
+    "shard_fleet",
+    "gather_fleet",
     "make_fleet_train_step",
     "make_fleet_eval_step",
 ]
@@ -178,6 +188,43 @@ def fleet_member(tree: Any, i: int) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(fleet_member(v, i) for v in tree)
     return tree
+
+
+def shard_fleet(tree: Any, mesh, axis: str = "fleet") -> Any:
+    """This rank's contiguous members of a stacked fleet tree over the
+    mesh ``axis`` (S members, k ranks: S/k each): tensors, per-member
+    lists (counts, generators) and stacked solvers' u and v are cut along
+    the member axis; other leaves stay.  Raises where S does not split."""
+    shard = mesh.shard(axis)
+
+    def cut(node):
+        if isinstance(node, TrainState):
+            return TrainState(node.step, cut(node.params),
+                              cut(node.opt_state), cut(node.model_state))
+        if isinstance(node, torch.Tensor):
+            return node[shard.rows(node.shape[0])]
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        if isinstance(node, ParametricSolver):
+            return node.replace(**{
+                k: cut(t) for k, t in (("u", node.u), ("v", node.v))
+                if t is not None and t.dim() == 1})
+        if isinstance(node, (list, tuple)) and node and all(
+                isinstance(v, (int, float, torch.Generator)) for v in node):
+            return type(node)(node[shard.rows(len(node))])
+        if isinstance(node, (list, tuple)):
+            return type(node)(cut(v) for v in node)
+        return node
+
+    return cut(tree)
+
+
+def gather_fleet(tree: Any, mesh, axis: str = "fleet") -> Any:
+    """The whole fleet's tensors (metrics, counts of an eval step) from
+    every rank's members, in member order (an all-gather over the axis)."""
+    if isinstance(tree, dict):
+        return {k: gather_fleet(v, mesh, axis) for k, v in tree.items()}
+    return host_local_batch_to_global(tree, mesh, axis)
 
 
 class _Tabled(ParametricSolver):

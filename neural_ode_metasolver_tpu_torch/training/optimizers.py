@@ -71,6 +71,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import tp_global_norm, tp_sharding_of
+
 __all__ = ["SGD", "RMSprop", "Adam", "Optimizer", "make_optimizer",
            "global_norm", "keep_members"]
 
@@ -146,9 +148,17 @@ def keep_members(new: Sequence[torch.Tensor], old: Sequence[torch.Tensor],
 
 
 def global_norm(tensors: Sequence[torch.Tensor],
-                members: Optional[int] = None) -> torch.Tensor:
+                members: Optional[int] = None,
+                like: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
     """The L2 norm of all the tensors together (optax ``global_norm``);
-    with ``members`` S, each member's over its slices t[m], (S,)."""
+    with ``members`` S, each member's over its slices t[m], (S,).
+    ``like``, the parameters the tensors belong to: where some hold this
+    rank's slices of a ``model`` axis, the norm of the global tensors
+    (``parallel.mesh.tp_global_norm``)."""
+    if like is not None and any(tp_sharding_of(p) is not None
+                                for p in like):
+        return tp_global_norm(tensors, like)
     if members is not None:
         return torch.linalg.vector_norm(torch.stack([
             torch.linalg.vector_norm(t.reshape(members, -1), dim=1)
@@ -359,8 +369,8 @@ class Optimizer:
         gs = list(grads)
         backoff = self.nonfinite_backoff is not None
         if members is None:
-            if backoff and (skip or not bool(
-                    torch.isfinite(global_norm(gs)))):
+            if backoff and (skip or not bool(torch.isfinite(
+                    global_norm(gs, like=list(params.values()))))):
                 state["scale"] = self._dip(state["scale"])
                 state["n_skipped"] += 1
             elif not skip:
@@ -413,7 +423,7 @@ class Optimizer:
                     state[b][k] for b in self.rule._buffers() for k in names]
                 held = [t.detach().clone() for t in hold]
         if self.grad_clip is not None:
-            gn = global_norm(gs, members)
+            gn = global_norm(gs, members, like=list(params.values()))
             per = ((lambda g: gn.reshape((-1,) + (1,) * (g.dim() - 1)))
                    if members is not None else (lambda g: gn))
             gs = [torch.where(per(g) < self.grad_clip, g,

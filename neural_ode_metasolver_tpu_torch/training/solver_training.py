@@ -24,8 +24,10 @@ noise on coefficients that are being optimized feeds their own gradient.
 Randomness: ``step(state, x, y, generator)`` draws the attack's and the
 data noise's seeds from the CPU generator, then the regime seeds as
 ``make_train_step`` does; ``step(..., shard=S)`` is one rank's part of a
-data-parallel step as there, u's and v's gradients reduced in the model's
-bucket.
+step over the mesh as there (``StepShards``: data, sp, model), u's and
+v's gradients reduced in the model's bucket.  A pipelined stack does not
+take a trainable solver (its gradient would not leave the pipeline's
+stages): such a step runs the model's ODE stacks in the sequential loop.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from ..attacks import attacks
 from ..backend import full_f32
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
-from ..parallel.mesh import Shard, data_shard
+from ..parallel.mesh import StepShards, data_shard, spatial_rows
 from .optimizers import global_norm
 from .train import (AttackConfig, LossConfig, TrainState, _batch_generator,
                     _model_forward, _randn_rows, _reduce_over_data,
@@ -145,11 +147,14 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
     clip_hi = [1.0 - 1e-3 if s.method == "rk4" else 1.0 for s in solvers]
 
     def step(state: SolverTrainState, x: torch.Tensor, y: torch.Tensor,
-             generator: torch.Generator, shard: Optional[Shard] = None):
+             generator: torch.Generator,
+             shard: Optional[StepShards] = None):
+        reduce = None if shard is None else shard.reduce
         s_attack, s_data = _seeds(generator, 2)
         s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         current = solvers_from_state(solvers, state.solver_params)
-        with full_f32(), data_shard(shard):
+        with full_f32(), data_shard(reduce), spatial_rows(
+                None if shard is None else shard.spatial):
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 attack_solvers = [s.freeze() for s in current]
@@ -180,14 +185,15 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                      for g, w in zip(grads, wrt)]
             # u's and v's gradients share the model's bucket
             loss, xent, acc, grads = _reduce_over_data(
-                shard, [loss, xent, (logits.argmax(-1) == y).float().mean()],
+                reduce, [loss, xent, (logits.argmax(-1) == y).float().mean()],
                 grads)
             n = len(state.params)
             g_model, g_solver = grads[:n], grads[n:]
             metrics = {
                 "loss": loss.detach(), "xentropy": xent.detach(),
                 "accuracy": acc,
-                "grad_norm": global_norm(g_model),
+                "grad_norm": global_norm(
+                    g_model, like=list(state.params.values())),
                 "solver_grad_norm": (global_norm(g_solver) if g_solver else
                                      torch.zeros((), device=loss.device)),
             }

@@ -54,7 +54,8 @@ does; the port has no compilation to reuse, so this is exactly a step built
 with S.  JAX compiler options have no counterpart.
 
 Data parallelism (``parallel/mesh.py::make_parallel_train_step``):
-``step(..., shard=S)`` takes this rank's slice of the global batch.  Every
+``step(..., shard=S)`` (a ``parallel.mesh.StepShards``, whose ``data`` is
+the data axis) takes this rank's slice of the global batch.  Every
 draw sized by the batch (the attack's start, the data noise) is made at
 the global shape and sliced to the rank, as JAX's sharded ``jax.random``
 gives each shard its part; the per-step draws (noise, regime seeds) are
@@ -68,6 +69,21 @@ together.  The attack's input gradient stays on its rank.
 ``DistributedDataParallel`` cannot serve here: its reducer hooks the
 gradient-accumulator nodes, which ``torch.autograd.grad`` never runs.  A
 one-rank axis runs none of this and is bit-equal to no shard.
+
+The other axes come in the same ``shard``:
+under an ``sp`` axis x is this rank's rows of the height too, the
+batch-sized draws are made at the global shape and sliced by batch rows
+and height rows, the forwards run under ``spatial_rows``, and the bucket
+(gradients, metrics) and BatchNorm's statistics sum over data x sp, since
+every rank's gradient is its rows' share.  Under a ``model`` axis the
+params hold this rank's slices of the tp-sharded leaves; their gradients
+are the slices' own and replicated params' gradients are whole on every
+rank, so neither sums over ``model``: both go in the data (x sp) bucket.
+``grad_norm`` (and ``skip_nonfinite``, which reads it) is the global
+norm: the slices' squares are summed over the ``model`` axis
+(``parallel.mesh.tp_global_norm``), so every rank skips together.  Under
+a ``pp`` axis the pipelined stacks' gradients are summed over the axis
+inside the pipeline (``parallel/pipeline.py``) and nothing changes here.
 """
 from __future__ import annotations
 
@@ -81,9 +97,9 @@ from ..attacks import attacks
 from ..backend import full_f32
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
-from ..parallel.mesh import (GlobalDraws, Shard, all_reduce_mean,
-                             data_shard)
-from .optimizers import Adam, Optimizer, RMSprop, SGD
+from ..parallel.mesh import (GlobalDraws, Shard, StepShards,
+                             all_reduce_mean, data_shard, spatial_rows)
+from .optimizers import Adam, Optimizer, RMSprop, SGD, global_norm
 
 AnyOptimizer = Union[SGD, RMSprop, Adam, Optimizer]
 
@@ -271,29 +287,30 @@ def _regime_seeds(generator: torch.Generator, solver_options: SolverOptions,
 
 
 def _batch_generator(device: torch.device, seed: int,
-                     shard: Optional[Shard]):
+                     shard: Optional[StepShards]):
     """The generator of a batch-sized draw on ``device``; under a data
     shard it draws at the global batch's shape and keeps this rank's
-    rows."""
+    rows (and its rows of the height under an sp axis)."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return g if shard is None else GlobalDraws(g, shard)
+    return g if shard is None else GlobalDraws(g, shard.data, shard.spatial)
 
 
-def _randn_rows(x: torch.Tensor, seed: int, shard: Optional[Shard]
+def _randn_rows(x: torch.Tensor, seed: int, shard: Optional[StepShards]
                 ) -> torch.Tensor:
     """N(0, 1) of x's shape on its device (the data noise), drawn at the
     global batch's shape under a data shard and sliced to this rank."""
     g = torch.Generator(device=x.device).manual_seed(seed)
     fn = lambda shape: torch.randn(shape, generator=g, dtype=x.dtype,  # noqa: E731
                                    device=x.device)
-    return fn(x.shape) if shard is None else shard.draw(fn, x.shape)
+    return (fn(x.shape) if shard is None
+            else shard.data.draw(fn, x.shape, shard.spatial))
 
 
 def _reduce_over_data(shard: Optional[Shard], scalars, grads):
     """The global batch's scalars and gradients: one all-reduce of a flat
-    f32 bucket over the data group, divided by its size (``scalars`` and
-    ``grads`` unchanged without a shard or on a one-rank axis).  Returns
-    the scalars then the list of gradients."""
+    f32 bucket over the data (x sp) group, divided by its size
+    (``scalars`` and ``grads`` unchanged without a shard or on a one-rank
+    axis).  Returns the scalars then the list of gradients."""
     if shard is None or shard.group is None:
         return (*scalars, list(grads))
     grads = list(grads)
@@ -339,13 +356,15 @@ def make_train_step(model, optimizer: AnyOptimizer,
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: torch.Generator, dynamic_solvers=None,
-             shard: Optional[Shard] = None):
+             shard: Optional[StepShards] = None):
+        reduce = None if shard is None else shard.reduce
         s_noise, s_attack, s_data = _seeds(generator, 3)
         s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         base = solvers if dynamic_solvers is None else list(dynamic_solvers)
         solvers_t = _noise_solvers(
             base, torch.Generator().manual_seed(s_noise), noise_cfg)
-        with full_f32(), data_shard(shard):
+        with full_f32(), data_shard(reduce), spatial_rows(
+                None if shard is None else shard.spatial):
             with record_function("nodems.attack"):
                 frozen = model.detached_params()
                 x_adv = _run_attack(
@@ -367,9 +386,8 @@ def make_train_step(model, optimizer: AnyOptimizer,
                 grads = torch.autograd.grad(loss, list(state.params.values()))
             acc = (logits.argmax(-1) == y).float().mean()
             loss, xent, ss, acc, grads = _reduce_over_data(
-                shard, [loss, xent, ss, acc], grads)
-            gnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+                reduce, [loss, xent, ss, acc], grads)
+            gnorm = global_norm(grads, like=list(state.params.values()))
             metrics = {"loss": loss.detach(), "xentropy": xent.detach(),
                        "ss_loss": ss.detach(), "accuracy": acc,
                        "grad_norm": gnorm}

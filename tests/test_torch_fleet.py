@@ -1,5 +1,6 @@
 """The port's fleet (``training/fleet.py``) on the CPU: the cases of
-``tests/test_fleet.py`` but the mesh (ROADMAP A21), at JAX's bars, plus the
+``tests/test_fleet.py`` but the mesh (``tests/test_torch_parallel_fleet.py``
+holds that one), at JAX's bars, plus the
 fleet against JAX's fleet from the same params, and a CIFAR fleet with BN
 and GN against its per-member loop (per-member BN statistics and the
 stacked model state)."""

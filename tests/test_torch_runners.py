@@ -246,13 +246,21 @@ _REFUSED = [
      ValueError, "--profile_dir"),
     (mnist_runner, ["--compiler_option", "a=b"], ValueError,
      "--compiler_option"),
-    (cifar_runner, ["--pp_microbatches", "2"], NotImplementedError, "A21"),
-    (cifar_runner, ["--mesh", "data=2,pp=2"], NotImplementedError, "A21"),
+    (cifar_runner, ["--mesh", "data=2,pp=2"], ValueError,
+     r"mesh \{'data': 2, 'pp': 2\} != 1 devices"),
     (mnist_runner, ["--train_solver_params", "--mesh", "data=2"],
      ValueError, "--mesh is not supported with --train_solver_params"),
-    (mnist_runner, ["--mesh", "data=2,model=2"], NotImplementedError,
-     "A21"),
-    (cifar_runner, ["--mesh", "data=2,sp=2"], NotImplementedError, "A21"),
+    (mnist_runner, ["--mesh", "data=2,model=2"], ValueError,
+     r"mesh \{'data': 2, 'model': 2\} != 1 devices"),
+    (cifar_runner, ["--mesh", "data=2,sp=2"], ValueError,
+     r"mesh \{'data': 2, 'sp': 2\} != 1 devices"),
+    # JAX's pp checks, on a one-rank pp axis
+    (mnist_runner, ["--mesh", "data=1,pp=1"], ValueError,
+     "--mesh pp= needs a cifar-family model"),
+    (cifar_runner, ["--mesh", "data=1,pp=1", "--pp_microbatches", "3",
+                    "--batch_size", "16"], ValueError,
+     r"batch_size 16 must split into 3 microbatches each divisible by the "
+     r"data axis size \(1\)"),
 ]
 
 
@@ -265,6 +273,20 @@ def test_refused_flags_raise_with_their_label(runner, argv, exc, label,
         runner.main(argv + ["--device", "cpu", "--save_dir",
                             str(tmp_path)])
     assert not (tmp_path / "metrics.jsonl").exists()
+
+
+def test_pp_microbatches_without_a_pp_axis_is_accepted(tmp_path):
+    """``--pp_microbatches`` without a ``pp`` axis runs and changes
+    nothing, as in JAX: the run equals the same run without the flag."""
+    argv = ["--network", "premetanode10", "--in_planes", "4", "--solvers",
+            "rk2,u,1,-1,0.5,-1", "--nepochs", "1", "--batch_size", "8",
+            "--test_batch_size", "8", "--synthetic_train_size", "16",
+            "--synthetic_test_size", "8", "--device", "cpu"]
+    a = cifar_runner.main(argv + ["--pp_microbatches", "2", "--save_dir",
+                                  str(tmp_path / "a")])
+    b = cifar_runner.main(argv + ["--save_dir", str(tmp_path / "b")])
+    assert a.step == b.step >= 1
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
 
 
 @pytest.mark.parametrize("pair", [(j_mnist.build_parser, mnist_runner),
