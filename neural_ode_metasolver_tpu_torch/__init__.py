@@ -21,6 +21,8 @@ a CIFAR ODE block (forward only); B3, GroupNorm fused with its activation
 (a backward kernel).  Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.
 """
-from .backend import launch_counts, reset_launch_counts, resolve_device
+from .backend import (launch_counts, record_spans, reset_launch_counts,
+                      resolve_device, span)
 
-__all__ = ["launch_counts", "reset_launch_counts", "resolve_device"]
+__all__ = ["launch_counts", "reset_launch_counts", "resolve_device",
+           "record_spans", "span"]

@@ -4,7 +4,8 @@ attacks/attacks.py; reference MegaAdversarial/src/attacks).
 An attack takes ``forward: x_normalized -> logits`` (already bound to the
 parameters and solvers) and returns the attacked, normalized input,
 detached.  The input gradient is ``torch.autograd.grad`` of the mean
-cross-entropy with respect to the perturbation only.
+cross-entropy with respect to the perturbation only, inside the span
+``train.backward`` (``backend.span``).
 
 Ported: ``cross_entropy``, ``normalize``/``inv_normalize``, ``clean``,
 ``fgsm`` (one signed step in pixel space, fgsm.py:21-43), ``fgsm_random``
@@ -30,6 +31,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..backend import span
 from ..parallel.mesh import GlobalDraws
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
@@ -124,7 +126,8 @@ def fgsm_random(forward: Forward, generator: Optional[torch.Generator],
     delta.requires_grad_(True)
     with torch.enable_grad():
         loss = cross_entropy(forward(x + delta), y)
-        (grad,) = torch.autograd.grad(loss, delta)
+        with span("train.backward"):
+            (grad,) = torch.autograd.grad(loss, delta)
     delta = torch.clamp(delta.detach() + alpha_c * torch.sign(grad),
                         -eps_c, eps_c)
     delta = torch.clamp(delta, lo, hi)
@@ -137,7 +140,9 @@ def _input_grad(forward: Forward, x: torch.Tensor, y: torch.Tensor
     caller's mode (an eval harness may run under no_grad)."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        (grad,) = torch.autograd.grad(cross_entropy(forward(x), y), x)
+        loss = cross_entropy(forward(x), y)
+        with span("train.backward"):
+            (grad,) = torch.autograd.grad(loss, x)
     return grad
 
 
@@ -201,7 +206,9 @@ def fgsm_mean_prob_attack(mean_probs_fn: Forward, x: torch.Tensor,
 
     x01 = x01.requires_grad_(True)
     with torch.enable_grad():
-        (grad,) = torch.autograd.grad(nll(x01), x01)
+        loss = nll(x01)
+        with span("train.backward"):
+            (grad,) = torch.autograd.grad(loss, x01)
     x_adv = torch.clamp(x01.detach() + eps * torch.sign(grad), 0.0, 1.0)
     return normalize(x_adv, mean, std), y
 

@@ -19,7 +19,8 @@ converted to tensors.
 ``parallel/mesh.py``): each item is cut to this rank's rows on the host
 before it is copied, so a rank moves only its slice of the global batch.
 ``threaded_iterator`` runs any iterator on a background thread with a
-bounded queue and yields its items unchanged.
+bounded queue and yields its items unchanged.  The consumer's wait for the
+queue's next item is the span ``data.wait`` (``backend.span``).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..backend import resolve_device
+from ..backend import resolve_device, span
 
 __all__ = ["prefetch_to_device", "threaded_iterator"]
 
@@ -154,7 +155,8 @@ def _threaded_prefetch(iterator, size, put, take) -> Iterator[Any]:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait"):
+                    item = q.get()
                 if item is _END:
                     return
                 if isinstance(item, BaseException):

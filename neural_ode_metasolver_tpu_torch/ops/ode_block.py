@@ -23,7 +23,8 @@ and takes the plain version, ``reference_ode_block_rk2``, only for CPU
 tensors.  Like the Pallas kernel it has no backward: on CUDA tensors it
 raises when a gradient could flow (``backend.check_forward_only``), and the
 model takes it only where none can.  ``plain_launch`` is the plain version of one launch, so a CPU test
-can run the schedule itself.
+can run the schedule itself.  Each call is one span ``ode.solve`` (``path``
+``b2``, ``steps`` n_steps; ``backend.span``).
 """
 from __future__ import annotations
 
@@ -209,10 +210,11 @@ def ode_block_rk2_forward(y0: torch.Tensor, w1: torch.Tensor,
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} are not "
                          "(N,H,W,C), (3,3,C,C), (3,3,C,C)")
     u = float(u)
-    if backend.kernel_ops():
-        return torch.ops.nodems.ode_block_rk2(  # ops/library.py
-            y0, w1, w2, u, int(n_steps))
-    return _solve(y0, w1, w2, u, n_steps)
+    with backend.span("ode.solve", path="b2", steps=n_steps):
+        if backend.kernel_ops():
+            return torch.ops.nodems.ode_block_rk2(  # ops/library.py
+                y0, w1, w2, u, int(n_steps))
+        return _solve(y0, w1, w2, u, n_steps)
 
 
 def _solve(y0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, u: float,

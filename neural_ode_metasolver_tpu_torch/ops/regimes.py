@@ -40,6 +40,10 @@ Solver smoothing is not a mode: it perturbs u/v before the forward
 ``adjoint=True`` integrates every branch with the continuous adjoint
 (``ops/adjoint.py``), over the explicit-params RHS ``rhs_with_params(params,
 t, y)`` and its ``rhs_params`` (JAX ``regimes.py:49-66``).
+
+Spans (``backend.span``): each ``meta_integrate`` call is one ``ode.solve``
+(``path`` ``rk`` or ``adjoint``, ``steps`` the first solver's step count),
+each ``draw_regime`` one ``regime.draw``.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..backend import span, spanned
 from .adjoint import odeint_final_adjoint
 from .integrate import odeint_final
 from .solver import ParametricSolver
@@ -101,6 +106,7 @@ def _choose(generator, probs: Sequence[float]) -> int:
     return max(i for i, p in enumerate(probs) if p > 0)
 
 
+@spanned("regime.draw")
 def draw_regime(solvers: Sequence[ParametricSolver], options: SolverOptions,
                 generator) -> Dict[str, Any]:
     """The draw one ``meta_integrate`` call makes (its ``aux``), made
@@ -165,37 +171,40 @@ def meta_integrate(
         return odeint_final(tableau, rhs, y0,
                             time_grid=s.final_grid(y0, t0, t1), remat=remat)
 
-    fleet = isinstance(generator, (list, tuple)) or (
-        aux_in is not None and any(isinstance(v, (list, tuple))
-                                   for v in aux_in.values()))
-    if mode == "standalone":
-        return integrate(solvers[0]), {}
-    key = "switch_solver_id" if mode == "switch" else "ensemble_coin_flip"
-    if aux_in is not None and key in aux_in:
-        cast = int if mode == "switch" else bool
-        drawn = aux_in[key]
-        drawn = [cast(v) for v in drawn] if fleet else cast(drawn)
-    else:
-        drawn = draw_regime(solvers, options, generator)[key]
-    aux = {key: drawn}
-    if mode == "switch":
-        if not fleet or len(set(drawn)) == 1:
-            return integrate(solvers[drawn[0] if fleet else drawn]), aux
-        return _member_switch(solvers, drawn, y0, integrate), aux
-    if not any(drawn if fleet else [drawn]):
-        return integrate(solvers[0]), aux
-    weights = options.ensemble_weights
-    if weights is None:
-        weights = [1.0 / n] * n
-    y = first = None
-    for w, s in zip(weights, solvers):
-        out = integrate(s)
-        first = out if first is None else first
-        yi = w * out
-        y = yi if y is None else y + yi
-    if fleet and not all(drawn):
-        y = torch.where(_member_mask(drawn, y), y, first)
-    return y, aux
+    with span("ode.solve", path="adjoint" if adjoint else "rk",
+              steps=solvers[0].n_steps if n else None):
+        fleet = isinstance(generator, (list, tuple)) or (
+            aux_in is not None and any(isinstance(v, (list, tuple))
+                                       for v in aux_in.values()))
+        if mode == "standalone":
+            return integrate(solvers[0]), {}
+        key = ("switch_solver_id" if mode == "switch"
+               else "ensemble_coin_flip")
+        if aux_in is not None and key in aux_in:
+            cast = int if mode == "switch" else bool
+            drawn = aux_in[key]
+            drawn = [cast(v) for v in drawn] if fleet else cast(drawn)
+        else:
+            drawn = draw_regime(solvers, options, generator)[key]
+        aux = {key: drawn}
+        if mode == "switch":
+            if not fleet or len(set(drawn)) == 1:
+                return integrate(solvers[drawn[0] if fleet else drawn]), aux
+            return _member_switch(solvers, drawn, y0, integrate), aux
+        if not any(drawn if fleet else [drawn]):
+            return integrate(solvers[0]), aux
+        weights = options.ensemble_weights
+        if weights is None:
+            weights = [1.0 / n] * n
+        y = first = None
+        for w, s in zip(weights, solvers):
+            out = integrate(s)
+            first = out if first is None else first
+            yi = w * out
+            y = yi if y is None else y + yi
+        if fleet and not all(drawn):
+            y = torch.where(_member_mask(drawn, y), y, first)
+        return y, aux
 
 
 def _member_mask(values: Sequence[bool], like: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from .backend import full_f32, resolve_device
+from .backend import full_f32, resolve_device, span
 from .ops import library  # noqa: F401  the nodems:: ops a program calls
 from .ops.regimes import SolverOptions
 
@@ -80,13 +80,25 @@ class ServedModel:
     def __call__(self, x) -> torch.Tensor:
         """(B, *model.input_shape) images (tensor or array, any device):
         (B, 28, 28, 1) for MNIST, (B, 32, 32, 3) for CIFAR -> (B,
-        num_classes) f32 logits on the model's device."""
-        with torch.inference_mode():
-            x = torch.as_tensor(x, device=self.device)
+        num_classes) f32 logits on the model's device.  The call is one
+        span ``serve.request`` (a unit, ``batch`` its images) holding
+        ``serve.copy_in`` (``bytes`` the images' host bytes) and the
+        model's ``ode.solve`` spans (``backend.span``)."""
+        with span("serve.request", unit=True, batch=_leading(x)), \
+                torch.inference_mode():
+            with span("serve.copy_in", bytes=getattr(x, "nbytes", None)):
+                x = torch.as_tensor(x, device=self.device)
             if x.dim() != 4 or tuple(x.shape[1:]) != self.model.input_shape:
                 raise ValueError(f"images {tuple(x.shape)} are not (B, "
                                  f"{', '.join(map(str, self.model.input_shape))})")
             return self.logits(x)
+
+
+def _leading(x) -> Optional[int]:
+    """The leading size of an array or tensor, or None (a scalar, a list):
+    checked with the rest of the shape after the copy in."""
+    shape = getattr(x, "shape", ())
+    return int(shape[0]) if len(shape) else None
 
 
 class _Program(torch.nn.Module):

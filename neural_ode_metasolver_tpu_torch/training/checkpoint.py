@@ -13,7 +13,9 @@ optimizer as ``attacks_runner.py:65`` does.
 ``save_checkpoint(..., block=False)`` copies the tensors to the host before
 it returns (so the train step may update them in place right after) and
 writes on one background thread, in the order of the calls;
-``wait_for_checkpoints()`` waits for every write.  ``restore_checkpoint``
+``wait_for_checkpoints()`` waits for every write.  The caller's part of a
+save (the gather, the copies to the host and a blocking write) is the span
+``checkpoint.save`` (``backend.span``).  ``restore_checkpoint``
 copies the saved values into a target state's tensors in place, on the
 target's devices (the model's own parameters and buffers, so the model
 sees them), bit for bit.  In a process group of several ranks (data
@@ -38,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..backend import spanned
 from ..parallel.mesh import map_tp_state, rank, world_size
 from .train import TrainState, load_opt_state
 
@@ -84,6 +87,7 @@ def _write_state(path: str, payload: dict) -> None:
     os.replace(tmp, final)
 
 
+@spanned("checkpoint.save")
 def save_checkpoint(
     base_dir: str,
     ts: TrainState,

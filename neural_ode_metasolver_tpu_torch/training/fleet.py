@@ -60,6 +60,9 @@ the members' metrics back together in member order.
 
 No counterpart: ``donate`` and ``compiler_options`` (nothing is compiled;
 accepted and ignored, as ``unroll`` is).
+
+A fleet step records the spans a single step does (``training/train.py``):
+one ``train.step`` unit for all S members.
 """
 from __future__ import annotations
 
@@ -67,10 +70,9 @@ from dataclasses import fields
 from typing import Any, List, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..attacks import attacks
-from ..backend import full_f32
+from ..backend import full_f32, phase, span, spanned
 from ..models.api import _flatten
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
@@ -334,22 +336,26 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
     forward = _fleet_forward(model, solver_options, use_kernels,
                              compute_dtype, remat, integration_method)
 
+    @spanned("train.step", unit=True)
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generators: Sequence[torch.Generator], dynamic_solvers=None):
         n = x.shape[0]
         if len(generators) != n:
             raise ValueError(f"{len(generators)} generators for {n} members")
-        # member m's three step seeds, then its two regime seeds (None
-        # under standalone, which draws none), as a single step draws them
-        seeds = [_seeds(g, 3) + _regime_seeds(g, solver_options, 2)
-                 for g in generators]
-        base = solvers if dynamic_solvers is None else list(dynamic_solvers)
-        solvers_t = _member_solvers(
-            base, n, None if noise_cfg.noise_type is None
-            else [s[0] for s in seeds], noise_cfg, x.device)
+        with span("train.draws"):
+            # member m's three step seeds, then its two regime seeds (None
+            # under standalone, which draws none), as a single step draws
+            # them
+            seeds = [_seeds(g, 3) + _regime_seeds(g, solver_options, 2)
+                     for g in generators]
+            base = (solvers if dynamic_solvers is None
+                    else list(dynamic_solvers))
+            solvers_t = _member_solvers(
+                base, n, None if noise_cfg.noise_type is None
+                else [s[0] for s in seeds], noise_cfg, x.device)
         params = state.params
         with full_f32():
-            with record_function("nodems.attack"):
+            with phase("nodems.attack"):
                 frozen = {k: v.detach() for k, v in params.items()}
                 x_adv = _run_attack(
                     lambda xi, g: forward(xi, solvers_t, False, frozen,
@@ -364,7 +370,7 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
                         device=x.device).manual_seed(s[2]),
                     dtype=x_adv.dtype, device=x.device) for s in seeds])
                 x_adv = x_adv + loss_cfg.data_noise_std * noise
-            with record_function("nodems.train_pass"), torch.enable_grad():
+            with phase("nodems.train_pass"), torch.enable_grad():
                 logits, ss, new_state = forward(
                     x_adv, solvers_t, True, params, state.model_state,
                     ss=loss_cfg,
@@ -373,7 +379,9 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
                 loss = xent
                 if loss_cfg.ss_loss:
                     loss = loss + loss_cfg.ss_loss_reg * ss
-                grads = torch.autograd.grad(loss.sum(), list(params.values()))
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss.sum(),
+                                                list(params.values()))
             gnorm = global_norm(grads, n)
             metrics = {"loss": loss.detach(), "xentropy": xent.detach(),
                        "ss_loss": ss.detach(),
@@ -386,7 +394,7 @@ def make_fleet_train_step(model, optimizer, solvers: Sequence,
                 ok = flags.tolist()
                 if all(ok):
                     ok = None
-            with record_function("nodems.update"):
+            with phase("nodems.update"):
                 optimizer.update(params, grads, state.opt_state, members=n,
                                  skip=None if ok is None
                                  else [not v for v in ok])

@@ -35,10 +35,9 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..attacks import attacks
-from ..backend import full_f32
+from ..backend import full_f32, phase, span, spanned
 from ..ops.regimes import SolverOptions
 from ..ops.solver import ParametricSolver
 from ..parallel.mesh import StepShards, data_shard, spatial_rows
@@ -146,16 +145,18 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                              compute_dtype, remat)
     clip_hi = [1.0 - 1e-3 if s.method == "rk4" else 1.0 for s in solvers]
 
+    @spanned("train.step", unit=True)
     def step(state: SolverTrainState, x: torch.Tensor, y: torch.Tensor,
              generator: torch.Generator,
              shard: Optional[StepShards] = None):
         reduce = None if shard is None else shard.reduce
-        s_attack, s_data = _seeds(generator, 2)
-        s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
+        with span("train.draws"):
+            s_attack, s_data = _seeds(generator, 2)
+            s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
         current = solvers_from_state(solvers, state.solver_params)
         with full_f32(), data_shard(reduce), spatial_rows(
                 None if shard is None else shard.spatial):
-            with record_function("nodems.attack"):
+            with phase("nodems.attack"):
                 frozen = model.detached_params()
                 attack_solvers = [s.freeze() for s in current]
                 x_adv = _run_attack(
@@ -166,7 +167,7 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
             if loss_cfg.data_noise_std > 1e-12:
                 x_adv = x_adv + loss_cfg.data_noise_std * _randn_rows(
                     x_adv, s_data, shard)
-            with record_function("nodems.train_pass"), torch.enable_grad():
+            with phase("nodems.train_pass"), torch.enable_grad():
                 leaves = [{k: None if t is None
                            else t.detach().requires_grad_(True)
                            for k, t in sp.items()}
@@ -180,7 +181,9 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                     loss = loss + loss_cfg.ss_loss_reg * ss
                 wrt = (list(state.params.values())
                        + list(_solver_param_dict(leaves).values()))
-                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, wrt,
+                                                allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g
                      for g, w in zip(grads, wrt)]
             # u's and v's gradients share the model's bucket
@@ -197,7 +200,7 @@ def make_solver_train_step(model, optimizer, solver_optimizer,
                 "solver_grad_norm": (global_norm(g_solver) if g_solver else
                                      torch.zeros((), device=loss.device)),
             }
-            with record_function("nodems.update"):
+            with phase("nodems.update"):
                 optimizer.update(state.params, g_model, state.opt_state)
                 solver_optimizer.update(
                     _solver_param_dict(state.solver_params), g_solver,

@@ -38,9 +38,15 @@ draws nothing there, so its stream is unchanged.  FGSM's one attack forward
 draws from the attack-forward seed, PGD's iteration i from that seed plus
 1 + i (JAX ``fold_in(k_afwd, i)``).
 
-The phases run inside ``torch.profiler.record_function`` ranges
-``nodems.attack``, ``nodems.train_pass`` and ``nodems.update``, which a
-trace reads for device time by phase (``scripts/profile_torch_training.py``).
+Spans (``backend.span``, recorded inside ``backend.record_spans()`` or a
+``training/profiling.py`` trace): each step is one ``train.step`` unit
+holding ``train.draws`` (the host's seed draws and solver noising), the
+phases ``nodems.attack``, ``nodems.train_pass`` and ``nodems.update``, and
+a ``train.backward`` around each ``torch.autograd.grad``.  The phases are
+also ``torch.profiler.record_function`` ranges on every profiler trace
+(``backend.phase``), which the benchmark reads for device time by phase
+(``benchmark/harness/trace.py::by_range``, the ``attack_ms`` and
+``update_ms`` readers of ``benchmark/metrics/``).
 
 ``make_eval_step`` returns the clean predictor the eval harness
 (``training/evaluate.py``) runs under ``torch.inference_mode()``.
@@ -91,10 +97,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
-from torch.profiler import record_function
 
 from ..attacks import attacks
-from ..backend import full_f32
+from ..backend import full_f32, phase, span, spanned
 from ..ops.noise import noise_solver
 from ..ops.regimes import SolverOptions
 from ..parallel.mesh import (GlobalDraws, Shard, StepShards,
@@ -354,18 +359,21 @@ def make_train_step(model, optimizer: AnyOptimizer,
     forward = _model_forward(model, solver_options, use_kernels,
                              compute_dtype, remat, integration_method)
 
+    @spanned("train.step", unit=True)
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: torch.Generator, dynamic_solvers=None,
              shard: Optional[StepShards] = None):
         reduce = None if shard is None else shard.reduce
-        s_noise, s_attack, s_data = _seeds(generator, 3)
-        s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
-        base = solvers if dynamic_solvers is None else list(dynamic_solvers)
-        solvers_t = _noise_solvers(
-            base, torch.Generator().manual_seed(s_noise), noise_cfg)
+        with span("train.draws"):
+            s_noise, s_attack, s_data = _seeds(generator, 3)
+            s_afwd, s_fwd = _regime_seeds(generator, solver_options, 2)
+            base = (solvers if dynamic_solvers is None
+                    else list(dynamic_solvers))
+            solvers_t = _noise_solvers(
+                base, torch.Generator().manual_seed(s_noise), noise_cfg)
         with full_f32(), data_shard(reduce), spatial_rows(
                 None if shard is None else shard.spatial):
-            with record_function("nodems.attack"):
+            with phase("nodems.attack"):
                 frozen = model.detached_params()
                 x_adv = _run_attack(
                     lambda xi, g: forward(xi, solvers_t, False, frozen,
@@ -375,7 +383,7 @@ def make_train_step(model, optimizer: AnyOptimizer,
             if loss_cfg.data_noise_std > 1e-12:
                 x_adv = x_adv + loss_cfg.data_noise_std * _randn_rows(
                     x_adv, s_data, shard)
-            with record_function("nodems.train_pass"), torch.enable_grad():
+            with phase("nodems.train_pass"), torch.enable_grad():
                 logits, ss, new_state = forward(
                     x_adv, solvers_t, True, ss=loss_cfg,
                     generator=_regime_generator(s_fwd))
@@ -383,7 +391,9 @@ def make_train_step(model, optimizer: AnyOptimizer,
                 loss = xent
                 if loss_cfg.ss_loss:
                     loss = loss + loss_cfg.ss_loss_reg * ss
-                grads = torch.autograd.grad(loss, list(state.params.values()))
+                with span("train.backward"):
+                    grads = torch.autograd.grad(
+                        loss, list(state.params.values()))
             acc = (logits.argmax(-1) == y).float().mean()
             loss, xent, ss, acc, grads = _reduce_over_data(
                 reduce, [loss, xent, ss, acc], grads)
@@ -398,7 +408,7 @@ def make_train_step(model, optimizer: AnyOptimizer,
                 ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
                 metrics["skipped_nonfinite"] = torch.tensor(
                     float(not ok), device=x.device)
-            with record_function("nodems.update"):
+            with phase("nodems.update"):
                 if ok:
                     optimizer.update(state.params, grads, state.opt_state)
                     # a skipped step keeps its BN/SN state too (JAX
