@@ -47,6 +47,12 @@ Phases, in order; any failure exits non-zero:
      full launch, the dx-only launch's dx and a second full launch bit for
      bit, each shape's launch plan, and timings of both launches, the plain
      version and aten's GroupNorm backward (yardstick);
+ 6c. the GeLUpoly kernels (``fused_gelu_poly``, ``gelu_poly_backward``)
+     against their plain versions computed in f32 at the flagship's two
+     activation shapes, bf16 (within one bf16 ulp) and f32 (four ulps):
+     launches, bits repeated, device ms of each kernel, of the composition
+     and of autograd's backward of it, the bytes bound and the share of
+     it, and the host microseconds a call of both;
   7. serve premetanode10 (in_planes 64, seeded random weights) in bf16:
      one warm-up request at each of batch 1, 64 and 256, then five counted
      and timed requests at each size; check the logits and the kernels'
@@ -63,7 +69,7 @@ Phases, in order; any failure exits non-zero:
      0.9, weight decay 5e-4, cyclic lr) at batch 256 in bf16, seeded images
      and labels: one warm-up step, then five counted and timed steps; check
      every loss is finite and the launches per step (B1 136, dgrad 135,
-     wgrad 68, B2 0, B3 0);
+     wgrad 68, GeLUpoly 138 each way, B2 0, B3 0);
  10. the train step's kernel path against its plain path (``F.conv2d``
      with autograd) from one state with the draws pinned: in f32 at batch
      32 the adversarial images (equal but where the input gradient is
@@ -160,7 +166,8 @@ Phases, in order; any failure exits non-zero:
      (``integration_method="adjoint"``) on phase 9's images: one warm-up
      and five counted and timed steps, finite losses, the launches a step
      (B1 264: each pass's 68 and the backward's 64 recomputed RHS convs;
-     dgrad 135, wgrad 68, B2 0, B3 0), its ms and peak memory beside phase
+     dgrad 135, wgrad 68, GeLUpoly 266 forward and 138 backward, B2 0,
+     B3 0), its ms and peak memory beside phase
      9's, the peak below phase 9's; then phase 10's kernel-against-plain
      bars but for the comparison of the adversarial images;
  22. ``mnist_runner.main --train_solver_params --lr_uv 0.01`` with phase
@@ -403,9 +410,18 @@ TRAIN_L2 = (BATCH, 16, 16, 128, 128)
 TRAIN_FWD = {TRAIN_STEM: 2, TRAIN_L1: 68, TRAIN_L2: 66}
 TRAIN_DGRAD = {TRAIN_STEM: 1, TRAIN_L1: 68, TRAIN_L2: 66}
 TRAIN_WGRAD = {TRAIN_STEM: 1, TRAIN_L1: 34, TRAIN_L2: 33}
-TRAIN_PER_STEP = {"conv3x3_same": sum(TRAIN_FWD.values()),
-                  "conv3x3_dgrad": sum(TRAIN_DGRAD.values()),
-                  "conv3x3_wgrad": sum(TRAIN_WGRAD.values())}
+B1_TRAIN_PER_STEP = {"conv3x3_same": sum(TRAIN_FWD.values()),
+                     "conv3x3_dgrad": sum(TRAIN_DGRAD.values()),
+                     "conv3x3_wgrad": sum(TRAIN_WGRAD.values())}
+# GeLUpoly (ops/gelu_poly.py) a premetanode10 pass: the stem's bn1, the two
+# res blocks' two (layer 2's first before its stride-2 conv, at 32x32x64)
+# and two an RHS call (16 calls a block); in a step both passes
+# differentiate every call
+GELU_POLY_CALLS = {(BATCH, 32, 32, 64): 1 + 3 + 32,
+                   (BATCH, 16, 16, 128): 1 + 32}
+GELU_POLY_PASS = sum(GELU_POLY_CALLS.values())  # 69
+TRAIN_PER_STEP = {**B1_TRAIN_PER_STEP, "gelu_poly": 2 * GELU_POLY_PASS,
+                  "gelu_poly_bwd": 2 * GELU_POLY_PASS}
 # JAX data/datasets.py:43-44
 CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR10_STD = (0.2023, 0.1994, 0.2010)
@@ -572,7 +588,9 @@ RUNNER_CIFAR_EPOCHS = 2
 # the forward of the attacked batch
 CIFAR_PASS_B1 = sum(TRAIN_FWD.values()) // 2
 CIFAR_PGD_PER_BATCH = {"conv3x3_same": (PGD_ITERS + 1) * CIFAR_PASS_B1,
-                       "conv3x3_dgrad": PGD_ITERS * CIFAR_PASS_B1}
+                       "conv3x3_dgrad": PGD_ITERS * CIFAR_PASS_B1,
+                       "gelu_poly": (PGD_ITERS + 1) * GELU_POLY_PASS,
+                       "gelu_poly_bwd": PGD_ITERS * GELU_POLY_PASS}
 
 
 # Phase 18: metanode10 (the basic-block family) with GroupNorm of 32 groups
@@ -615,7 +633,7 @@ M18_TRAIN_PER_STEP = {"conv3x3_same": 2 * M18_PASS_B1,
 M18_TRAIN_STEPS = 1  # counted steps after the warm-up
 # a step: the attack pass's backward is dx only, the training pass's also
 # gives dscale and dbias
-GN_TRAIN_PER_STEP = {**TRAIN_PER_STEP, "group_norm_act": 2 * GN_PASS_B3,
+GN_TRAIN_PER_STEP = {**B1_TRAIN_PER_STEP, "group_norm_act": 2 * GN_PASS_B3,
                      "group_norm_act_bwd": 2 * GN_PASS_B3,
                      "group_norm_act_bwd_params": GN_PASS_B3}
 # Phase 19: the model state through cifar_runner: premetanode10 with BN in
@@ -640,7 +658,9 @@ RESNET10_PER_BATCH = {"conv3x3_same": 8, "group_norm_act": 10}
 # differentiating it; dgrad and wgrad run as under backprop
 ADJ_ODE_RECOMPUTE = 2 * N_STEPS * 2 * 2
 ADJ_TRAIN_PER_STEP = {**TRAIN_PER_STEP, "conv3x3_same": TRAIN_PER_STEP[
-    "conv3x3_same"] + 2 * ADJ_ODE_RECOMPUTE}  # 264
+    "conv3x3_same"] + 2 * ADJ_ODE_RECOMPUTE,  # 264
+    # the recomputed RHS calls' GeLUpoly, two a call as their convs
+    "gelu_poly": TRAIN_PER_STEP["gelu_poly"] + 2 * ADJ_ODE_RECOMPUTE}
 # Phase 22: mnist_runner --train_solver_params, the digits recipe's flags
 # (the joint loop, as JAX's, takes neither smoothing nor a PGD test): an
 # epoch is 10 steps of phase 11's launches and one clean validation batch
@@ -862,7 +882,8 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
         n_test = -(-RUNNER_CIFAR_TEST // BATCH)
         want = dict(scaled(
             scaled(TRAIN_PER_STEP, RUNNER_CIFAR_STEPS)
-            + Counter({"conv3x3_same": CIFAR_PASS_B1 * n_val})
+            + Counter({"conv3x3_same": CIFAR_PASS_B1 * n_val,
+                       "gelu_poly": GELU_POLY_PASS * n_val})
             + scaled(CIFAR_PGD_PER_BATCH, n_test), RUNNER_CIFAR_EPOCHS))
         # the runner's PGD-7 test (f32, as the JAX runner evaluates),
         # timed through the runner
@@ -907,8 +928,9 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
         if len(pgd_s) != RUNNER_CIFAR_EPOCHS:
             fail(f"cifar_runner: {len(pgd_s)} PGD tests timed")
         print(f"  launches {got} (expected {want}: per epoch "
-              f"{RUNNER_CIFAR_STEPS} x phase 9's step, B1 {CIFAR_PASS_B1} a "
-              f"validation batch, {CIFAR_PGD_PER_BATCH} a PGD batch)",
+              f"{RUNNER_CIFAR_STEPS} x phase 9's step, B1 {CIFAR_PASS_B1} "
+              f"and GeLUpoly {GELU_POLY_PASS} a validation batch, "
+              f"{CIFAR_PGD_PER_BATCH} a PGD batch)",
               flush=True)
         if len(ep) != RUNNER_CIFAR_EPOCHS or not all(
                 math.isfinite(r["train_loss"]) for r in ep):
@@ -1003,6 +1025,117 @@ def runner_phases(port, torch, dev, bare_flagship_ms, bare_mnist_ms):
             if not ok:
                 fail(f"attacks_runner {name}: CSV {lines}")
     return totals
+
+
+def gelu_poly_phase(port, torch, dev, time_ms):
+    """Phase 6c: the GeLUpoly kernels against their plain versions at the
+    flagship's activation shapes, bf16 and f32, with device and host
+    timings (module docstring).  Returns the rows."""
+    from neural_ode_metasolver_tpu_torch.ops.gelu_poly import (
+        fused_gelu_poly,
+        gelu_poly_backward,
+        gelu_poly_backward_reference,
+        gelu_poly_reference,
+    )
+
+    def apart(got, ref32, x, g, dtype):
+        """The largest distance to the plain version in f32: bf16 in bf16
+        ulps of the f32 result (bar 1), f32 in f32 ulps of |x| forward and
+        of (1 + |x|) |g| backward (bar 4); and the share bit-equal to it
+        (rounded once, for bf16)."""
+        want = ref32.to(dtype).float()
+        if dtype == torch.bfloat16:
+            unit = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32)[1]
+                               - 8)
+        else:
+            scale = x.float().abs() if g is None else (
+                (1 + x.float().abs()) * g.float().abs())
+            unit = 2.0 ** -23 * scale
+        d = (got.float() - want).abs()
+        ulps = torch.where(d > 0, d / unit, torch.zeros_like(d))
+        return ulps.max().item(), (d == 0).float().mean().item()
+
+    def host_us(fn, reps=2000):
+        """Host microseconds a call of ``fn`` on a small tensor: the
+        wrapper's own cost, the card idle."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    rows = []
+    gen = torch.Generator(device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for shape, calls in GELU_POLY_CALLS.items():
+            gen.manual_seed(60)
+            # spread over the clamp's edges, as the card tests
+            x = (torch.randn(shape, generator=gen, device=dev) * 4).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            port.reset_launch_counts()
+            y = fused_gelu_poly(x)
+            dx = gelu_poly_backward(x, g)
+            torch.cuda.synchronize()
+            counts = port.launch_counts()
+            if counts != {"gelu_poly": 1, "gelu_poly_bwd": 1}:
+                fail(f"GeLUpoly {name} {shape}: launches {counts}")
+            if not (torch.equal(y, fused_gelu_poly(x))
+                    and torch.equal(dx, gelu_poly_backward(x, g))):
+                fail(f"GeLUpoly {name} {shape}: a second launch differs")
+            fwd_ulps, fwd_eq = apart(y, gelu_poly_reference(x.float()), x,
+                                     None, dtype)
+            bwd_ulps, bwd_eq = apart(dx, gelu_poly_backward_reference(
+                x.float(), g.float()), x, g, dtype)
+            bar = 1 if dtype == torch.bfloat16 else 4
+            xr = x.detach().clone().requires_grad_(True)
+
+            def plain_both():
+                torch.autograd.grad(gelu_poly_reference(xr), xr, g)
+
+            ms = time_ms(lambda: fused_gelu_poly(x), 20)
+            bwd_ms = time_ms(lambda: gelu_poly_backward(x, g), 20)
+            plain_ms = time_ms(lambda: gelu_poly_reference(x), 20)
+            # autograd's backward of the composition: captured with its
+            # forward, whose time comes off
+            plain_bwd_ms = time_ms(plain_both, 20) - plain_ms
+            nbytes = x.numel() * x.element_size()
+            for way, k_ms, p_ms, moved, ulps, eq in (
+                    ("forward", ms, plain_ms, 2 * nbytes, fwd_ulps, fwd_eq),
+                    ("backward", bwd_ms, plain_bwd_ms, 3 * nbytes, bwd_ulps,
+                     bwd_eq)):
+                b_ms = moved / HBM_BYTES_PER_S * 1e3
+                rows.append({"key": shape, "dtype": name, "way": way,
+                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_share": b_ms / k_ms, "ulps": ulps,
+                             "bit_equal_share": eq,
+                             "launches_per_train_step": 2 * calls})
+                print(f"  GeLUpoly {way:8s} {name:8s} {shape}: {ulps:.2f} "
+                      f"ulps apart (bar {bar}), {eq:.6f} bit-equal; kernel "
+                      f"{k_ms:.4f} ms, bound (bytes) {b_ms:.4f} ms ("
+                      f"{b_ms / k_ms:.3f} of it), plain {p_ms:.4f} ms; "
+                      f"{2 * calls} launches a train step", flush=True)
+                if not ulps <= bar:
+                    fail(f"GeLUpoly {way} {name} {shape}: {ulps} ulps apart "
+                         f"(bar {bar})")
+            del x, g, y, dx, xr
+    small = torch.randn(4096, device=dev, dtype=torch.bfloat16)
+    sg = torch.ones_like(small)
+    sr = small.clone().requires_grad_(True)
+    host = {"fused_forward_us": host_us(lambda: fused_gelu_poly(small)),
+            "plain_forward_us": host_us(lambda: gelu_poly_reference(small)),
+            "fused_both_us": host_us(lambda: torch.autograd.grad(
+                fused_gelu_poly(sr), sr, sg)),
+            "plain_both_us": host_us(lambda: torch.autograd.grad(
+                gelu_poly_reference(sr), sr, sg))}
+    print(f"  GeLUpoly host us a call (4096 bf16 values, no grad forward; "
+          f"forward and backward under autograd): {json.dumps(host)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "host_us": host}
 
 
 def train_step_phase(port, torch, dev, model, label, per_step, solvers,
@@ -1241,7 +1374,7 @@ def cifar_family_phases(port, torch, dev, flagship_ms):
         margs = vars(cifar_runner.parse_args(argv))
         start = dict(cifar_runner.build_cifar_model(
             margs, dev, seed=margs["seed"]).named_buffers())
-        want = dict(scaled(scaled(TRAIN_PER_STEP, FAMILY_STEPS) + Counter(
+        want = dict(scaled(scaled(B1_TRAIN_PER_STEP, FAMILY_STEPS) + Counter(
             {"conv3x3_same": CIFAR_PASS_B1}), FAMILY_EPOCHS))
         port.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2196,7 +2329,8 @@ EXPORT_BATCHES = (1, 64, BATCH)
 # each kernel's custom op (ops/library.py), by its launch counter
 OPS = {"conv3x3_same": "nodems::conv3x3_same",
        "ode_block_rk2": "nodems::ode_block_rk2",
-       "group_norm_act": "nodems::group_norm_act"}
+       "group_norm_act": "nodems::group_norm_act",
+       "gelu_poly": "nodems::gelu_poly"}
 # what each op of a graph launches: B2's op is one whole solve
 OP_LAUNCHES = {"conv3x3_same": 1, "group_norm_act": 1,
                "ode_block_rk2": B2_LAUNCHES_PER_SOLVE}
@@ -3421,8 +3555,11 @@ def mesh_per_step(kind, m=None):
     if kind in ("tp", "sp"):
         return dict(TRAIN_PER_STEP)
     ode = 64 * m
+    # GeLUpoly: the stem's and the res blocks' 5, and two an RHS call, as
+    # its convs; every call differentiated in both passes
     return {"conv3x3_same": 2 * (4 + ode), "conv3x3_dgrad": 1 + 2 * (3 + ode),
-            "conv3x3_wgrad": 4 + ode}
+            "conv3x3_wgrad": 4 + ode, "gelu_poly": 2 * (5 + ode),
+            "gelu_poly_bwd": 2 * (5 + ode)}
 
 
 def mesh_model(torch, kind, acts=("GeLUpoly",) * 3, pipeline=None):
@@ -4463,6 +4600,11 @@ def main():
             del x, g, full, again, dx_only, ref, x_cl, g_cl, y_l
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 6c GeLUpoly vs plain
+    phase("GeLUpoly (fused_gelu_poly, gelu_poly_backward) vs its plain "
+          "versions (the flagship's activation shapes, bf16 and f32)")
+    gelu = gelu_poly_phase(port, torch, dev, time_ms)
+
     def time_requests(served, sizes, make_input, label):
         """One warm-up request at each size, then REQUEST_ROUNDS counted and
         timed requests at each size; returns (launch counts, batches,
@@ -5233,6 +5375,19 @@ def main():
                 "launches": sum(p["launches"] for p in by_path.values()),
                 "by_path": by_path, **sums, **paths, **extra}
 
+    def gelu_step_sums(way):
+        """Phase 6c's bf16 rows of one way summed over a flagship train
+        step's launches."""
+        picked = [r for r in gelu["rows"]
+                  if r["dtype"] == "bfloat16" and r["way"] == way]
+        sums = {k: sum(r[k] * r["launches_per_train_step"] for r in picked)
+                for k in ("ms", "plain_ms", "bound_ms")}
+        return {**sums, "bound_by": "bytes",
+                "bound_share": sums["bound_ms"] / sums["ms"],
+                "ulps": max(r["ulps"] for r in picked),
+                "launches_per_train_step": sum(
+                    r["launches_per_train_step"] for r in picked)}
+
     b1_cifar = Counter(c[1:6] for c in B1_CALLS)
     b3_mnist = {c[1:6]: c[6] for c in B3_CALLS}
     b1_mnist = {c[1:6]: c[6] for c in B1_MNIST_CALLS}
@@ -5378,6 +5533,11 @@ def main():
               plans={str(r["key"][:4]): r["plan"] for r in b3b_rows
                      if r["dtype"] == "float32" and r["key"][5] == "full"},
               members_f32=member_sums("group_norm_act_bwd", fleet_b3b)),
+        entry("gelu_poly", "neural_ode_metasolver_tpu_torch/csrc/gelu_poly.cu",
+              "none: XLA fused GeLUpoly (neural_ode_metasolver_tpu/models/"
+              "nn.py::gelu_poly) into the code around it",
+              gelu_step_sums("forward"), backward=gelu_step_sums("backward"),
+              rows=gelu["rows"], host_us=gelu["host_us"]),
     ]
     units = ("launches: total over the counted requests of both served "
              "paths (by_path splits them); ms, plain_ms, bound_ms, "
@@ -5493,7 +5653,14 @@ def main():
              "by_path's tp_train, sp_train and pp_train the launches of "
              "those counted f32 steps (both ranks), pp's evals and (d)'s "
              "runs.  tp_sp_pp_shapes: phases 3-4's rows at the shapes "
-             "those axes give the kernels")
+             "those axes give the kernels.  gelu_poly: phase 6c's bf16 "
+             "rows summed over a flagship train step's 138 launches each "
+             "way (backward: gelu_poly_bwd), its plain_ms the composition "
+             "(backward: autograd's backward of it), its bound the bytes "
+             "of x and y (backward: x, the gradient and dx), ulps the "
+             "largest distance to the plain version (bf16 ulps); rows: "
+             "each shape, dtype and way; host_us: host microseconds a "
+             "call, kernel and composition")
     for k in kernels:
         k["units"] = units
     print(json.dumps({"kernels": kernels}), flush=True)

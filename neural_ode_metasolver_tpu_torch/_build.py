@@ -43,6 +43,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
                                              "common.cuh")),
     "group_norm_act_bwd": ("group_norm_act_bwd.cu", ("group_norm_act.cuh",
                                                      "common.cuh")),
+    "gelu_poly": ("gelu_poly.cu", ("common.cuh",)),
 }
 
 NVCC_FLAGS = [
@@ -92,6 +93,12 @@ _SIGNATURES = {
         "group_norm_act_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                                       _I, _I, _I, _P],
+    },
+    "gelu_poly": {
+        # dtype, x, y, n, device, stream
+        "gelu_poly_launch": [_I, _P, _P, _LL, _I, _P],
+        # dtype, x, g, dx, n, device, stream
+        "gelu_poly_bwd_launch": [_I, _P, _P, _P, _LL, _I, _P],
     },
 }
 
@@ -254,5 +261,9 @@ def check_cuda_tensors(what: str, dtype: torch.dtype, **tensors) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device (read
+    without making a ``torch.cuda.Stream``: a launch's host cost).
+    ``torch._C._cuda_getCurrentRawStream`` is private (TorchInductor's
+    generated code reads the stream with it); checked on torch
+    2.11.0+cu128."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

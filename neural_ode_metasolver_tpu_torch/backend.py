@@ -104,7 +104,7 @@ def full_f32() -> Iterator[None]:
 
 
 def kernel_ops() -> bool:
-    """Whether the wrappers of B1, B2 and B3 go through their
+    """Whether the wrappers of B1, B2, B3 and GeLUpoly go through their
     ``torch.library`` ops (``ops/library.py``): while ``torch.export``
     traces, which cannot trace a ctypes launch.  Eager calls launch
     directly and skip the op's dispatch (PERF.md §6); both routes run the

@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3_same
+from ..ops.gelu_poly import fused_gelu_poly, gelu_poly_reference
 from ..ops.group_norm import fused_group_norm_act, group_norm_reference
 from ..parallel.mesh import (active_data_shard, active_spatial, all_sum,
                              gather, halo_rows, mark_tp, replicate_grad,
@@ -280,31 +281,28 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return _column_parallel(kernel, x, local)
 
 
-# erf(x/sqrt2) ~= tanh(x * q(x^2)), q of degree 4 (JAX nn.py:353-368)
-_GELU_TANH_KERNEL_COEFFS = (
-    0.7978281363504355, 0.036468789125448826, -0.0001248603561668213,
-    -3.058127220985254e-05, 1.119098134045954e-06,
-)
+_GELU_POLY_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def gelu_poly(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU as 0.5*x*(1 + tanh(x*q(x^2))), computed in x's dtype
-    with |x| clamped at 8 (JAX ``nn.py::gelu_poly``; max |diff| to the
-    exact form 3.4e-6 in f32)."""
-    t = torch.clamp(x, -8.0, 8.0)
-    t2 = t * t
-    cs = _GELU_TANH_KERNEL_COEFFS
-    q = torch.full_like(x, cs[-1])
-    for c in cs[-2::-1]:
-        q = q * t2 + c
-    phi = 0.5 * torch.tanh(t * q) + 0.5
-    return (x * phi).to(x.dtype)
+    """Exact-erf GELU as 0.5*x*(1 + tanh(x*q(x^2))) with |x| clamped at 8
+    (JAX ``nn.py::gelu_poly``; max |diff| to the exact form 3.4e-6 in
+    f32).  An f32 or bf16 CUDA tensor takes the GeLUpoly kernels
+    (``ops.gelu_poly.fused_gelu_poly``: computed in f32, rounded once to
+    x's dtype), on a contiguous copy if it is not contiguous; on the CPU or
+    in another dtype it is the composition in x's dtype
+    (``gelu_poly_reference``)."""
+    if x.is_cuda and x.dtype in _GELU_POLY_KERNEL_DTYPES:
+        return fused_gelu_poly(x.contiguous())
+    return gelu_poly_reference(x)
 
 
-def get_activation(key: str) -> Callable[[torch.Tensor], torch.Tensor]:
+def get_activation(key: str, use_kernels: bool = True
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """String -> activation (reference get_activation, utils.py:57-76).
     'GeLU' is the exact (erf) GELU; 'AF' is leaky_relu with slope 1, the
-    identity."""
+    identity.  'GeLUpoly' is ``gelu_poly``, its plain composition with
+    ``use_kernels=False``."""
     if key == "ReLU":
         return F.relu
     if key == "GeLU":
@@ -312,7 +310,7 @@ def get_activation(key: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if key == "GeLUtanh":
         return partial(F.gelu, approximate="tanh")
     if key == "GeLUpoly":
-        return gelu_poly
+        return gelu_poly if use_kernels else gelu_poly_reference
     if key == "Softsign":
         return F.softsign
     if key == "Tanh":
@@ -461,12 +459,14 @@ class NormDef:
                            x, groups, act=_B3_ACTS.get(act),
                            use_kernels=use_kernels)
             if act is not None and act not in _B3_ACTS:
-                y = get_activation(act)(y)
+                y = get_activation(act, use_kernels)(y)
             return y, None
         new_state = None
         if self.kind == "BN":
             x, new_state = batch_norm(params, state, x, train)
-        return (x if act is None else get_activation(act)(x)), new_state
+        if act is not None:
+            x = get_activation(act, use_kernels)(x)
+        return x, new_state
 
 
 def make_norm_def(key: str, num_groups: int = 32) -> NormDef:

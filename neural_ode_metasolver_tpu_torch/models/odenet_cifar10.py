@@ -36,6 +36,8 @@ Dispatch (``use_kernels=True``):
   * every GN, LN and IN goes to kernel B3 (``ops.group_norm``), with the
     activation after it fused where B3 has it, its backward B3's backward
     kernel; BN is plain arithmetic;
+  * every GeLUpoly activation B3 does not fuse, in f32 or bf16, goes to the
+    GeLUpoly kernels (``ops.gelu_poly``), one launch each way;
   * an ODE block goes to kernel B2 (``ops.ode_block.ode_block_rk2_forward``)
     when its RHS is the NF/PNF/exact-GeLU PreBasicBlock2 (B2 computes the
     pre-activation RHS; the basic family's RHS activates after its convs),
@@ -236,7 +238,7 @@ def _basic_block_apply(cfg, p, s, x, stride, train, use_kernels):
         shortcut, st = nd.apply(_get(p, "sc_bn"), s.get("sc_bn"), shortcut,
                                 train, None, use_kernels)
         _set(s, "sc_bn", st)
-    return fnn.get_activation(act)(out + shortcut), s
+    return fnn.get_activation(act, use_kernels)(out + shortcut), s
 
 
 def _pre_block_init(gen, cfg, in_planes, planes, stride):
@@ -306,7 +308,8 @@ def _rhs_norm(nd: NormDef, params, x, act, use_kernels):
     """A norm (then ``act``) inside the RHS, stateless: BN normalizes with
     the batch's statistics."""
     if nd.kind == "BN":
-        return fnn.get_activation(act)(batch_norm(params, None, x, True)[0])
+        return fnn.get_activation(act, use_kernels)(
+            batch_norm(params, None, x, True)[0])
     return nd.apply(params, None, x, False, act, use_kernels)[0]
 
 

@@ -6,6 +6,12 @@ from .conv3x3 import (
     reference_conv3x3,
     reference_conv3x3_wgrad,
 )
+from .gelu_poly import (
+    fused_gelu_poly,
+    gelu_poly_backward,
+    gelu_poly_backward_reference,
+    gelu_poly_reference,
+)
 from .group_norm import (
     fused_group_norm_act,
     group_norm_backward,
@@ -54,6 +60,10 @@ __all__ = [
     "create_solver",
     "euler_tableau",
     "fused_group_norm_act",
+    "fused_gelu_poly",
+    "gelu_poly_backward",
+    "gelu_poly_backward_reference",
+    "gelu_poly_reference",
     "group_norm_backward",
     "group_norm_backward_reference",
     "group_norm_reference",

@@ -1,12 +1,13 @@
-"""Kernels B1, B2 and B3 as ``torch.library`` custom ops, namespace
-``nodems``, so that ``torch.export`` can trace the kernel path (the ctypes
-launches of the wrappers cannot be traced):
+"""Kernels B1, B2, B3 and GeLUpoly as ``torch.library`` custom ops,
+namespace ``nodems``, so that ``torch.export`` can trace the kernel path
+(the ctypes launches of the wrappers cannot be traced):
 
   * ``nodems::conv3x3_same(x, w)``: kernel B1, ``ops/conv3x3.py``;
   * ``nodems::ode_block_rk2(y0, w1, w2, u, n_steps)``: kernel B2, the whole
     launch schedule of one solve, ``ops/ode_block.py``;
   * ``nodems::group_norm_act(x, scale, bias, groups, eps, act)``: kernel B3,
-    ``ops/group_norm.py``.
+    ``ops/group_norm.py``;
+  * ``nodems::gelu_poly(x)``: the GeLUpoly kernel, ``ops/gelu_poly.py``.
 
 Each op's implementation is its wrapper's own no-grad path: the CUDA kernel
 for CUDA tensors, counted in ``backend.py`` as the wrapper counts it, and the
@@ -37,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from . import conv3x3, group_norm, ode_block
+from . import conv3x3, gelu_poly, group_norm, ode_block
 
 __all__ = ["NAMESPACE"]
 
@@ -68,3 +69,6 @@ _define("group_norm_act(Tensor x, Tensor scale, Tensor bias, int groups, "
         "float eps, str? act) -> Tensor",
         group_norm._forward,
         lambda x, scale, bias, groups, eps, act: x.new_empty(x.shape))
+# GeLUpoly: x's shape and dtype
+_define("gelu_poly(Tensor x) -> Tensor", gelu_poly._forward,
+        lambda x: x.new_empty(x.shape))

@@ -865,9 +865,11 @@ def test_train_step_kernel_path_matches_plain_path(dev, dtype):
                             launch_counts())
     (lk, nk, counts_k), (lp, np_, counts_p) = out[True], out[False]
     # 68 forward convs a pass, two passes; the training pass's input and
-    # the attack's weights are detached
+    # the attack's weights are detached; GeLUpoly 69 calls a pass, each
+    # differentiated
     assert counts_k == {"conv3x3_same": 136, "conv3x3_dgrad": 135,
-                        "conv3x3_wgrad": 68}
+                        "conv3x3_wgrad": 68, "gelu_poly": 138,
+                        "gelu_poly_bwd": 138}
     assert counts_p == {}
     assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
     assert abs(nk - np_) <= 5e-2 * np_
@@ -1277,8 +1279,8 @@ def test_adjoint_train_step_kernel_path_matches_plain_path(dev, dtype):
     """The flagship step (premetanode10 at in_planes 16, batch 8) under
     ``integration_method="adjoint"``, kernel path against plain path from
     one state: the launches of a step (B1 264: each pass's 68 forward
-    convs and the backward's 64 recomputed ones; dgrad 135, wgrad 68; no
-    B2), one step's loss within 2e-2 and grad norm within 5e-2 relative;
+    convs and the backward's 64 recomputed ones; dgrad 135, wgrad 68;
+    GeLUpoly 266 forward, 138 backward; no B2), one step's loss within 2e-2 and grad norm within 5e-2 relative;
     in f32 also the param grads at one input within 1e-4 of max|g|."""
     from neural_ode_metasolver_tpu_torch import (
         launch_counts,
@@ -1325,8 +1327,11 @@ def test_adjoint_train_step_kernel_path_matches_plain_path(dev, dtype):
         out[use_kernels] = (m["loss"].item(), m["grad_norm"].item(),
                             launch_counts())
     (lk, nk, counts_k), (lp, np_, counts_p) = out[True], out[False]
+    # GeLUpoly: each pass's 69 forward calls and the 64 of the recomputed
+    # RHS calls; every call differentiated once
     assert counts_k == {"conv3x3_same": 264, "conv3x3_dgrad": 135,
-                        "conv3x3_wgrad": 68}
+                        "conv3x3_wgrad": 68, "gelu_poly": 266,
+                        "gelu_poly_bwd": 138}
     assert counts_p == {}
     assert abs(lk - lp) <= 2e-2 * max(1.0, abs(lp))
     assert abs(nk - np_) <= 5e-2 * np_
@@ -1692,3 +1697,244 @@ def test_exported_models_serve_on_the_card(dev, tmp_path):
                 top = ref.abs().max().item()
                 bar = 1e-4 * max(1.0, top) if cdt is None else 2 ** -5 * top
                 assert (got - ref).abs().max().item() <= bar
+
+
+# GeLUpoly (ops/gelu_poly.py, csrc/gelu_poly.cu): the flagship's two
+# activation shapes, a size that is not a multiple of 8 (the vector loop's
+# ragged end) and a view whose pointer is 2 bytes off 16-byte alignment
+# (the one-value-at-a-time path)
+GELU_POLY_SHAPES = [(256, 32, 32, 64), (256, 16, 16, 128), (3, 7, 11, 5)]
+
+
+def _gelu_poly_inputs(shape, dtype, dev, offset=0):
+    """x spread over the clamp's edges (scale 4, a few beyond +-8, exact
+    +-8 and 0) and an output gradient, both ``offset`` values into their
+    buffers."""
+    n = int(np.prod(shape))
+    x = _randn((n + offset,), 4.0, 11, dev, torch.float32)
+    x[offset:offset + 4] = torch.tensor([8.0, -8.0, 0.0, -0.0])
+    g = _randn((n + offset,), 1.0, 12, dev, torch.float32)
+    return (x.to(dtype)[offset:].view(shape),
+            g.to(dtype)[offset:].view(shape))
+
+
+def _gelu_poly_bars(x, g, ref32, dtype):
+    """Elementwise bars against the plain version computed in f32 on the
+    same inputs, whose arithmetic the kernels repeat op for op (only tanhf
+    may differ): f32 four ulps of |x| forward (y is x times phi in [0, 1],
+    and phi one ulp apart moves y by an ulp of x), four of (1 + |x|) |g|
+    backward (the slope's terms reach |x|); bf16 one bf16 ulp of the f32
+    result, which both round once.  ``g`` None: the forward."""
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(ref32)
+        return torch.ldexp(torch.ones_like(ref32), e - 8)
+    xf = x.float().abs()
+    return 4 * 2.0 ** -23 * (xf if g is None else (1 + xf) * g.abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [(s, 0) for s in GELU_POLY_SHAPES]
+                         + [((4, 9, 9, 64), 1)])
+def test_gelu_poly_kernels_match_plain(dev, dtype, shape, offset):
+    """Both kernels against the plain versions computed in f32 on the same
+    (rounded) inputs: the composition forward, the analytic derivative
+    backward (itself held to autograd of the composition on the CPU), at
+    ``_gelu_poly_bars``; each launch counted once and repeating its bits."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.ops.gelu_poly import (
+        fused_gelu_poly,
+        gelu_poly_backward,
+        gelu_poly_backward_reference,
+        gelu_poly_reference,
+    )
+
+    x, g = _gelu_poly_inputs(shape, dtype, dev, offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    xg = x.detach().clone().requires_grad_(True)  # aligned: autograd's copy
+    reset_launch_counts()
+    y = fused_gelu_poly(x)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"gelu_poly": 1}
+    assert y.dtype == dtype and y.shape == x.shape
+    ref = gelu_poly_reference(x.float())
+    assert ((y.float() - (ref if dtype == torch.float32 else ref.to(dtype)
+                           .float())).abs()
+            <= _gelu_poly_bars(x, None, ref, dtype)).all()
+    assert torch.equal(y, fused_gelu_poly(x))
+    yg = fused_gelu_poly(xg)
+    assert torch.equal(yg, y)
+    reset_launch_counts()
+    yg.backward(g)
+    dx = xg.grad
+    torch.cuda.synchronize()
+    assert launch_counts() == {"gelu_poly_bwd": 1}
+    assert dx.dtype == dtype
+    dref = gelu_poly_backward_reference(x.float(), g.float())
+    assert ((dx.float() - (dref if dtype == torch.float32
+                           else dref.to(dtype).float())).abs()
+            <= _gelu_poly_bars(x, g, dref, dtype)).all()
+    # an unaligned gradient and x take the one-value path, bit for bit
+    assert torch.equal(gelu_poly_backward(x, g), dx)
+    assert torch.equal(gelu_poly_backward(x, g), gelu_poly_backward(x, g))
+
+
+def test_gelu_poly_kernel_raises_and_serves_as_an_op(dev):
+    """A CUDA tensor the kernels do not take raises; ``nodems::gelu_poly``
+    launches what the wrapper launches; ``models/nn.py`` sends f16 and
+    ``use_kernels=False`` to the composition and a strided view to the
+    kernel on a contiguous copy."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import nn as fnn
+    from neural_ode_metasolver_tpu_torch.ops.gelu_poly import (
+        fused_gelu_poly,
+        gelu_poly_reference,
+    )
+
+    x = _randn((4, 8, 8, 16), 3.0, 0, dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_gelu_poly(x.half())
+    with pytest.raises(ValueError):
+        fused_gelu_poly(x.transpose(1, 2))
+    reset_launch_counts()
+    with torch.no_grad():
+        got = torch.ops.nodems.gelu_poly(x)
+    assert launch_counts() == {"gelu_poly": 1}
+    assert torch.equal(got, fused_gelu_poly(x))
+    torch.library.opcheck(torch.ops.nodems.gelu_poly, (x,))
+    reset_launch_counts()
+    assert torch.equal(fnn.gelu_poly(x.half()), gelu_poly_reference(
+        x.half()))
+    assert torch.equal(fnn.get_activation("GeLUpoly", False)(x),
+                       gelu_poly_reference(x))
+    assert launch_counts() == {}
+    xt = x.transpose(1, 2)
+    assert torch.equal(fnn.gelu_poly(xt),
+                       fused_gelu_poly(xt.contiguous()))
+
+
+def test_gelu_poly_under_vmap_in_the_ensemble(dev):
+    """``parallel/ensemble.py::ensemble_integrate`` runs its RHS under
+    ``torch.func.vmap``: a GeLUpoly RHS there launches the kernels (the
+    Function's vmap rule on the unbatched tensor), forward and backward,
+    and matches the same ensemble on the composition."""
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import nn as fnn
+    from neural_ode_metasolver_tpu_torch.ops import create_solver
+    from neural_ode_metasolver_tpu_torch.ops.gelu_poly import (
+        gelu_poly_reference,
+    )
+    from neural_ode_metasolver_tpu_torch.parallel import ensemble_integrate
+
+    solvers = [create_solver("rk2", "u", n_steps=4, u0=u)
+               for u in (0.5, 0.7, 1.0)]
+    y0 = _randn((8, 6, 6, 16), 2.0, 3, dev, torch.float32)
+    out = {}
+    for uk in (True, False):
+        y = y0.clone().requires_grad_(True)
+        act = fnn.gelu_poly if uk else gelu_poly_reference
+        rhs = lambda t, v: act(v) - 0.5 * v  # noqa
+        reset_launch_counts()
+        z = ensemble_integrate(solvers, rhs, y, [0.5, 0.3, 0.2])
+        z.square().sum().backward()
+        torch.cuda.synchronize()
+        out[uk] = (z.detach(), y.grad, launch_counts())
+    (zk, gk, ck), (zp, gp_, cp) = out[True], out[False]
+    # one call a stage for all members: 4 steps x 2 stages
+    assert ck == {"gelu_poly": 8, "gelu_poly_bwd": 8} and cp == {}
+    assert (zk - zp).abs().max() <= 1e-5 * zp.abs().max()
+    assert (gk - gp_).abs().max() <= 1e-5 * gp_.abs().max()
+
+
+def test_flagship_gelu_poly_step_within_the_cell_limits(dev):
+    """The flagship cell's step (premetanode10 at in_planes 64, batch 256,
+    FGSM-random, Normal(0.0125) smoothing, SGD on the cyclic lr) in bf16
+    with the kernels, against ``use_kernels=False`` in f32 (the cell's
+    plain reference precision) from the same weights, batches and step
+    seed, over three steps, within the limits of
+    ``benchmark/cells/premetanode10.advtrain.b256.json`` (``loss_gap``
+    1e-4, ``grad_gap`` 8e-3, ``change_gap`` 0.03, measured as
+    ``benchmark/harness/compare.py`` does); the kernel step launches 138
+    GeLUpoly kernels each way."""
+    import statistics
+
+    from neural_ode_metasolver_tpu_torch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from neural_ode_metasolver_tpu_torch.models import build_model
+    from neural_ode_metasolver_tpu_torch.ops import (
+        SolverOptions,
+        parse_solver_dsl,
+    )
+    from neural_ode_metasolver_tpu_torch.training import (
+        AttackConfig,
+        NoiseConfig,
+        create_train_state,
+        cyclic_lr,
+        make_optimizer,
+        make_train_step,
+    )
+
+    mean, std = (0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)
+    model = build_model("premetanode10", in_planes=64, acts=("GeLUpoly",) * 3,
+                        generator=torch.Generator().manual_seed(0))
+    solvers = parse_solver_dsl("rk2,u,8,-1,0.5,-1")
+    attack = AttackConfig(mode="fgsm_random", eps=8 / 255, alpha=10 / 255,
+                          mean=mean, std=std)
+    noise = NoiseConfig(noise_type="normal", sigma=0.0125, prob=1.0)
+    xs = _randn((3, 256, 32, 32, 3), 1.0, 21, dev, torch.float32)
+    ys = torch.tensor(np.random.RandomState(22).randint(0, 10, (3, 256)),
+                      device=dev)
+    weights = {k: p.detach().clone() for k, p in model.named_parameters()}
+    runs = {}
+    for uk, dtype in ((True, torch.bfloat16), (False, None)):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(weights[k])
+        opt = make_optimizer("sgd", cyclic_lr(1e-7, 0.1, 3186), momentum=0.9,
+                             weight_decay=5e-4)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, solvers, SolverOptions(), attack,
+                               noise, compute_dtype=dtype, use_kernels=uk)
+        gen = torch.Generator().manual_seed(23)
+        losses, grads = [], None
+        reset_launch_counts()
+        for i in range(3):
+            state, m = step(state, xs[i], ys[i], gen)
+            losses.append(m["loss"].item())
+            if grads is None:
+                grads = {k: v.detach().clone().double()
+                         for k, v in state.opt_state["momentum"].items()}
+                counts = launch_counts()
+        change = {k: (p.detach() - weights[k]).double()
+                  for k, p in state.params.items()}
+        runs[uk] = (losses, grads, change, counts)
+        del state, step
+        torch.cuda.empty_cache()
+    (lk, gk, ck, nk), (lp, gp_, cp, np_) = runs[True], runs[False]
+    assert nk["gelu_poly"] == 138 and nk["gelu_poly_bwd"] == 138
+    assert np_ == {}
+
+    def gaps(prog, ref, keep):
+        norm = {k: torch.linalg.vector_norm(v).item() for k, v in ref.items()}
+        med = statistics.median(norm[k] for k in keep)
+        return [abs(torch.linalg.vector_norm(prog[k]).item() - norm[k])
+                / max(norm[k], med, 1e-30) for k in keep]
+
+    gnorm = {k: torch.linalg.vector_norm(v).item() for k, v in gp_.items()}
+    gmed = statistics.median(gnorm.values())
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    grad_gap = max(gaps(gk, gp_, list(gp_)))
+    change_gap = max(gaps(ck, cp, [k for k in cp if gnorm[k] >= 1e-3 * gmed]))
+    print(f"loss_gap {loss_gap:.3g} grad_gap {grad_gap:.3g} change_gap "
+          f"{change_gap:.3g}")
+    assert loss_gap <= 1e-4 and grad_gap <= 8e-3 and change_gap <= 0.03
